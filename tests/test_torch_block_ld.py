@@ -1,0 +1,111 @@
+"""The port's LD packer and dataset against the JAX package's.
+
+Both packages pack the same numpy LD blocks; the port's output must be
+byte-identical (tiles, coupling tiles, indices, mask, layout). One LD block
+has 300 variants, so the JAX side quantizes it with its native (C++)
+quantizer, and it spans three B = 128 tiles, so coupling tiles exist.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from viprs_tpu.data.dataset import SummaryStatsDataset as JaxDataset
+from viprs_tpu.data.simulate import simulate_sumstats_blocks
+from viprs_tpu.ops import block_ld as jax_block_ld
+
+from viprs_tpu_torch.data.dataset import SummaryStatsDataset
+from viprs_tpu_torch.ops import block_ld
+
+
+@pytest.fixture(scope='module')
+def sim():
+    return simulate_sumstats_blocks(n=1500, block_sizes=(300, 150, 100, 60),
+                                    h2=0.3, prop_causal=0.05, seed=3)
+
+
+@pytest.mark.parametrize('quantize', [True, False])
+@pytest.mark.parametrize('block_size', [128, 256])
+def test_pack_dense_blocks_byte_identical(sim, quantize, block_size):
+    jld, jlay = jax_block_ld.pack_dense_blocks(
+        sim['ld_blocks'], block_size=block_size, quantize=quantize)
+    packed, lay = block_ld.pack_dense_blocks(
+        sim['ld_blocks'], block_size=block_size, quantize=quantize)
+    if block_size == 128:
+        assert jld.n_off > 0
+    for f in ('diag', 'off_data', 'off_src', 'off_dst', 'mask'):
+        want = np.asarray(getattr(jld, f))
+        got = getattr(packed, f)
+        assert got.dtype == want.dtype, f
+        assert got.shape == want.shape, f
+        assert got.tobytes() == want.tobytes(), f
+    assert packed.scale == jld.scale
+    np.testing.assert_array_equal(lay.flat_index, jlay.flat_index)
+    assert (lay.nb, lay.block_size) == (jlay.nb, jlay.block_size)
+    assert lay.chrom_block_range == jlay.chrom_block_range
+    assert lay.chrom_sizes == jlay.chrom_sizes
+    np.testing.assert_array_equal(lay.mask(), jlay.mask())
+
+
+def test_quantizer_matches_native(sim):
+    """The port's np.rint quantizer gives the bytes of the JAX package's
+    quantizer, which takes its native (C++) kernel for a block this large
+    whenever the native library builds."""
+    blk = sim['ld_blocks'][22][0]
+    assert blk.size >= 1 << 16
+    assert block_ld.quantize_int8(blk).tobytes() == \
+        jax_block_ld.quantize_int8(blk).tobytes()
+    edges = np.array([-1.0, -0.5 / 127, 0.5 / 127, 1.5 / 127, 1.0, 2.0, -2.0])
+    assert block_ld.quantize_int8(edges).tolist() == \
+        jax_block_ld.quantize_int8(edges).tolist()
+
+
+def test_from_numpy_carries_jax_fields(sim):
+    """BlockLD.from_numpy keeps every byte of the JAX package's fields, and
+    its incidence lists name each coupling tile once per end, ascending."""
+    jld, _ = jax_block_ld.pack_dense_blocks(sim['ld_blocks'], block_size=128,
+                                            quantize=True)
+    ld = block_ld.BlockLD.from_numpy(
+        *(np.asarray(getattr(jld, f)) for f in
+          ('diag', 'off_data', 'off_src', 'off_dst', 'mask')),
+        jld.scale, device='cpu')
+    for f in ('diag', 'off_data', 'off_src', 'off_dst', 'mask'):
+        assert getattr(ld, f).numpy().tobytes() == \
+            np.asarray(getattr(jld, f)).tobytes()
+    assert ld.off_src.dtype == torch.int32 and ld.diag.dtype == torch.int8
+    ptr, tiles = ld.inc_ptr.numpy(), ld.inc_tile.numpy()
+    src, dst = np.asarray(jld.off_src), np.asarray(jld.off_dst)
+    for b in range(ld.nb):
+        lst = tiles[ptr[b]:ptr[b + 1]]
+        assert list(lst) == sorted(lst)
+        want = [o for o in range(jld.n_off) if src[o] == b or dst[o] == b]
+        assert list(lst) == want
+    assert ptr[-1] == 2 * jld.n_off
+
+
+def test_dataset_inputs_and_ld_scores(sim):
+    """device_inputs and compute_ld_scores against the JAX dataset."""
+    args = (sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'])
+    jds = JaxDataset.from_dense_blocks(*args, block_size=128, quantize=True)
+    ds = SummaryStatsDataset.from_dense_blocks(*args, block_size=128,
+                                               quantize=True, device='cpu')
+    sb, nf = ds.device_inputs()
+    assert sb.dtype == torch.float32 and sb.shape == (ds.layout.nb, 128)
+    assert sb.numpy().tobytes() == np.asarray(jds.std_beta_flat()).tobytes()
+    assert nf.numpy().tobytes() == np.asarray(jds.n_per_snp_flat()).tobytes()
+    got = ds.compute_ld_scores()
+    want = jds.compute_ld_scores()
+    # squared int8 values sum exactly in float32 (< 2^24): equal bits
+    for c in want:
+        np.testing.assert_array_equal(got[c], np.asarray(want[c]))
+    assert ds.m == jds.m and ds.n == jds.n
+
+
+def test_dataset_rejects_malformed_input(sim):
+    bad = {c: v[:-1] for c, v in sim['std_beta'].items()}
+    with pytest.raises(ValueError, match='do not match'):
+        SummaryStatsDataset.from_dense_blocks(
+            sim['ld_blocks'], bad, sim['n_per_snp'], block_size=128,
+            device='cpu')
+    with pytest.raises(ValueError, match='not square'):
+        block_ld.pack_dense_blocks({1: [np.zeros((4, 3))]}, block_size=128)

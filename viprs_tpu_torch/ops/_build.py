@@ -1,0 +1,86 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+
+The library is compiled at first use, for Hopper (``sm_90a``), into
+``viprs_tpu_torch/_build/`` (git-ignored), named by a hash of the sources so
+an edited kernel is never served from a stale build. The sources expose a
+plain C interface (no PyTorch headers), which keeps a build to seconds.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(_PKG, '_build')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+P, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: argtypes of every exported launcher: each pointer (and the stream) as
+#: c_void_p, so ctypes never truncates a 64-bit address.
+SIGNATURES = {
+    # diag, beta, n, mask, logits, mu, eta, q (in), logits, mu, eta, q,
+    # eta_diff (out), blk_mask, hyper, nb, B, scale, inner_steps, stream
+    'cavi_block_sweep_s1_launch': [P] * 15 + [I32, I32, F32, I32, P],
+    # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, q_in, eta_diff,
+    # q_out, nb, B, scale, stream
+    'coupling_pass_s1_launch': [P] * 9 + [I32, I32, F32, P],
+}
+
+
+def _sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(('.cu', '.cuh')))
+
+
+def _nvcc():
+    nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "source and need the CUDA toolkit")
+    return nvcc
+
+
+@functools.lru_cache(maxsize=None)
+def build():
+    """Compile (if needed) and load the kernel library.
+
+    :returns: (ctypes.CDLL, info) where info holds the library path, the
+        build seconds (0.0 when a build of the same sources existed) and the
+        compiler's ``-Xptxas -v`` report.
+    """
+    srcs = _sources()
+    h = hashlib.sha256()
+    for s in srcs:
+        with open(s, 'rb') as f:
+            h.update(f.read())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    lib_path = os.path.join(BUILD_DIR, f'libviprs_cuda_{h.hexdigest()[:16]}.so')
+    info = {'path': lib_path, 'seconds': 0.0, 'ptxas': ''}
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f'{lib_path}.{os.getpid()}.tmp'
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+               *(s for s in srcs if s.endswith('.cu'))]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        info['seconds'] = time.perf_counter() - t0
+        info['ptxas'] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{info['ptxas']}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, info

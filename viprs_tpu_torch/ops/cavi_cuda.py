@@ -1,0 +1,176 @@
+"""The single-model (S = 1) sweep on the card: wrappers of the CUDA kernels
+in ``csrc/cavi_s1.cu`` (counterpart of the S = 1 part of
+viprs_tpu.ops.cavi_pallas).
+
+Two kernels carry both branches of the hybrid EM iteration:
+
+- ``block_sweep_s1`` launches ``cavi_block_sweep_s1``: the tile-Gauss-Seidel
+  sweep of every LD block flagged in a per-block mask (one CTA per block; an
+  unflagged block passes through bit-exactly with a zero eta change);
+- ``coupling_pass_s1`` launches ``coupling_pass_s1``: the coupling tiles
+  incident to a flagged block, applied to q from the sweep's eta change.
+
+``cavi_sweep_s1`` (TPU kernel K1, all blocks flagged) and
+``cavi_sweep_s1_skip`` (K2, the activity mask) are the two compositions.
+
+Each kernel wrapper takes the plain version in ops/cavi_torch.py for CPU
+tensors, and for CUDA tensors launches its kernel or raises: there is no
+fallback. ``LAUNCHES`` counts kernel launches (never plain-version calls).
+"""
+
+import numpy as np
+import torch
+
+from . import cavi_torch
+from .block_ld import BlockLD
+from .cavi_torch import CaviState, Hyper, ETA_DIFF_EPS, INNER_STEPS, TILE
+
+F32 = torch.float32
+
+#: Kernel launches per kernel name since the last ``reset_launches()``.
+LAUNCHES = {'cavi_block_sweep_s1': 0, 'coupling_pass_s1': 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _raise_on(err, kernel):
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+
+
+def _all_blocks(ld: BlockLD):
+    return torch.ones(ld.nb, dtype=torch.int32, device=ld.device)
+
+
+def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                   hyper: Hyper, active, blk_mask):
+    """Sweep the blocks flagged in ``blk_mask`` ((NB,) int32) at S = 1.
+
+    :param state: CaviState of (1, NB, B) float32.
+    :param hyper: (1,) hyperparameters; :param active: (1,) float32 step
+        scale (0 freezes the model).
+    :returns: (new_state, eta_diff), coupling tiles not applied.
+    """
+    if state.eta.device.type == 'cpu':
+        return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
+                                      active, blk_mask=blk_mask)
+    from ._build import build
+    lib, _ = build()
+    dev = ld.device
+    nb, B = ld.nb, ld.block_size
+    if B % TILE:
+        raise ValueError(f"block size {B} is not a multiple of {TILE}")
+    _check('diag', ld.diag, torch.int8, (nb, B, B), dev)
+    for name, x in (('std_beta', std_beta), ('n_per_snp', n_per_snp),
+                    ('mask', ld.mask)):
+        _check(name, x, F32, (nb, B), dev)
+    for name, x in zip(CaviState._fields, state):
+        _check(name, x, F32, (1, nb, B), dev)
+    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
+    hv = torch.cat([hyper.sigma_eps, hyper.tau_beta, hyper.pi, active,
+                    hyper.lambda_min]).to(device=dev, dtype=F32)
+    out = CaviState(*(torch.empty_like(x) for x in state))
+    eta_diff = torch.empty_like(state.eta)
+    err = lib.cavi_block_sweep_s1_launch(
+        ld.diag.data_ptr(), std_beta.data_ptr(), n_per_snp.data_ptr(),
+        ld.mask.data_ptr(), *(x.data_ptr() for x in state),
+        *(x.data_ptr() for x in out), eta_diff.data_ptr(),
+        blk_mask.data_ptr(), hv.data_ptr(), nb, B,
+        float(np.float32(ld.scale)), INNER_STEPS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, 'cavi_block_sweep_s1')
+    LAUNCHES['cavi_block_sweep_s1'] += 1
+    return out, eta_diff
+
+
+def coupling_pass_s1(ld: BlockLD, q, eta_diff, blk_mask):
+    """q plus the coupling tiles incident to a block flagged in
+    ``blk_mask`` ((NB,) int32), applied to ``eta_diff``. q, eta_diff:
+    (1, NB, B) float32. Returns a new q (q itself when there is no
+    coupling tile)."""
+    if ld.n_off == 0:
+        return q
+    if q.device.type == 'cpu':
+        return cavi_torch.coupling_pass(ld, q, eta_diff, blk_mask)
+    from ._build import build
+    lib, _ = build()
+    dev = ld.device
+    nb, B = ld.nb, ld.block_size
+    _check('off_data', ld.off_data, torch.int8, (ld.n_off, B, B), dev)
+    for name, x in (('off_src', ld.off_src), ('off_dst', ld.off_dst)):
+        _check(name, x, torch.int32, (ld.n_off,), dev)
+    _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
+    _check('inc_tile', ld.inc_tile, torch.int32, (2 * ld.n_off,), dev)
+    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
+    _check('q', q, F32, (1, nb, B), dev)
+    _check('eta_diff', eta_diff, F32, (1, nb, B), dev)
+    q_out = torch.empty_like(q)
+    err = lib.coupling_pass_s1_launch(
+        ld.off_data.data_ptr(), ld.off_src.data_ptr(), ld.off_dst.data_ptr(),
+        ld.inc_ptr.data_ptr(), ld.inc_tile.data_ptr(), blk_mask.data_ptr(),
+        q.data_ptr(), eta_diff.data_ptr(), q_out.data_ptr(), nb, B,
+        float(np.float32(ld.scale)), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, 'coupling_pass_s1')
+    LAUNCHES['coupling_pass_s1'] += 1
+    return q_out
+
+
+def cavi_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                  hyper: Hyper, active):
+    """The all-active S = 1 sweep (replaces cavi_pallas.cavi_sweep_pallas_s1;
+    same contract as cavi_torch.cavi_sweep at S = 1)."""
+    return cavi_sweep_s1_skip(ld, state, std_beta, n_per_snp, hyper, active,
+                              _all_blocks(ld))
+
+
+def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                       hyper: Hyper, active, blk_mask):
+    """The S = 1 sweep over the blocks flagged in ``blk_mask`` ((NB,) bool or
+    int; replaces cavi_pallas.cavi_sweep_pallas_s1_skip): unflagged blocks
+    pass through bit-exactly, and the coupling tiles touching a flagged
+    block are applied (no refresh_q afterwards). With every block flagged it
+    is the all-active sweep, so the hybrid EM iteration picks its branch by
+    the mask alone."""
+    blk_mask = blk_mask.to(torch.int32)
+    new, eta_diff = block_sweep_s1(ld, state, std_beta, n_per_snp, hyper,
+                                   active, blk_mask)
+    q = coupling_pass_s1(ld, new.q, eta_diff, blk_mask)
+    return new._replace(q=q), eta_diff
+
+
+def block_proposal_mask(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                        hyper: Hyper, eps=ETA_DIFF_EPS):
+    """Per-block activity check — elementwise, no LD traffic.
+
+    The unrelaxed first-step CAVI proposal of every variant from the cached
+    q and the current hyperparameters; a block is active iff any lane
+    proposes a step >= eps. Returns (S, NB) bool.
+    """
+    h = hyper.to32()
+    sig_e = h.sigma_eps[:, None, None]
+    tau_b = h.tau_beta[:, None, None]
+    pi_ = h.pi[:, None, None]
+    lam = h.lambda_min[:, None, None]
+    n = n_per_snp[None]
+    var_tau = n * (1.0 + lam) / sig_e + tau_b
+    mu_star = (n / (var_tau * sig_e)) * (std_beta[None] - state.q)
+    u_star = torch.log(pi_) - torch.log1p(-pi_) + 0.5 * torch.log(tau_b) \
+        - 0.5 * torch.log(var_tau) + 0.5 * var_tau * mu_star * mu_star
+    eta_star = torch.sigmoid(u_star) * mu_star
+    prop = (eta_star - state.eta).abs() * ld.mask[None]
+    return prop.amax(dim=2) >= eps
