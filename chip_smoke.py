@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA:
 
-    python3 chip_smoke.py [--m-target 1100000]
+    python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero and prints no result):
 
@@ -33,7 +33,6 @@ The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
 """
 
-import argparse
 import json
 import math
 import os
@@ -50,13 +49,20 @@ REF_NIT, REF_H2, REF_NIT_ALL_ACTIVE = 96, 0.2156, 112
 FULL_M = 1_100_000
 #: The full record (chip_smoke.json) and the profiler trace go here.
 OUT_DIR = 'chiprun_out'
-#: Kernel vs plain version, absolute. The order of float32 sums differs, so
-#: eta, mu and q differ at rounding level (~1e-8 measured). gamma is
-#: sigmoid(u) with u = ... + var_tau mu^2 / 2 and var_tau ~ n / sigma_eps
-#: ~ 5e5 here, which scales the rounding of mu into u: up to 7e-6 measured
-#: on the 1133 blocks of the first iteration, hence 1e-4 (as for q).
-TOL = {'eta': 1e-5, 'mu': 1e-5, 'gamma': 1e-4, 'q': 1e-4}
-TOL_COUPLING = 1e-5
+#: Kernel vs plain version, relative to each value's own size: the error of
+#: a quantity is max_i |kernel_i - plain_i| / max(|plain_i|, REL_FLOOR *
+#: max|plain|). Most variants of the genome are not causal, with gamma near
+#: pi ~ 2e-3 and |eta| of 1e-5 or less, so an absolute bound sized for the
+#: causal ones would not see a fault on them; the floor keeps values that
+#: are zero (eta_diff of a frozen variant) or rounding-sized from dividing
+#: by ~0. The order of float32 sums differs between kernel and plain
+#: version, so they agree to rounding, not bit for bit. Each bound is about
+#: 10x the largest reading on an H100 over the cut and the genome's first
+#: iteration: eta 9.2e-5, mu 7.8e-4, q 3.2e-3 (mu and q of a variant can
+#: come from cancellation), gamma 2.2e-5, eta_diff 3.1e-5, coupling 2.1e-6.
+REL_FLOOR = 1e-4
+TOL = {'eta': 1e-3, 'mu': 1e-2, 'gamma': 3e-4, 'q': 3e-2, 'eta_diff': 3e-4}
+TOL_COUPLING = 3e-5
 
 
 def fail(msg):
@@ -87,25 +93,37 @@ def cut_blocks(ld, sel, device):
         ld.mask.index_select(0, idx).cpu().numpy(), ld.scale, device=device)
 
 
-def max_err(a, b):
-    return float((a.double() - b.double()).abs().max())
+def errors(got, want):
+    """(max abs error, max|plain|, relative error as in REL_FLOOR)."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    den = want.abs().clamp_min(REL_FLOOR * scale) if scale > 0 else 1.0
+    return float(diff.max()), scale, float((diff / den).max())
+
+
+def check(tag, name, got, want, bound, abs_errs):
+    """Hold ``got`` to ``want`` within ``bound`` (relative); print the
+    errors and the scale, and record the absolute error."""
+    e_abs, scale, e_rel = errors(got, want)
+    abs_errs.append(e_abs)
+    phase('check', f"{tag}: {name}: relative error {e_rel:.3e} (bound "
+                   f"{bound:.0e}); max|kernel - plain| {e_abs:.3e}, "
+                   f"max|plain| {scale:.3e}")
+    if not e_rel <= bound:
+        fail(f"{tag}: {name} differs from the plain version by {e_rel:.3e} "
+             f"relative")
 
 
 def check_state(tag, got, want, errs):
-    """Compare two (state, eta_diff) pairs within TOL; record the max."""
+    """Compare two (state, eta_diff) pairs within TOL."""
     import torch
     (gs, gd), (ws, wd) = got, want
     pairs = {'eta': (gs.eta, ws.eta), 'mu': (gs.mu, ws.mu), 'q': (gs.q, ws.q),
              'gamma': (torch.sigmoid(gs.logits), torch.sigmoid(ws.logits)),
              'eta_diff': (gd, wd)}
     for k, (a, b) in pairs.items():
-        e = max_err(a, b)
-        bound = TOL.get(k, TOL['eta'])
-        errs.append(e)
-        phase('check', f"{tag}: max|{k} kernel - plain| = {e:.3e} "
-                       f"(bound {bound:.0e})")
-        if not e <= bound:
-            fail(f"{tag}: {k} differs from the plain version by {e}")
+        check(tag, k, a, b, TOL[k], errs)
 
 
 def time_ms(fn, reps, warmup=2):
@@ -125,11 +143,7 @@ def time_ms(fn, reps, warmup=2):
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--m-target', type=int, default=FULL_M,
-                    help='variants in the synthetic genome (default 1.1M)')
-    args = ap.parse_args()
-    record = {'m_target': args.m_target}
+    record = {'m_target': FULL_M}
 
     # ---- 1. the card ----
     import torch
@@ -170,7 +184,7 @@ def main():
     from viprs_tpu_torch.model import VIPRS
     t0 = time.perf_counter()
     ld_blocks, std_beta, n_per_snp = bench.synthesize_genome(
-        m_target=args.m_target)
+        m_target=FULL_M)
     t_syn = time.perf_counter() - t0
     t0 = time.perf_counter()
     ds = SummaryStatsDataset.from_dense_blocks(
@@ -240,13 +254,9 @@ def main():
     diff = torch.as_tensor(rng.standard_normal(S1) * 1e-3,
                            dtype=torch.float32, device=dev) * sub.mask
     ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
-    e = max_err(cavi_cuda.coupling_pass_s1(sub, state.q, diff, ones),
-                cavi_torch.refresh_q(sub, state.q, diff))
-    errs_cpl.append(e)
-    phase('check', f"coupling pass vs refresh_q: max|q kernel - plain| = "
-                   f"{e:.3e} (bound {TOL_COUPLING:.0e})")
-    if not e <= TOL_COUPLING:
-        fail(f"coupling pass differs from refresh_q by {e}")
+    check('coupling pass vs refresh_q', 'q',
+          cavi_cuda.coupling_pass_s1(sub, state.q, diff, ones),
+          cavi_torch.refresh_q(sub, state.q, diff), TOL_COUPLING, errs_cpl)
     torch.cuda.synchronize()
 
     # a whole fit on the cut: kernels on the card vs plain versions on the CPU
@@ -328,7 +338,7 @@ def main():
         fail("posterior PIP/mean are not finite of shape (M,)")
     if not 0.0 < warm['h2'] < 1.0:
         fail(f"h2 {warm['h2']} out of (0, 1)")
-    if args.m_target == FULL_M and abs(warm['h2'] - REF_H2) > 0.005:
+    if abs(warm['h2'] - REF_H2) > 0.005:
         fail(f"h2 {warm['h2']} is not within 0.005 of {REF_H2}")
 
     # ---- 6. kernels against their plain versions at the fit's shapes:
@@ -351,13 +361,9 @@ def main():
     ms_cpl = time_ms(lambda: cavi_cuda.coupling_pass_s1(ld, st1.q, d1,
                                                         all_blk), reps=20)
     plain_cpl = time_ms(lambda: cavi_torch.refresh_q(ld, st1.q, d1), reps=5)
-    e = max_err(cavi_cuda.coupling_pass_s1(ld, st1.q, d1, all_blk),
-                cavi_torch.refresh_q(ld, st1.q, d1))
-    errs_cpl.append(e)
-    phase('check', f"coupling pass over {ld.n_off} tiles vs refresh_q: "
-                   f"max|q kernel - plain| = {e:.3e} (bound {TOL_COUPLING:.0e})")
-    if not e <= TOL_COUPLING:
-        fail(f"coupling pass differs from refresh_q by {e}")
+    check(f'coupling pass over {ld.n_off} tiles vs refresh_q', 'q',
+          cavi_cuda.coupling_pass_s1(ld, st1.q, d1, all_blk),
+          cavi_torch.refresh_q(ld, st1.q, d1), TOL_COUPLING, errs_cpl)
     ld_gb = (ld.diag.numel() + ld.off_data.numel()) / 1e9
     phase('time', f"first-iteration state, all {ld.nb} blocks: block sweep "
                   f"{ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms); coupling "

@@ -224,13 +224,18 @@ def test_import_without_jax_and_cpu_never_launches(tmp_path):
     assert out.stdout.strip() == 'ok'
 
 
-def test_non_cpu_tensors_never_take_the_plain_version():
-    """A tensor that is not on the CPU goes to the kernel or raises: here,
-    with no CUDA toolkit, the build raises instead of falling back."""
-    import shutil
+def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch, tmp_path):
+    """A tensor that is not on the CPU goes to the kernel or raises: with
+    the CUDA toolkit made unavailable (and no earlier build to load), the
+    build raises instead of falling back."""
     from viprs_tpu_torch.ops import _build
-    if shutil.which('nvcc') or os.path.exists('/usr/local/cuda/bin/nvcc'):
-        pytest.fail("this check expects a machine without the CUDA toolkit")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (made unavailable by the test)")
+
+    monkeypatch.setattr(_build, '_nvcc', no_nvcc)
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path))
+    _build.build.cache_clear()
     ld = BlockLD.from_numpy(np.zeros((2, 128, 128), np.int8),
                             np.zeros((0, 128, 128), np.int8), [], [],
                             np.ones((2, 128), np.float32), 1 / 127,
@@ -238,11 +243,14 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     z = torch.zeros(1, 2, 128, device='meta')
     state = CaviState(z, z, z, z)
     hyper = Hyper(*(torch.ones(1, device='meta'),) * 4)
-    with pytest.raises(RuntimeError, match='nvcc'):
-        cavi_cuda.cavi_sweep_s1(ld, state, z[0], z[0], hyper,
-                                torch.ones(1, device='meta'))
-    with pytest.raises(RuntimeError, match='nvcc'):
-        _build.build()
+    try:
+        with pytest.raises(RuntimeError, match='nvcc'):
+            cavi_cuda.cavi_sweep_s1(ld, state, z[0], z[0], hyper,
+                                    torch.ones(1, device='meta'))
+        with pytest.raises(RuntimeError, match='nvcc'):
+            _build.build()
+    finally:
+        _build.build.cache_clear()
 
 
 def test_model_arguments_are_checked():

@@ -1,13 +1,10 @@
-"""Optimization bookkeeping objects.
+"""Optimization bookkeeping: the EM loop's status codes and the result record.
 
-Functional parity with the reference's ``viprs/utils/OptimizeResult.py`` (the
-scipy-like result record with oscillation tracking, and the consecutive-condition
-counter used for patience logic), copied from viprs_tpu.utils.optimize so
-the port needs no JAX import. The EM loop (ops/em_loop.py) emits the status
-codes below; these objects summarize them for the host layer.
+The status codes, messages and ``OptimizeResult`` of viprs_tpu.utils.optimize
+(functional parity with the reference's ``viprs/utils/OptimizeResult.py``),
+copied so the port needs no JAX import. The EM loop (ops/em_loop.py) emits
+the codes; ``OptimizeResult.from_status`` summarizes one for the model.
 """
-
-import numpy as np
 
 
 # Status codes emitted by the EM loop (ops/em_loop.py). Order matters:
@@ -50,46 +47,18 @@ def status_is_error(code) -> bool:
     return code not in _SUCCESS_CODES and code not in (RUNNING, MAX_ITER)
 
 
-class IterationConditionCounter:
-    """Counts the number of *consecutive* iterations a condition held.
-
-    Parity: viprs/utils/OptimizeResult.py:2-35.
-    """
-
-    def __init__(self):
-        self._counter = 0
-        self._nit = 0
-
-    @property
-    def counter(self):
-        return self._counter
-
-    def update(self, condition, iteration):
-        if condition and (iteration == self._nit + 1):
-            self._counter += 1
-        else:
-            self._counter = 0
-        self._nit = iteration
-
-
 class OptimizeResult:
-    """A scipy-like record of the progress/outcome of an optimization run.
+    """A scipy-like record of the outcome of an optimization run.
 
-    Parity: viprs/utils/OptimizeResult.py:38-153 — including the oscillation
-    counter (consecutive objective drops), which in this framework triggers
-    *damping escalation* instead of the reference's thread-count reduction.
+    Parity: viprs/utils/OptimizeResult.py:38-153. The reference's
+    oscillation counter lives in the EM loop here, where it escalates the
+    damping instead of reducing the thread count.
     """
 
     def __init__(self):
-        self.message = None
+        self.reset()
         self.stop_iteration = None
         self.success = None
-        self.fun = None
-        self.nit = 0
-        self.error_on_termination = False
-
-        self._last_drop_iter = None
-        self._oscillation_counter = 0
 
     @property
     def iterations(self):
@@ -108,10 +77,6 @@ class OptimizeResult:
         """True if converged OR stopped without a hard error (e.g. max-iter)."""
         return bool(self.success or (self.stop_iteration and not self.error_on_termination))
 
-    @property
-    def oscillation_counter(self):
-        return self._oscillation_counter
-
     def reset(self):
         self.message = None
         self.stop_iteration = False
@@ -119,33 +84,10 @@ class OptimizeResult:
         self.fun = None
         self.nit = 0
         self.error_on_termination = False
-        self._last_drop_iter = None
-        self._oscillation_counter = 0
-
-    def _reset_oscillation_counter(self):
-        self._oscillation_counter = 0
-
-    def update(self, fun, stop_iteration=False, success=False, message=None, increment=True):
-        # Track consecutive objective drops (oscillation detection):
-        if self.fun is not None and fun < self.fun:
-            if self._last_drop_iter is not None and self.nit - self._last_drop_iter == 1:
-                self._oscillation_counter += 1
-            self._last_drop_iter = self.nit + 1
-        elif self._last_drop_iter is not None and self.nit > self._last_drop_iter:
-            self._reset_oscillation_counter()
-
-        self.fun = fun
-        self.stop_iteration = stop_iteration
-        self.success = success
-        self.message = message
-        self.nit += int(increment)
-
-        if stop_iteration and not success and "Maximum iterations" not in (message or ""):
-            self.error_on_termination = True
 
     @classmethod
     def from_status(cls, code, fun, nit):
-        """Build a result record from an on-device status code."""
+        """Build a result record from an EM-loop status code."""
         res = cls()
         res.fun = float(fun)
         res.nit = int(nit)
@@ -157,9 +99,3 @@ class OptimizeResult:
 
     def __str__(self):
         return str(self.__dict__)
-
-
-def summarize_statuses(codes, elbos, nits):
-    """Vector version of ``from_status`` for grid models: one record per model."""
-    return [OptimizeResult.from_status(c, f, n)
-            for c, f, n in zip(np.atleast_1d(codes), np.atleast_1d(elbos), np.atleast_1d(nits))]
