@@ -9,11 +9,12 @@ PyTorch built for CUDA:
 Phases (one line each; any failure exits non-zero and prints no result):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from viprs_tpu_torch/csrc with nvcc (sm_90a);
+2. build the CUDA kernels from viprs_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, all started together;
 3. synthesize the genome-scale problem of bench.py (AR(1) LD blocks, B = 1024,
    int8) and pack it with the port's packer;
-4. check each kernel against its plain PyTorch version on a few blocks cut
-   from that genome (coupling tiles included): all blocks active, half
+4. check each S = 1 kernel against its plain PyTorch version on a few blocks
+   cut from that genome (coupling tiles included): all blocks active, half
    active (quiescent blocks bit-exact), none active, the coupling pass
    against refresh_q, and a whole fit on the cut against the plain fit on
    the CPU;
@@ -21,10 +22,28 @@ Phases (one line each; any failure exits non-zero and prints no result):
    (np.random.seed(0), max_iter=1000, tolerances 1e-6, patience 10), with the
    kernel launch counters reset just before and read just after; then the
    all-active configuration (sweep_impl='xla');
-6. check and time each kernel against its plain version at the fit's shapes (all
-   blocks active from the first iteration's state, and the skip branch at
-   5% of the blocks active), and, under torch.profiler, the device time by
-   kernel and the device's idle share over one warm fit.
+6. check and time each S = 1 kernel against its plain version at the fit's
+   shapes (all blocks active from the first iteration's state, and the skip
+   branch at 5% of the blocks active), and, under torch.profiler, the device
+   time by kernel and the device's idle share over one warm fit;
+G1. check the S-lane kernels (K3, K4) against their plain versions on the
+   8-block cut at S = 100 with the bench grid's hyperparameter rows: all
+   lanes and blocks active, half the lanes frozen (bit-exact), half the
+   blocks flagged (quiescent blocks bit-exact), the coupling pass against
+   refresh_q, S = 3 and S = 13, and lane independence (lanes 3, 50, 97 swept
+   at S = 3 bit-identical to the same lanes at S = 100);
+G2. a 16-point grid fit on the cut, kernels on the card against the plain
+   versions on the CPU, chunk_iters=2 so that lane compaction engages;
+G3. the genome-scale grid exactly as bench.py: np.random.seed(0), the
+   100-point HyperparameterGrid(pi_steps=20, sigma_epsilon_steps=5),
+   VIPRSGrid(ds, grid, device='cuda').fit(max_iter=500) and
+   bayesian_model_average, cold then warm (launch counters reset just before
+   the cold fit and read just after its BMA); one fit with
+   sweep_impl='skip'; select_best_model (ELBO) on a fresh fit, under
+   torch.profiler;
+G4. check and time the S-lane kernels against their plain versions at the
+   genome's shapes at S = 100 (first iteration's state), against the FP32
+   floor of a sweep.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -46,6 +65,11 @@ import numpy as np
 #: chip (BENCH_r05.json, BENCH.md): the hybrid fit's iterations and h2, and
 #: the all-active loop's iterations.
 REF_NIT, REF_H2, REF_NIT_ALL_ACTIVE = 96, 0.2156, 112
+#: The port's own S = 1 result on this genome, the same on every H100 run
+#: (the kernels are deterministic): nit and h2 of the hybrid fit.
+PORT_NIT, PORT_H2 = 129, 0.215610
+#: The JAX package's grid(100)+BMA result (BENCH_r05.json): converged lanes.
+REF_GRID_CONVERGED = 100
 FULL_M = 1_100_000
 #: The full record (chip_smoke.json) and the profiler trace go here.
 OUT_DIR = 'chiprun_out'
@@ -63,6 +87,14 @@ OUT_DIR = 'chiprun_out'
 REL_FLOOR = 1e-4
 TOL = {'eta': 1e-3, 'mu': 1e-2, 'gamma': 3e-4, 'q': 3e-2, 'eta_diff': 3e-4}
 TOL_COUPLING = 3e-5
+#: The same measure for the S-lane kernels at S = 100 with the bench grid's
+#: lanes (pi up to 9e-3, sigma_eps down to 0.65: more causal variants and
+#: stronger coupling within a tile than at S = 1, so rounding is amplified
+#: more): about 10x the largest first readings on an H100, eta 3.4e-4, mu
+#: 3.6e-3, q 4.5e-3, gamma 3.3e-4, eta_diff 2.8e-4, coupling 2.2e-5, all of
+#: them 1e-5 or less against the largest value (max abs error <= 7e-7).
+TOL_S = {'eta': 3e-3, 'mu': 3e-2, 'gamma': 3e-3, 'q': 5e-2, 'eta_diff': 3e-3}
+TOL_COUPLING_S = 2e-4
 
 
 def fail(msg):
@@ -115,15 +147,15 @@ def check(tag, name, got, want, bound, abs_errs):
              f"relative")
 
 
-def check_state(tag, got, want, errs):
-    """Compare two (state, eta_diff) pairs within TOL."""
+def check_state(tag, got, want, errs, tol=TOL):
+    """Compare two (state, eta_diff) pairs within ``tol``."""
     import torch
     (gs, gd), (ws, wd) = got, want
     pairs = {'eta': (gs.eta, ws.eta), 'mu': (gs.mu, ws.mu), 'q': (gs.q, ws.q),
              'gamma': (torch.sigmoid(gs.logits), torch.sigmoid(ws.logits)),
              'eta_diff': (gd, wd)}
     for k, (a, b) in pairs.items():
-        check(tag, k, a, b, TOL[k], errs)
+        check(tag, k, a, b, tol[k], errs)
 
 
 def time_ms(fn, reps, warmup=2):
@@ -326,8 +358,9 @@ def main():
 
     if not (cold['success'] and warm['success']):
         fail(f"the fit did not converge: {warm['message']}")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path was never launched: {launches}")
+    if min(launches[k] for k in ('cavi_block_sweep_s1',
+                                 'coupling_pass_s1')) < 1:
+        fail(f"a kernel of the S = 1 path was never launched: {launches}")
     if warm['n_skip'] < 1:
         fail("no iteration took the skip branch")
     pip = np.concatenate([fitted.pip[c] for c in fitted.chromosomes])
@@ -340,6 +373,9 @@ def main():
         fail(f"h2 {warm['h2']} out of (0, 1)")
     if abs(warm['h2'] - REF_H2) > 0.005:
         fail(f"h2 {warm['h2']} is not within 0.005 of {REF_H2}")
+    if warm['nit'] != PORT_NIT or abs(warm['h2'] - PORT_H2) > 5e-7:
+        fail(f"the S = 1 fit moved: nit {warm['nit']}, h2 {warm['h2']:.6f} "
+             f"(the port's earlier runs: {PORT_NIT}, {PORT_H2})")
 
     # ---- 6. kernels against their plain versions at the fit's shapes:
     # results (from the first iteration's state) and times ----
@@ -347,8 +383,7 @@ def main():
     fitted.initialize_theta(rng=np.random.RandomState(0))
     fitted.initialize_variational_parameters()
     st0 = fitted._state
-    h0 = Hyper(*(torch.tensor([v], dtype=torch.float32, device=dev)
-                 for v in fitted._hyper))
+    h0 = fitted._hyper_dev()
     all_blk = torch.ones(ld.nb, dtype=torch.int32, device=dev)
     ms_sweep = time_ms(lambda: cavi_cuda.block_sweep_s1(
         ld, st0, sb_f, nf_f, h0, act, all_blk), reps=20)
@@ -388,11 +423,21 @@ def main():
                               skip_5pct=ms_skip, skip_5pct_plain=plain_skip)
     record['profile'] = profile_fit(ds, fit_kw)
 
+    # ---- G1-G4: the model grid (S lanes) ----
+    errs_s, errs_cpl_s = [], []
+    record['grid_checks'] = grid_checks(ds, sub, sb, nf, errs_s, errs_cpl_s)
+    record['grid_cut_fit'] = grid_cut_fit(sub, sb, nf)
+    record['grid'] = grid_genome(ds)
+    record['grid_times_ms'] = grid_times(ds, errs_s, errs_cpl_s)
+    g_launch = record['grid']['launches']
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)
 
     src = 'viprs_tpu_torch/csrc/cavi_s1.cu'
+    src_s = 'viprs_tpu_torch/csrc/cavi_s.cu'
+    gt = record['grid_times_ms']
     print(json.dumps({'kernels': [
         {'name': 'cavi_block_sweep_s1', 'route': 'cuda', 'source': src,
          'replaces': 'viprs_tpu/ops/cavi_pallas.py:133',
@@ -403,10 +448,401 @@ def main():
          'replaces': 'viprs_tpu/ops/cavi_pallas.py:492',
          'launches': launches['coupling_pass_s1'],
          'max_abs_err': max(errs_cpl), 'ms': ms_cpl,
-         'plain_ms': plain_cpl}]}), flush=True)
+         'plain_ms': plain_cpl},
+        {'name': 'cavi_block_sweep_s', 'route': 'cuda', 'source': src_s,
+         'replaces': 'viprs_tpu/ops/cavi_pallas.py:49',
+         'launches': g_launch['cavi_block_sweep_s'],
+         'max_abs_err': max(errs_s), 'ms': gt['block_sweep'],
+         'plain_ms': gt['block_sweep_plain']},
+        {'name': 'coupling_pass_s', 'route': 'cuda', 'source': src_s,
+         'replaces': 'viprs_tpu/ops/cavi_pallas.py:1191',
+         'launches': g_launch['coupling_pass_s'],
+         'max_abs_err': max(errs_cpl_s), 'ms': gt['coupling'],
+         'plain_ms': gt['coupling_plain']}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
+
+
+#: The bench grid (bench.py:170-172) and the FP32 floor of one S-lane sweep
+#: on the genome (csrc/cavi_s.cu): 3.6e11 FMA at the H100 SXM's published
+#: 67 TFLOP/s.
+GRID_SPEC = dict(pi_steps=20, sigma_epsilon_steps=5, h2_est=0.25, h2_se=0.05)
+SWEEP_S100_FMA = 3.6e11
+FP32_TFLOPS = 67.0
+
+
+def grid_hyper(m, S, dev, rows=None):
+    """Per-lane hyperparameters from the bench grid's rows (pi, sigma_eps;
+    tau_beta as the model's initialization makes it from them), the lanes
+    ``rows`` (default the first S)."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.ops.cavi_torch import Hyper
+    g = HyperparameterGrid(n_snps=m, **GRID_SPEC).combine_grids()
+    rows = np.arange(S) if rows is None else np.asarray(rows)
+    pi = np.array([g[r]['pi'] for r in rows])
+    se = np.array([g[r]['sigma_epsilon'] for r in rows])
+    tau = pi * m / np.maximum(0.01, 1.0 - se)
+    return Hyper(*(torch.tensor(x, dtype=torch.float32, device=dev)
+                   for x in (se, tau, pi, np.zeros(len(rows)))))
+
+
+def _lane_state(sub, S, rng, hyper):
+    import torch
+    from viprs_tpu_torch.ops import cavi_torch
+    from viprs_tpu_torch.ops.cavi_torch import CaviState
+    dev = sub.device
+    shape = (S, sub.nb, sub.block_size)
+    eta0 = torch.as_tensor(rng.standard_normal(shape) * 2e-3,
+                           dtype=torch.float32, device=dev) * sub.mask
+    pi = hyper.pi
+    logit = (torch.log(pi) - torch.log1p(-pi))[:, None, None]
+    return CaviState(logits=(logit + 0.3 * torch.as_tensor(
+        rng.standard_normal(shape), dtype=torch.float32, device=dev)),
+        mu=eta0 * 5.0, eta=eta0, q=cavi_torch.compute_q(sub, eta0))
+
+
+def _plain_lanes(sub, state, sb, nf, hyper, act, blk):
+    from viprs_tpu_torch.ops import cavi_torch
+    st, d = cavi_torch.block_sweep(sub, state, sb, nf, hyper, act,
+                                   blk_mask=blk)
+    return st._replace(q=cavi_torch.coupling_pass(sub, st.q, d, blk)), d
+
+
+def _sub_hyper(h, idx):
+    from viprs_tpu_torch.ops.cavi_torch import Hyper
+    return Hyper(*(x[idx] for x in h))
+
+
+def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
+    """G1: the S-lane kernels against their plain versions on the cut."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    from viprs_tpu_torch.ops.cavi_torch import CaviState
+    dev = sub.device
+    S = 100
+    rng = np.random.default_rng(1)
+    hyper = grid_hyper(ds.m, S, dev)
+    state = _lane_state(sub, S, rng, hyper)
+    ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
+    act = torch.ones(S, device=dev)
+    phase('G1', f"S = {S} lanes (bench grid rows), {sub.nb} blocks, "
+                f"{sub.n_off} coupling tiles, lane groups of 8")
+    rec = {}
+
+    full = cavi_cuda.cavi_sweep_s(sub, state, sb, nf, hyper, act)
+    check_state('S=100 all active', full,
+                cavi_torch.cavi_sweep(sub, state, sb, nf, hyper, act), errs,
+                TOL_S)
+
+    half_act = act.clone()
+    half_act[1::2] = 0.0
+    got = cavi_cuda.cavi_sweep_s(sub, state, sb, nf, hyper, half_act)
+    check_state('S=100 half the lanes frozen', got,
+                cavi_torch.cavi_sweep(sub, state, sb, nf, hyper, half_act),
+                errs, TOL_S)
+    for k in CaviState._fields:
+        if not torch.equal(getattr(got[0], k)[1::2], getattr(state, k)[1::2]):
+            fail(f"frozen lanes: {k} changed")
+    if bool(got[1][1::2].any()):
+        fail("frozen lanes report an eta change")
+    phase('check', "S=100 frozen lanes bit-exact (logits, mu, eta, q; "
+                   "eta_diff 0)")
+
+    # K4's mask: the union over the live lanes (half of them frozen) of
+    # the proposal masks, at the gate epsilon that flags half the blocks
+    blk = None
+    for eps in np.geomspace(1e-8, 1e-1, 57):
+        cand = cavi_torch.union_block_mask(cavi_cuda.block_proposal_mask(
+            sub, full[0], sb, nf, hyper, eps=float(eps)), half_act)
+        if blk is None or abs(int(cand.sum()) - sub.nb // 2) < \
+                abs(int(blk.sum()) - sub.nb // 2):
+            blk, blk_eps = cand, float(eps)
+    blk = blk.to(torch.int32)
+    if not 0 < int(blk.sum()) < sub.nb:
+        fail("no gate epsilon splits the cut's blocks")
+    st_k4 = full[0]
+    got = cavi_cuda.cavi_sweep_s_skip(sub, st_k4, sb, nf, hyper, half_act,
+                                      blk)
+    check_state(f'K4, S=100, union mask at eps {blk_eps:.1e} flags '
+                f'{int(blk.sum())} of {sub.nb} blocks', got,
+                _plain_lanes(sub, st_k4, sb, nf, hyper, half_act, blk), errs,
+                TOL_S)
+    state_k4 = st_k4
+    quiet = blk == 0
+    for k in ('logits', 'mu', 'eta'):
+        if not torch.equal(getattr(got[0], k)[:, quiet],
+                           getattr(state_k4, k)[:, quiet]):
+            fail(f"K4: quiescent blocks' {k} changed")
+        if not torch.equal(getattr(got[0], k)[1::2],
+                           getattr(state_k4, k)[1::2]):
+            fail(f"K4: frozen lanes' {k} changed")
+    if bool(got[1][:, quiet].any()) or bool(got[1][1::2].any()):
+        fail("K4: quiescent blocks or frozen lanes report an eta change")
+    phase('check', "K4 quiescent blocks and frozen lanes bit-exact (logits, "
+                   "mu, eta; eta_diff 0)")
+
+    diff = torch.as_tensor(rng.standard_normal(tuple(state.q.shape)) * 1e-3,
+                           dtype=torch.float32, device=dev) * sub.mask
+    check('coupling_pass_s vs refresh_q, S=100', 'q',
+          cavi_cuda.coupling_pass_s(sub, state.q, diff, ones),
+          cavi_torch.refresh_q(sub, state.q, diff), TOL_COUPLING_S,
+          errs_cpl)
+
+    for n in (3, 13):
+        idx = torch.arange(n, device=dev) * 7
+        st_n = CaviState(*(x[idx].contiguous() for x in state))
+        h_n = _sub_hyper(hyper, idx)
+        a_n = torch.ones(n, device=dev)
+        check_state(f'S={n}', cavi_cuda.cavi_sweep_s(sub, st_n, sb, nf, h_n,
+                                                     a_n),
+                    cavi_torch.cavi_sweep(sub, st_n, sb, nf, h_n, a_n), errs,
+                    TOL_S)
+
+    lanes = torch.tensor([3, 50, 97], device=dev)
+    st3 = CaviState(*(x[lanes].contiguous() for x in state))
+    got3 = cavi_cuda.cavi_sweep_s(sub, st3, sb, nf, _sub_hyper(hyper, lanes),
+                                  torch.ones(3, device=dev))
+    for name, a, b in zip((*CaviState._fields, 'eta_diff'),
+                          (*got3[0], got3[1]), (*full[0], full[1])):
+        if not torch.equal(a, b[lanes]):
+            fail(f"lane independence: {name} of lanes 3, 50, 97 swept at "
+                 f"S = 3 differs from the same lanes at S = 100")
+    phase('check', "lane independence: lanes 3, 50, 97 at S = 3 bit-identical "
+                   "to the same lanes at S = 100 (logits, mu, eta, q, "
+                   "eta_diff)")
+    torch.cuda.synchronize()
+    rec['sweep_max_abs_err'] = max(errs)
+    rec['coupling_max_abs_err'] = max(errs_cpl)
+    return rec
+
+
+def grid_cut_fit(sub, sb, nf):
+    """G2: a 16-point grid fit on the cut, card against CPU."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSGrid
+    fits = {}
+    for key, where in (('card', 'cuda'), ('plain', 'cpu')):
+        dsx = _dataset_from_cut(sub, sb, nf, torch.device(where))
+        np.random.seed(0)
+        grid = HyperparameterGrid(pi_steps=16, n_snps=dsx.m)
+        t0 = time.perf_counter()
+        fits[key] = VIPRSGrid(dsx, grid, where).fit(max_iter=300,
+                                                      chunk_iters=2)
+        fits[key + '_s'] = time.perf_counter() - t0
+    gc, gp = fits['card'], fits['plain']
+    nit_c, nit_p = gc._last_result.nit, gp._last_result.nit
+    st_c, st_p = gc._last_result.status, gp._last_result.status
+    h2_c, h2_p = gc.get_heritability(), gp.get_heritability()
+    widths = ([w for w, *_ in gc._chunk_trace],
+              [w for w, *_ in gp._chunk_trace])
+    phase('G2', f"16-point grid on the cut, chunk_iters=2: card "
+                f"{fits['card_s']:.1f} s, CPU {fits['plain_s']:.1f} s; "
+                f"widths per chunk (card) {_runs(widths[0])}, (CPU) "
+                f"{_runs(widths[1])}")
+    for i in range(len(nit_c)):
+        phase('G2', f"lane {i:2d}: nit {nit_c[i]:3d} vs {nit_p[i]:3d}, "
+                    f"status {st_c[i]} vs {st_p[i]}, h2 {h2_c[i]:.6f} vs "
+                    f"{h2_p[i]:.6f}")
+    dh2 = float(np.max(np.abs(h2_c - h2_p)))
+    dnit = int(np.max(np.abs(nit_c.astype(int) - nit_p)))
+    if not (gc.valid_terminated_models.all() and gp.valid_terminated_models.all()
+            and dh2 <= 1e-4 and dnit <= 3 and min(widths[0]) < 16):
+        fail(f"the grid fit on the cut disagrees with the plain fit "
+             f"(max |dh2| {dh2:.2e}, max |dnit| {dnit}) or did not compact")
+    phase('check', f"grid fit on the cut: max |dh2| {dh2:.2e} (bound 1e-4), "
+                   f"max |dnit| {dnit} (bound 3), every lane valid")
+    return {'nit': [nit_c.tolist(), nit_p.tolist()],
+            'status': [st_c.tolist(), st_p.tolist()],
+            'h2': [h2_c.tolist(), h2_p.tolist()], 'widths': widths,
+            'seconds': [fits['card_s'], fits['plain_s']]}
+
+
+def _runs(widths):
+    """'100x10, 32x2, 8' for a list of chunk widths."""
+    out = []
+    for w in widths:
+        if out and out[-1][0] == w:
+            out[-1][1] += 1
+        else:
+            out.append([w, 1])
+    return ', '.join(f"{w}x{n}" if n > 1 else f"{w}" for w, n in out)
+
+
+def grid_genome(ds):
+    """G3: the 100-point grid + BMA on the genome, as bench.py runs it."""
+    import torch
+    from viprs_tpu_torch.gridsearch import (HyperparameterGrid,
+                                            bayesian_model_average,
+                                            select_best_model)
+    from viprs_tpu_torch.model import VIPRSGrid
+    from viprs_tpu_torch.ops import cavi_cuda
+    rec = {}
+
+    def run(name, bma=True, **kw):
+        np.random.seed(0)
+        grid = HyperparameterGrid(n_snps=ds.m, **GRID_SPEC)
+        g = VIPRSGrid(ds, grid, device='cuda')
+        if g.n_models != 100:
+            fail(f"the bench grid has {g.n_models} points, not 100")
+        torch.cuda.synchronize()
+        cavi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        g.fit(max_iter=500, **kw)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        nit = g._last_result.nit
+        out = dict(fit_s=t_fit, converged=int(g.converged_models.sum()),
+                   valid=int(g.valid_terminated_models.sum()),
+                   nit_max=int(nit.max()), nit_median=float(np.median(nit)),
+                   widths=[w for w, *_ in g._chunk_trace],
+                   act_trace=list(g._act_trace))
+        if bma:
+            t0 = time.perf_counter()
+            bayesian_model_average(g)
+            torch.cuda.synchronize()
+            out.update(bma_s=time.perf_counter() - t0,
+                       h2=g.get_heritability(), pi=g.pi,
+                       sigma_eps=g.sigma_epsilon)
+        out['launches'] = dict(cavi_cuda.LAUNCHES)
+        msg = (f"{name}: fit {t_fit:.3f} s, converged {out['converged']}/100 "
+               f"(JAX package: {REF_GRID_CONVERGED}/100), valid "
+               f"{out['valid']}/100, nit max {out['nit_max']} median "
+               f"{out['nit_median']:g}; widths per chunk "
+               f"{_runs(out['widths'])}; launches {out['launches']}")
+        if bma:
+            msg += (f"; BMA {out['bma_s']:.3f} s: h2 {out['h2']:.6f}, pi "
+                    f"{out['pi']:.6g}, sigma_eps {out['sigma_eps']:.6f}")
+        phase('G3', msg)
+        if out['valid'] < 100:
+            fail(f"{name}: only {out['valid']}/100 grid points terminated "
+                 f"validly")
+        if bma and not (np.isfinite(out['h2']) and 0.0 < out['h2'] < 1.0):
+            fail(f"{name}: the BMA h2 {out['h2']} is not in (0, 1)")
+        return out, g
+
+    rec['cold'], g = run('cold')
+    rec['launches'] = rec['cold']['launches']
+    if min(rec['launches'][k] for k in ('cavi_block_sweep_s',
+                                        'coupling_pass_s')) < 1:
+        fail(f"an S-lane kernel was never launched: {rec['launches']}")
+    pip = np.concatenate([g.pip[c] for c in g.chromosomes])
+    if pip.shape != (ds.m,) or not np.isfinite(pip).all():
+        fail("the BMA posterior PIP is not finite of shape (M,)")
+    rec['warm'], _ = run('warm')
+    rec['skip'], _ = run("sweep_impl='skip'", bma=False, sweep_impl='skip')
+    if rec['skip']['launches']['cavi_block_sweep_s'] < 1:
+        fail("the skip grid fit launched no S-lane sweep")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sel, g = run('fresh fit for select_best_model (under the profiler)',
+                     bma=False)
+        elbos = np.asarray(g.elbo())
+        t0 = time.perf_counter()
+        select_best_model(g, criterion='ELBO')
+        torch.cuda.synchronize()
+        sel['select_s'] = time.perf_counter() - t0
+    elbos[~g.valid_terminated_models] = -np.inf
+    sel['index'] = int(np.argmax(elbos))
+    sel['row'] = {k: float(v) for k, v in g.fix_params.items()}
+    phase('G3', f"select_best_model (ELBO): index {sel['index']}, "
+                f"{sel['row']}, h2 {g.get_heritability():.6f}")
+    sel['profile'] = _device_time(prof, sel['fit_s'] + sel['select_s'],
+                                  'grid_trace.json')
+    rec['select'] = sel
+    return rec
+
+
+def _device_time(prof, wall, trace_name):
+    """Device time by kernel from a profiler run, and the device's busy
+    share of ``wall`` seconds (the profiler's own cost included); the trace
+    goes to OUT_DIR."""
+    import torch
+    rows = []
+    for ev in prof.key_averages():
+        # kernel events only: a CPU-side op (aten::mul) also reports the
+        # device time of the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, 'self_device_time_total',
+                         getattr(ev, 'self_cuda_time_total', 0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
+    if not rows:
+        phase('profile', "device time not measured (no device events)")
+        return {'wall_s': wall, 'device_s': None}
+    phase('profile', f"{wall:.3f} s under the profiler: device busy "
+                     f"{busy:.3f} s ({100 * busy / wall:.1f}%), idle "
+                     f"{100 * (1 - busy / wall):.1f}%")
+    for us, n, key in rows[:10]:
+        phase('profile', f"{us / 1e3:10.3f} ms  {n:6d} calls  {key[:90]}")
+    return {'wall_s': wall, 'device_s': busy,
+            'top': [(us / 1e3, n, key) for us, n, key in rows[:20]]}
+
+
+def grid_times(ds, errs, errs_cpl):
+    """G4: the S-lane kernels against their plain versions at the genome's
+    shapes, S = 100, from the first iteration's state."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSGrid
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    ld = ds.ld
+    dev = ld.device
+    np.random.seed(0)
+    g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **GRID_SPEC), 'cuda')
+    g.initialize_theta()
+    g.initialize_variational_parameters()
+    st0, h0 = g._state, g._hyper_dev()
+    sb, nf = ds.device_inputs()
+    S = st0.eta.shape[0]
+    act = torch.ones(S, device=dev)
+    ones = torch.ones(ld.nb, dtype=torch.int32, device=dev)
+    ms_sweep = time_ms(lambda: cavi_cuda.block_sweep_s(
+        ld, st0, sb, nf, h0, act, ones), reps=5)
+    plain_sweep = time_ms(lambda: cavi_torch.block_sweep(
+        ld, st0, sb, nf, h0, act), reps=2, warmup=1)
+    st1, d1 = cavi_cuda.block_sweep_s(ld, st0, sb, nf, h0, act, ones)
+    check_state(f'S={S}, all {ld.nb} blocks', (st1, d1),
+                cavi_torch.block_sweep(ld, st0, sb, nf, h0, act), errs,
+                TOL_S)
+    ms_cpl = time_ms(lambda: cavi_cuda.coupling_pass_s(ld, st1.q, d1, ones),
+                     reps=5)
+    plain_cpl = time_ms(lambda: cavi_torch.refresh_q(ld, st1.q, d1), reps=2,
+                        warmup=1)
+    check(f'coupling_pass_s over {ld.n_off} tiles vs refresh_q, S={S}', 'q',
+          cavi_cuda.coupling_pass_s(ld, st1.q, d1, ones),
+          cavi_torch.refresh_q(ld, st1.q, d1), TOL_COUPLING_S, errs_cpl)
+    few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
+    few[::20] = 1
+    ms_skip = time_ms(lambda: cavi_cuda.cavi_sweep_s_skip(
+        ld, st0, sb, nf, h0, act, few), reps=5)
+    plain_skip = time_ms(lambda: _plain_lanes(ld, st0, sb, nf, h0, act, few),
+                         reps=2, warmup=1)
+    check_state(f'K4, S={S}, {int(few.sum())} of {ld.nb} blocks',
+                cavi_cuda.cavi_sweep_s_skip(ld, st0, sb, nf, h0, act, few),
+                _plain_lanes(ld, st0, sb, nf, h0, act, few), errs, TOL_S)
+    floor = SWEEP_S100_FMA * 2 / (FP32_TFLOPS * 1e12) * 1e3 * S / 100
+    phase('G4', f"S={S}, first-iteration state, all {ld.nb} blocks: block "
+                f"sweep {ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms; FP32 "
+                f"floor {floor:.1f} ms = {100 * floor / ms_sweep:.0f}% of it, "
+                f"{SWEEP_S100_FMA * 2 / ms_sweep / 1e9:.1f} TFLOP/s); coupling "
+                f"pass {ms_cpl:.3f} ms (plain {plain_cpl:.3f} ms); skip "
+                f"sweep at {int(few.sum())} blocks {ms_skip:.3f} ms (plain "
+                f"{plain_skip:.3f} ms)")
+    del g, st0, st1, d1
+    torch.cuda.empty_cache()
+    return dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
+                coupling=ms_cpl, coupling_plain=plain_cpl, skip_5pct=ms_skip,
+                skip_5pct_plain=plain_skip, fp32_floor=floor)
 
 
 def _plain_skip(ld, state, sb, nf, hyper, act, blk):
@@ -432,33 +868,9 @@ def profile_fit(ds, fit_kw):
         model = VIPRS(ds, 'cuda').fit(**fit_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # kernel events only: a CPU-side op (aten::mul) also reports the
-        # device time of the kernels it launched
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, 'self_device_time_total',
-                         getattr(ev, 'self_cuda_time_total', 0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    trace = os.path.join(OUT_DIR, 'fit_trace.json')
-    os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(trace)
-    if not rows:
-        phase('profile', f"fit {wall:.3f} s under the profiler; device time "
-                         f"not measured (no device events)")
-        return {'wall_s': wall, 'device_s': None}
-    phase('profile', f"fit {wall:.3f} s under the profiler, nit "
-                     f"{model.optim_result.nit}: device busy {busy:.3f} s "
-                     f"({100 * busy / wall:.1f}%), idle "
-                     f"{100 * (1 - busy / wall):.1f}%; trace {trace}")
-    for us, n, key in rows[:12]:
-        phase('profile', f"{us / 1e3:9.3f} ms  {n:5d} calls  {key[:90]}")
-    return {'wall_s': wall, 'device_s': busy, 'nit': model.optim_result.nit,
-            'top': [(us / 1e3, n, key) for us, n, key in rows[:20]]}
+    rec = _device_time(prof, wall, 'fit_trace.json')
+    rec['nit'] = model.optim_result.nit
+    return rec
 
 
 def _dataset_from_cut(sub, sb, nf, device):

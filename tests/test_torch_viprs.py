@@ -171,17 +171,17 @@ def test_hybrid_rule_matches_jax_em_fit(interpret, hybrid_eps):
         hybrid_frac=em_loop.HYBRID_FRAC, **kw)
     state0 = CaviState(torch.full(shape, float(logit)),
                        *(torch.zeros(shape),) * 3)
-    res = em_loop.em_fit(ds.ld, state0, sb, nf, hyper0, False, False, False,
+    res = em_loop.em_fit(ds.ld, state0, sb, nf, hyper0, (False,) * 3,
                          n_sample=float(ds.n), m_total=float(ds.m),
                          use_hybrid=True, **kw)
     n = int(jres.n_iter_total)
-    assert res.nit == int(jres.nit[0]) and res.n_iter_total == n
-    assert res.status == int(jres.status[0])
+    assert res.nit[0] == int(jres.nit[0]) and res.n_iter_total == n
+    assert res.status[0] == int(jres.status[0])
     act_j = np.asarray(jres.act_hist)[:n + 1].tolist()
     assert res.act_hist == act_j
     thresh = int(em_loop.HYBRID_FRAC * nb)
     assert 0 < res.n_skip == sum(1 for a in act_j[1:] if a <= thresh)
-    np.testing.assert_allclose(res.elbo_hist,
+    np.testing.assert_allclose(np.asarray(res.elbo_hist)[:, 0],
                                np.asarray(jres.elbo_hist)[:n + 1, 0],
                                rtol=1e-6)
     np.testing.assert_allclose(res.state.eta.numpy(),
@@ -211,8 +211,10 @@ def test_import_without_jax_and_cpu_never_launches(tmp_path):
         np.random.seed(0)
         model = VIPRS(ds, 'cpu').fit(max_iter=50)
         assert model.optim_result.nit > 3 and ds.ld.n_off == 1
-        assert cavi_cuda.LAUNCHES == {'cavi_block_sweep_s1': 0,
-                                      'coupling_pass_s1': 0}, cavi_cuda.LAUNCHES
+        assert set(cavi_cuda.LAUNCHES) == {
+            'cavi_block_sweep_s1', 'coupling_pass_s1', 'cavi_block_sweep_s',
+            'coupling_pass_s'}, cavi_cuda.LAUNCHES
+        assert not any(cavi_cuda.LAUNCHES.values()), cavi_cuda.LAUNCHES
         assert 'jax' not in sys.modules and 'triton' not in sys.modules
         print('ok')
     """)
@@ -257,7 +259,7 @@ def test_model_arguments_are_checked():
     sim = simulate_sumstats_blocks(n=500, block_sizes=(60,), seed=1)
     _, ds = both_datasets(sim)
     with pytest.raises(ValueError, match='sweep_impl'):
-        VIPRS(ds, 'cpu').fit(sweep_impl='pallas')
+        VIPRS(ds, 'cpu').fit(sweep_impl='triton')
     with pytest.raises(ValueError, match='max_restarts'):
         VIPRS(ds, 'cpu').fit(max_restarts=2)
     with pytest.raises(ValueError, match='LD is on'):

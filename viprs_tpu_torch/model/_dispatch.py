@@ -2,21 +2,40 @@
 
 Which implementation runs follows the tensors: the kernel wrappers
 (ops/cavi_cuda.py) launch the CUDA kernels for CUDA tensors and take their
-plain PyTorch versions for CPU tensors. What remains to choose is the
-branch rule of the single-model fit, under the JAX package's names:
+plain PyTorch versions for CPU tensors. What remains to choose is the sweep
+rule, under the JAX package's names (viprs_tpu/model/_dispatch.py):
 
-- ``None`` or ``'hybrid'`` (default): each EM iteration computes the
-  per-block proposal mask and sweeps only the active blocks when at most
+- ``None`` (default): at S = 1 the hybrid rule, at S > 1 the all-active
+  lane sweep (TPU kernel K3);
+- ``'hybrid'``: S = 1 only; each EM iteration computes the per-block
+  proposal mask and sweeps only the active blocks when at most
   ``ops.em_loop.HYBRID_FRAC`` of them are active, all blocks otherwise;
-- ``'xla'``: the all-active sweep every iteration.
+- ``'xla'`` or ``'pallas'``: the all-active sweep every iteration (the two
+  names mean the same here);
+- ``'skip'``: the block-skipping sweep every iteration; at S > 1 a block is
+  swept iff any live lane proposes a step on it (K4's union gate).
+
+On the card every choice launches a kernel; the JAX package's S < 8 -> XLA
+threshold (``MIN_PALLAS_LANES``) is a TPU measurement and has no
+counterpart: every S >= 2 goes through the lane kernels.
 """
 
-SWEEP_IMPLS = (None, 'hybrid', 'xla')
+SWEEP_IMPLS = (None, 'xla', 'skip', 'pallas', 'hybrid')
 
 
-def use_hybrid(sweep_impl=None) -> bool:
-    """True iff the fit takes the hybrid branch rule."""
+def select_sweep_impl(S, sweep_impl=None):
+    """Decide the sweep rule of a fit whose lane count is ``S``.
+
+    :returns: ``(use_skip, use_hybrid)``.
+    """
     if sweep_impl not in SWEEP_IMPLS:
         raise ValueError(f"sweep_impl must be one of {SWEEP_IMPLS}; got "
                          f"{sweep_impl!r}")
-    return sweep_impl != 'xla'
+    if sweep_impl == 'hybrid' and S != 1:
+        raise ValueError(
+            f"sweep_impl='hybrid' is the single-model (S == 1) "
+            f"activity-gated dispatch; got S={S}. Wide grids use the lane "
+            f"sweep ('pallas'/'xla') or the union-gated skip sweep ('skip').")
+    if sweep_impl is None:
+        return False, S == 1
+    return sweep_impl == 'skip', sweep_impl == 'hybrid'

@@ -11,9 +11,10 @@ from ..utils.compute import dict_max
 class BayesPRSModel:
     """Holds the dataset, the marginal statistics and the posterior slots.
 
-    ``pip``, ``post_mean_beta`` and ``post_var_beta`` ({chrom: array}) are
-    lazy: a fit keeps the posterior on the device, and the first access
-    copies all three to the host.
+    ``pip``, ``post_mean_beta`` and ``post_var_beta`` ({chrom: array}, the
+    array (m_c,) for one model and (m_c, S) for S model lanes) are lazy: a
+    fit keeps the posterior on the device, and the first access copies all
+    three to the host.
     """
 
     def __init__(self, dataset, device):
@@ -84,8 +85,11 @@ class BayesPRSModel:
         return self.post_var_beta
 
     def to_table(self):
-        """Posterior estimates as one DataFrame (CHR, SNP, BETA, PIP,
-        VAR_BETA); pandas is imported here only."""
+        """Posterior estimates of one model as one DataFrame (CHR, SNP, BETA,
+        PIP, VAR_BETA); pandas is imported here only."""
+        if getattr(self, '_S', 1) != 1:
+            raise ValueError("to_table needs one model; select or average "
+                             "the grid first (gridsearch)")
         import pandas as pd
         tabs = []
         for c in self.chromosomes:

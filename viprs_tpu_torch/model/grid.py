@@ -1,0 +1,150 @@
+"""VIPRSGrid — fit a grid of VIPRS models over hyperparameter settings.
+
+Counterpart of viprs_tpu.model.grid.VIPRSGrid in its simultaneous mode: the
+grid points are the S lanes of one fit (the lane kernels K3/K4 on the card),
+finished lanes are masked out, and the survivors are compacted between
+chunks (model/viprs.py). The serial warm-started ``pathwise`` mode is not
+ported yet (ROADMAP.md, Queue 1).
+
+The grid rows are held as numpy columns (no pandas at import time or in the
+fit); ``to_validation_table`` imports pandas inside the call.
+"""
+
+import numpy as np
+
+from .viprs import VIPRS
+from ..ops.cavi_torch import CaviState, Hyper
+from ..ops.updates import FixMask
+from ..utils.optimize import OptimizeResult, summarize_statuses
+
+_HYPER_FIELD = {'sigma_epsilon': 'sigma_eps', 'tau_beta': 'tau_beta',
+                'pi': 'pi', 'lambda_min': 'lambda_min'}
+
+
+def grid_columns(grid):
+    """{name: (n,) float64} columns of a grid: a HyperparameterGrid (of
+    either package) or a list of row dicts (its ``combine_grids()``)."""
+    rows = grid.combine_grids() if hasattr(grid, 'combine_grids') else grid
+    if not rows:
+        raise ValueError("the grid has no points")
+    return {k: np.asarray([r[k] for r in rows], np.float64) for k in rows[0]}
+
+
+class VIPRSGrid(VIPRS):
+    """
+    :ivar grid_columns: {hyperparameter: (n_models,) values}, one entry per
+        grid point.
+    :ivar validation_result: {column: (n_models,) values} of per-model fit
+        outcomes after a fit.
+    :ivar optim_results: list of OptimizeResult, one per model.
+    :ivar n_models: number of grid points.
+    """
+
+    def __init__(self, dataset, grid, device, **kwargs):
+        self.grid_columns = grid_columns(grid)
+        self.n_models = self._n_grid = len(next(iter(
+            self.grid_columns.values())))
+        self.validation_result = None
+        self.optim_results = []
+        super().__init__(dataset, device, **kwargs)
+        self._S = self.n_models
+
+    def grid_row(self, idx):
+        return {k: float(v[idx]) for k, v in self.grid_columns.items()}
+
+    # ------------------------------------------------------------- grid status
+    @property
+    def converged_models(self):
+        return np.array([r.success for r in self.optim_results])
+
+    @property
+    def valid_terminated_models(self):
+        return np.array([r.valid_optim_result for r in self.optim_results])
+
+    def to_validation_table(self):
+        if not self.validation_result:
+            raise ValueError("Validation result is not set!")
+        import pandas as pd
+        return pd.DataFrame(self.validation_result)
+
+    # ---------------------------------------------------------- initialization
+    def initialize_theta(self, theta_0=None, rng=None):
+        """Base initialization, then per-model overrides from the grid rows.
+        The base draw of pi and the LDSC estimate happen even where the grid
+        then overrides them, so the numpy stream advances as in the JAX
+        package."""
+        if self._S != self._n_grid:
+            # collapsed to one model: the winner's values are in fix_params
+            return super().initialize_theta(theta_0, rng)
+        rng = np.random if rng is None else rng
+        pi, sigma_eps, tau_beta = self._resolve_theta0(theta_0, rng)
+        lam = float(self.fix_params.get('lambda_min', self.lambda_min))
+        S = self._S
+        h = {'sigma_eps': np.full(S, sigma_eps), 'tau_beta': np.full(S, tau_beta),
+             'pi': np.full(S, pi), 'lambda_min': np.full(S, lam)}
+        for key, col in self.grid_columns.items():
+            h[_HYPER_FIELD[key]] = col.copy()
+        self._hyper = Hyper(**h)
+        self._sigma_g = np.zeros(S)
+        self._update_fix_mask()
+
+    def _update_fix_mask(self):
+        if self._S != self._n_grid:
+            return super()._update_fix_mask()
+        fixed = set(self.grid_columns) | set(self.fix_params)
+        self._fix_mask = FixMask(*(np.full(self._S, k in fixed, bool)
+                                   for k in ('sigma_epsilon', 'tau_beta',
+                                             'pi')))
+
+    # -------------------------------------------------------------------- fit
+    def fit(self, pathwise=False, **fit_kwargs):
+        """Fit all grid points simultaneously, finished lanes masked out
+        (``VIPRS.fit``'s arguments)."""
+        if pathwise:
+            raise NotImplementedError(
+                "pathwise=True (serial warm-started grid fits) is not ported "
+                "yet; see ROADMAP.md, Queue 1")
+        if self.n_models == 1:
+            return VIPRS.fit(self, **fit_kwargs)
+        super().fit(**fit_kwargs)
+        self.validation_result = {
+            **{k: v.copy() for k, v in self.grid_columns.items()},
+            'ELBO': np.asarray(self._last_result.final_elbo).copy(),
+            'Converged': self.converged_models,
+            'Optimization_message': [r.message for r in self.optim_results]}
+        return self
+
+    def _populate_optim_result(self, res):
+        if self.n_models == 1:
+            return super()._populate_optim_result(res)
+        self.optim_results = summarize_statuses(res.status, res.final_elbo,
+                                                res.nit)
+        agg = OptimizeResult()
+        agg.nit = int(np.max(res.nit))
+        agg.fun = float(np.max(res.final_elbo))
+        agg.stop_iteration = True
+        agg.success = bool(self.converged_models.any())
+        # grid-level error: every grid point terminated with a hard error
+        agg.error_on_termination = not bool(self.valid_terminated_models.any())
+        agg.message = (
+            'Grid fit complete.' if not agg.error_on_termination
+            else 'All grid points terminated with errors: '
+                 + '; '.join(sorted({r.message for r in self.optim_results})))
+        self.optim_result = agg
+
+    # ------------------------------------------------------------- collapsing
+    def _collapse(self):
+        self._S = 1
+        self.n_models = 1
+        self._pip = self._post_mean_beta = self._post_var_beta = None
+
+    def collapse_to_model(self, idx):
+        """Slice every per-model quantity down to grid point ``idx`` (used by
+        select_best_model, reference grid_utils.py:68-114)."""
+        idx = int(idx)
+        row = self.grid_row(idx)
+        self._state = CaviState(*(x[idx:idx + 1].clone() for x in self._state))
+        self._hyper = Hyper(*(np.asarray(x)[idx:idx + 1] for x in self._hyper))
+        self._sigma_g = np.asarray(self._sigma_g)[idx:idx + 1]
+        self._collapse()
+        self.set_fixed_params(row)

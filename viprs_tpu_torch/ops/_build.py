@@ -1,6 +1,7 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
-The library is compiled at first use, for Hopper (``sm_90a``), into
+The library is compiled at first use, for Hopper (``sm_90a``), one nvcc
+per source run in parallel and one link, into
 ``viprs_tpu_torch/_build/`` (git-ignored), named by a hash of the sources so
 an edited kernel is never served from a stale build. The sources expose a
 plain C interface (no PyTorch headers), which keeps a build to seconds.
@@ -20,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 P, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -33,6 +34,12 @@ SIGNATURES = {
     # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, q_in, eta_diff,
     # q_out, nb, B, scale, stream
     'coupling_pass_s1_launch': [P] * 9 + [I32, I32, F32, P],
+    # the S-lane kernels (csrc/cavi_s.cu): the same pointers, then S, nb, B,
+    # scale, inner_steps, stream
+    'cavi_block_sweep_s_launch': [P] * 15 + [I32, I32, I32, F32, I32, P],
+    # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, q_in, eta_diff,
+    # q_out, S, nb, B, scale, stream
+    'coupling_pass_s_launch': [P] * 9 + [I32, I32, I32, F32, P],
 }
 
 
@@ -68,15 +75,31 @@ def build():
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{lib_path}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-               *(s for s in srcs if s.endswith('.cu'))]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
+        # one nvcc per source, all at once, then one link
+        objs, procs = [], []
+        for s in (s for s in srcs if s.endswith('.cu')):
+            obj = f'{tmp}.{os.path.basename(s)}.o'
+            cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, s]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [proc.communicate()[0] for _, proc in procs]
+        for (cmd, proc), out in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        cmd = [nvcc, '-shared', *NVCC_FLAGS[:2], '-o', tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info['seconds'] = time.perf_counter() - t0
-        info['ptxas'] = proc.stdout + proc.stderr
+        info['ptxas'] = ''.join(logs) + proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{info['ptxas']}")
+        for obj in objs:
+            os.remove(obj)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     for name, argtypes in SIGNATURES.items():

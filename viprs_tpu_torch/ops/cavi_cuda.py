@@ -1,8 +1,8 @@
-"""The single-model (S = 1) sweep on the card: wrappers of the CUDA kernels
-in ``csrc/cavi_s1.cu`` (counterpart of the S = 1 part of
-viprs_tpu.ops.cavi_pallas).
+"""The sweeps on the card: wrappers of the CUDA kernels in ``csrc/``
+(counterpart of viprs_tpu.ops.cavi_pallas).
 
-Two kernels carry both branches of the hybrid EM iteration:
+Single model (S = 1), ``csrc/cavi_s1.cu``; two kernels carry both branches
+of the hybrid EM iteration:
 
 - ``block_sweep_s1`` launches ``cavi_block_sweep_s1``: the tile-Gauss-Seidel
   sweep of every LD block flagged in a per-block mask (one CTA per block; an
@@ -12,6 +12,13 @@ Two kernels carry both branches of the hybrid EM iteration:
 
 ``cavi_sweep_s1`` (TPU kernel K1, all blocks flagged) and
 ``cavi_sweep_s1_skip`` (K2, the activity mask) are the two compositions.
+
+Model grid (S lanes), ``csrc/cavi_s.cu``: ``block_sweep_s`` launches
+``cavi_block_sweep_s`` (one CTA per lane group and block) and
+``coupling_pass_s`` launches ``coupling_pass_s``; ``cavi_sweep_s`` (K3, all
+blocks flagged) and ``cavi_sweep_s_skip`` (K4, the union of the live lanes'
+activity masks) are their compositions. A lane with active == 0 passes
+through bit-exactly.
 
 Each kernel wrapper takes the plain version in ops/cavi_torch.py for CPU
 tensors, and for CUDA tensors launches its kernel or raises: there is no
@@ -28,7 +35,8 @@ from .cavi_torch import CaviState, Hyper, ETA_DIFF_EPS, INNER_STEPS, TILE
 F32 = torch.float32
 
 #: Kernel launches per kernel name since the last ``reset_launches()``.
-LAUNCHES = {'cavi_block_sweep_s1': 0, 'coupling_pass_s1': 0}
+LAUNCHES = {'cavi_block_sweep_s1': 0, 'coupling_pass_s1': 0,
+            'cavi_block_sweep_s': 0, 'coupling_pass_s': 0}
 
 
 def reset_launches():
@@ -57,6 +65,13 @@ def _all_blocks(ld: BlockLD):
     return torch.ones(ld.nb, dtype=torch.int32, device=ld.device)
 
 
+def _hyper_rows(hyper: Hyper, active, device):
+    """(5, S) float32 rows [sigma_eps, tau_beta, pi, active, lambda_min]."""
+    return torch.stack([hyper.sigma_eps, hyper.tau_beta, hyper.pi, active,
+                        hyper.lambda_min]).to(device=device,
+                                              dtype=F32).contiguous()
+
+
 def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
                    hyper: Hyper, active, blk_mask):
     """Sweep the blocks flagged in ``blk_mask`` ((NB,) int32) at S = 1.
@@ -82,8 +97,8 @@ def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     for name, x in zip(CaviState._fields, state):
         _check(name, x, F32, (1, nb, B), dev)
     _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
-    hv = torch.cat([hyper.sigma_eps, hyper.tau_beta, hyper.pi, active,
-                    hyper.lambda_min]).to(device=dev, dtype=F32)
+    hv = _hyper_rows(hyper, active, dev)
+    _check('hyper', hv, F32, (5, 1), dev)
     out = CaviState(*(torch.empty_like(x) for x in state))
     eta_diff = torch.empty_like(state.eta)
     err = lib.cavi_block_sweep_s1_launch(
@@ -150,6 +165,104 @@ def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     new, eta_diff = block_sweep_s1(ld, state, std_beta, n_per_snp, hyper,
                                    active, blk_mask)
     q = coupling_pass_s1(ld, new.q, eta_diff, blk_mask)
+    return new._replace(q=q), eta_diff
+
+
+def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                  hyper: Hyper, active, blk_mask):
+    """Sweep the blocks flagged in ``blk_mask`` ((NB,) int32) for S lanes.
+
+    :param state: CaviState of (S, NB, B) float32.
+    :param hyper: (S,) hyperparameters; :param active: (S,) float32 step
+        scale (0 freezes a lane bit-exactly).
+    :returns: (new_state, eta_diff), coupling tiles not applied.
+    """
+    if state.eta.device.type == 'cpu':
+        return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
+                                      active, blk_mask=blk_mask)
+    from ._build import build
+    lib, _ = build()
+    dev = ld.device
+    nb, B = ld.nb, ld.block_size
+    S = state.eta.shape[0]
+    if B % TILE:
+        raise ValueError(f"block size {B} is not a multiple of {TILE}")
+    _check('diag', ld.diag, torch.int8, (nb, B, B), dev)
+    for name, x in (('std_beta', std_beta), ('n_per_snp', n_per_snp),
+                    ('mask', ld.mask)):
+        _check(name, x, F32, (nb, B), dev)
+    for name, x in zip(CaviState._fields, state):
+        _check(name, x, F32, (S, nb, B), dev)
+    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
+    hv = _hyper_rows(hyper, active, dev)
+    _check('hyper', hv, F32, (5, S), dev)
+    out = CaviState(*(torch.empty_like(x) for x in state))
+    eta_diff = torch.empty_like(state.eta)
+    err = lib.cavi_block_sweep_s_launch(
+        ld.diag.data_ptr(), std_beta.data_ptr(), n_per_snp.data_ptr(),
+        ld.mask.data_ptr(), *(x.data_ptr() for x in state),
+        *(x.data_ptr() for x in out), eta_diff.data_ptr(),
+        blk_mask.data_ptr(), hv.data_ptr(), S, nb, B,
+        float(np.float32(ld.scale)), INNER_STEPS,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, 'cavi_block_sweep_s')
+    LAUNCHES['cavi_block_sweep_s'] += 1
+    return out, eta_diff
+
+
+def coupling_pass_s(ld: BlockLD, q, eta_diff, blk_mask):
+    """q plus the coupling tiles incident to a block flagged in ``blk_mask``
+    ((NB,) int32), applied to ``eta_diff``, for S lanes. q, eta_diff:
+    (S, NB, B) float32. Returns a new q (q itself when there is no coupling
+    tile)."""
+    if ld.n_off == 0:
+        return q
+    if q.device.type == 'cpu':
+        return cavi_torch.coupling_pass(ld, q, eta_diff, blk_mask)
+    from ._build import build
+    lib, _ = build()
+    dev = ld.device
+    nb, B = ld.nb, ld.block_size
+    S = q.shape[0]
+    _check('off_data', ld.off_data, torch.int8, (ld.n_off, B, B), dev)
+    for name, x in (('off_src', ld.off_src), ('off_dst', ld.off_dst)):
+        _check(name, x, torch.int32, (ld.n_off,), dev)
+    _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
+    _check('inc_tile', ld.inc_tile, torch.int32, (2 * ld.n_off,), dev)
+    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
+    _check('q', q, F32, (S, nb, B), dev)
+    _check('eta_diff', eta_diff, F32, (S, nb, B), dev)
+    q_out = torch.empty_like(q)
+    err = lib.coupling_pass_s_launch(
+        ld.off_data.data_ptr(), ld.off_src.data_ptr(), ld.off_dst.data_ptr(),
+        ld.inc_ptr.data_ptr(), ld.inc_tile.data_ptr(), blk_mask.data_ptr(),
+        q.data_ptr(), eta_diff.data_ptr(), q_out.data_ptr(), S, nb, B,
+        float(np.float32(ld.scale)), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, 'coupling_pass_s')
+    LAUNCHES['coupling_pass_s'] += 1
+    return q_out
+
+
+def cavi_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                 hyper: Hyper, active):
+    """The all-active S-lane sweep, coupling included (replaces
+    cavi_pallas.cavi_sweep_pallas at S > 1 and its refresh_q; same contract
+    as cavi_torch.cavi_sweep)."""
+    return cavi_sweep_s_skip(ld, state, std_beta, n_per_snp, hyper, active,
+                             _all_blocks(ld))
+
+
+def cavi_sweep_s_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
+                      hyper: Hyper, active, blk_mask):
+    """The S-lane sweep over the blocks flagged in ``blk_mask`` ((NB,) bool
+    or int, e.g. ``cavi_torch.union_block_mask`` of the proposal masks;
+    replaces cavi_pallas.cavi_sweep_pallas_skip_s): unflagged blocks pass
+    through bit-exactly, and the coupling tiles touching a flagged block are
+    applied."""
+    blk_mask = blk_mask.to(torch.int32)
+    new, eta_diff = block_sweep_s(ld, state, std_beta, n_per_snp, hyper,
+                                  active, blk_mask)
+    q = coupling_pass_s(ld, new.q, eta_diff, blk_mask)
     return new._replace(q=q), eta_diff
 
 

@@ -147,6 +147,18 @@ def coupling_pass(ld: BlockLD, q, eta_diff, blk_mask):
     return q + _off_contrib(ld, eta_diff, tiles)
 
 
+def union_block_mask(prop_mask, active):
+    """The block gate of the S-lane skip sweep (K4): a block is swept iff
+    ANY live lane (active > 0) proposes a step on it, so sweeping a subset
+    of the lanes keeps every lane's result (viprs_tpu/ops/em_loop.py:296).
+
+    :param prop_mask: (S, NB) bool, e.g. ``cavi_cuda.block_proposal_mask``.
+    :param active: (S,) float step scales.
+    :returns: (NB,) bool.
+    """
+    return (prop_mask & (active > 0.0)[:, None]).any(dim=0)
+
+
 def _block_tile_loop(D, beta, n, mask, logits, mu, eta, q, hyper: Hyper,
                      active, scale, relax):
     """Gauss-Seidel over the tiles of nb blocks at once (vectorized over

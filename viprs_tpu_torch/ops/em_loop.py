@@ -1,19 +1,30 @@
-"""The variational EM loop for one model (S = 1), as a host loop.
+"""The variational EM loop for S model lanes, as a host loop.
 
-Counterpart of viprs_tpu.ops.em_loop.em_fit at S = 1. Each iteration runs on
-the device [activity mask -> sweep -> statistics] and reads back ONE small
-float64 vector (the sweep statistics, max |d_eta| and the active-block
-count); the M-step, ELBO and the convergence ladder then run on the host in
-float64, with the float32 roundings of the JAX loop kept where they decide a
-comparison (max |d_eta| and damping are float32 there).
+Counterpart of viprs_tpu.ops.em_loop.em_fit. Each iteration runs on the
+device [activity mask -> sweep -> statistics] and reads back ONE small
+float64 vector (the (S,) sweep statistics, the (S,) max |d_eta| and the
+active-block count); the M-step, ELBO and the convergence ladder then run on
+the host over (S,) numpy arrays in float64, with the float32 roundings of the
+JAX loop kept where they decide a comparison (max |d_eta| and damping are
+float32 there). Lanes that are not active keep their state, hyperparameters,
+sigma_g and objective, exactly as the JAX loop's ``jnp.where`` does.
 
-The hybrid dispatch chooses its branch on the device, by the block mask it
-hands the one sweep kernel pair (ops/cavi_cuda.cavi_sweep_s1_skip): the
-proposal mask when at most ``int(HYBRID_FRAC * NB)`` blocks are active (the
-skip branch), all ones otherwise (the all-active branch).
+The sweep per iteration (``model/_dispatch.py`` picks the rule):
+
+- S = 1, hybrid: the proposal mask when at most ``int(HYBRID_FRAC * NB)``
+  blocks are active (the skip branch), all ones otherwise, handed to the one
+  S = 1 kernel pair (ops/cavi_cuda.cavi_sweep_s1_skip): the branch is chosen
+  on the device;
+- S = 1, skip: the proposal mask at the machine-precision gate;
+- S > 1, skip: the union over live lanes of the proposal masks (K4);
+- otherwise every block (K1 at S = 1, K3 at S > 1).
+
+A fit split into chunks (lane compaction in model/viprs.py) carries the
+objective (``init_elbo``), the active lanes, the global iteration offset
+``i0``, the ladder's counters (``EMCounters``) and ``sigma_g`` across calls,
+so a chunked run takes the single call's path.
 """
 
-import math
 from typing import List, NamedTuple
 
 import numpy as np
@@ -21,8 +32,9 @@ import torch
 
 from . import updates
 from .block_ld import BlockLD
-from .cavi_cuda import block_proposal_mask, cavi_sweep_s1_skip
-from .cavi_torch import CaviState, Hyper
+from .cavi_cuda import (block_proposal_mask, cavi_sweep_s, cavi_sweep_s1_skip,
+                        cavi_sweep_s_skip)
+from .cavi_torch import CaviState, ETA_DIFF_EPS, Hyper, union_block_mask
 from ..utils import optimize as opt
 
 F32 = torch.float32
@@ -33,212 +45,293 @@ F64 = torch.float64
 HYBRID_FRAC = 0.35
 
 
+class EMCounters(NamedTuple):
+    """The convergence-ladder state that survives across chunked ``em_fit``
+    calls, (S,) numpy each."""
+    prev_dropped: np.ndarray     # bool
+    osc_counter: np.ndarray      # int32
+    best_elbo: np.ndarray        # float64
+    stall_counter: np.ndarray    # int32
+    sigma_g_counter: np.ndarray  # int32
+    div_counter: np.ndarray      # int32
+    damping: np.ndarray          # float32
+
+    @classmethod
+    def from_numpy(cls, prev_dropped, osc_counter, best_elbo, stall_counter,
+                   sigma_g_counter, div_counter, damping):
+        """Counters from array-likes (e.g. ``np.asarray`` of the JAX
+        package's ``EMCounters``), as fresh arrays of the ladder's dtypes."""
+        i32 = np.int32
+        return cls(np.array(prev_dropped, bool).reshape(-1),
+                   np.array(osc_counter, i32).reshape(-1),
+                   np.array(best_elbo, np.float64).reshape(-1),
+                   np.array(stall_counter, i32).reshape(-1),
+                   np.array(sigma_g_counter, i32).reshape(-1),
+                   np.array(div_counter, i32).reshape(-1),
+                   np.array(damping, np.float32).reshape(-1))
+
+
+def init_counters(S) -> EMCounters:
+    z = np.zeros(S, np.int32)
+    return EMCounters(np.zeros(S, bool), z, np.full(S, -np.inf), z, z, z,
+                      np.ones(S, np.float32))
+
+
 class EMResult(NamedTuple):
     state: CaviState
-    hyper: Hyper                 # (1,) float64 CPU tensors
-    sigma_g: float
-    status: int
-    nit: int
-    elbo_hist: List[float]       # [initial, iteration 1, ..., n_iter_total]
-    n_iter_total: int
-    final_elbo: float
-    restarts_used: int
+    hyper: Hyper                 # (S,) float64 numpy
+    sigma_g: np.ndarray          # (S,) float64
+    status: np.ndarray           # (S,) int32
+    nit: np.ndarray              # (S,) int32, global iteration numbers
+    elbo_hist: List[np.ndarray]  # [initial, iteration 1, ...], (S,) each
+    n_iter_total: int            # iterations this call ran
+    final_elbo: np.ndarray       # (S,) float64
+    counters: EMCounters
+    max_eta_diff: np.ndarray     # (S,) float32
+    restarts_used: np.ndarray    # (S,) int32
     act_hist: List[int]          # active blocks per iteration (-1: not measured)
-    n_skip: int                  # iterations that took the skip branch
-
-
-def _f32(x):
-    return np.float32(x)
-
-
-def _hyper_host(values):
-    """Hyper of (1,) float64 CPU tensors from four floats."""
-    return Hyper(*(torch.tensor([float(v)], dtype=F64) for v in values))
-
-
-def _hyper_dev(h: Hyper, device):
-    """float32 copy of a host Hyper on ``device``, in one transfer."""
-    v = torch.tensor([float(x[0]) for x in h], dtype=F32).to(device)
-    return Hyper(v[0:1], v[1:2], v[2:3], v[3:4])
+    n_skip: int                  # iterations that took the hybrid's skip branch
 
 
 def _stats_host(state, n_per_snp, std_beta, mask, h_dev, *extra):
-    """Sweep statistics (+ extra scalars) read to the host in one transfer."""
+    """(S,) sweep statistics (+ extra tensors) read to the host in one
+    transfer; returns (SweepStats of CPU float64 tensors, extra as one flat
+    float64 tensor)."""
     var_tau = updates.compute_var_tau(n_per_snp, h_dev)
     st = updates.collect_stats(state, var_tau, std_beta, mask)
-    host = torch.cat([*st, *(x.reshape(1).to(F64) for x in extra)]).cpu()
-    n = len(st)
-    return updates.SweepStats(*(host[i:i + 1] for i in range(n))), host[n:]
+    host = torch.cat([*st, *(x.reshape(-1).to(F64) for x in extra)]).cpu()
+    S = st[0].shape[0]
+    n = len(st) * S
+    return (updates.SweepStats(*(host[i:i + S] for i in range(0, n, S))),
+            host[n:])
+
+
+def _hyper_f64(values, S):
+    """(S,) float64 CPU tensor of values rounded through float32, as the
+    JAX driver hands hyperparameters to each em_fit call."""
+    v = np.asarray(values, np.float32).astype(np.float64)
+    return torch.from_numpy(np.array(np.broadcast_to(v.reshape(-1), (S,))))
 
 
 def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
-           fix_sigma_eps: bool, fix_tau_beta: bool, fix_pi: bool,
-           n_sample, m_total, max_iter: int = 1000, min_iter: int = 3,
-           f_abs_tol: float = 1e-6, x_abs_tol: float = 1e-6,
-           patience: int = 10, use_hybrid: bool = True,
-           hybrid_eps: float = None, max_restarts: int = 0,
-           restart_hyper=None, restart_logit=None) -> EMResult:
-    """Run EM until the model terminates or ``max_iter`` iterations.
+           fix, n_sample, m_total, init_elbo=None, active0=None,
+           max_iter: int = 1000, min_iter: int = 3, f_abs_tol: float = 1e-6,
+           x_abs_tol: float = 1e-6, patience: int = 10,
+           use_skip: bool = False, use_hybrid: bool = False,
+           hybrid_eps: float = None, i0: int = 0, counters0=None,
+           sigma_g0=None, max_restarts: int = 0, restart_hyper=None,
+           restart_logit=None) -> EMResult:
+    """Run EM until every lane terminates or ``max_iter`` iterations.
 
-    :param hyper0: (sigma_eps, tau_beta, pi, lambda_min) floats.
-    :param use_hybrid: per-iteration activity-gated branch choice (above);
-        False runs the all-active sweep every iteration.
-    :param hybrid_eps: gate epsilon of the proposal mask (default
+    :param state0: CaviState of (S, NB, B) float32 on ``ld.device``.
+    :param hyper0: (sigma_eps, tau_beta, pi, lambda_min), each (S,)
+        array-like (a Hyper); rounded through float32.
+    :param fix: (sigma_eps, tau_beta, pi) per-lane bools (a FixMask).
+    :param init_elbo: (S,) objective of ``state0`` (None: computed here).
+    :param active0: (S,) bool, lanes to optimize (None: all); others stay
+        frozen.
+    :param use_skip, use_hybrid: the sweep rule (module docstring); the
+        hybrid is the S = 1 rule.
+    :param hybrid_eps: gate epsilon of the hybrid's proposal mask (default
         ``x_abs_tol``).
-    :param max_restarts: in-loop restart-on-negative-MSE budget: the state
-        is re-initialized from ``restart_logit`` (float32 logit of the
-        restart pi), the hyperparameters from ``restart_hyper`` (four
-        floats, rounded through float32), sigma_eps is fixed from then on and
-        the counters reset.
+    :param i0: global iteration offset (min_iter and nit count from the
+        start of the whole fit); :param counters0: EMCounters carry (None =
+        fresh); :param sigma_g0: (S,) sigma_g carry (None = zeros).
+    :param max_restarts: in-loop restart-on-negative-MSE budget per lane: a
+        lane is re-initialized from ``restart_logit`` (float32 logit of the
+        restart pi), its hyperparameters from ``restart_hyper`` (three
+        values or (S,) arrays: sigma_eps, tau_beta, pi; rounded through
+        float32), sigma_eps is fixed from then on and its counters reset.
+    :returns: EMResult (``status == MAX_ITER`` means the lane ran out of
+        THIS call's budget: a chunked driver continues it).
     """
+    S = state0.eta.shape[0]
+    if use_hybrid and S != 1:
+        raise ValueError(f"the hybrid rule is the S == 1 dispatch; got S={S}")
     dev = ld.device
     mask = ld.mask
     nb = ld.nb
     thresh = int(HYBRID_FRAC * nb)
     gate_eps = x_abs_tol if hybrid_eps is None else hybrid_eps
-    fix = updates.FixMask(*(torch.tensor([v]) for v in
-                            (fix_sigma_eps, fix_tau_beta, fix_pi)))
+    fix = updates.FixMask.from_numpy(*fix)
+    hyper = Hyper(*(_hyper_f64(x, S) for x in hyper0))
+    ctr = init_counters(S) if counters0 is None else \
+        EMCounters.from_numpy(*counters0)
+    prev_dropped, osc, best, stall, sgc, divc, damping = ctr
+    sigma_g = np.zeros(S) if sigma_g0 is None else \
+        np.array(sigma_g0, np.float64).reshape(S)
+    active = np.ones(S, bool) if active0 is None else \
+        np.array(active0, bool).reshape(S)
+    fix_se = fix.sigma_eps.numpy().copy()
+    restarts_left = np.full(S, max_restarts, np.int32)
     ones_blk = torch.ones(nb, dtype=torch.int32, device=dev)
-    on_host = torch.ones(1, dtype=torch.bool)
+    f32 = np.float32
 
-    def initial_elbo(state, hyper, fix_se, sigma_g):
-        h_dev = _hyper_dev(hyper, dev)
-        st, _ = _stats_host(state, n_per_snp, std_beta, mask, h_dev)
+    def objective(state, hyper, fix_se, sigma_g):
         h32 = Hyper(*(x.to(F32) for x in hyper))
-        return float(updates.elbo(st, h32, torch.tensor([fix_se]),
-                                  torch.tensor([sigma_g], dtype=F64),
-                                  n_sample, m_total)[0])
+        st, _ = _stats_host(state, n_per_snp, std_beta, mask,
+                            Hyper(*(x.to(dev) for x in h32)))
+        return updates.elbo(st, h32, torch.from_numpy(fix_se),
+                            torch.from_numpy(sigma_g), n_sample,
+                            m_total).numpy()
 
     state = state0
-    hyper = _hyper_host(hyper0)
-    sigma_g = 0.0
-    fix_se = bool(fix_sigma_eps)
-    prev_elbo = initial_elbo(state, hyper, fix_se, sigma_g)
-    elbo_hist = [prev_elbo]
+    prev_elbo = objective(state, hyper, fix_se, sigma_g) if init_elbo is None \
+        else np.array(init_elbo, np.float64).reshape(S)
+    elbo_hist = [prev_elbo.copy()]
     act_hist = [-1]
-    prev_dropped, osc, best_elbo, stall = False, 0, -math.inf, 0
-    sigma_g_counter, div_counter, damping = 0, 0, _f32(1.0)
-    restarts_left = max_restarts
-    status, nit, n_skip = opt.RUNNING, 0, 0
-    active = True
+    status = np.full(S, opt.RUNNING, np.int32)
+    nit = np.zeros(S, np.int32)
+    max_ed_c = np.zeros(S, f32)
+    n_skip = 0
 
     i = 0
-    while i < max_iter and active:
+    while i < max_iter and active.any():
         i += 1
-        gi = i
-        h_dev = _hyper_dev(hyper, dev)
-        act_f = _f32(1.0) * damping
-        act_dev = torch.tensor([float(act_f)], dtype=F32).to(dev)
+        gi = i0 + i
+        act_f = active.astype(f32) * damping
+        hv = torch.from_numpy(np.stack(
+            [hyper.sigma_eps.numpy(), hyper.tau_beta.numpy(), hyper.pi.numpy(),
+             act_f, hyper.lambda_min.numpy()]).astype(f32)).to(dev)
+        h_dev = Hyper(hv[0], hv[1], hv[2], hv[4])
+        act_dev = hv[3]
 
         # ---- E-step ----
-        if use_hybrid:
+        n_act_blk = None
+        if S == 1 and (use_hybrid or use_skip):
+            eps = gate_eps if use_hybrid else ETA_DIFF_EPS
             blk = block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev,
-                                      eps=gate_eps)[0] & bool(act_f > 0.0)
+                                      eps=eps)[0] & bool(act_f[0] > 0.0)
             n_act_blk = blk.sum()
-            blk_mask = torch.where(n_act_blk <= thresh, blk.to(torch.int32),
-                                   ones_blk)
+            blk_mask = blk.to(torch.int32)
+            if use_hybrid:
+                blk_mask = torch.where(n_act_blk <= thresh, blk_mask, ones_blk)
+            state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
+                                                 n_per_snp, h_dev, act_dev,
+                                                 blk_mask)
+        elif S == 1:
+            state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
+                                                 n_per_snp, h_dev, act_dev,
+                                                 ones_blk)
+        elif use_skip:
+            blk = union_block_mask(
+                block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev),
+                act_dev)
+            n_act_blk = blk.sum()
+            state, eta_diff = cavi_sweep_s_skip(ld, state, std_beta,
+                                                n_per_snp, h_dev, act_dev, blk)
         else:
-            n_act_blk = torch.tensor(-1, device=dev)
-            blk_mask = ones_blk
-        state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta, n_per_snp,
-                                             h_dev, act_dev, blk_mask)
+            state, eta_diff = cavi_sweep_s(ld, state, std_beta, n_per_snp,
+                                           h_dev, act_dev)
 
         # ---- reductions with the e-step hyperparameters (one read) ----
-        med_dev = (eta_diff.abs() * mask[None]).amax()
+        med_dev = (eta_diff.abs() * mask[None]).amax(dim=(1, 2))
+        extra_dev = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
         stats, extra = _stats_host(state, n_per_snp, std_beta, mask, h_dev,
-                                   med_dev, n_act_blk)
-        max_ed = _f32(extra[0].item())
-        n_act = int(extra[1].item())
+                                   *extra_dev)
+        max_ed = extra[:S].numpy().astype(f32)
+        n_act = -1 if n_act_blk is None else int(extra[S])
         if use_hybrid and n_act <= thresh:
             n_skip += 1
 
         # ---- M-step and objectives (host, float64) ----
-        fix_cur = fix._replace(sigma_eps=torch.tensor([fix_se]))
+        fix_cur = fix._replace(sigma_eps=torch.from_numpy(fix_se.copy()))
         new_hyper, sg = updates.m_step(stats, hyper, fix_cur, m_total,
-                                       on_host)
-        curr_elbo = float(updates.elbo(stats, new_hyper, fix_cur.sigma_eps,
-                                       sg, n_sample, m_total)[0])
-        curr_mse = float(updates.mse(stats, sg)[0])
-        h2 = float(updates.heritability(sg, new_hyper.sigma_eps)[0])
-        new_sigma_g = float(sg[0])
+                                       torch.from_numpy(active.copy()))
+        sg = np.where(active, sg.numpy(), sigma_g)
+        sg_t = torch.from_numpy(sg)
+        curr = updates.elbo(stats, new_hyper, fix_cur.sigma_eps, sg_t,
+                            n_sample, m_total).numpy()
+        curr = np.where(active, curr, prev_elbo)
+        curr_mse = updates.mse(stats, sg_t).numpy()
+        h2 = updates.heritability(sg_t, new_hyper.sigma_eps).numpy()
+        max_ed = np.where(active, max_ed, max_ed_c)
         hyper = new_hyper
 
         # ---- patience counters ----
-        sigg_cond = (gi > min_iter
-                     and abs(new_sigma_g - sigma_g) <= x_abs_tol
-                     and max_ed < _f32(x_abs_tol * 10.0))
-        sigma_g_counter = sigma_g_counter + 1 if sigg_cond else 0
-        sigma_g = new_sigma_g
-
-        dropped = curr_elbo < prev_elbo
-        div_cond = dropped and not (abs(curr_elbo - prev_elbo)
-                                    <= 1e3 * f_abs_tol + 1e-4 * abs(prev_elbo))
-        div_counter = div_counter + 1 if div_cond else 0
-
-        osc = osc + 1 if (dropped and prev_dropped) else (osc if dropped else 0)
-        if osc > 5 and damping > _f32(0.01):
-            damping = _f32(damping * _f32(0.7))
-            osc = 0
-
-        improved = curr_elbo > best_elbo + f_abs_tol
-        best_elbo = max(best_elbo, curr_elbo)
-        stall = 0 if improved else stall + 1
-        if stall > 2 * patience and damping > _f32(0.01):
-            damping = _f32(damping * _f32(0.5))
-            stall = 0
+        sigg = ((gi > min_iter) & (np.abs(sg - sigma_g) <= x_abs_tol)
+                & (max_ed < f32(x_abs_tol * 10.0)))
+        sgc = np.where(sigg, sgc + 1, 0)
+        dropped = curr < prev_elbo
+        div_cond = dropped & ~(np.abs(curr - prev_elbo)
+                               <= 1e3 * f_abs_tol + 1e-4 * np.abs(prev_elbo))
+        divc = np.where(div_cond, divc + 1, 0)
+        osc = np.where(dropped & prev_dropped, osc + 1,
+                       np.where(dropped, osc, 0))
+        esc = active & (osc > 5) & (damping > f32(0.01))
+        damping = np.where(esc, damping * f32(0.7), damping).astype(f32)
+        osc = np.where(esc, 0, osc)
+        improved = curr > best + f_abs_tol
+        best = np.maximum(best, curr)
+        stall = np.where(improved | ~active, 0, stall + 1)
+        esc = active & (stall > 2 * patience) & (damping > f32(0.01))
+        damping = np.where(esc, damping * f32(0.5), damping).astype(f32)
+        stall = np.where(esc, 0, stall)
 
         # ---- the ladder (ordered) ----
-        sig_e = float(hyper.sigma_eps[0])
-        if curr_mse < 0.0:
-            status = opt.MSE_NEGATIVE
-        elif not math.isfinite(curr_elbo):
-            status = opt.ELBO_NONFINITE
-        elif sig_e < 0.0:
-            status = opt.SIGMA_EPS_NEGATIVE
-        elif h2 > 1.0 or h2 < 0.0:
-            status = opt.H2_OUT_OF_BOUNDS
-        elif gi > min_iter and abs(curr_elbo - prev_elbo) <= f_abs_tol:
-            status = opt.CONVERGED_F
-        elif gi > min_iter and max_ed < _f32(x_abs_tol):
-            status = opt.CONVERGED_X
-        elif sigma_g_counter > patience:
-            status = opt.CONVERGED_SIGMA_G
-        elif div_counter > patience:
-            status = opt.DIVERGED_ELBO
-        else:
-            status = opt.RUNNING
+        st = np.full(S, opt.RUNNING, np.int32)
+        late = gi > min_iter
+        for cond, code in (
+                (curr_mse < 0.0, opt.MSE_NEGATIVE),
+                (~np.isfinite(curr), opt.ELBO_NONFINITE),
+                (hyper.sigma_eps.numpy() < 0.0, opt.SIGMA_EPS_NEGATIVE),
+                ((h2 > 1.0) | (h2 < 0.0), opt.H2_OUT_OF_BOUNDS),
+                (late & (np.abs(curr - prev_elbo) <= f_abs_tol),
+                 opt.CONVERGED_F),
+                (late & (max_ed < f32(x_abs_tol)), opt.CONVERGED_X),
+                (sgc > patience, opt.CONVERGED_SIGMA_G),
+                (divc > patience, opt.DIVERGED_ELBO)):
+            st[(st == opt.RUNNING) & cond] = code
 
-        prev_elbo_out = curr_elbo
-        if (status == opt.MSE_NEGATIVE and restarts_left > 0 and not fix_se
-                and i < max_iter):
-            # in-loop restart on negative MSE (reference behavior)
-            status = opt.RUNNING
-            state = CaviState(
-                logits=torch.full_like(state.logits, float(restart_logit)),
-                mu=torch.zeros_like(state.mu),
-                eta=torch.zeros_like(state.eta),
-                q=torch.zeros_like(state.q))
-            se, tb, pi = (float(_f32(x)) for x in restart_hyper[:3])
-            hyper = Hyper(*(torch.tensor([v], dtype=F64) for v in (se, tb, pi)),
-                          lambda_min=hyper.lambda_min)
-            sigma_g = 0.0
-            fix_se = True
-            prev_elbo_out = initial_elbo(state, hyper, fix_se, sigma_g)
-            prev_dropped, osc, best_elbo, stall = False, 0, -math.inf, 0
-            sigma_g_counter, div_counter, damping = 0, 0, _f32(1.0)
-            restarts_left -= 1
-            dropped = False
+        # ---- in-loop restart on negative MSE (reference behavior) ----
+        prev_out = curr
+        if max_restarts > 0:
+            fire = (active & (st == opt.MSE_NEGATIVE) & (restarts_left > 0)
+                    & ~fix_se & (i < max_iter))
+            if fire.any():
+                st[fire] = opt.RUNNING
+                f3 = torch.from_numpy(fire).to(dev)[:, None, None]
+                rl = torch.from_numpy(np.array(np.broadcast_to(
+                    np.float32(restart_logit), (S,)))).to(dev)[:, None, None]
+                zero = torch.zeros((), dtype=F32, device=dev)
+                state = CaviState(logits=torch.where(f3, rl, state.logits),
+                                  mu=torch.where(f3, zero, state.mu),
+                                  eta=torch.where(f3, zero, state.eta),
+                                  q=torch.where(f3, zero, state.q))
+                fire_t = torch.from_numpy(fire)
+                hyper = Hyper(*(torch.where(fire_t, _hyper_f64(r, S), h)
+                                for r, h in zip(restart_hyper[:3], hyper)),
+                              lambda_min=hyper.lambda_min)
+                sg = np.where(fire, 0.0, sg)
+                fix_se = fix_se | fire
+                prev_out = np.where(fire, objective(state, hyper, fix_se, sg),
+                                    curr)
+                fresh = init_counters(S)
+                dropped = np.where(fire, fresh.prev_dropped, dropped)
+                osc, best, stall, sgc, divc, damping = (
+                    np.where(fire, f, c) for f, c in zip(
+                        fresh[1:], (osc, best, stall, sgc, divc, damping)))
+                damping = damping.astype(f32)
+                restarts_left = restarts_left - fire
 
-        nit = gi
-        active = status == opt.RUNNING
-        elbo_hist.append(curr_elbo)
-        act_hist.append(n_act)
-        prev_elbo = prev_elbo_out
+        newly = active & (st != opt.RUNNING)
+        status = np.where(newly, st, status)
+        nit = np.where(active, gi, nit).astype(np.int32)
+        active = active & ~newly
+        sigma_g = sg
+        prev_elbo = prev_out
         prev_dropped = dropped
+        max_ed_c = max_ed
+        elbo_hist.append(curr)
+        act_hist.append(n_act)
 
-    if active:
-        status = opt.MAX_ITER
-    return EMResult(state=state, hyper=hyper, sigma_g=sigma_g, status=status,
-                    nit=nit, elbo_hist=elbo_hist, n_iter_total=i,
-                    final_elbo=prev_elbo, restarts_used=max_restarts - restarts_left,
-                    act_hist=act_hist, n_skip=n_skip)
+    status = np.where(active, opt.MAX_ITER, status).astype(np.int32)
+    return EMResult(
+        state=state, hyper=Hyper(*(x.numpy() for x in hyper)),
+        sigma_g=sigma_g, status=status, nit=nit, elbo_hist=elbo_hist,
+        n_iter_total=i, final_elbo=prev_elbo,
+        counters=EMCounters.from_numpy(prev_dropped, osc, best, stall, sgc,
+                                       divc, damping),
+        max_eta_diff=max_ed_c,
+        restarts_used=np.full(S, max_restarts, np.int32) - restarts_left,
+        act_hist=act_hist, n_skip=n_skip)

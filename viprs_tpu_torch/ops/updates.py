@@ -15,6 +15,7 @@ objective functions take the (S,) float64 statistics on any device.
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .cavi_torch import CaviState, Hyper
@@ -27,6 +28,14 @@ class FixMask(NamedTuple):
     sigma_eps: torch.Tensor
     tau_beta: torch.Tensor
     pi: torch.Tensor
+
+    @classmethod
+    def from_numpy(cls, sigma_eps, tau_beta, pi):
+        """(S,) bool CPU tensors from array-likes (e.g. ``np.asarray`` of a
+        JAX FixMask, or the model's numpy mask); the M-step runs on the
+        host."""
+        return cls(*(torch.from_numpy(np.array(x, dtype=bool).reshape(-1))
+                     for x in (sigma_eps, tau_beta, pi)))
 
 
 def masked_sum(x, mask):

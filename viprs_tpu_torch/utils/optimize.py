@@ -3,8 +3,11 @@
 The status codes, messages and ``OptimizeResult`` of viprs_tpu.utils.optimize
 (functional parity with the reference's ``viprs/utils/OptimizeResult.py``),
 copied so the port needs no JAX import. The EM loop (ops/em_loop.py) emits
-the codes; ``OptimizeResult.from_status`` summarizes one for the model.
+the codes; ``OptimizeResult.from_status`` summarizes one for the model and
+``summarize_statuses`` one per lane of a grid.
 """
+
+import numpy as np
 
 
 # Status codes emitted by the EM loop (ops/em_loop.py). Order matters:
@@ -99,3 +102,9 @@ class OptimizeResult:
 
     def __str__(self):
         return str(self.__dict__)
+
+
+def summarize_statuses(codes, elbos, nits):
+    """Vector version of ``from_status`` for grid models: one record per model."""
+    return [OptimizeResult.from_status(c, f, n)
+            for c, f, n in zip(np.atleast_1d(codes), np.atleast_1d(elbos), np.atleast_1d(nits))]
