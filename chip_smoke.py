@@ -43,7 +43,34 @@ G3. the genome-scale grid exactly as bench.py: np.random.seed(0), the
    torch.profiler;
 G4. check and time the S-lane kernels against their plain versions at the
    genome's shapes at S = 100 (first iteration's state), against the FP32
-   floor of a sweep.
+   floor of a sweep;
+M1. check the single-model mixture kernels (K5, K6) against their plain
+   versions on the 8-block cut at K = 3: all blocks, half the blocks
+   flagged, none flagged (bit-exact);
+M2. fit the genome with VIPRSMix(ds, 'cuda', K=3).fit(max_iter=500) as
+   bench.py does (np.random.seed(0)), cold then warm (the skip sweep K6),
+   then with sweep_impl='xla' (K5), each with the launch counters reset just
+   before and read just after;
+M3. check the mixture lane kernels (K7, K8) against their plain versions on
+   the cut at S = 20 and K = 3: half the lanes frozen (bit-exact), a union
+   mask at about half the blocks (unflagged blocks bit-exact), and lane
+   independence (3 lanes swept at S = 3 bit-identical to the same lanes at
+   S = 20);
+M4. bench.py's mixture grid on the genome, VIPRSMixGrid(ds,
+   HyperparameterGrid(pi_steps=20, h2_est=0.25, h2_se=0.05), K=3)
+   .fit(max_iter=500), cold then warm (K7), then with sweep_impl='skip'
+   (K8), launch counters as in M2;
+M5. check and time the four mixture kernels against their plain versions
+   at the genome's shapes (the first iteration's state; CUDA events), and
+   hold each kernel's error against a float64 run of its plain version to
+   at most twice the float32 plain version's.
+
+Every kernel's line in the kernels JSON object carries its time, its
+plain version's, the least time the card could take for the same work
+(``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and its
+FP32 operations at 67 TFLOP/s, the published H100 SXM peaks at 700 W) and,
+for the coupling passes, the time of one PyTorch call computing the tile
+products (``library_ms``; the sweeps have none).
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -95,6 +122,27 @@ TOL_COUPLING = 3e-5
 #: them 1e-5 or less against the largest value (max abs error <= 7e-7).
 TOL_S = {'eta': 3e-3, 'mu': 3e-2, 'gamma': 3e-3, 'q': 5e-2, 'eta_diff': 3e-3}
 TOL_COUPLING_S = 2e-4
+#: The same measure for the mixture kernels (K = 3) against their plain
+#: versions, single model and S = 20 lanes, sweep and coupling tiles
+#: together (eta_diff's floor from max|eta|): about 10x the largest readings
+#: on an H100, which come from the lane kernel on the genome's first
+#: iteration: eta 4.7e-4, mu 2.8e-2, q 1.1e-2, gamma 4.5e-4, eta_diff 4.7e-4
+#: (max abs error 1.1e-6, 3e-5 of the largest value). The plain version in
+#: float32 reads as far from a float64 run of it there (mu 2.6e-2, q 1.4e-2):
+#: the small-pi lanes amplify rounding, so M5 also holds each kernel's error
+#: against the float64 run to at most twice the float32 plain version's.
+TOL_MIX = {'eta': 5e-3, 'mu': 3e-1, 'gamma': 5e-3, 'q': 1e-1, 'eta_diff': 5e-3}
+#: M5: max|kernel - float64 plain| <= ACC_RATIO * max|float32 plain -
+#: float64 plain| + ACC_FLOOR, per quantity.
+ACC_RATIO, ACC_FLOOR = 2.0, 1e-9
+#: The JAX package's VIPRSMix(K=3) result on this genome (BENCH_r05.json):
+#: h2; the port is held within 0.005 of it.
+REF_MIX_H2 = 0.2176
+#: The mixture grid of bench.py (bench.py:199-204) and the mixture's K.
+MIX_GRID_SPEC = dict(pi_steps=20, h2_est=0.25, h2_se=0.05)
+MIX_K = 3
+#: The card's published peaks (H100 SXM, 700 W) that bound_ms divides by.
+HBM_TBS = 3.35
 
 
 def fail(msg):
@@ -125,23 +173,26 @@ def cut_blocks(ld, sel, device):
         ld.mask.index_select(0, idx).cpu().numpy(), ld.scale, device=device)
 
 
-def errors(got, want):
-    """(max abs error, max|plain|, relative error as in REL_FLOOR)."""
+def errors(got, want, scale=None):
+    """(max abs error, max|plain|, relative error as in REL_FLOOR; the floor
+    is taken from ``scale`` where given instead of max|plain|)."""
     got, want = got.double(), want.double()
     diff = (got - want).abs()
-    scale = float(want.abs().max())
+    scale = float(want.abs().max()) if scale is None else scale
     den = want.abs().clamp_min(REL_FLOOR * scale) if scale > 0 else 1.0
     return float(diff.max()), scale, float((diff / den).max())
 
 
-def check(tag, name, got, want, bound, abs_errs):
-    """Hold ``got`` to ``want`` within ``bound`` (relative); print the
-    errors and the scale, and record the absolute error."""
-    e_abs, scale, e_rel = errors(got, want)
+def check(tag, name, got, want, bound, abs_errs, scale=None):
+    """Hold ``got`` to ``want`` within ``bound`` (relative, the floor from
+    ``scale`` where given); print the errors and the scale, and record the
+    absolute error."""
+    label = 'max|plain|' if scale is None else 'floor scale'
+    e_abs, scale, e_rel = errors(got, want, scale)
     abs_errs.append(e_abs)
     phase('check', f"{tag}: {name}: relative error {e_rel:.3e} (bound "
                    f"{bound:.0e}); max|kernel - plain| {e_abs:.3e}, "
-                   f"max|plain| {scale:.3e}")
+                   f"{label} {scale:.3e}")
     if not e_rel <= bound:
         fail(f"{tag}: {name} differs from the plain version by {e_rel:.3e} "
              f"relative")
@@ -399,12 +450,15 @@ def main():
     check(f'coupling pass over {ld.n_off} tiles vs refresh_q', 'q',
           cavi_cuda.coupling_pass_s1(ld, st1.q, d1, all_blk),
           cavi_torch.refresh_q(ld, st1.q, d1), TOL_COUPLING, errs_cpl)
-    ld_gb = (ld.diag.numel() + ld.off_data.numel()) / 1e9
+    lib_cpl = library_coupling_ms(ld, d1)
+    b_sweep = bound(*sweep_work(ld, 1, 4, 5, ld.nb))
+    b_cpl = bound(*coupling_work(ld, 1, ld.n_off))
     phase('time', f"first-iteration state, all {ld.nb} blocks: block sweep "
-                  f"{ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms); coupling "
-                  f"pass over {ld.n_off} tiles {ms_cpl:.3f} ms (plain "
-                  f"{plain_cpl:.3f} ms); one-read floor of {ld_gb:.2f} GB at "
-                  f"3.35 TB/s = {ld_gb / 3.35:.3f} ms")
+                  f"{ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms, bound "
+                  f"{b_sweep[0]:.3f} ms by {b_sweep[1]}); coupling pass over "
+                  f"{ld.n_off} tiles {ms_cpl:.3f} ms (plain {plain_cpl:.3f} "
+                  f"ms, one torch.bmm of the tile products {lib_cpl:.3f} ms, "
+                  f"bound {b_cpl[0]:.3f} ms by {b_cpl[1]})")
     # the skip branch at 5% of the blocks active (the kernel pair vs plain)
     few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
     few[::20] = 1
@@ -419,8 +473,10 @@ def main():
                   f"sweep + coupling {ms_skip:.3f} ms (plain "
                   f"{plain_skip:.3f} ms)")
     record['times_ms'] = dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
-                              coupling=ms_cpl, coupling_plain=plain_cpl,
-                              skip_5pct=ms_skip, skip_5pct_plain=plain_skip)
+                              block_sweep_bound=b_sweep, coupling=ms_cpl,
+                              coupling_plain=plain_cpl, coupling_library=lib_cpl,
+                              coupling_bound=b_cpl, skip_5pct=ms_skip,
+                              skip_5pct_plain=plain_skip)
     record['profile'] = profile_fit(ds, fit_kw)
 
     # ---- G1-G4: the model grid (S lanes) ----
@@ -431,34 +487,56 @@ def main():
     record['grid_times_ms'] = grid_times(ds, errs_s, errs_cpl_s)
     g_launch = record['grid']['launches']
 
+    # ---- M1-M5: the mixture prior (VIPRSMix, VIPRSMixGrid) ----
+    errs_mix = {k: [] for k in MIX_KERNELS}
+    record['mix_checks'] = mix_checks(ds, sub, sb, nf, errs_mix)
+    record['mix'] = mix_genome(ds)
+    record['mix_grid'] = mix_grid_genome(ds)
+    record['mix_times_ms'] = mix_times(ds, errs_mix)
+    m_launch = {
+        'cavi_sweep_mix_s1': record['mix']["sweep_impl='xla'"]['launches'],
+        'cavi_sweep_mix_s1_skip': record['mix']['cold']['launches'],
+        'cavi_sweep_mix_s': record['mix_grid']['cold']['launches'],
+        'cavi_sweep_mix_s_skip':
+            record['mix_grid']["sweep_impl='skip'"]['launches']}
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)
 
+    def entry(name, source, replaces, launches, err, ms, plain, bnd, lib):
+        return {'name': name, 'route': 'cuda', 'source': source,
+                'replaces': f'viprs_tpu/ops/cavi_pallas.py:{replaces}',
+                'launches': launches, 'max_abs_err': err, 'ms': ms,
+                'plain_ms': plain, 'bound_ms': bnd[0], 'bound_by': bnd[1],
+                'library_ms': lib}
+
     src = 'viprs_tpu_torch/csrc/cavi_s1.cu'
     src_s = 'viprs_tpu_torch/csrc/cavi_s.cu'
-    gt = record['grid_times_ms']
-    print(json.dumps({'kernels': [
-        {'name': 'cavi_block_sweep_s1', 'route': 'cuda', 'source': src,
-         'replaces': 'viprs_tpu/ops/cavi_pallas.py:133',
-         'launches': launches['cavi_block_sweep_s1'],
-         'max_abs_err': max(errs_sweep), 'ms': ms_sweep,
-         'plain_ms': plain_sweep},
-        {'name': 'coupling_pass_s1', 'route': 'cuda', 'source': src,
-         'replaces': 'viprs_tpu/ops/cavi_pallas.py:492',
-         'launches': launches['coupling_pass_s1'],
-         'max_abs_err': max(errs_cpl), 'ms': ms_cpl,
-         'plain_ms': plain_cpl},
-        {'name': 'cavi_block_sweep_s', 'route': 'cuda', 'source': src_s,
-         'replaces': 'viprs_tpu/ops/cavi_pallas.py:49',
-         'launches': g_launch['cavi_block_sweep_s'],
-         'max_abs_err': max(errs_s), 'ms': gt['block_sweep'],
-         'plain_ms': gt['block_sweep_plain']},
-        {'name': 'coupling_pass_s', 'route': 'cuda', 'source': src_s,
-         'replaces': 'viprs_tpu/ops/cavi_pallas.py:1191',
-         'launches': g_launch['coupling_pass_s'],
-         'max_abs_err': max(errs_cpl_s), 'ms': gt['coupling'],
-         'plain_ms': gt['coupling_plain']}]}), flush=True)
+    t1, gt, mt = record['times_ms'], record['grid_times_ms'], \
+        record['mix_times_ms']
+    kernels = [
+        entry('cavi_block_sweep_s1', src, 133,
+              launches['cavi_block_sweep_s1'], max(errs_sweep),
+              t1['block_sweep'], t1['block_sweep_plain'],
+              t1['block_sweep_bound'], None),
+        entry('coupling_pass_s1', src, 492, launches['coupling_pass_s1'],
+              max(errs_cpl), t1['coupling'], t1['coupling_plain'],
+              t1['coupling_bound'], t1['coupling_library']),
+        entry('cavi_block_sweep_s', src_s, 49, g_launch['cavi_block_sweep_s'],
+              max(errs_s), gt['block_sweep'], gt['block_sweep_plain'],
+              gt['block_sweep_bound'], None),
+        entry('coupling_pass_s', src_s, 1191, g_launch['coupling_pass_s'],
+              max(errs_cpl_s), gt['coupling'], gt['coupling_plain'],
+              gt['coupling_bound'], gt['coupling_library'])]
+    for name, (replaces, _, _) in MIX_KERNELS.items():
+        r = mt[name]
+        kernels.append(entry(name, 'viprs_tpu_torch/csrc/cavi_mix.cu',
+                             replaces.rsplit(':', 1)[1],
+                             m_launch[name][name], max(errs_mix[name]),
+                             r['ms'], r['plain_ms'],
+                             (r['bound_ms'], r['bound_by']), None))
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
@@ -830,18 +908,25 @@ def grid_times(ds, errs, errs_cpl):
     check_state(f'K4, S={S}, {int(few.sum())} of {ld.nb} blocks',
                 cavi_cuda.cavi_sweep_s_skip(ld, st0, sb, nf, h0, act, few),
                 _plain_lanes(ld, st0, sb, nf, h0, act, few), errs, TOL_S)
+    lib_cpl = library_coupling_ms(ld, d1)
+    b_sweep = bound(*sweep_work(ld, S, 4, 5, ld.nb))
+    b_cpl = bound(*coupling_work(ld, S, ld.n_off))
     floor = SWEEP_S100_FMA * 2 / (FP32_TFLOPS * 1e12) * 1e3 * S / 100
     phase('G4', f"S={S}, first-iteration state, all {ld.nb} blocks: block "
                 f"sweep {ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms; FP32 "
                 f"floor {floor:.1f} ms = {100 * floor / ms_sweep:.0f}% of it, "
                 f"{SWEEP_S100_FMA * 2 / ms_sweep / 1e9:.1f} TFLOP/s); coupling "
-                f"pass {ms_cpl:.3f} ms (plain {plain_cpl:.3f} ms); skip "
-                f"sweep at {int(few.sum())} blocks {ms_skip:.3f} ms (plain "
+                f"pass {ms_cpl:.3f} ms (plain {plain_cpl:.3f} ms, one "
+                f"torch.bmm of the tile products {lib_cpl:.3f} ms, bound "
+                f"{b_cpl[0]:.3f} ms by {b_cpl[1]}); skip sweep at "
+                f"{int(few.sum())} blocks {ms_skip:.3f} ms (plain "
                 f"{plain_skip:.3f} ms)")
     del g, st0, st1, d1
     torch.cuda.empty_cache()
     return dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
-                coupling=ms_cpl, coupling_plain=plain_cpl, skip_5pct=ms_skip,
+                block_sweep_bound=b_sweep, coupling=ms_cpl,
+                coupling_plain=plain_cpl, coupling_library=lib_cpl,
+                coupling_bound=b_cpl, skip_5pct=ms_skip,
                 skip_5pct_plain=plain_skip, fp32_floor=floor)
 
 
@@ -894,6 +979,472 @@ def _dataset_from_cut(sub, sb, nf, device):
     n_per_snp = {1: nf.cpu().reshape(-1)[take].double().numpy()}
     return SummaryStatsDataset(ld=ld, layout=layout, std_beta=std_beta,
                                n_per_snp=n_per_snp)
+
+
+# ---------------------------------------------------------------- bounds
+def bound(nbytes, flops):
+    """(the least ms the card could take for the work, what bounds it):
+    ``nbytes`` at HBM_TBS, ``flops`` FP32 operations at FP32_TFLOPS."""
+    t_b = nbytes / (HBM_TBS * 1e12) * 1e3
+    t_o = flops / (FP32_TFLOPS * 1e12) * 1e3
+    return (t_b, 'bytes') if t_b >= t_o else (t_o, 'operations')
+
+
+def sweep_work(ld, S, planes_in, planes_out, n_blocks):
+    """Bytes and FP32 operations of one block sweep over ``n_blocks`` blocks
+    for S lanes: the blocks' int8 diagonal tiles and beta/n/mask read once,
+    ``planes_in`` float32 state planes of (S, n_blocks, B) read and
+    ``planes_out`` written; per tile, 8 inner steps of two (T x T) matvecs
+    and the rank-T update of the block's q (an FMA is 2 operations)."""
+    from viprs_tpu_torch.ops.cavi_torch import INNER_STEPS, TILE
+    B = ld.block_size
+    nbytes = n_blocks * B * B + 4 * n_blocks * B * (
+        3 + S * (planes_in + planes_out))
+    fma = S * n_blocks * (B // TILE) * (INNER_STEPS * 2 * TILE * TILE
+                                        + TILE * B)
+    return nbytes, 2 * fma
+
+
+def coupling_work(ld, S, n_tiles):
+    """Bytes and FP32 operations of a coupling pass over ``n_tiles`` tiles
+    for S lanes: the int8 tiles read once, q and eta_diff read and q
+    written (all blocks), each tile applied both ways."""
+    B = ld.block_size
+    return (n_tiles * B * B + 3 * 4 * S * ld.nb * B,
+            2 * 2 * n_tiles * B * B * S)
+
+
+def _add(*works):
+    return tuple(sum(w[i] for w in works) for i in range(2))
+
+
+def library_coupling_ms(ld, d):
+    """One PyTorch call computing every coupling tile's product both ways:
+    torch.bmm of the float32 tiles and their transposes with the gathered
+    eta changes ``d`` ((S, NB, B)); the scatter-add into q is left out."""
+    import torch
+    U = ld.off_data.float()
+    Uf = torch.cat([U, U.transpose(1, 2)])
+    del U
+    idx = torch.cat([ld.off_dst, ld.off_src]).long()
+    X = d.index_select(1, idx).permute(1, 2, 0).contiguous()
+    ms = time_ms(lambda: torch.bmm(Uf, X), reps=5)
+    del Uf, X
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _tiles_touching(ld, blk):
+    """The number of coupling tiles with a flagged source or destination."""
+    b = blk.to(bool)
+    return int((b[ld.off_src.long()] | b[ld.off_dst.long()]).sum())
+
+
+# ------------------------------------------------------------ the mixture
+#: The four mixture wrappers: (TPU kernel line replaced, lane kernel?,
+#: activity mask?)
+MIX_KERNELS = {
+    'cavi_sweep_mix_s1': ('viprs_tpu/ops/cavi_pallas.py:700', False, False),
+    'cavi_sweep_mix_s1_skip': ('viprs_tpu/ops/cavi_pallas.py:1037', False,
+                               True),
+    'cavi_sweep_mix_s': ('viprs_tpu/ops/cavi_pallas.py:849', True, False),
+    'cavi_sweep_mix_s_skip': ('viprs_tpu/ops/cavi_pallas.py:1593', True,
+                              True),
+}
+
+
+def mix_kernel(name, ld, state, sb, nf, hyper, act=None, blk=None):
+    """Call the mixture wrapper ``name`` (a kernel for CUDA tensors)."""
+    from viprs_tpu_torch.ops import cavi_cuda
+    fn = getattr(cavi_cuda, name)
+    lanes, skip = MIX_KERNELS[name][1:]
+    args = ((act,) if lanes else ()) + ((blk,) if skip else ())
+    return fn(ld, state, sb, nf, hyper, *args)
+
+
+def mix_plain(name, ld, state, sb, nf, hyper, act=None, blk=None):
+    """The plain version of the mixture wrapper ``name``: the plain block
+    sweep of the flagged blocks (the variant mask as the relaxation's
+    diagonal for the skip kernels), then the coupling tiles."""
+    from viprs_tpu_torch.ops import cavi_mix, cavi_torch
+    from viprs_tpu_torch.ops.cavi_mix import MixState
+    lanes, skip = MIX_KERNELS[name][1:]
+    st_l, h_l = (state, hyper) if lanes else \
+        (MixState(*(x[None] for x in state)), hyper.lanes())
+    st, d = cavi_mix.mix_block_sweep(ld, st_l, sb, nf, h_l,
+                                     act if lanes else None,
+                                     blk_mask=blk if skip else None,
+                                     unit_diag=skip)
+    q = cavi_torch.coupling_pass(ld, st.q, d, blk) if skip else \
+        cavi_torch.refresh_q(ld, st.q, d)
+    st = st._replace(q=q)
+    if not lanes:
+        st, d = MixState(*(x[0] for x in st)), d[0]
+    return st, d
+
+
+def mix_plain_f64(name, ld, state, sb, nf, hyper, act=None, blk=None):
+    """``mix_plain`` in float64 on float64 copies of the inputs (the LD stays
+    int8): the plain versions cast to their modules' ``F32``, which is
+    float64 for the duration of the call."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_mix, cavi_torch
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    f64 = torch.float64
+    cavi_mix.F32 = cavi_torch.F32 = f64
+    try:
+        return mix_plain(name, ld, MixState(*(x.to(f64) for x in state)),
+                         sb.to(f64), nf.to(f64),
+                         MixHyper(*(x.to(f64) for x in hyper)),
+                         None if act is None else act.to(f64), blk)
+    finally:
+        cavi_mix.F32 = cavi_torch.F32 = torch.float32
+
+
+def check_accuracy(tag, got, want, exact):
+    """Hold the kernel's (MixState, eta_diff) against a float64 run of the
+    plain version ``exact``: its max abs error at most ACC_RATIO times the
+    float32 plain version's ``want``, plus ACC_FLOOR."""
+    from viprs_tpu_torch.ops.cavi_mix import MixState
+    (gs, gd), (ws, wd), (xs, xd) = got, want, exact
+    for k, a, b, x in zip((*MixState._fields, 'eta_diff'), (*gs, gd),
+                          (*ws, wd), (*xs, xd)):
+        e_k = float((a.double() - x).abs().max())
+        e_p = float((b.double() - x).abs().max())
+        phase('check', f"{tag}: {k} against float64: kernel {e_k:.3e}, "
+                       f"plain float32 {e_p:.3e}")
+        if not e_k <= ACC_RATIO * e_p + ACC_FLOOR:
+            fail(f"{tag}: {k} is further from the float64 plain version "
+                 f"({e_k:.3e}) than {ACC_RATIO} x the float32 plain version "
+                 f"({e_p:.3e})")
+
+
+def check_mix_state(tag, got, want, errs):
+    """Compare two (MixState, eta_diff) pairs within TOL_MIX."""
+    (gs, gd), (ws, wd) = got, want
+    for k in ('eta', 'mu', 'q', 'gamma'):
+        check(tag, k, getattr(gs, k), getattr(ws, k), TOL_MIX[k], errs)
+    # eta_diff is a difference of two eta values, so its rounding is eta's:
+    # its floor comes from max|eta| (after a first sweep the changes are
+    # small against eta, and an ulp of eta would read as a large error)
+    check(tag, 'eta_diff', gd, wd, TOL_MIX['eta_diff'], errs,
+          scale=float(ws.eta.abs().max()))
+
+
+def _mix_lane_state(sub, S, m, rng):
+    """S lanes of mixture state on the cut, from the bench mixture grid's
+    rows: each row's total pi split over the K components, tau_beta as the
+    model's initialization makes it at an h2 of 0.25, gamma and mu spread
+    around them, q = (R - I) eta."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.ops import cavi_torch
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    dev = sub.device
+    K = MIX_K
+    rows = HyperparameterGrid(n_snps=m, **MIX_GRID_SPEC).combine_grids()
+    total = np.array([rows[i % len(rows)]['pi'] for i in range(S)])
+    pis = total[:, None] * rng.dirichlet(np.ones(K), size=S)
+    d = 2.0 ** np.linspace(-min(K - 1, 7), 0, K)
+    tau = d[None] * (m * (pis @ (1.0 / d)) / 0.25)[:, None]
+    shape = (S, K, sub.nb, sub.block_size)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    gamma = t(pis[:, :, None, None] * np.exp(0.3 * rng.standard_normal(shape)))
+    mu = t(rng.standard_normal(shape) * 2e-3)
+    eta = (gamma * mu).sum(dim=1) * sub.mask
+    state = MixState(gamma, mu, eta, cavi_torch.compute_q(sub, eta))
+    hyper = MixHyper(t(np.full(S, 0.75)), t(tau), t(pis), t(np.zeros(S)))
+    return state, hyper
+
+
+def _mix_one(state, hyper, i=0):
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    return (MixState(*(x[i].contiguous() for x in state)),
+            MixHyper(*(x[i] for x in hyper)))
+
+
+def _half_blocks(masks, nb):
+    """Of a mask for each gate epsilon, the one closest to half of nb."""
+    best = None
+    for eps in np.geomspace(1e-8, 1e-1, 57):
+        cand = masks(float(eps))
+        if best is None or abs(int(cand.sum()) - nb // 2) < \
+                abs(int(best.sum()) - nb // 2):
+            best = cand
+    return best
+
+
+def mix_checks(ds, sub, sb, nf, errs):
+    """M1 and M3: the mixture kernels against their plain versions on the
+    cut (K = 3; single model, and S = 20 lanes)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_mix
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    dev = sub.device
+    rng = np.random.default_rng(2)
+    state, hyper = _mix_lane_state(sub, 20, ds.m, rng)
+    one, h1 = _mix_one(state, hyper, 4)
+    nb = sub.nb
+    phase('M1', f"K = {MIX_K}, {nb} blocks cut from the genome, {sub.n_off} "
+                f"coupling tiles; hyperparameters of the bench mixture grid")
+    check_mix_state('K5 all blocks', mix_kernel(
+        'cavi_sweep_mix_s1', sub, one, sb, nf, h1), mix_plain(
+        'cavi_sweep_mix_s1', sub, one, sb, nf, h1), errs['cavi_sweep_mix_s1'])
+    half = torch.zeros(nb, dtype=torch.int32, device=dev)
+    half[::2] = 1
+    name = 'cavi_sweep_mix_s1_skip'
+    got = mix_kernel(name, sub, one, sb, nf, h1, blk=half)
+    check_mix_state('K6 half the blocks flagged', got,
+                    mix_plain(name, sub, one, sb, nf, h1, blk=half),
+                    errs[name])
+    quiet = half == 0
+    for k in MixState._fields[:3]:
+        if not torch.equal(getattr(got[0], k)[..., quiet, :],
+                           getattr(one, k)[..., quiet, :]):
+            fail(f"K6: unflagged blocks' {k} changed")
+    if bool(got[1][quiet].any()):
+        fail("K6: unflagged blocks report an eta change")
+    got = mix_kernel(name, sub, one, sb, nf, h1,
+                     blk=torch.zeros_like(half))
+    for k in MixState._fields:
+        if not torch.equal(getattr(got[0], k), getattr(one, k)):
+            fail(f"K6, no block flagged: {k} changed")
+    phase('check', "K6 unflagged blocks bit-exact (gamma, mu, eta; eta_diff "
+                   "0); no block flagged: state bit-exact (gamma, mu, eta, q)")
+
+    S = state.eta.shape[0]
+    phase('M3', f"S = {S} lanes, K = {MIX_K}, lane groups of 8")
+    act = torch.ones(S, device=dev)
+    full = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper, act)
+    check_mix_state(f'K7 S={S} all active', full, mix_plain(
+        'cavi_sweep_mix_s', sub, state, sb, nf, hyper, act),
+        errs['cavi_sweep_mix_s'])
+    half_act = act.clone()
+    half_act[1::2] = 0.0
+    got = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper, half_act)
+    check_mix_state(f'K7 S={S} half the lanes frozen', got, mix_plain(
+        'cavi_sweep_mix_s', sub, state, sb, nf, hyper, half_act),
+        errs['cavi_sweep_mix_s'])
+    for k in MixState._fields:
+        if not torch.equal(getattr(got[0], k)[1::2], getattr(state, k)[1::2]):
+            fail(f"K7: frozen lanes' {k} changed")
+    if bool(got[1][1::2].any()):
+        fail("K7: frozen lanes report an eta change")
+    phase('check', "K7 frozen lanes bit-exact (gamma, mu, eta, q; eta_diff "
+                   "0)")
+    st_k8 = full[0]
+    blk = _half_blocks(lambda eps: (cavi_mix.mix_block_proposal_mask_batch(
+        sub, st_k8, sb, nf, hyper, eps=eps) & (half_act > 0)[:, None])
+        .any(dim=0), nb).to(torch.int32)
+    if not 0 < int(blk.sum()) < nb:
+        fail("no gate epsilon splits the cut's blocks")
+    name = 'cavi_sweep_mix_s_skip'
+    got = mix_kernel(name, sub, st_k8, sb, nf, hyper, half_act, blk)
+    check_mix_state(f'K8 S={S} union mask flags {int(blk.sum())} of {nb} '
+                    f'blocks, half the lanes frozen', got, mix_plain(
+                        name, sub, st_k8, sb, nf, hyper, half_act, blk),
+                    errs[name])
+    quiet = blk == 0
+    for k in MixState._fields[:3]:
+        if not torch.equal(getattr(got[0], k)[..., quiet, :],
+                           getattr(st_k8, k)[..., quiet, :]) or \
+                not torch.equal(getattr(got[0], k)[1::2],
+                                getattr(st_k8, k)[1::2]):
+            fail(f"K8: unflagged blocks' or frozen lanes' {k} changed")
+    if bool(got[1][:, quiet].any()) or bool(got[1][1::2].any()):
+        fail("K8: unflagged blocks or frozen lanes report an eta change")
+    phase('check', "K8 unflagged blocks and frozen lanes bit-exact (gamma, "
+                   "mu, eta; eta_diff 0)")
+    lanes = torch.tensor([3, 10, 17], device=dev)
+    got3 = mix_kernel('cavi_sweep_mix_s', sub,
+                      MixState(*(x[lanes].contiguous() for x in state)), sb,
+                      nf, MixHyper(*(x[lanes] for x in hyper)),
+                      torch.ones(3, device=dev))
+    for k, a, b in zip((*MixState._fields, 'eta_diff'), (*got3[0], got3[1]),
+                       (*full[0], full[1])):
+        if not torch.equal(a, b[lanes]):
+            fail(f"mixture lane independence: {k} of lanes 3, 10, 17 swept "
+                 f"at S = 3 differs from the same lanes at S = {S}")
+    phase('check', f"mixture lane independence: lanes 3, 10, 17 at S = 3 "
+                   f"bit-identical to the same lanes at S = {S} (gamma, mu, "
+                   f"eta, q, eta_diff)")
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def mix_genome(ds):
+    """M2: VIPRSMix(K=3) on the genome as bench.py fits it, cold, warm and
+    with the all-active sweep; launch counters reset before each fit."""
+    import torch
+    from viprs_tpu_torch.model import VIPRSMix
+    from viprs_tpu_torch.ops import cavi_cuda
+    runs = {}
+    for name, kw in (('cold', {}), ('warm', {}),
+                     ("sweep_impl='xla'", {'sweep_impl': 'xla'})):
+        np.random.seed(0)
+        torch.cuda.synchronize()
+        cavi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        model = VIPRSMix(ds, 'cuda', K=MIX_K).fit(max_iter=500, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        r = model.optim_result
+        runs[name] = dict(seconds=dt, nit=r.nit, h2=model.get_heritability(),
+                          success=bool(r.success), message=r.message,
+                          ms_per_it=1e3 * dt / max(r.nit, 1),
+                          pi=model.pi.tolist(),
+                          launches=dict(cavi_cuda.LAUNCHES))
+        phase('M2', f"VIPRSMix(K={MIX_K}) {name}: {dt:.3f} s, nit {r.nit} "
+                    f"({runs[name]['ms_per_it']:.2f} ms/it), h2 "
+                    f"{model.get_heritability():.6f} (JAX package: "
+                    f"{REF_MIX_H2}), pi {np.round(model.pi, 6).tolist()}, "
+                    f"'{r.message}'; launches {runs[name]['launches']}")
+        if name == 'cold':
+            pip = np.concatenate([model.pip[c] for c in model.chromosomes])
+            if pip.shape != (ds.m,) or not np.isfinite(pip).all():
+                fail("the mixture PIP is not finite of shape (M,)")
+    cold, warm = runs['cold'], runs['warm']
+    if not (cold['success'] and warm['success']):
+        fail(f"VIPRSMix did not converge: {warm['message']}")
+    if warm['nit'] != cold['nit'] or warm['h2'] != cold['h2']:
+        fail("repeated mixture fits differ")
+    if abs(warm['h2'] - REF_MIX_H2) > 0.005:
+        fail(f"the mixture h2 {warm['h2']} is not within 0.005 of "
+             f"{REF_MIX_H2}")
+    if cold['launches']['cavi_sweep_mix_s1_skip'] < 1:
+        fail(f"the default mixture fit never launched K6: {cold['launches']}")
+    if runs["sweep_impl='xla'"]['launches']['cavi_sweep_mix_s1'] < 1:
+        fail("the all-active mixture fit never launched K5")
+    return runs
+
+
+def mix_grid_genome(ds):
+    """M4: bench.py's 20-point mixture grid (K = 3) on the genome, cold,
+    warm and with the union-gated sweep; launch counters as in M2."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSMixGrid
+    from viprs_tpu_torch.ops import cavi_cuda
+    runs = {}
+    for name, kw in (('cold', {}), ('warm', {}),
+                     ("sweep_impl='skip'", {'sweep_impl': 'skip'})):
+        np.random.seed(0)
+        grid = HyperparameterGrid(n_snps=ds.m, **MIX_GRID_SPEC)
+        g = VIPRSMixGrid(ds, grid, 'cuda', K=MIX_K)
+        if g.n_models != 20:
+            fail(f"the bench mixture grid has {g.n_models} points, not 20")
+        torch.cuda.synchronize()
+        cavi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        g.fit(max_iter=500, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        h2 = g.get_heritability()
+        out = dict(fit_s=dt, converged=int(g.converged_models.sum()),
+                   valid=int(g.valid_terminated_models.sum()),
+                   nit_max=int(g._nit.max()),
+                   nit_median=float(np.median(g._nit)),
+                   widths=list(g._chunk_trace),
+                   h2_range=[float(h2.min()), float(h2.max())],
+                   launches=dict(cavi_cuda.LAUNCHES))
+        runs[name] = out
+        phase('M4', f"VIPRSMixGrid(20 x K={MIX_K}) {name}: fit {dt:.3f} s, "
+                    f"converged {out['converged']}/20 (JAX package: 20/20), "
+                    f"valid {out['valid']}/20, nit max {out['nit_max']} "
+                    f"median {out['nit_median']:g}; widths per chunk "
+                    f"{_runs(out['widths'])}; h2 {h2.min():.4f}..{h2.max():.4f}"
+                    f"; launches {out['launches']}")
+        if name != "sweep_impl='skip'" and out['valid'] < 20:
+            fail(f"{name}: only {out['valid']}/20 mixture grid points "
+                 f"terminated validly")
+        if name == 'cold':
+            pip = np.concatenate([g.pip[c] for c in g.chromosomes])
+            if pip.shape != (ds.m, 20) or not np.isfinite(pip).all():
+                fail("the mixture grid's PIP is not finite of shape (M, 20)")
+    if runs['cold']['launches']['cavi_sweep_mix_s'] < 1:
+        fail("the mixture grid never launched K7")
+    if runs["sweep_impl='skip'"]['launches']['cavi_sweep_mix_s_skip'] < 1:
+        fail("the union-gated mixture grid never launched K8")
+    if runs['warm']['widths'] != runs['cold']['widths'] or \
+            runs['warm']['nit_max'] != runs['cold']['nit_max']:
+        fail("repeated mixture grid fits differ")
+    return runs
+
+
+def mix_times(ds, errs):
+    """M5: the mixture kernels against their plain versions at the genome's
+    shapes, from the first iteration's state of VIPRSMix(K=3) and of the
+    20-point mixture grid: checks, times, and the work that bounds them."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSMix, VIPRSMixGrid
+    from viprs_tpu_torch.ops import cavi_mix
+    ld = ds.ld
+    dev = ld.device
+    sb, nf = ds.device_inputs()
+    K = MIX_K
+    np.random.seed(0)
+    m1 = VIPRSMix(ds, 'cuda', K=K)
+    m1.initialize()
+    np.random.seed(0)
+    mg = VIPRSMixGrid(ds, HyperparameterGrid(n_snps=ds.m, **MIX_GRID_SPEC),
+                      'cuda', K=K)
+    mg.initialize()
+    S = mg.n_models
+    act = torch.ones(S, device=dev)
+    inputs = {
+        'cavi_sweep_mix_s1': (m1._state, m1._hyper_dev(), None),
+        'cavi_sweep_mix_s1_skip': (m1._state, m1._hyper_dev(), None),
+        'cavi_sweep_mix_s': (mg._state, mg._hyper_dev(), act),
+        'cavi_sweep_mix_s_skip': (mg._state, mg._hyper_dev(), act)}
+    out = {}
+    for name, (st, h, a) in inputs.items():
+        lanes, skip = MIX_KERNELS[name][1:]
+        blk = None
+        if skip:
+            blk = (cavi_mix.mix_block_proposal_mask_batch(
+                ld, st, sb, nf, h) & (a > 0)[:, None]).any(dim=0) if lanes \
+                else cavi_mix.mix_block_proposal_mask(ld, st, sb, nf, h)
+            blk = blk.to(torch.int32)
+        n_blk = ld.nb if blk is None else int(blk.sum())
+        n_til = ld.n_off if blk is None else _tiles_touching(ld, blk)
+        S_k = S if lanes else 1
+        work = _add(sweep_work(ld, S_k, 2 * K + 2, 2 * K + 3, n_blk),
+                    coupling_work(ld, S_k, n_til))
+        b_ms, b_by = bound(*work)
+        ms = time_ms(lambda: mix_kernel(name, ld, st, sb, nf, h, a, blk),
+                     reps=5)
+        plain = time_ms(lambda: mix_plain(name, ld, st, sb, nf, h, a, blk),
+                        reps=2, warmup=1)
+        got = mix_kernel(name, ld, st, sb, nf, h, a, blk)
+        want = mix_plain(name, ld, st, sb, nf, h, a, blk)
+        tag = f'{name} at the genome, {n_blk} of {ld.nb} blocks'
+        check_mix_state(tag, got, want, errs[name])
+        check_accuracy(tag, got, want,
+                       mix_plain_f64(name, ld, st, sb, nf, h, a, blk))
+        del got, want
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   blocks=n_blk, tiles=n_til, S=S_k, bytes=work[0],
+                   flops=work[1])
+        if skip:
+            few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
+            few[::20] = 1
+            rec['ms_5pct'] = time_ms(lambda: mix_kernel(
+                name, ld, st, sb, nf, h, a, few), reps=5)
+            rec['plain_ms_5pct'] = time_ms(lambda: mix_plain(
+                name, ld, st, sb, nf, h, a, few), reps=2, warmup=1)
+        out[name] = rec
+        phase('M5', f"{name} (S={S_k}, K={K}), first-iteration state, "
+                    f"{n_blk} of {ld.nb} blocks, {n_til} coupling tiles: "
+                    f"{ms:.3f} ms (plain {plain:.3f} ms); bound {b_ms:.3f} ms "
+                    f"by {b_by} ({work[0] / 1e9:.3f} GB, {work[1] / 1e9:.1f} "
+                    f"GFLOP) = {100 * b_ms / ms:.0f}% of it"
+                    + (f"; at {int(few.sum())} blocks {rec['ms_5pct']:.3f} ms "
+                       f"(plain {rec['plain_ms_5pct']:.3f} ms)" if skip
+                       else ''))
+    del m1, mg
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == '__main__':

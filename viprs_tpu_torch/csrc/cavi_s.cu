@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_tile.cuh"
+
 namespace {
 
 constexpr int T = 128;           // tile width: coordinates updated jointly
@@ -42,18 +44,6 @@ static_assert(HALF == 4, "a thread's lanes travel as one float4");
 
 __device__ __forceinline__ float sigmoid(float x) {
     return 1.0f / (1.0f + expf(-x));
-}
-
-// The four int8 values of a char4 word as exact floats, without the
-// quarter-rate int-to-float conversion: each byte, offset by 128, becomes
-// the low mantissa bits of 2^23 and the offset is subtracted again.
-__device__ __forceinline__ float4 i8x4_to_f32(int w) {
-    const unsigned u = static_cast<unsigned>(w) ^ 0x80808080u;
-    const float off = 8388736.0f;   // 2^23 + 128
-    return make_float4(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - off,
-                       __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - off,
-                       __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - off,
-                       __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - off);
 }
 
 __device__ __forceinline__ size_t lane_off(int s, int b, int NB, int B) {

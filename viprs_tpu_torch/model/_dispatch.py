@@ -18,6 +18,18 @@ rule, under the JAX package's names (viprs_tpu/model/_dispatch.py):
 On the card every choice launches a kernel; the JAX package's S < 8 -> XLA
 threshold (``MIN_PALLAS_LANES``) is a TPU measurement and has no
 counterpart: every S >= 2 goes through the lane kernels.
+
+The mixture prior has its own rule (``select_mix_sweep_impl``), the JAX
+package's policy on its TPU backend:
+
+- ``VIPRSMix``: ``None`` and ``'skip'`` take the activity-gated sweep (TPU
+  kernel K6) every iteration (viprs_tpu/model/mix.py:505-506), ``'xla'``
+  and ``'pallas'`` the all-active sweep (K5);
+- ``VIPRSMixGrid``: ``None``, ``'xla'`` and ``'pallas'`` take the
+  all-active lane sweep (K7; the JAX package's policy at S * K >= 8,
+  mix_grid.py:289-291, for every width here), ``'skip'`` the union-gated
+  sweep (K8);
+- ``'hybrid'`` is the single-model VIPRS dispatch and raises for both.
 """
 
 SWEEP_IMPLS = (None, 'xla', 'skip', 'pallas', 'hybrid')
@@ -39,3 +51,19 @@ def select_sweep_impl(S, sweep_impl=None):
     if sweep_impl is None:
         return False, S == 1
     return sweep_impl == 'skip', sweep_impl == 'hybrid'
+
+
+def select_mix_sweep_impl(sweep_impl=None, grid=False):
+    """Decide the sweep rule of a mixture fit (``grid``: a VIPRSMixGrid).
+
+    :returns: ``use_skip``.
+    """
+    if sweep_impl not in SWEEP_IMPLS:
+        raise ValueError(f"sweep_impl must be one of {SWEEP_IMPLS}; got "
+                         f"{sweep_impl!r}")
+    if sweep_impl == 'hybrid':
+        raise ValueError(
+            "sweep_impl='hybrid' is the single-model VIPRS dispatch; mixture "
+            "fits use the all-active sweep ('xla'/'pallas') or the "
+            "activity-gated skip sweep ('skip').")
+    return sweep_impl == 'skip' or (sweep_impl is None and not grid)

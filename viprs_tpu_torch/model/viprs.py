@@ -389,18 +389,6 @@ class VIPRS(BayesPRSModel):
         return self.elbo()
 
     # ------------------------------------------------------------ posterior
-    def _dict_view(self, flat):
-        """(S, NB, B) tensor -> {chrom: (m_c,) numpy at S = 1, (m_c, S) at
-        S > 1}."""
-        lay = self.dataset.layout
-        arr = flat.cpu().numpy().reshape(flat.shape[0], -1)[:, lay.flat_index]
-        out, start = {}, 0
-        for c, sz in zip(lay.chromosomes, lay.chrom_sizes):
-            part = arr[:, start:start + sz]
-            out[c] = part[0] if arr.shape[0] == 1 else part.T
-            start += sz
-        return out
-
     def _materialize_posterior_moments(self):
         if self._state is None:
             return

@@ -40,6 +40,13 @@ SIGNATURES = {
     # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, q_in, eta_diff,
     # q_out, S, nb, B, scale, stream
     'coupling_pass_s_launch': [P] * 9 + [I32, I32, I32, F32, P],
+    # the mixture block sweeps (csrc/cavi_mix.cu): diag, beta, n, mask,
+    # gamma, mu, eta, q (in), gamma, mu, eta, q, eta_diff (out), blk_mask,
+    # hyper, [S,] K, nb, B, scale, inner_steps, unit_diag, stream
+    'cavi_block_sweep_mix_s1_launch': [P] * 15 + [I32, I32, I32, F32, I32,
+                                                  I32, P],
+    'cavi_block_sweep_mix_s_launch': [P] * 15 + [I32, I32, I32, I32, F32,
+                                                 I32, I32, P],
 }
 
 

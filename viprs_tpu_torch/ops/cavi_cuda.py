@@ -20,6 +20,14 @@ blocks flagged) and ``cavi_sweep_s_skip`` (K4, the union of the live lanes'
 activity masks) are their compositions. A lane with active == 0 passes
 through bit-exactly.
 
+Mixture prior (VIPRSMix), ``csrc/cavi_mix.cu``: ``block_sweep_mix`` launches
+``cavi_block_sweep_mix_s1`` (single model, one CTA per block) or
+``cavi_block_sweep_mix_s`` (S lanes, one CTA per lane group and block); the
+coupling tiles after them are the passes above. ``cavi_sweep_mix_s1`` (K5,
+all blocks), ``cavi_sweep_mix_s1_skip`` (K6, the activity mask),
+``cavi_sweep_mix_s`` (K7) and ``cavi_sweep_mix_s_skip`` (K8, the union mask)
+are the compositions, each counted under its own name.
+
 Each kernel wrapper takes the plain version in ops/cavi_torch.py for CPU
 tensors, and for CUDA tensors launches its kernel or raises: there is no
 fallback. ``LAUNCHES`` counts kernel launches (never plain-version calls).
@@ -28,15 +36,18 @@ fallback. ``LAUNCHES`` counts kernel launches (never plain-version calls).
 import numpy as np
 import torch
 
-from . import cavi_torch
+from . import cavi_mix, cavi_torch
 from .block_ld import BlockLD
+from .cavi_mix import MixHyper, MixState
 from .cavi_torch import CaviState, Hyper, ETA_DIFF_EPS, INNER_STEPS, TILE
 
 F32 = torch.float32
 
 #: Kernel launches per kernel name since the last ``reset_launches()``.
 LAUNCHES = {'cavi_block_sweep_s1': 0, 'coupling_pass_s1': 0,
-            'cavi_block_sweep_s': 0, 'coupling_pass_s': 0}
+            'cavi_block_sweep_s': 0, 'coupling_pass_s': 0,
+            'cavi_sweep_mix_s1': 0, 'cavi_sweep_mix_s1_skip': 0,
+            'cavi_sweep_mix_s': 0, 'cavi_sweep_mix_s_skip': 0}
 
 
 def reset_launches():
@@ -287,3 +298,131 @@ def block_proposal_mask(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     eta_star = torch.sigmoid(u_star) * mu_star
     prop = (eta_star - state.eta).abs() * ld.mask[None]
     return prop.amax(dim=2) >= eps
+
+
+def _mix_hyper_rows(hyper: MixHyper, active, device):
+    """(4 + 2K, S) float32 rows [sigma_eps, lambda_min, active, log_null_pi,
+    tau_beta_0..K-1, pi_0..K-1] of S lanes ((S,) / (S, K) hyperparameters)."""
+    h = hyper.to32()
+    rows = torch.cat([
+        torch.stack([h.sigma_eps, h.lambda_min, active.to(F32),
+                     cavi_mix.log_null_pi(h.pi)]),
+        h.tau_beta.t(), h.pi.t()])
+    return rows.to(device=device, dtype=F32).contiguous()
+
+
+def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
+                    hyper: MixHyper, active, blk_mask, unit_diag, count):
+    """Mixture sweep of the blocks flagged in ``blk_mask`` ((NB,) int32) for
+    S lanes: gamma/mu (S, K, NB, B), eta/q (S, NB, B) float32; hyper (S,) /
+    (S, K). ``active``: (S,) float32 step scales, or None for the single
+    model (S = 1; kernels K5/K6 have no step scale). ``unit_diag``: the
+    relaxation's diagonal term is the variant mask (K6/K8). ``count``: the
+    LAUNCHES entry a launch adds to.
+
+    :returns: (new_state, eta_diff), coupling tiles not applied.
+    """
+    if state.eta.device.type == 'cpu':
+        return cavi_mix.mix_block_sweep(ld, state, std_beta, n_per_snp, hyper,
+                                        active, blk_mask=blk_mask,
+                                        unit_diag=unit_diag)
+    from ._build import build
+    lib, _ = build()
+    dev = ld.device
+    nb, B = ld.nb, ld.block_size
+    S, K = state.gamma.shape[:2]
+    if B % TILE:
+        raise ValueError(f"block size {B} is not a multiple of {TILE}")
+    if not 1 <= K <= 8:
+        raise ValueError(f"the mixture kernels take 1 <= K <= 8; got K={K}")
+    if active is None and S != 1:
+        raise ValueError(f"the single-model sweep takes one lane; got S={S}")
+    _check('diag', ld.diag, torch.int8, (nb, B, B), dev)
+    for name, x in (('std_beta', std_beta), ('n_per_snp', n_per_snp),
+                    ('mask', ld.mask)):
+        _check(name, x, F32, (nb, B), dev)
+    for name, x in zip(MixState._fields, state):
+        _check(name, x, F32, (S, K, nb, B) if name in ('gamma', 'mu')
+               else (S, nb, B), dev)
+    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
+    ones = torch.ones(S, dtype=F32, device=dev)
+    hv = _mix_hyper_rows(hyper, ones if active is None else active, dev)
+    _check('hyper', hv, F32, (4 + 2 * K, S), dev)
+    out = MixState(*(torch.empty_like(x) for x in state))
+    eta_diff = torch.empty_like(state.eta)
+    ptrs = (ld.diag.data_ptr(), std_beta.data_ptr(), n_per_snp.data_ptr(),
+            ld.mask.data_ptr(), *(x.data_ptr() for x in state),
+            *(x.data_ptr() for x in out), eta_diff.data_ptr(),
+            blk_mask.data_ptr(), hv.data_ptr())
+    tail = (nb, B, float(np.float32(ld.scale)), INNER_STEPS, int(unit_diag),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if active is None:
+        err = lib.cavi_block_sweep_mix_s1_launch(*ptrs, K, *tail)
+        _raise_on(err, 'cavi_block_sweep_mix_s1')
+    else:
+        err = lib.cavi_block_sweep_mix_s_launch(*ptrs, S, K, *tail)
+        _raise_on(err, 'cavi_block_sweep_mix_s')
+    LAUNCHES[count] += 1
+    return out, eta_diff
+
+
+def _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask, unit_diag,
+                  count):
+    blk_mask = blk_mask.to(torch.int32)
+    lanes = MixState(*(x[None] for x in state))
+    new, eta_diff = block_sweep_mix(ld, lanes, std_beta, n_per_snp,
+                                    hyper.lanes(), None, blk_mask, unit_diag,
+                                    count)
+    q = coupling_pass_s1(ld, new.q, eta_diff, blk_mask)
+    return MixState(new.gamma[0], new.mu[0], new.eta[0], q[0]), eta_diff[0]
+
+
+def cavi_sweep_mix_s1(ld: BlockLD, state: MixState, std_beta, n_per_snp,
+                      hyper: MixHyper):
+    """The single-model all-active mixture sweep, coupling included
+    (replaces cavi_pallas.cavi_sweep_mixture_pallas, K5): state gamma/mu
+    (K, NB, B), eta/q (NB, B); hyper scalars and (K,). Returns (new_state,
+    eta_diff)."""
+    return _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper,
+                         _all_blocks(ld), False, 'cavi_sweep_mix_s1')
+
+
+def cavi_sweep_mix_s1_skip(ld: BlockLD, state: MixState, std_beta,
+                           n_per_snp, hyper: MixHyper, blk_mask):
+    """The single-model mixture sweep over the blocks flagged in
+    ``blk_mask`` ((NB,) bool or int, e.g. cavi_mix.mix_block_proposal_mask;
+    replaces cavi_pallas.cavi_sweep_mixture_pallas_skip, K6): unflagged
+    blocks pass through bit-exactly, the coupling tiles touching a flagged
+    block are applied, and the relaxation takes the variant mask as the unit
+    diagonal."""
+    return _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask,
+                         True, 'cavi_sweep_mix_s1_skip')
+
+
+def cavi_sweep_mix_s(ld: BlockLD, state: MixState, std_beta, n_per_snp,
+                     hyper: MixHyper, active):
+    """The all-active S-lane mixture sweep, coupling included (replaces
+    cavi_pallas.cavi_sweep_mixture_pallas_batch, K7): state gamma/mu
+    (S, K, NB, B), eta/q (S, NB, B); hyper (S,) / (S, K); active (S,)
+    float32 (0 freezes a lane bit-exactly)."""
+    blk_mask = _all_blocks(ld)
+    new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
+                                    active.to(F32), blk_mask, False,
+                                    'cavi_sweep_mix_s')
+    return new._replace(q=coupling_pass_s(ld, new.q, eta_diff, blk_mask)), \
+        eta_diff
+
+
+def cavi_sweep_mix_s_skip(ld: BlockLD, state: MixState, std_beta, n_per_snp,
+                          hyper: MixHyper, active, blk_mask):
+    """The S-lane mixture sweep over the blocks flagged in ``blk_mask``
+    ((NB,) bool or int: the union over the live lanes of
+    cavi_mix.mix_block_proposal_mask_batch; replaces
+    cavi_pallas.cavi_sweep_mixture_pallas_skip_batch, K8), the variant mask
+    as the unit diagonal."""
+    blk_mask = blk_mask.to(torch.int32)
+    new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
+                                    active.to(F32), blk_mask, True,
+                                    'cavi_sweep_mix_s_skip')
+    return new._replace(q=coupling_pass_s(ld, new.q, eta_diff, blk_mask)), \
+        eta_diff
