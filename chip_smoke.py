@@ -29,9 +29,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
 G1. check the S-lane kernels (K3, K4) against their plain versions on the
    8-block cut at S = 100 with the bench grid's hyperparameter rows: all
    lanes and blocks active, half the lanes frozen (bit-exact), half the
-   blocks flagged (quiescent blocks bit-exact), the coupling pass against
-   refresh_q, S = 3 and S = 13, and lane independence (lanes 3, 50, 97 swept
-   at S = 3 bit-identical to the same lanes at S = 100);
+   blocks flagged (quiescent blocks bit-exact), S = 3 and S = 13, and lane
+   independence (lanes 3, 50, 97 swept at S = 3 bit-identical to the same
+   lanes at S = 100); the coupling pass alone against refresh_q, its input
+   q untouched, frozen lanes and the slabs no tile with a flagged end
+   reaches bit-exact, and its lanes bit-identical at S = 3, on either side
+   of each lane tile's boundary (4|5, 16|17, 32|33) and at S = 101;
 G2. a 16-point grid fit on the cut, kernels on the card against the plain
    versions on the CPU, chunk_iters=2 so that lane compaction engages;
 G3. the genome-scale grid exactly as bench.py: np.random.seed(0), the
@@ -43,7 +46,10 @@ G3. the genome-scale grid exactly as bench.py: np.random.seed(0), the
    torch.profiler;
 G4. check and time the S-lane kernels against their plain versions at the
    genome's shapes at S = 100 (first iteration's state), against the FP32
-   floor of a sweep;
+   floor of a sweep; the coupling pass at S = 2, 8, 16, 20 and 100 against
+   refresh_q, one torch.bmm of the tile products and its bound, on the
+   genome's tiles (mostly exact zeros, which it skips) and on dense random
+   tiles of the same shapes (held to a float64 run);
 M1. check the single-model mixture kernels (K5, K6) against their plain
    versions on the 8-block cut at K = 3: all blocks, half the blocks
    flagged, none flagged (bit-exact);
@@ -63,14 +69,16 @@ M4. bench.py's mixture grid on the genome, VIPRSMixGrid(ds,
 M5. check and time the four mixture kernels against their plain versions
    at the genome's shapes (the first iteration's state; CUDA events), and
    hold each kernel's error against a float64 run of its plain version to
-   at most twice the float32 plain version's.
+   at most twice the float32 plain version's; time the coupling part of K7
+   and K8 (S = 20) alone, against its plain version and torch.bmm.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and its
-FP32 operations at 67 TFLOP/s, the published H100 SXM peaks at 700 W) and,
-for the coupling passes, the time of one PyTorch call computing the tile
-products (``library_ms``; the sweeps have none).
+FP32 operations at 67 TFLOP/s, the published H100 SXM peaks at 700 W; for
+the coupling passes what the tiles' nonzero entries need, ``coupling_work``)
+and, for the coupling passes, the time of one PyTorch call computing the
+tile products (``library_ms``; the sweeps have none).
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -135,6 +143,10 @@ TOL_MIX = {'eta': 5e-3, 'mu': 3e-1, 'gamma': 5e-3, 'q': 1e-1, 'eta_diff': 5e-3}
 #: M5: max|kernel - float64 plain| <= ACC_RATIO * max|float32 plain -
 #: float64 plain| + ACC_FLOOR, per quantity.
 ACC_RATIO, ACC_FLOOR = 2.0, 1e-9
+#: G4, the S-lane coupling pass on dense random tiles, the same measure:
+#: its sums run k in order over 1024 terms, against cuBLAS's blocked sums
+#: in the plain version, so its rounding error is the larger one.
+ACC_RATIO_DENSE = 8.0
 #: The JAX package's VIPRSMix(K=3) result on this genome (BENCH_r05.json):
 #: h2; the port is held within 0.005 of it.
 REF_MIX_H2 = 0.2176
@@ -280,8 +292,16 @@ def main():
                   f"M={ds.m} NB={ld.nb} B={ld.block_size} n_off={ld.n_off} "
                   f"LD {ld.diag.numel() / 1e9:.3f}+{ld.off_data.numel() / 1e9:.3f}"
                   f" GB int8")
+    nnz = int((ld.off_data != 0).sum())
+    nz_blocks = int(ld.off_nz.sum())
+    phase('data', f"coupling tiles: {nnz} nonzero entries of "
+                  f"{ld.off_data.numel()}, in {nz_blocks} of "
+                  f"{ld.off_nz.numel()} blocks of 32 x 32; "
+                  f"{ld.cpl_slabs.numel()} block slabs of 128 coordinates "
+                  f"that a tile can change")
     record.update(m=ds.m, nb=ld.nb, n_off=ld.n_off, synth_s=t_syn,
-                  pack_s=t_pack)
+                  pack_s=t_pack, off_nnz=nnz, off_nz_blocks=nz_blocks,
+                  cpl_slabs=ld.cpl_slabs.numel())
     if ld.n_off == 0:
         fail("the genome has no coupling tiles")
 
@@ -452,7 +472,7 @@ def main():
           cavi_torch.refresh_q(ld, st1.q, d1), TOL_COUPLING, errs_cpl)
     lib_cpl = library_coupling_ms(ld, d1)
     b_sweep = bound(*sweep_work(ld, 1, 4, 5, ld.nb))
-    b_cpl = bound(*coupling_work(ld, 1, ld.n_off))
+    b_cpl = bound(*coupling_work(ld, 1))
     phase('time', f"first-iteration state, all {ld.nb} blocks: block sweep "
                   f"{ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms, bound "
                   f"{b_sweep[0]:.3f} ms by {b_sweep[1]}); coupling pass over "
@@ -469,14 +489,18 @@ def main():
     check_state(f'{int(few.sum())} of {ld.nb} blocks active',
                 cavi_cuda.cavi_sweep_s1_skip(ld, st0, sb_f, nf_f, h0, act, few),
                 _plain_skip(ld, st0, sb_f, nf_f, h0, act, few), errs_sweep)
-    phase('time', f"skip branch, {int(few.sum())} of {ld.nb} blocks active: "
-                  f"sweep + coupling {ms_skip:.3f} ms (plain "
-                  f"{plain_skip:.3f} ms)")
+    b_skip = bound(*_add(sweep_work(ld, 1, 4, 5, int(few.sum())),
+                         coupling_work(ld, 1, few)))
+    phase('time', f"skip branch, {int(few.sum())} of {ld.nb} blocks active, "
+                  f"{_tiles_touching(ld, few)} coupling tiles: sweep + "
+                  f"coupling {ms_skip:.3f} ms (plain {plain_skip:.3f} ms, "
+                  f"bound {b_skip[0]:.3f} ms by {b_skip[1]})")
     record['times_ms'] = dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
                               block_sweep_bound=b_sweep, coupling=ms_cpl,
                               coupling_plain=plain_cpl, coupling_library=lib_cpl,
                               coupling_bound=b_cpl, skip_5pct=ms_skip,
-                              skip_5pct_plain=plain_skip)
+                              skip_5pct_plain=plain_skip,
+                              skip_5pct_bound=b_skip)
     record['profile'] = profile_fit(ds, fit_kw)
 
     # ---- G1-G4: the model grid (S lanes) ----
@@ -663,10 +687,7 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
 
     diff = torch.as_tensor(rng.standard_normal(tuple(state.q.shape)) * 1e-3,
                            dtype=torch.float32, device=dev) * sub.mask
-    check('coupling_pass_s vs refresh_q, S=100', 'q',
-          cavi_cuda.coupling_pass_s(sub, state.q, diff, ones),
-          cavi_torch.refresh_q(sub, state.q, diff), TOL_COUPLING_S,
-          errs_cpl)
+    coupling_checks(sub, state.q, diff, errs_cpl)
 
     for n in (3, 13):
         idx = torch.arange(n, device=dev) * 7
@@ -694,6 +715,65 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
     rec['sweep_max_abs_err'] = max(errs)
     rec['coupling_max_abs_err'] = max(errs_cpl)
     return rec
+
+
+def coupling_checks(sub, q, diff, errs):
+    """G1, the S-lane coupling pass alone on the cut (S = 100 lanes): against
+    refresh_q; its input q untouched; frozen lanes (a zero eta change) and
+    the slabs that no tile with a flagged end reaches bit-exact; every lane
+    bit-identical whatever the width it is applied at, across the lane
+    tiles' boundaries and past the largest tile (S = 101)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    dev = sub.device
+    S = q.shape[0]
+    ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
+    q0 = q.clone()
+    full = cavi_cuda.coupling_pass_s(sub, q, diff, ones)
+    check(f'coupling_pass_s vs refresh_q, S={S}', 'q', full,
+          cavi_torch.refresh_q(sub, q, diff), TOL_COUPLING_S, errs)
+    if not torch.equal(q, q0):
+        fail("coupling_pass_s wrote its input q")
+
+    frozen = diff.clone()
+    frozen[1::2] = 0.0
+    got = cavi_cuda.coupling_pass_s(sub, q, frozen, ones)
+    check(f'coupling_pass_s, S={S}, half the lanes frozen', 'q', got,
+          cavi_torch.refresh_q(sub, q, frozen), TOL_COUPLING_S, errs)
+    if not torch.equal(got[1::2], q[1::2]):
+        fail("coupling_pass_s: frozen lanes' q changed")
+
+    blk = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
+    blk[int(sub.off_dst[0])] = 1
+    got = cavi_cuda.coupling_pass_s(sub, q, diff, blk)
+    check(f'coupling_pass_s, S={S}, block {int(sub.off_dst[0])} flagged',
+          'q', got, cavi_torch.coupling_pass(sub, q, diff, blk),
+          TOL_COUPLING_S, errs)
+    idle = ~_slabs_with_work(sub, blk).reshape(-1)
+    view = (S, idle.numel(), 128)
+    if not torch.equal(got.reshape(view)[:, idle], q.reshape(view)[:, idle]):
+        fail("coupling_pass_s: a slab that no tile with a flagged end "
+             "reaches changed")
+    phase('check', f"coupling_pass_s: input q untouched; frozen lanes and "
+                   f"the {int(idle.sum())} of {idle.numel()} block slabs that "
+                   f"no tile with a flagged end reaches bit-exact")
+
+    widths = []
+    for n in (3, *(L + e for L in cavi_cuda.COUPLING_LANE_TILES[:-1]
+                   for e in (0, 1)), S + 1):
+        lanes = torch.tensor([3, 50, 97], device=dev) if n == 3 else \
+            torch.arange(n, device=dev) % S
+        got = cavi_cuda.coupling_pass_s(sub, q[lanes].contiguous(),
+                                        diff[lanes].contiguous(), ones)
+        if not torch.equal(got, full[lanes]):
+            fail(f"coupling lane independence: S = {n} (lane tile "
+                 f"{cavi_cuda.coupling_lane_tile(n)}) differs from the same "
+                 f"lanes at S = {S}")
+        widths.append(f"{n} ({cavi_cuda.coupling_lane_tile(n)})")
+    phase('check', f"coupling lane independence: lanes 3, 50, 97 at S = 3 "
+                   f"and the first lanes at S (lane tile) = "
+                   f"{', '.join(widths[1:])} bit-identical to the same lanes "
+                   f"at S = {S}")
 
 
 def grid_cut_fit(sub, sb, nf):
@@ -892,13 +972,11 @@ def grid_times(ds, errs, errs_cpl):
     check_state(f'S={S}, all {ld.nb} blocks', (st1, d1),
                 cavi_torch.block_sweep(ld, st0, sb, nf, h0, act), errs,
                 TOL_S)
-    ms_cpl = time_ms(lambda: cavi_cuda.coupling_pass_s(ld, st1.q, d1, ones),
-                     reps=5)
-    plain_cpl = time_ms(lambda: cavi_torch.refresh_q(ld, st1.q, d1), reps=2,
-                        warmup=1)
-    check(f'coupling_pass_s over {ld.n_off} tiles vs refresh_q, S={S}', 'q',
-          cavi_cuda.coupling_pass_s(ld, st1.q, d1, ones),
-          cavi_torch.refresh_q(ld, st1.q, d1), TOL_COUPLING_S, errs_cpl)
+    cpl = coupling_times(ld, st1.q, d1, ones, COUPLING_WIDTHS, errs_cpl)
+    dense = dense_tiles(ld)
+    cpl_dense = coupling_times(dense, st1.q, d1, ones, COUPLING_WIDTHS,
+                               errs_cpl, tag='G4 dense', exact=refresh_q_f64)
+    del dense
     few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
     few[::20] = 1
     ms_skip = time_ms(lambda: cavi_cuda.cavi_sweep_s_skip(
@@ -908,26 +986,116 @@ def grid_times(ds, errs, errs_cpl):
     check_state(f'K4, S={S}, {int(few.sum())} of {ld.nb} blocks',
                 cavi_cuda.cavi_sweep_s_skip(ld, st0, sb, nf, h0, act, few),
                 _plain_lanes(ld, st0, sb, nf, h0, act, few), errs, TOL_S)
-    lib_cpl = library_coupling_ms(ld, d1)
     b_sweep = bound(*sweep_work(ld, S, 4, 5, ld.nb))
-    b_cpl = bound(*coupling_work(ld, S, ld.n_off))
+    b_skip = bound(*_add(sweep_work(ld, S, 4, 5, int(few.sum())),
+                         coupling_work(ld, S, few)))
     floor = SWEEP_S100_FMA * 2 / (FP32_TFLOPS * 1e12) * 1e3 * S / 100
+    c = cpl[S]
     phase('G4', f"S={S}, first-iteration state, all {ld.nb} blocks: block "
                 f"sweep {ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms; FP32 "
                 f"floor {floor:.1f} ms = {100 * floor / ms_sweep:.0f}% of it, "
                 f"{SWEEP_S100_FMA * 2 / ms_sweep / 1e9:.1f} TFLOP/s); coupling "
-                f"pass {ms_cpl:.3f} ms (plain {plain_cpl:.3f} ms, one "
-                f"torch.bmm of the tile products {lib_cpl:.3f} ms, bound "
-                f"{b_cpl[0]:.3f} ms by {b_cpl[1]}); skip sweep at "
-                f"{int(few.sum())} blocks {ms_skip:.3f} ms (plain "
-                f"{plain_skip:.3f} ms)")
+                f"pass {c['ms']:.3f} ms (plain {c['plain_ms']:.3f} ms, one "
+                f"torch.bmm of the tile products {c['library_ms']:.3f} ms, "
+                f"bound {c['bound_ms']:.3f} ms by {c['bound_by']}); skip "
+                f"sweep at {int(few.sum())} blocks, "
+                f"{_tiles_touching(ld, few)} coupling tiles {ms_skip:.3f} ms "
+                f"(plain {plain_skip:.3f} ms, bound {b_skip[0]:.3f} ms by "
+                f"{b_skip[1]})")
     del g, st0, st1, d1
     torch.cuda.empty_cache()
     return dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
-                block_sweep_bound=b_sweep, coupling=ms_cpl,
-                coupling_plain=plain_cpl, coupling_library=lib_cpl,
-                coupling_bound=b_cpl, skip_5pct=ms_skip,
-                skip_5pct_plain=plain_skip, fp32_floor=floor)
+                block_sweep_bound=b_sweep, coupling=c['ms'],
+                coupling_plain=c['plain_ms'], coupling_library=c['library_ms'],
+                coupling_bound=(c['bound_ms'], c['bound_by']),
+                coupling_widths=cpl, coupling_widths_dense=cpl_dense,
+                skip_5pct=ms_skip,
+                skip_5pct_plain=plain_skip, skip_5pct_bound=b_skip,
+                fp32_floor=floor)
+
+
+#: G4 times the S-lane coupling pass at these widths: the grid's chunks
+#: (100, then 16 and 2 after compaction) and the mixture grid's (20, 8).
+COUPLING_WIDTHS = (2, 8, 16, 20, 100)
+
+
+def dense_tiles(ld, seed=0):
+    """The LD operator with its coupling tiles replaced by dense random int8
+    tiles (seeded): the coupling pass's dense path at the same shapes (the
+    genome's own tiles are mostly exact zeros, which the kernel skips)."""
+    import dataclasses
+    import torch
+    g = torch.Generator(device=ld.device).manual_seed(seed)
+    off = torch.randint(-127, 128, tuple(ld.off_data.shape), generator=g,
+                        device=ld.device, dtype=torch.int8)
+    from viprs_tpu_torch.ops.block_ld import coupling_slabs
+    nz = np.ones(tuple(ld.off_nz.shape), np.uint8)
+    slabs = coupling_slabs(nz, ld.off_src.cpu().numpy(),
+                           ld.off_dst.cpu().numpy(), ld.nb)
+    return dataclasses.replace(
+        ld, off_data=off, off_nz=torch.ones_like(ld.off_nz),
+        cpl_slabs=torch.as_tensor(slabs, device=ld.device))
+
+
+def coupling_times(ld, q, d, blk, widths, errs, tag='G4', exact=None):
+    """The S-lane coupling pass at the first ``S`` lanes of (q, d) for each
+    width S: the kernel in place on a copy of q (as the sweeps apply it), the
+    public wrapper (a clone, then the kernel), refresh_q / coupling_pass,
+    one torch.bmm of the tile products and the bound; each result held
+    against the plain version (``exact``: against this float64 version,
+    with the float32 plain version's own error as the yardstick)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    tiles = bmm_tiles(ld)
+    n_til = _tiles_touching(ld, blk)
+    n_w = int(_slabs_with_work(ld, blk).sum())
+    out = {}
+    for S in widths:
+        qs, ds = q[:S], d[:S]
+        plain = (lambda: cavi_torch.refresh_q(ld, qs, ds)) if n_til == \
+            ld.n_off else (lambda: cavi_torch.coupling_pass(ld, qs, ds, blk))
+        scratch = qs.clone()
+        ms = time_ms(lambda: cavi_cuda.coupling_pass_s_inplace(
+            ld, scratch, ds, blk), reps=10)
+        ms_clone = time_ms(lambda: cavi_cuda.coupling_pass_s(ld, qs, ds, blk),
+                           reps=10)
+        plain_ms = time_ms(plain, reps=2, warmup=1)
+        lib = library_coupling_ms(ld, ds, tiles)
+        del scratch
+        got = cavi_cuda.coupling_pass_s(ld, qs, ds, blk)
+        if exact is None:
+            check(f'coupling_pass_s over {n_til} tiles vs the plain version, '
+                  f'S={S}', 'q', got, plain(), TOL_COUPLING_S, errs)
+        else:
+            # random dense tiles: q cancels, so the float32 plain version is
+            # itself far from the exact sum; hold both to a float64 run
+            x = exact(ld, qs, ds)
+            e_k = float((got.double() - x).abs().max())
+            e_p = float((plain().double() - x).abs().max())
+            errs.append(e_k)
+            phase('check', f"{tag} S={S}: q against float64: kernel "
+                           f"{e_k:.3e}, plain float32 {e_p:.3e}")
+            if not e_k <= ACC_RATIO_DENSE * e_p + ACC_FLOOR:
+                fail(f"{tag} S={S}: coupling_pass_s is further from the "
+                     f"float64 sum ({e_k:.3e}) than {ACC_RATIO_DENSE} x the "
+                     f"float32 plain version ({e_p:.3e})")
+            del x
+        del got
+        b_ms, b_by = bound(*coupling_work(ld, S, blk))
+        out[S] = dict(ms=ms, ms_with_clone=ms_clone, plain_ms=plain_ms,
+                      library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                      lane_tile=cavi_cuda.coupling_lane_tile(S), tiles=n_til,
+                      slabs=n_w)
+        phase(tag, f"coupling_pass_s S={S} (lane tile "
+                   f"{out[S]['lane_tile']}), {n_til} tiles, {n_w} block slabs "
+                   f"with work: {ms:.3f} ms in place, {ms_clone:.3f} ms with "
+                   f"the clone (plain {plain_ms:.3f} ms, torch.bmm {lib:.3f} "
+                   f"ms, "
+                   f"bound {b_ms:.3f} ms by {b_by} = {100 * b_ms / ms:.0f}% "
+                   f"of it)")
+    del tiles
+    torch.cuda.empty_cache()
+    return out
 
 
 def _plain_skip(ld, state, sb, nf, hyper, act, blk):
@@ -1005,28 +1173,55 @@ def sweep_work(ld, S, planes_in, planes_out, n_blocks):
     return nbytes, 2 * fma
 
 
-def coupling_work(ld, S, n_tiles):
-    """Bytes and FP32 operations of a coupling pass over ``n_tiles`` tiles
-    for S lanes: the int8 tiles read once, q and eta_diff read and q
-    written (all blocks), each tile applied both ways."""
-    B = ld.block_size
-    return (n_tiles * B * B + 3 * 4 * S * ld.nb * B,
-            2 * 2 * n_tiles * B * B * S)
+def coupling_work(ld, S, blk=None):
+    """Bytes and FP32 operations that a coupling pass over the tiles with a
+    flagged end (``blk`` (NB,) int; None: all) needs on this LD, for S
+    lanes. int8 LD that decays with distance is mostly exact zeros in the
+    coupling tiles, so this counts what the data needs (``BlockLD.off_nz``):
+    the nonzero 32 x 32 blocks of those tiles read once, the eta change of
+    the 32-coordinate chunks they multiply read once, q of the slabs of 128
+    coordinates they can change read and written, and one FMA (2
+    operations) per nonzero element per lane, each tile applied both ways."""
+    import torch
+    on = torch.ones(ld.n_off, dtype=torch.bool, device=ld.device) \
+        if blk is None else _tiles_on(ld, blk)
+    src, dst = ld.off_src.long()[on], ld.off_dst.long()[on]
+    nz = ld.off_nz.bool()[on]                        # (n, m, m)
+    nnz = int((ld.off_data != 0).sum(dim=(1, 2))[on].sum())
+    m = nz.shape[1]
+    reads = torch.zeros(ld.nb, m, dtype=torch.int32, device=ld.device)
+    reads.index_add_(0, dst, nz.any(dim=1).int())   # b = src reads dst's
+    reads.index_add_(0, src, nz.any(dim=2).int())   # b = dst reads src's
+    ns = m // 4
+    writes = torch.zeros(ld.nb, ns, dtype=torch.int32, device=ld.device)
+    writes.index_add_(0, src, nz.reshape(-1, ns, 4 * m).any(dim=2).int())
+    writes.index_add_(0, dst, nz.reshape(-1, m, ns, 4).any(dim=(1, 3)).int())
+    nbytes = (int(nz.sum()) * 32 * 32 + 4 * S * 32 * int((reads > 0).sum())
+              + 2 * 4 * S * 128 * int((writes > 0).sum()))
+    return nbytes, 2 * 2 * nnz * S
 
 
 def _add(*works):
     return tuple(sum(w[i] for w in works) for i in range(2))
 
 
-def library_coupling_ms(ld, d):
-    """One PyTorch call computing every coupling tile's product both ways:
-    torch.bmm of the float32 tiles and their transposes with the gathered
-    eta changes ``d`` ((S, NB, B)); the scatter-add into q is left out."""
+def bmm_tiles(ld):
+    """The float32 coupling tiles and their transposes, (2 n_off, B, B), and
+    the block each one's product reads: the operands of library_coupling_ms
+    that do not depend on the eta change."""
     import torch
     U = ld.off_data.float()
-    Uf = torch.cat([U, U.transpose(1, 2)])
-    del U
-    idx = torch.cat([ld.off_dst, ld.off_src]).long()
+    return (torch.cat([U, U.transpose(1, 2)]),
+            torch.cat([ld.off_dst, ld.off_src]).long())
+
+
+def library_coupling_ms(ld, d, tiles=None):
+    """One PyTorch call computing every coupling tile's product both ways:
+    torch.bmm of the float32 tiles and their transposes (``bmm_tiles``,
+    made here unless given) with the gathered eta changes ``d``
+    ((S, NB, B)); the scatter-add into q is left out."""
+    import torch
+    Uf, idx = bmm_tiles(ld) if tiles is None else tiles
     X = d.index_select(1, idx).permute(1, 2, 0).contiguous()
     ms = time_ms(lambda: torch.bmm(Uf, X), reps=5)
     del Uf, X
@@ -1034,10 +1229,44 @@ def library_coupling_ms(ld, d):
     return ms
 
 
+def _tiles_on(ld, blk):
+    """(n_off,) bool: the coupling tiles with a flagged source or
+    destination."""
+    b = blk.to(bool)
+    return b[ld.off_src.long()] | b[ld.off_dst.long()]
+
+
 def _tiles_touching(ld, blk):
     """The number of coupling tiles with a flagged source or destination."""
-    b = blk.to(bool)
-    return int((b[ld.off_src.long()] | b[ld.off_dst.long()]).sum())
+    return int(_tiles_on(ld, blk).sum())
+
+
+def _slabs_with_work(ld, blk):
+    """(NB, B / 128) bool: the slabs of 128 coordinates that a coupling
+    tile with a flagged end holds a nonzero for (in its rows for its src
+    block, in its columns for its dst block)."""
+    import torch
+    on = _tiles_on(ld, blk)
+    nz = ld.off_nz.bool()[on]
+    m = nz.shape[1]
+    hit = torch.zeros(ld.nb, m // 4, dtype=torch.int32, device=ld.device)
+    hit.index_add_(0, ld.off_src.long()[on],
+                   nz.reshape(-1, m // 4, 4 * m).any(dim=2).int())
+    hit.index_add_(0, ld.off_dst.long()[on],
+                   nz.reshape(-1, m, m // 4, 4).any(dim=(1, 3)).int())
+    return hit > 0
+
+
+def refresh_q_f64(ld, q, d):
+    """cavi_torch.refresh_q in float64 on float64 copies of q and the eta
+    change (the LD stays int8)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_torch
+    cavi_torch.F32 = torch.float64
+    try:
+        return cavi_torch.refresh_q(ld, q.double(), d.double())
+    finally:
+        cavi_torch.F32 = torch.float32
 
 
 # ------------------------------------------------------------ the mixture
@@ -1378,7 +1607,7 @@ def mix_times(ds, errs):
     import torch
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSMix, VIPRSMixGrid
-    from viprs_tpu_torch.ops import cavi_mix
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_mix
     ld = ds.ld
     dev = ld.device
     sb, nf = ds.device_inputs()
@@ -1392,6 +1621,7 @@ def mix_times(ds, errs):
     mg.initialize()
     S = mg.n_models
     act = torch.ones(S, device=dev)
+    ones = torch.ones(ld.nb, dtype=torch.int32, device=dev)
     inputs = {
         'cavi_sweep_mix_s1': (m1._state, m1._hyper_dev(), None),
         'cavi_sweep_mix_s1_skip': (m1._state, m1._hyper_dev(), None),
@@ -1410,7 +1640,7 @@ def mix_times(ds, errs):
         n_til = ld.n_off if blk is None else _tiles_touching(ld, blk)
         S_k = S if lanes else 1
         work = _add(sweep_work(ld, S_k, 2 * K + 2, 2 * K + 3, n_blk),
-                    coupling_work(ld, S_k, n_til))
+                    coupling_work(ld, S_k, blk))
         b_ms, b_by = bound(*work)
         ms = time_ms(lambda: mix_kernel(name, ld, st, sb, nf, h, a, blk),
                      reps=5)
@@ -1433,6 +1663,14 @@ def mix_times(ds, errs):
                 name, ld, st, sb, nf, h, a, few), reps=5)
             rec['plain_ms_5pct'] = time_ms(lambda: mix_plain(
                 name, ld, st, sb, nf, h, a, few), reps=2, warmup=1)
+        if lanes:
+            # the coupling part alone, on the block sweep's output
+            mask = ones if blk is None else blk
+            new, d = cavi_cuda.block_sweep_mix(ld, st, sb, nf, h, a, mask,
+                                               skip, name)
+            rec['coupling'] = coupling_times(ld, new.q, d, mask, (S_k,),
+                                             errs[name], tag='M5')[S_k]
+            del new, d
         out[name] = rec
         phase('M5', f"{name} (S={S_k}, K={K}), first-iteration state, "
                     f"{n_blk} of {ld.nb} blocks, {n_til} coupling tiles: "

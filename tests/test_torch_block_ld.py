@@ -83,6 +83,31 @@ def test_from_numpy_carries_jax_fields(sim):
     assert ptr[-1] == 2 * jld.n_off
 
 
+@pytest.mark.parametrize('B', [128, 256])
+def test_from_numpy_flags_the_nonzero_blocks(B):
+    """off_nz flags exactly the 32 x 32 blocks of each coupling tile that
+    hold a nonzero, on tiles that are zero but for scattered entries."""
+    rng = np.random.default_rng(B)
+    nb, pairs = 6, [(0, 1), (0, 2), (3, 4), (4, 5)]
+    off = np.zeros((len(pairs), B, B), np.int8)
+    for o in range(len(pairs)):
+        r, c = rng.integers(0, B, 5), rng.integers(0, B, 5)
+        off[o, r, c] = rng.integers(1, 127, 5)
+    off[2] = 0
+    ld = block_ld.BlockLD.from_numpy(
+        np.zeros((nb, B, B), np.int8), off, [p[0] for p in pairs],
+        [p[1] for p in pairs], np.ones((nb, B), np.float32), 1 / 127,
+        device='cpu')
+    m = B // 32
+    assert ld.off_nz.dtype == torch.uint8 and ld.off_nz.shape == (4, m, m)
+    for o in range(len(pairs)):
+        for i in range(m):
+            for j in range(m):
+                want = off[o, 32 * i:32 * i + 32, 32 * j:32 * j + 32].any()
+                assert ld.off_nz[o, i, j] == want
+    assert not ld.off_nz[2].any()
+
+
 def test_dataset_inputs_and_ld_scores(sim):
     """device_inputs and compute_ld_scores against the JAX dataset."""
     args = (sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'])

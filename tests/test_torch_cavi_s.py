@@ -161,6 +161,115 @@ def test_select_sweep_impl_decision_table(S, impl, expect):
         assert _dispatch.select_sweep_impl(S, impl) == expect
 
 
+def _expected_coupling_slabs(off, off_src, off_dst, nb):
+    """numpy enumeration of coupling_pass_s's launch plan from the tiles
+    themselves: the slabs of 128 coordinates of a tile's src block (in its
+    rows) and dst block (in its columns) that hold a nonzero, as
+    b * (B / 128) + slab, most such tiles first, ties ascending."""
+    ns = off.shape[1] // 128
+    count = np.zeros(nb * ns, np.int64)
+    for o, (s, d) in enumerate(zip(off_src, off_dst)):
+        for x in range(ns):
+            count[s * ns + x] += off[o, 128 * x:128 * (x + 1), :].any()
+            count[d * ns + x] += off[o, :, 128 * x:128 * (x + 1)].any()
+    return np.array([e for e in sorted(range(nb * ns),
+                                       key=lambda e: (-count[e], e))
+                     if count[e] > 0], np.int32)
+
+
+@pytest.mark.parametrize('case', ['problem', 'chain', 'sparse'])
+def test_coupling_launch_plan_matches_numpy_enumeration(problem, case):
+    """The launch plan of coupling_pass_s, ``BlockLD.cpl_slabs``: the
+    (block, slab) pairs some coupling tile can change, built on the device
+    side once per LD; in 'sparse' most tiles are zero but for a corner and
+    one is all zero, so only a few slabs are listed. (Which of them a mask
+    reaches is decided inside the kernel, which G1 of chip_smoke.py checks
+    on the card.)"""
+    rng = np.random.default_rng(7)
+    if case == 'problem':
+        ld = problem['ld']
+    else:
+        nb, B = (9, 128) if case == 'chain' else (40, 256)
+        pairs = [(0, 1), (0, 2), (1, 2), (4, 5), (6, 7), (6, 8), (7, 8)] \
+            if case == 'chain' else [(3, 4), (10, 11), (20, 22), (21, 22)]
+        off = rng.integers(-127, 128, (len(pairs), B, B)).astype(np.int8)
+        if case == 'sparse':
+            off[:, :200, :] = 0
+            off[:, :, 40:] = 0
+            off[2] = 0
+        ld = BlockLD.from_numpy(np.zeros((nb, B, B), np.int8), off,
+                                [p[0] for p in pairs], [p[1] for p in pairs],
+                                np.ones((nb, B), np.float32), 1 / 127,
+                                device='cpu')
+    got = ld.cpl_slabs
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    want = _expected_coupling_slabs(ld.off_data.numpy(), ld.off_src.numpy(),
+                                    ld.off_dst.numpy(), ld.nb)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == 'sparse':
+        # three nonzero tiles: src slab 1 (rows 200..), dst slab 0 (..40)
+        assert len(want) == 6
+
+
+def test_coupling_lane_tile_matches_enumeration():
+    """The lane tile by S: the smallest instance that holds S, else 100 with
+    ceil(S / 100) lane tiles; every lane is covered exactly once."""
+    tiles = (4, 16, 32, 100)
+    assert cavi_cuda.COUPLING_LANE_TILES == tiles
+    for S in range(1, 260):
+        want = min([L for L in tiles if L >= S] or [100])
+        L = cavi_cuda.coupling_lane_tile(S)
+        assert L == want, S
+        n_tiles = -(-S // L)
+        assert (n_tiles - 1) * L < S <= n_tiles * L
+    assert [cavi_cuda.coupling_lane_tile(S) for S in (2, 8, 16, 20, 100)] \
+        == [4, 16, 16, 32, 100]
+
+
+@pytest.mark.parametrize('mask', ['all', 'one', 'none'])
+def test_coupling_pass_s_leaves_its_input_untouched_on_cpu(problem, mask):
+    """coupling_pass_s returns a new q and never writes its input (the CPU
+    takes the plain version; the card runs the kernel on a clone), and
+    equals the JAX package's refresh_q / coupling restriction."""
+    nb = problem['nb']
+    st, _ = make_state(problem, 5, seed=3)
+    rng = np.random.default_rng(4)
+    diff = (1e-2 * rng.standard_normal(st[2].shape) * problem['mask']
+            ).astype(np.float32)
+    blk = {'all': np.ones(nb, np.int32), 'none': np.zeros(nb, np.int32),
+           'one': np.eye(nb, dtype=np.int32)[int(problem['ld'].off_dst[0])]
+           }[mask]
+    q = torch.from_numpy(st[3].copy())
+    got = cavi_cuda.coupling_pass_s(problem['ld'], q, torch.from_numpy(diff),
+                                    torch.from_numpy(blk))
+    np.testing.assert_array_equal(q.numpy(), st[3])
+    want = cavi_torch.coupling_pass(problem['ld'], torch.from_numpy(st[3]),
+                                    torch.from_numpy(diff),
+                                    torch.from_numpy(blk))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if mask == 'all':
+        assert got is not q
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(cavi_jax.refresh_q(
+                problem['jld'], jnp.asarray(st[3]), jnp.asarray(diff))),
+            atol=1e-5, rtol=0)
+    if mask == 'none':
+        np.testing.assert_array_equal(got.numpy(), st[3])
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_coupling_pass_s_inplace_refuses_cpu_tensors(problem):
+    """The in-place launcher is the kernel's alone: CPU tensors raise (the
+    plain version is coupling_pass_s's)."""
+    st, _ = make_state(problem, 2, seed=1)
+    q = torch.from_numpy(st[3].copy())
+    with pytest.raises(ValueError, match='card'):
+        cavi_cuda.coupling_pass_s_inplace(
+            problem['ld'], q, torch.zeros_like(q),
+            torch.ones(problem['nb'], dtype=torch.int32))
+    np.testing.assert_array_equal(q.numpy(), st[3])
+
+
 def test_lane_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
                                                           tmp_path):
     """A tensor that is not on the CPU goes to the lane kernels or raises:

@@ -37,9 +37,10 @@ SIGNATURES = {
     # the S-lane kernels (csrc/cavi_s.cu): the same pointers, then S, nb, B,
     # scale, inner_steps, stream
     'cavi_block_sweep_s_launch': [P] * 15 + [I32, I32, I32, F32, I32, P],
-    # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, q_in, eta_diff,
-    # q_out, S, nb, B, scale, stream
-    'coupling_pass_s_launch': [P] * 9 + [I32, I32, I32, F32, P],
+    # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, off_nz, slabs,
+    # eta_diff, q (updated in place), n_slabs, S, nb, B, scale, lane tile,
+    # stream
+    'coupling_pass_s_launch': [P] * 10 + [I32, I32, I32, I32, F32, I32, P],
     # the mixture block sweeps (csrc/cavi_mix.cu): diag, beta, n, mask,
     # gamma, mu, eta, q (in), gamma, mu, eta, q, eta_diff (out), blk_mask,
     # hyper, [S,] K, nb, B, scale, inner_steps, unit_diag, stream

@@ -10,10 +10,16 @@ so both packages compute on the same bytes):
 
 int8 storage carries the global dequantization ``scale`` = 1/127.
 
-For the CUDA coupling kernel the operator also carries, per block, the
+For the CUDA coupling kernels the operator also carries, per block, the
 fixed ascending-order list of the coupling tiles incident to it
 (``inc_ptr``/``inc_tile``, CSR): one CTA per block walks that list, so the
-coupling pass needs no atomics and its sums are deterministic.
+coupling pass needs no atomics and its sums are deterministic. It also
+flags the 32 x 32 blocks of each coupling tile that hold a nonzero
+(``off_nz``) and lists the slabs of 128 coordinates that some tile's
+product can change (``cpl_slabs``), so the S-lane coupling kernel launches
+only for those and skips the parts of a tile that are exactly zero (int8
+LD that decays with distance is mostly zero away from the tiles' near
+corner).
 """
 
 import dataclasses
@@ -23,6 +29,10 @@ import numpy as np
 import torch
 
 INT8_SCALE = 1.0 / 127.0
+#: Side of the blocks of a coupling tile that ``off_nz`` flags, and the
+#: coordinates of a slab of the S-lane coupling kernel (four blocks).
+NZ_BLOCK = 32
+SLAB = 128
 
 
 def incident_tiles(off_src, off_dst, nb):
@@ -42,6 +52,44 @@ def incident_tiles(off_src, off_dst, nb):
     return inc_ptr, tiles2[order].astype(np.int32)
 
 
+def nonzero_blocks(off_data):
+    """(n_off, ceil(B/32), ceil(B/32)) uint8: 1 where a 32 x 32 block of a
+    coupling tile holds a nonzero."""
+    off_data = np.asarray(off_data)
+    n, B = off_data.shape[0], off_data.shape[1]
+    m = -(-B // NZ_BLOCK)
+    nz = off_data != 0
+    if m * NZ_BLOCK != B:
+        pad = m * NZ_BLOCK - B
+        nz = np.pad(nz, ((0, 0), (0, pad), (0, pad)))
+    return nz.reshape(n, m, NZ_BLOCK, m, NZ_BLOCK).any(axis=(2, 4)) \
+        .astype(np.uint8)
+
+
+def coupling_slabs(off_nz, off_src, off_dst, nb):
+    """The (block, slab of 128 coordinates) pairs that some coupling tile
+    can change, as b * ceil(B/128) + slab: a tile changes the slabs of its
+    src block that its rows hold a nonzero in, and those of its dst block
+    that its columns do. Most such tiles first, ties ascending.
+
+    :param off_nz: ``nonzero_blocks`` of the tiles.
+    :returns: (k,) int32.
+    """
+    n, m = off_nz.shape[0], off_nz.shape[1]
+    per = SLAB // NZ_BLOCK
+    k = -(-m // per)
+    f = np.zeros((n, k * per, k * per), bool)
+    f[:, :m, :m] = off_nz != 0
+    rows = f.reshape(n, k, per * k * per).any(axis=2)
+    cols = f.reshape(n, k * per, k, per).any(axis=(1, 3))
+    count = np.zeros((nb, k), np.int64)
+    np.add.at(count, np.asarray(off_src, np.int64), rows)
+    np.add.at(count, np.asarray(off_dst, np.int64), cols)
+    count = count.reshape(-1)
+    order = np.argsort(-count, kind='stable')
+    return order[count[order] > 0].astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockLD:
     """Device-side blocked LD operator.
@@ -53,6 +101,8 @@ class BlockLD:
     :ivar mask: (NB, B) float32, 1.0 on real variant lanes, 0.0 on padding.
     :ivar inc_ptr: (NB+1,) int32 CSR offsets into ``inc_tile``.
     :ivar inc_tile: (2*n_off,) int32 incident tiles of each block, ascending.
+    :ivar off_nz: (n_off, B/32, B/32) uint8 ``nonzero_blocks``.
+    :ivar cpl_slabs: (k,) int32 ``coupling_slabs``.
     :ivar scale: dequantization multiplier (1.0 for float storage).
     """
     diag: torch.Tensor
@@ -62,6 +112,8 @@ class BlockLD:
     mask: torch.Tensor
     inc_ptr: torch.Tensor
     inc_tile: torch.Tensor
+    off_nz: torch.Tensor
+    cpl_slabs: torch.Tensor
     scale: float
 
     @property
@@ -91,6 +143,7 @@ class BlockLD:
         off_src = np.asarray(off_src, np.int32).reshape(-1)
         off_dst = np.asarray(off_dst, np.int32).reshape(-1)
         inc_ptr, inc_tile = incident_tiles(off_src, off_dst, nb)
+        off_nz = nonzero_blocks(off_data)
 
         def put(x):
             return torch.from_numpy(np.require(x, requirements=['C', 'W'])).to(device)
@@ -98,6 +151,8 @@ class BlockLD:
                    off_src=put(off_src), off_dst=put(off_dst),
                    mask=put(np.asarray(mask, np.float32)),
                    inc_ptr=put(inc_ptr), inc_tile=put(inc_tile),
+                   off_nz=put(off_nz),
+                   cpl_slabs=put(coupling_slabs(off_nz, off_src, off_dst, nb)),
                    scale=float(scale))
 
 

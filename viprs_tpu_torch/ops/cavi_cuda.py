@@ -15,10 +15,13 @@ of the hybrid EM iteration:
 
 Model grid (S lanes), ``csrc/cavi_s.cu``: ``block_sweep_s`` launches
 ``cavi_block_sweep_s`` (one CTA per lane group and block) and
-``coupling_pass_s`` launches ``coupling_pass_s``; ``cavi_sweep_s`` (K3, all
-blocks flagged) and ``cavi_sweep_s_skip`` (K4, the union of the live lanes'
-activity masks) are their compositions. A lane with active == 0 passes
-through bit-exactly.
+``coupling_pass_s_inplace`` launches ``coupling_pass_s`` (one CTA per
+block's slab of 128 coordinates that a coupling tile can change, and lane
+tile), which updates q in place; ``coupling_pass_s`` runs it on a clone.
+``cavi_sweep_s`` (K3, all blocks flagged) and ``cavi_sweep_s_skip`` (K4,
+the union of the live lanes' activity masks) are their compositions, and
+apply the coupling tiles in place on the q their block sweep has just
+written. A lane with active == 0 passes through bit-exactly.
 
 Mixture prior (VIPRSMix), ``csrc/cavi_mix.cu``: ``block_sweep_mix`` launches
 ``cavi_block_sweep_mix_s1`` (single model, one CTA per block) or
@@ -221,15 +224,32 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     return out, eta_diff
 
 
-def coupling_pass_s(ld: BlockLD, q, eta_diff, blk_mask):
-    """q plus the coupling tiles incident to a block flagged in ``blk_mask``
-    ((NB,) int32), applied to ``eta_diff``, for S lanes. q, eta_diff:
-    (S, NB, B) float32. Returns a new q (q itself when there is no coupling
-    tile)."""
+#: The lane tiles of ``coupling_pass_s``: lanes per CTA, one kernel
+#: instance each. A lane's arithmetic is the same in all of them.
+COUPLING_LANE_TILES = (4, 16, 32, 100)
+
+
+def coupling_lane_tile(S):
+    """The lane tile of ``coupling_pass_s`` for S lanes: the smallest that
+    holds S, else the largest (then ceil(S / 100) lane tiles)."""
+    return next((L for L in COUPLING_LANE_TILES if S <= L),
+                COUPLING_LANE_TILES[-1])
+
+
+def coupling_pass_s_inplace(ld: BlockLD, q, eta_diff, blk_mask):
+    """``q += `` the coupling tiles incident to a block flagged in
+    ``blk_mask`` ((NB,) int32), applied to ``eta_diff``, for S lanes, in
+    place on the card: one launch of ``coupling_pass_s``, a CTA for each
+    (block, slab of 128 coordinates) of ``ld.cpl_slabs`` and lane tile; a
+    CTA returns at once where no incident tile with a flagged end reaches
+    its slab, and skips the chunks of a tile that are exactly zero. q of
+    every other slab is not touched. Nothing is read back to the host.
+    q, eta_diff: (S, NB, B) float32 CUDA tensors. Returns q."""
     if ld.n_off == 0:
         return q
     if q.device.type == 'cpu':
-        return cavi_torch.coupling_pass(ld, q, eta_diff, blk_mask)
+        raise ValueError("coupling_pass_s_inplace runs on the card; "
+                         "coupling_pass_s takes CPU tensors")
     from ._build import build
     lib, _ = build()
     dev = ld.device
@@ -240,18 +260,48 @@ def coupling_pass_s(ld: BlockLD, q, eta_diff, blk_mask):
         _check(name, x, torch.int32, (ld.n_off,), dev)
     _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
     _check('inc_tile', ld.inc_tile, torch.int32, (2 * ld.n_off,), dev)
+    _check('off_nz', ld.off_nz, torch.uint8, (ld.n_off, B // 32, B // 32),
+           dev)
+    slabs = ld.cpl_slabs
+    _check('cpl_slabs', slabs, torch.int32, (slabs.numel(),), dev)
     _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
     _check('q', q, F32, (S, nb, B), dev)
     _check('eta_diff', eta_diff, F32, (S, nb, B), dev)
-    q_out = torch.empty_like(q)
+    for name, x in (('off_data', ld.off_data), ('q', q),
+                    ('eta_diff', eta_diff)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     err = lib.coupling_pass_s_launch(
         ld.off_data.data_ptr(), ld.off_src.data_ptr(), ld.off_dst.data_ptr(),
         ld.inc_ptr.data_ptr(), ld.inc_tile.data_ptr(), blk_mask.data_ptr(),
-        q.data_ptr(), eta_diff.data_ptr(), q_out.data_ptr(), S, nb, B,
-        float(np.float32(ld.scale)), torch.cuda.current_stream(dev).cuda_stream)
+        ld.off_nz.data_ptr(), slabs.data_ptr(), eta_diff.data_ptr(),
+        q.data_ptr(), slabs.numel(), S, nb, B, float(np.float32(ld.scale)),
+        coupling_lane_tile(S), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, 'coupling_pass_s')
     LAUNCHES['coupling_pass_s'] += 1
-    return q_out
+    return q
+
+
+def coupling_pass_s(ld: BlockLD, q, eta_diff, blk_mask):
+    """q plus the coupling tiles incident to a block flagged in ``blk_mask``
+    ((NB,) int32), applied to ``eta_diff``, for S lanes. q, eta_diff:
+    (S, NB, B) float32. Returns a new q and never writes the given one (on
+    the card the kernel runs in place on a clone; q itself when there is
+    no coupling tile)."""
+    if ld.n_off == 0:
+        return q
+    if q.device.type == 'cpu':
+        return cavi_torch.coupling_pass(ld, q, eta_diff, blk_mask)
+    return coupling_pass_s_inplace(ld, q.clone(), eta_diff, blk_mask)
+
+
+def _couple_s(ld: BlockLD, q, eta_diff, blk_mask):
+    """The coupling tiles after an S-lane block sweep: in place on the q the
+    sweep kernel has just written (a fresh tensor) on the card, the plain
+    version on the CPU."""
+    if q.device.type == 'cpu':
+        return coupling_pass_s(ld, q, eta_diff, blk_mask)
+    return coupling_pass_s_inplace(ld, q, eta_diff, blk_mask)
 
 
 def cavi_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
@@ -273,7 +323,7 @@ def cavi_sweep_s_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_s(ld, state, std_beta, n_per_snp, hyper,
                                   active, blk_mask)
-    q = coupling_pass_s(ld, new.q, eta_diff, blk_mask)
+    q = _couple_s(ld, new.q, eta_diff, blk_mask)
     return new._replace(q=q), eta_diff
 
 
@@ -409,7 +459,7 @@ def cavi_sweep_mix_s(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
                                     active.to(F32), blk_mask, False,
                                     'cavi_sweep_mix_s')
-    return new._replace(q=coupling_pass_s(ld, new.q, eta_diff, blk_mask)), \
+    return new._replace(q=_couple_s(ld, new.q, eta_diff, blk_mask)), \
         eta_diff
 
 
@@ -424,5 +474,5 @@ def cavi_sweep_mix_s_skip(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
                                     active.to(F32), blk_mask, True,
                                     'cavi_sweep_mix_s_skip')
-    return new._replace(q=coupling_pass_s(ld, new.q, eta_diff, blk_mask)), \
+    return new._replace(q=_couple_s(ld, new.q, eta_diff, blk_mask)), \
         eta_diff
