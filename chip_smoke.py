@@ -29,10 +29,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
 G1. check the S-lane kernels (K3, K4) against their plain versions on the
    8-block cut at S = 100 with the bench grid's hyperparameter rows: all
    lanes and blocks active, half the lanes frozen (bit-exact), half the
-   blocks flagged (quiescent blocks bit-exact), S = 3 and S = 13, and lane
-   independence (lanes 3, 50, 97 swept at S = 3 bit-identical to the same
-   lanes at S = 100); the coupling pass alone against refresh_q, its input
-   q untouched, frozen lanes and the slabs no tile with a flagged end
+   blocks flagged (quiescent blocks bit-exact), S = 3 and S = 13, lane
+   independence (lanes 3, 50, 97 swept at S = 3, and the first lanes at
+   either side of each lane tile's boundary, 4|5, 8|9, 16|17, 20|21, and at
+   S = 101, bit-identical to the same lanes at S = 100), and the sweep with
+   every 32 x 32 block flagged nonzero bit-identical to the sweep with the
+   real flags (BlockLD.diag_nz); the coupling pass alone against refresh_q,
+   its input q untouched, frozen lanes and the slabs no tile with a flagged end
    reaches bit-exact, and its lanes bit-identical at S = 3, on either side
    of each lane tile's boundary (4|5, 16|17, 32|33) and at S = 101;
 G2. a 16-point grid fit on the cut, kernels on the card against the plain
@@ -45,11 +48,16 @@ G3. the genome-scale grid exactly as bench.py: np.random.seed(0), the
    sweep_impl='skip'; select_best_model (ELBO) on a fresh fit, under
    torch.profiler;
 G4. check and time the S-lane kernels against their plain versions at the
-   genome's shapes at S = 100 (first iteration's state), against the FP32
-   floor of a sweep; the coupling pass at S = 2, 8, 16, 20 and 100 against
-   refresh_q, one torch.bmm of the tile products and its bound, on the
-   genome's tiles (mostly exact zeros, which it skips) and on dense random
-   tiles of the same shapes (held to a float64 run);
+   genome's shapes at S = 100 (first iteration's state), against two bounds
+   (every diagonal tile dense, and only its nonzero 32 x 32 blocks in the
+   inner steps and the rank-T updates), with the sweep split into inner
+   steps and the rest by probes of 0 and 1 inner steps, the dense rank-T
+   walk (every block flagged) timed and held bit-identical, and the sweep
+   at S = 8 and 9 (lane tiles 8 and 16); the coupling pass at S = 2, 8,
+   16, 20 and 100 against refresh_q, one torch.bmm of the tile products
+   and its bound, on the genome's tiles (mostly exact zeros, which it
+   skips) and on dense random tiles of the same shapes (held to a float64
+   run);
 M1. check the single-model mixture kernels (K5, K6) against their plain
    versions on the 8-block cut at K = 3: all blocks, half the blocks
    flagged, none flagged (bit-exact);
@@ -76,7 +84,9 @@ Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and its
 FP32 operations at 67 TFLOP/s, the published H100 SXM peaks at 700 W; for
-the coupling passes what the tiles' nonzero entries need, ``coupling_work``)
+the coupling passes what the tiles' nonzero entries need, ``coupling_work``,
+and for cavi_block_sweep_s the inner steps and rank-T updates over the
+diagonal tiles' nonzero 32 x 32 blocks, ``sweep_work_nz``)
 and, for the coupling passes, the time of one PyTorch call computing the
 tile products (``library_ms``; the sweeps have none).
 
@@ -566,11 +576,9 @@ def main():
         'count': torch.cuda.device_count()}}), flush=True)
 
 
-#: The bench grid (bench.py:170-172) and the FP32 floor of one S-lane sweep
-#: on the genome (csrc/cavi_s.cu): 3.6e11 FMA at the H100 SXM's published
-#: 67 TFLOP/s.
+#: The bench grid (bench.py:170-172), and the H100 SXM's published FP32 peak
+#: (700 W) that bound_ms divides operations by.
 GRID_SPEC = dict(pi_steps=20, sigma_epsilon_steps=5, h2_est=0.25, h2_se=0.05)
-SWEEP_S100_FMA = 3.6e11
 FP32_TFLOPS = 67.0
 
 
@@ -630,7 +638,8 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
     ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
     act = torch.ones(S, device=dev)
     phase('G1', f"S = {S} lanes (bench grid rows), {sub.nb} blocks, "
-                f"{sub.n_off} coupling tiles, lane groups of 8")
+                f"{sub.n_off} coupling tiles, lane tile "
+                f"{cavi_cuda.sweep_lane_tile(S)}")
     rec = {}
 
     full = cavi_cuda.cavi_sweep_s(sub, state, sb, nf, hyper, act)
@@ -699,18 +708,26 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
                     cavi_torch.cavi_sweep(sub, st_n, sb, nf, h_n, a_n), errs,
                     TOL_S)
 
-    lanes = torch.tensor([3, 50, 97], device=dev)
-    st3 = CaviState(*(x[lanes].contiguous() for x in state))
-    got3 = cavi_cuda.cavi_sweep_s(sub, st3, sb, nf, _sub_hyper(hyper, lanes),
-                                  torch.ones(3, device=dev))
-    for name, a, b in zip((*CaviState._fields, 'eta_diff'),
-                          (*got3[0], got3[1]), (*full[0], full[1])):
-        if not torch.equal(a, b[lanes]):
-            fail(f"lane independence: {name} of lanes 3, 50, 97 swept at "
-                 f"S = 3 differs from the same lanes at S = 100")
-    phase('check', "lane independence: lanes 3, 50, 97 at S = 3 bit-identical "
-                   "to the same lanes at S = 100 (logits, mu, eta, q, "
-                   "eta_diff)")
+    widths = []
+    for n in (3, *(L + e for L in cavi_cuda.SWEEP_LANE_TILES for e in (0, 1)),
+              S + 1):
+        lanes = torch.tensor([3, 50, 97], device=dev) if n == 3 else \
+            torch.arange(n, device=dev) % S
+        got = cavi_cuda.cavi_sweep_s(
+            sub, CaviState(*(x[lanes].contiguous() for x in state)), sb, nf,
+            _sub_hyper(hyper, lanes), torch.ones(n, device=dev))
+        for name, a, b in zip((*CaviState._fields, 'eta_diff'),
+                              (*got[0], got[1]), (*full[0], full[1])):
+            if not torch.equal(a, b[lanes]):
+                fail(f"lane independence: {name} at S = {n} (lane tile "
+                     f"{cavi_cuda.sweep_lane_tile(n)}) differs from the same "
+                     f"lanes at S = {S}")
+        widths.append(f"{n} ({cavi_cuda.sweep_lane_tile(n)})")
+    phase('check', f"lane independence: lanes 3, 50, 97 at S = 3 and the "
+                   f"first lanes at S (lane tile) = {', '.join(widths[1:])} "
+                   f"bit-identical to the same lanes at S = {S} (logits, mu, "
+                   f"eta, q, eta_diff)")
+    same_bits_dense_walk('G1', sub, state, sb, nf, hyper, act)
     torch.cuda.synchronize()
     rec['sweep_max_abs_err'] = max(errs)
     rec['coupling_max_abs_err'] = max(errs_cpl)
@@ -964,14 +981,45 @@ def grid_times(ds, errs, errs_cpl):
     S = st0.eta.shape[0]
     act = torch.ones(S, device=dev)
     ones = torch.ones(ld.nb, dtype=torch.int32, device=dev)
-    ms_sweep = time_ms(lambda: cavi_cuda.block_sweep_s(
-        ld, st0, sb, nf, h0, act, ones), reps=5)
+    dense_ld = dense_diag_flags(ld)
+    ms_sweep, ms_dense, ms_0, ms_1 = (time_ms(lambda: cavi_cuda.block_sweep_s(
+        x, st0, sb, nf, h0, act, ones, inner_steps=k), reps=5)
+        for x, k in ((ld, 8), (dense_ld, 8), (ld, 0), (ld, 1)))
     plain_sweep = time_ms(lambda: cavi_torch.block_sweep(
         ld, st0, sb, nf, h0, act), reps=2, warmup=1)
     st1, d1 = cavi_cuda.block_sweep_s(ld, st0, sb, nf, h0, act, ones)
     check_state(f'S={S}, all {ld.nb} blocks', (st1, d1),
                 cavi_torch.block_sweep(ld, st0, sb, nf, h0, act), errs,
                 TOL_S)
+    same_bits_dense_walk('G4', ld, st0, sb, nf, h0, act)
+    # inner steps: 7 of them between the probes of 1 and 8 steps; the rank-T
+    # updates: the probe of 1 step less that step and the probe of 0 (whose
+    # eta changes are all zero, so it skips every row)
+    step_ms = (ms_sweep - ms_1) / 7
+    split = dict(inner_steps=8 * step_ms, rank_t=ms_1 - step_ms - ms_0,
+                 rest=ms_0, rank_t_dense=ms_dense - 8 * step_ms - ms_0)
+    phase('G4', f"S={S} sweep split (ms): 8 inner steps "
+                f"{split['inner_steps']:.3f}, rank-T updates over the "
+                f"nonzero blocks {split['rank_t']:.3f} (every block "
+                f"{split['rank_t_dense']:.3f}), the rest (state I/O, "
+                f"dequantizing, the gate) {split['rest']:.3f}; probes: 0 "
+                f"steps {ms_0:.3f}, 1 step {ms_1:.3f}, 8 steps "
+                f"{ms_sweep:.3f}, 8 steps every block flagged "
+                f"{ms_dense:.3f}")
+    del dense_ld
+    # the 8-lane instance against the 16-lane one: S = 8 runs one 8-lane
+    # tile, S = 9 one 16-lane tile (its missing lanes computed, inert)
+    lane_tiles = {}
+    for n in (8, 9):
+        lanes = torch.arange(n, device=dev)
+        st_n = cavi_torch.CaviState(*(x[:n] for x in st0))
+        h_n, a_n = _sub_hyper(h0, lanes), act[:n]
+        lane_tiles[n] = (cavi_cuda.sweep_lane_tile(n), time_ms(
+            lambda: cavi_cuda.block_sweep_s(ld, st_n, sb, nf, h_n, a_n, ones),
+            reps=5))
+    phase('G4', 'block sweep by lane tile, all blocks: ' + ', '.join(
+        f"S = {n} (lane tile {L}) {ms:.3f} ms"
+        for n, (L, ms) in lane_tiles.items()))
     cpl = coupling_times(ld, st1.q, d1, ones, COUPLING_WIDTHS, errs_cpl)
     dense = dense_tiles(ld)
     cpl_dense = coupling_times(dense, st1.q, d1, ones, COUPLING_WIDTHS,
@@ -987,31 +1035,42 @@ def grid_times(ds, errs, errs_cpl):
                 cavi_cuda.cavi_sweep_s_skip(ld, st0, sb, nf, h0, act, few),
                 _plain_lanes(ld, st0, sb, nf, h0, act, few), errs, TOL_S)
     b_sweep = bound(*sweep_work(ld, S, 4, 5, ld.nb))
+    work_nz = sweep_work_nz(ld, S, 4, 5)
+    b_sweep_nz = bound(*work_nz[:2])
     b_skip = bound(*_add(sweep_work(ld, S, 4, 5, int(few.sum())),
                          coupling_work(ld, S, few)))
-    floor = SWEEP_S100_FMA * 2 / (FP32_TFLOPS * 1e12) * 1e3 * S / 100
+    b_skip_nz = bound(*_add(sweep_work_nz(ld, S, 4, 5, few),
+                            coupling_work(ld, S, few)))
     c = cpl[S]
     phase('G4', f"S={S}, first-iteration state, all {ld.nb} blocks: block "
-                f"sweep {ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms; FP32 "
-                f"floor {floor:.1f} ms = {100 * floor / ms_sweep:.0f}% of it, "
-                f"{SWEEP_S100_FMA * 2 / ms_sweep / 1e9:.1f} TFLOP/s); coupling "
+                f"sweep {ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms; bound "
+                f"by what the data needs {b_sweep_nz[0]:.3f} ms by "
+                f"{b_sweep_nz[1]} = {100 * b_sweep_nz[0] / ms_sweep:.1f}% of "
+                f"it, the inner steps over the {work_nz[2]} of "
+                f"{work_nz[3]} blocks of 32 x 32 in the (T, T) tiles that "
+                f"are nonzero; every tile dense {b_sweep[0]:.3f} ms = "
+                f"{100 * b_sweep[0] / ms_sweep:.1f}%); coupling "
                 f"pass {c['ms']:.3f} ms (plain {c['plain_ms']:.3f} ms, one "
                 f"torch.bmm of the tile products {c['library_ms']:.3f} ms, "
                 f"bound {c['bound_ms']:.3f} ms by {c['bound_by']}); skip "
                 f"sweep at {int(few.sum())} blocks, "
                 f"{_tiles_touching(ld, few)} coupling tiles {ms_skip:.3f} ms "
-                f"(plain {plain_skip:.3f} ms, bound {b_skip[0]:.3f} ms by "
-                f"{b_skip[1]})")
+                f"(plain {plain_skip:.3f} ms, bound {b_skip_nz[0]:.3f} ms by "
+                f"{b_skip_nz[1]}, every tile dense {b_skip[0]:.3f} ms)")
     del g, st0, st1, d1
     torch.cuda.empty_cache()
     return dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
-                block_sweep_bound=b_sweep, coupling=c['ms'],
+                block_sweep_bound=b_sweep_nz, block_sweep_bound_dense=b_sweep,
+                block_sweep_tile_blocks=work_nz[2:],
+                block_sweep_lane_tiles=lane_tiles,
+                block_sweep_every_block=ms_dense, block_sweep_split=split,
+                coupling=c['ms'],
                 coupling_plain=c['plain_ms'], coupling_library=c['library_ms'],
                 coupling_bound=(c['bound_ms'], c['bound_by']),
                 coupling_widths=cpl, coupling_widths_dense=cpl_dense,
                 skip_5pct=ms_skip,
-                skip_5pct_plain=plain_skip, skip_5pct_bound=b_skip,
-                fp32_floor=floor)
+                skip_5pct_plain=plain_skip, skip_5pct_bound=b_skip_nz,
+                skip_5pct_bound_dense=b_skip)
 
 
 #: G4 times the S-lane coupling pass at these widths: the grid's chunks
@@ -1035,6 +1094,35 @@ def dense_tiles(ld, seed=0):
     return dataclasses.replace(
         ld, off_data=off, off_nz=torch.ones_like(ld.off_nz),
         cpl_slabs=torch.as_tensor(slabs, device=ld.device))
+
+
+def dense_diag_flags(ld):
+    """The LD operator with every 32 x 32 block of its diagonal tiles
+    flagged nonzero: the rank-T updates' dense walk."""
+    import dataclasses
+    import torch
+    return dataclasses.replace(ld, diag_nz=torch.ones_like(ld.diag_nz))
+
+
+def same_bits_dense_walk(tag, ld, state, sb, nf, hyper, act):
+    """The S-lane block sweep skipping the zero blocks of its rank-T updates
+    gives the bits of its dense walk (every block flagged)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    from viprs_tpu_torch.ops.cavi_torch import CaviState
+    blk = torch.ones(ld.nb, dtype=torch.int32, device=ld.device)
+    got = cavi_cuda.block_sweep_s(ld, state, sb, nf, hyper, act, blk)
+    want = cavi_cuda.block_sweep_s(dense_diag_flags(ld), state, sb, nf,
+                                   hyper, act, blk)
+    for name, a, b in zip((*CaviState._fields, 'eta_diff'),
+                          (*got[0], got[1]), (*want[0], want[1])):
+        if not torch.equal(a, b):
+            fail(f"{tag}: the sweep's {name} with the real diag_nz differs "
+                 f"from the dense walk's")
+    nz = int(ld.diag_nz.sum())
+    phase('check', f"{tag}: S = {state.eta.shape[0]}, the block sweep with "
+                   f"the real diag_nz ({nz} of {ld.diag_nz.numel()} blocks of "
+                   f"32 x 32 nonzero) bit-identical to the dense walk")
 
 
 def coupling_times(ld, q, d, blk, widths, errs, tag='G4', exact=None):
@@ -1171,6 +1259,31 @@ def sweep_work(ld, S, planes_in, planes_out, n_blocks):
     fma = S * n_blocks * (B // TILE) * (INNER_STEPS * 2 * TILE * TILE
                                         + TILE * B)
     return nbytes, 2 * fma
+
+
+def sweep_work_nz(ld, S, planes_in, planes_out, blk=None):
+    """``sweep_work`` over the blocks flagged in ``blk`` ((NB,) int; None:
+    all), counting what this LD needs: only the diagonal tiles' nonzero
+    32 x 32 blocks (``BlockLD.diag_nz``) are read (once, with the flags)
+    and multiplied, 32 x 32 FMA per lane each: in the rank-T updates every
+    such block, and in each of the 8 inner steps' two products those inside
+    a (T, T) tile. Returns (bytes, operations, blocks inside the (T, T)
+    tiles that are nonzero, all blocks inside them)."""
+    import torch
+    from viprs_tpu_torch.ops.cavi_torch import INNER_STEPS, TILE
+    B = ld.block_size
+    sel = torch.ones(ld.nb, dtype=torch.bool, device=ld.device) \
+        if blk is None else blk.to(torch.bool)
+    n_blocks = int(sel.sum())
+    nz = ld.diag_nz.bool()[sel]                     # (n, m, m)
+    m, per = nz.shape[1], TILE // 32
+    tiles = torch.arange(m, device=ld.device) // per
+    in_tile = tiles[:, None] == tiles[None, :]      # inside a (T, T) tile
+    n_inner = int((nz & in_tile).sum())
+    nbytes = 32 * 32 * int(nz.sum()) + nz.numel() + 4 * n_blocks * B * (
+        3 + S * (planes_in + planes_out))
+    fma = S * 32 * 32 * (INNER_STEPS * 2 * n_inner + int(nz.sum()))
+    return nbytes, 2 * fma, n_inner, n_blocks * m * per
 
 
 def coupling_work(ld, S, blk=None):

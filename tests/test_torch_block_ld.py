@@ -134,3 +134,132 @@ def test_dataset_rejects_malformed_input(sim):
             device='cpu')
     with pytest.raises(ValueError, match='not square'):
         block_ld.pack_dense_blocks({1: [np.zeros((4, 3))]}, block_size=128)
+
+
+@pytest.mark.parametrize('via', ['from_numpy', 'dataset'])
+def test_float_tiles_on_a_cuda_device_are_refused_up_front(sim, via):
+    """The CUDA kernels take int8 LD: float32 tiles bound for a CUDA device
+    raise a ValueError that names quantize=True before anything is uploaded
+    (so not torch's error for a build without CUDA)."""
+    with pytest.raises(ValueError, match='quantize=True') as err:
+        if via == 'from_numpy':
+            packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'],
+                                                   block_size=128)
+            packed.to('cuda')
+        else:
+            SummaryStatsDataset.from_dense_blocks(
+                sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'],
+                block_size=128, device=torch.device('cuda', 0))
+    assert 'CPU' in str(err.value)
+    assert 'compiled' not in str(err.value)
+
+
+@pytest.mark.parametrize('quantize', [True, False])
+def test_int8_and_float32_tiles_build_on_the_cpu(sim, quantize):
+    ds = SummaryStatsDataset.from_dense_blocks(
+        sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'], block_size=128,
+        quantize=quantize, device='cpu')
+    assert ds.ld.diag.dtype == (torch.int8 if quantize else torch.float32)
+    assert ds.ld.off_data.dtype == ds.ld.diag.dtype
+    assert ds.ld.diag_nz.shape == (ds.ld.nb, 4, 4)
+
+
+def _recount_nonzero_blocks(diag):
+    """numpy recount: 1 where a 32 x 32 block of a tile holds a nonzero."""
+    n, B = diag.shape[0], diag.shape[1]
+    m = B // 32
+    out = np.zeros((n, m, m), np.uint8)
+    for t in range(n):
+        for i in range(m):
+            for j in range(m):
+                out[t, i, j] = (diag[t, 32 * i:32 * i + 32,
+                                     32 * j:32 * j + 32] != 0).any()
+    return out
+
+
+@pytest.mark.parametrize('block_size', [128, 256])
+def test_diag_nz_flags_the_nonzero_blocks_of_the_diagonal_tiles(sim,
+                                                                 block_size):
+    """diag_nz equals a numpy recount of diag != 0 per 32 x 32 block, on the
+    packed LD (blocks of several LD blocks, so with zero blocks between
+    them) and on banded tiles whose far blocks are all zero."""
+    packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'],
+                                           block_size=block_size,
+                                           quantize=True)
+    ld = packed.to('cpu')
+    assert ld.diag_nz.dtype == torch.uint8
+    want = _recount_nonzero_blocks(packed.diag)
+    np.testing.assert_array_equal(ld.diag_nz.numpy(), want)
+    assert 0 < want.sum() < want.size
+    x = np.arange(block_size)
+    band = np.rint(127 * 0.8 ** np.abs(x[:, None] - x[None])).astype(np.int8)
+    banded = block_ld.BlockLD.from_numpy(
+        np.stack([band, np.zeros_like(band)]), np.zeros((0, block_size,
+                                                         block_size), np.int8),
+        [], [], np.ones((2, block_size), np.float32), 1 / 127, device='cpu')
+    np.testing.assert_array_equal(banded.diag_nz.numpy(),
+                                  _recount_nonzero_blocks(
+                                      np.stack([band, np.zeros_like(band)])))
+    m = block_size // 32
+    assert banded.diag_nz[0].numpy().tolist() == \
+        (np.abs(np.subtract.outer(np.arange(m), np.arange(m))) <= 1).tolist()
+    assert not banded.diag_nz[1].any()
+
+
+@pytest.mark.parametrize('B,chunk', [(128, 3), (100, 2), (256, 64)])
+def test_nonzero_blocks_in_chunks_matches_a_recount(B, chunk):
+    """nonzero_blocks works a few tiles at a time on the tiles' own device:
+    across chunk boundaries, and for a width that is not a multiple of 32
+    (the last block row and column padded with zeros), it is the recount of
+    tiles != 0 per 32 x 32 block."""
+    rng = np.random.default_rng(B)
+    tiles = np.zeros((7, B, B), np.int8)
+    for t in range(7):
+        r, c = rng.integers(0, B, 4), rng.integers(0, B, 4)
+        tiles[t, r, c] = rng.integers(1, 127, 4)
+    tiles[4] = 0
+    tiles[5, B - 1, B - 1] = 9
+    got = block_ld.nonzero_blocks(torch.from_numpy(tiles), chunk=chunk)
+    m = -(-B // 32)
+    pad = np.zeros((7, 32 * m, 32 * m), np.int8)
+    pad[:, :B, :B] = tiles
+    assert got.dtype == torch.uint8 and got.shape == (7, m, m)
+    np.testing.assert_array_equal(got.numpy(), _recount_nonzero_blocks(pad))
+    assert got[5, m - 1, m - 1] == 1 and not got[4].any()
+
+
+def test_diag_nz_is_built_alike_for_int8_and_float32_tiles(sim):
+    """One builder for both storage types: each packing's flags are the
+    recount of its own tiles' zeros, and the int8 flags lie within the
+    float32 ones (quantizing only turns correlations under 0.5/127 into
+    zeros)."""
+    flags = {}
+    for quantize in (True, False):
+        packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'],
+                                               block_size=128,
+                                               quantize=quantize)
+        flags[quantize] = packed.to('cpu').diag_nz.numpy()
+        np.testing.assert_array_equal(flags[quantize],
+                                      _recount_nonzero_blocks(packed.diag))
+    assert (flags[True] <= flags[False]).all()
+    assert flags[True].sum() > 0
+
+
+def test_diag_nz_survives_repacking_a_cut(sim):
+    """Re-packing some of the blocks (as chip_smoke.py cuts the genome:
+    index the tiles, keep the coupling tiles between kept blocks, renumber)
+    carries each kept block's flags unchanged."""
+    packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'], block_size=128,
+                                           quantize=True)
+    ld = packed.to('cpu')
+    sel = np.arange(1, ld.nb, 2)
+    pos = {int(b): i for i, b in enumerate(sel)}
+    src, dst = ld.off_src.numpy(), ld.off_dst.numpy()
+    keep = [o for o in range(ld.n_off) if src[o] in pos and dst[o] in pos]
+    idx = torch.as_tensor(sel)
+    cut = block_ld.BlockLD.from_numpy(
+        ld.diag.index_select(0, idx).numpy(),
+        ld.off_data.index_select(0, torch.as_tensor(keep, dtype=torch.long))
+        .numpy(), [pos[src[o]] for o in keep], [pos[dst[o]] for o in keep],
+        ld.mask.index_select(0, idx).numpy(), ld.scale, device='cpu')
+    assert torch.equal(cut.diag_nz, ld.diag_nz.index_select(0, idx))

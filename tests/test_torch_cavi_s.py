@@ -12,6 +12,8 @@ bounds the JAX package holds its own kernels to). Frozen lanes and
 quiescent blocks must pass through bit-exactly.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,7 +50,9 @@ def _assert_frozen_exact(got, st, act):
 @pytest.mark.parametrize('frozen', [False, True])
 def test_plain_k3_matches_pallas(problem, interpret, S, frozen):
     """cavi_sweep_s on CPU tensors (the plain K3) against
-    cavi_sweep_pallas at S > 1 (the TPU kernel plus its refresh_q)."""
+    cavi_sweep_pallas at S > 1 (the TPU kernel plus its refresh_q), with
+    the LD's diag_nz present (flagging both zero and nonzero blocks)."""
+    assert (problem['ld'].diag_nz == 0).any() and problem['ld'].diag_nz.any()
     st, hy = make_state(problem, S, seed=20 + S)
     act = _active(S, frozen)
     state, sb, nf, hyper = torch_args(problem, st, hy)
@@ -298,3 +302,84 @@ def test_lane_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
             cavi_cuda.coupling_pass_s(ld, z, z, blk)
     finally:
         _build.build.cache_clear()
+
+
+@pytest.mark.parametrize('bad', [None, 'shape', 'dtype', 'layout'])
+def test_block_sweep_s_checks_diag_nz_before_launching(monkeypatch, bad):
+    """Off the CPU, block_sweep_s checks BlockLD.diag_nz (dtype, shape,
+    contiguity) before it launches, and hands the kernel the flags and the
+    lane tile picked by S (a stand-in library records the launch; meta
+    tensors take the place of the card's)."""
+    from viprs_tpu_torch.ops import _build
+    calls = []
+
+    class Lib:
+        def cavi_block_sweep_s_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, 'build', lambda: (Lib(), {}))
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev: type('Stream', (), {'cuda_stream': 0}))
+    monkeypatch.setitem(cavi_cuda.LAUNCHES, 'cavi_block_sweep_s', 0)
+    S, nb, B = 9, 2, 256
+    ld = BlockLD.from_numpy(np.zeros((nb, B, B), np.int8),
+                            np.zeros((0, B, B), np.int8), [], [],
+                            np.ones((nb, B), np.float32), 1 / 127,
+                            device='meta')
+    assert ld.diag_nz.shape == (nb, 8, 8) and ld.diag_nz.dtype == torch.uint8
+    nz = {'shape': torch.ones(nb, 4, 4, dtype=torch.uint8, device='meta'),
+          'dtype': torch.ones(nb, 8, 8, dtype=torch.int32, device='meta'),
+          'layout': torch.ones(nb, 8, 8, dtype=torch.uint8,
+                               device='meta').transpose(1, 2)}
+    if bad is not None:
+        ld = dataclasses.replace(ld, diag_nz=nz[bad])
+    z = torch.zeros(S, nb, B, device='meta')
+    args = (ld, CaviState(z, z, z, z), z[0], z[0],
+            Hyper(*(torch.ones(S, device='meta'),) * 4),
+            torch.ones(S, device='meta'),
+            torch.ones(nb, dtype=torch.int32, device='meta'))
+    if bad is None:
+        out, eta_diff = cavi_cuda.block_sweep_s(*args)
+        assert eta_diff.shape == (S, nb, B)
+        assert len(calls) == 1
+        assert calls[0][-2] == cavi_cuda.sweep_lane_tile(S) == 16
+        assert cavi_cuda.LAUNCHES['cavi_block_sweep_s'] == 1
+    else:
+        with pytest.raises(ValueError, match='diag_nz'):
+            cavi_cuda.block_sweep_s(*args)
+        assert not calls
+        assert cavi_cuda.LAUNCHES['cavi_block_sweep_s'] == 0
+
+
+def test_sweep_lane_tile_matches_enumeration():
+    """The lane tile of cavi_block_sweep_s by S: the smallest instance that
+    holds S, else 20 with ceil(S / 20) lane tiles; every lane is covered
+    exactly once."""
+    tiles = (4, 8, 16, 20)
+    assert cavi_cuda.SWEEP_LANE_TILES == tiles
+    for S in range(1, 260):
+        want = min([L for L in tiles if L >= S] or [20])
+        L = cavi_cuda.sweep_lane_tile(S)
+        assert L == want, S
+        n_tiles = -(-S // L)
+        assert (n_tiles - 1) * L < S <= n_tiles * L
+    assert [cavi_cuda.sweep_lane_tile(S) for S in (2, 16, 100)] == [4, 16, 20]
+
+
+def test_block_sweep_s_takes_the_inner_steps_probe_on_the_card_only(problem):
+    """Fewer inner steps are a timing probe of the kernel; the plain version
+    on the CPU runs INNER_STEPS and refuses any other count."""
+    st, hy = make_state(problem, 2, seed=2)
+    state, sb, nf, hyper = torch_args(problem, st, hy)
+    blk = torch.ones(problem['nb'], dtype=torch.int32)
+    act = torch.ones(2)
+    with pytest.raises(ValueError, match='inner steps'):
+        cavi_cuda.block_sweep_s(problem['ld'], state, sb, nf, hyper, act, blk,
+                                inner_steps=0)
+    got = cavi_cuda.block_sweep_s(problem['ld'], state, sb, nf, hyper, act,
+                                  blk, inner_steps=cavi_torch.INNER_STEPS)
+    want = cavi_torch.block_sweep(problem['ld'], state, sb, nf, hyper, act,
+                                  blk_mask=blk)
+    for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(a, b)

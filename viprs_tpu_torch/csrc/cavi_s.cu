@@ -8,24 +8,55 @@
 // Their plain PyTorch versions are ops/cavi_torch.block_sweep and
 // ops/cavi_torch.coupling_pass.
 //
-// What bounds them on the card: at S = 100 on the 1.1M-variant genome
-// (NB = 1133, B = 1024) one sweep needs about 3.6e11 FMA, i.e. 0.71 TFLOP:
-// per lane and block, 8 tiles x (8 inner steps x 2 x 128^2 + 128 x 1024),
-// times 113,300 lane-blocks. That is about 10.6 ms at the H100 SXM's
-// published 67 TFLOP/s FP32, against 4.2 GB of state traffic (1.25 ms at
-// 3.35 TB/s) and a 1.19 GB LD read. So unlike S = 1 the sweep is bound by
-// CUDA-core FP32. This first version is simple on purpose: f32 FMA, no
-// tensor cores (TF32 or bf16 through wgmma needs its own error budget).
+// What bounds it on the card: at S = 100 on the 1.1M-variant genome
+// (NB = 1133, B = 1024) one sweep needs 2.37e11 FMA in the inner steps (per
+// lane and block, 8 tiles x 8 steps x 2 x 128^2) and 1.19e11 in the rank-T
+// updates if every tile were dense (8 x 128 x 1024), 10.6 ms at the H100
+// SXM's published 67 TFLOP/s FP32, against 4.2 GB of state traffic (1.25 ms
+// at 3.35 TB/s) and a 1.19 GB LD read. So unlike S = 1 the sweep is bound by
+// CUDA-core FP32. Banded int8 LD is exactly zero away from the diagonal, so
+// most of the rank-T work, and some of the inner steps' (T, T) products,
+// multiply zero 32 x 32 blocks; this kernel skips them in the rank-T
+// updates only.
 //
-// Design: one CTA per (lane group of LG lanes, LD block); the lane group is
-// the fastest grid index, so all lane groups of a block run together and
-// read its diagonal tile from L2. Each int8 element a thread loads feeds all
-// the lanes it owns. Every lane's arithmetic is the same whatever S, its
-// lane group or its position in the group: fixed per-lane summation orders,
-// and the rows skipped because every lane's change is exactly zero add
-// exactly nothing to any lane. So sweeping a subset of the lanes (lane
-// compaction) gives those lanes' results bit for bit. No atomics.
-// Transcendentals are the exact expf/logf/log1pf (no fast math).
+// Design: one CTA of 128 threads (4 warps) per (lane tile of L = 4 LT lanes,
+// LD block); L is 4, 8, 16 or 20 (LT = 1, 2, 4, 5), picked by S
+// (cavi_cuda.sweep_lane_tile), so each diagonal tile is dequantized once into
+// shared memory as exact floats for up to 20 lanes. Thread (warp w, tx, ly)
+// owns lanes LT ly .. LT ly + LT - 1 and the coordinates 32 w + 4 tx .. + 3
+// of the tile: LT x 4 elements, whose state it keeps in registers through
+// the inner steps and whose two (T, T) products it computes itself,
+// register-tiled: per k one float4 of R's row (the warp's 8 of them are one
+// shared wavefront) and LT lane values (one wavefront) feed 4 LT FMA. The
+// lane vector (the c or d of every lane) is double-buffered in shared
+// memory, so an inner step has two barriers. The lanes' hyperparameters sit
+// in shared memory, read where used, to keep registers for the state. q
+// lives in q_out: the CTA owns (its lanes, block b) and updates it in place,
+// reading a 32-column chunk from q_in until the first tile whose rank-T
+// update reaches it has written it (so no copy). The rank-T update of a tile
+// multiplies only the 32 x 32 blocks of its 128 rows that BlockLD.diag_nz
+// flags (the block's flags staged once in shared memory), skipping the
+// groups of 8 rows where every lane's change is exactly zero; each warp
+// takes every fourth nonzero 32-column chunk, and the tile's own four chunks
+// are always visited for the unit-diagonal correction.
+//
+// Every output element is one fmaf chain over k in ascending order, as in
+// the plain loop (no split-K), and skipped blocks and rows add exact zeros
+// (for finite eta changes), so a lane's result does not depend on S, its
+// lane tile or its place in it, and the skip is bit-identical to the dense
+// walk. Frozen lanes and unflagged blocks pass through bit-exactly. No
+// atomics; the exact expf/logf/log1pf (no fast math).
+//
+// Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a): 108 / 148 / 253
+// / 255 registers a thread for L = 4 / 8 / 16 / 20, the last with 20 bytes
+// of spill stores outside the product loops; with 73 / 77 / 86 / 102 KB of
+// shared memory (B = 1024) that is 3 / 2 / 2 / 2 CTAs (12 / 8 / 8 / 8
+// warps) per SM. In the SASS the products are 4 LT FFMA per k, |R| folded
+// into the FFMA as an operand modifier, and 2 or 3 shared loads. Measured
+// on an H100 80GB HBM3 at 700 W (PERF.md, PR 6): about 20 ms a sweep at
+// S = 100 over the genome's 1133 blocks, half the dense FP32 bound; the
+// inner steps take about 16 ms of it, latency-bound at 2 warps per
+// scheduler.
 //
 // coupling_pass_s applies the coupling tiles: per tile o with a flagged end,
 // q[:, src_o] += scale U_o diff[:, dst_o] and q[:, dst_o] += scale U_o^T
@@ -69,11 +100,11 @@
 namespace {
 
 constexpr int T = 128;           // tile width: coordinates updated jointly
-constexpr int LG = 8;            // lanes per CTA (one lane group)
-constexpr int HALF = LG / 2;     // lanes per thread in the inner steps
-constexpr int THREADS = 2 * T;   // (coordinate, half of the group) owners
+constexpr int SWEEP_THREADS = 128;   // 4 warps: 32 coordinates x 4 lane groups
 constexpr float ETA_DIFF_EPS = 1e-8f;
-static_assert(HALF == 4, "a thread's lanes travel as one float4");
+constexpr int NZ = 32;           // side of the blocks BlockLD.diag_nz flags
+// the lane hyperparameters a sweep CTA keeps in shared memory, per lane
+enum { H_SIG, H_TAU, H_ONE_LAM, H_BASE, H_ACT, H_ON, N_HYP };
 
 __device__ __forceinline__ float sigmoid(float x) {
     return 1.0f / (1.0f + expf(-x));
@@ -83,240 +114,436 @@ __device__ __forceinline__ size_t lane_off(int s, int b, int NB, int B) {
     return (static_cast<size_t>(s) * NB + b) * B;
 }
 
-// One CTA per (lane group g, LD block b). State tensors are (S, NB, B)
-// float32; hyper is (5, S): [sigma_eps, tau_beta, pi, active, lambda_min].
-// A block with blk_mask[b] == 0, or a group whose lanes all have
-// active == 0, is copied through bit-exactly with a zero eta change.
-// Otherwise, per tile of T coordinates: thread (j, h) owns coordinate j of
-// the lanes h*HALF .. h*HALF+HALF-1 of the group and takes their
-// inner_steps gamma-weighted under-relaxed Jacobi steps against the (T, T)
-// tile, dequantized once into shared memory as exact floats (one shared
-// load of R feeds HALF lanes); the
-// keep gate drops |d_eta| < 1e-8; then every thread applies the rank-T
-// update q[l, :] += scale * d[l, :] R[tile rows, :] to four columns of all
-// LG lanes (one global char4 load feeds LG lanes), skipping rows where
-// every lane's change is exactly zero.
-__global__ void __launch_bounds__(THREADS)
+// A lane group's stride in the (T, RS) lane vector: float, float2, float4
+// or float4 + float; RS pads the rows against bank conflicts of the stores.
+__host__ __device__ constexpr int lane_stride(int LT) {
+    return LT == 5 ? 8 : LT;
+}
+__host__ __device__ constexpr int row_stride(int LT) {
+    return 4 * lane_stride(LT) + 4;
+}
+
+template <int LT>
+__device__ __forceinline__ void load_lanes(const float* p, float (&v)[LT]) {
+    if constexpr (LT == 1) {
+        v[0] = p[0];
+    } else if constexpr (LT == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(p);
+        v[0] = x.x; v[1] = x.y;
+    } else {
+        static_assert(LT == 4 || LT == 5, "lane tiles of 1, 2, 4 or 5 lanes");
+        const float4 x = *reinterpret_cast<const float4*>(p);
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+        if constexpr (LT == 5) v[4] = p[4];
+    }
+}
+
+template <int LT>
+__device__ __forceinline__ void store_lanes(float* p, const float (&v)[LT]) {
+    if constexpr (LT == 1) {
+        p[0] = v[0];
+    } else if constexpr (LT == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    } else {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+        if constexpr (LT == 5) p[4] = v[4];
+    }
+}
+
+// Column e of a thread's (LT, 4) elements into the lane vector's row j.
+template <int LT>
+__device__ __forceinline__ void store_column(float* v, int j, int lo,
+                                             const float (&x)[LT][4], int e) {
+    float col[LT];
+#pragma unroll
+    for (int i = 0; i < LT; ++i) col[i] = x[i][e];
+    store_lanes<LT>(v + j * row_stride(LT) + lo, col);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// p[0..3], or zeros where !ok (a missing lane)
+__device__ __forceinline__ float4 ld4_or0(bool ok, const float* p) {
+    return ok ? ld4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float get(const float4& v, int e) {
+    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][e] = sum over k = 0..T-1, ascending, of v[k][lane i] R[k][j + e]
+// (|R| where ABS): one fmaf chain per element.
+template <int LT, bool ABS>
+__device__ __forceinline__ void tile_product(float (&acc)[LT][4],
+                                             const float* R, const float* v,
+                                             int j, int lo) {
+    constexpr int RS = row_stride(LT);
+#pragma unroll
+    for (int i = 0; i < LT; ++i)
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    // unrolled by 16 so that the loads run ahead of their FFMA: chip_smoke.py
+    // read a sweep at S = 100 at 20.3 ms, against 21.4 ms unrolled by 4
+    // (H100 80GB HBM3, 700 W; PERF.md)
+#pragma unroll 16
+    for (int k = 0; k < T; ++k) {
+        float4 r = ld4(R + k * T + j);
+        if (ABS) {
+            r.x = fabsf(r.x); r.y = fabsf(r.y);
+            r.z = fabsf(r.z); r.w = fabsf(r.w);
+        }
+        float x[LT];
+        load_lanes<LT>(v + k * RS + lo, x);
+#pragma unroll
+        for (int i = 0; i < LT; ++i) {
+            acc[i][0] = fmaf(x[i], r.x, acc[i][0]);
+            acc[i][1] = fmaf(x[i], r.y, acc[i][1]);
+            acc[i][2] = fmaf(x[i], r.z, acc[i][2]);
+            acc[i][3] = fmaf(x[i], r.w, acc[i][3]);
+        }
+    }
+}
+
+// One CTA per (lane tile of L = 4 LT lanes, LD block b). State tensors are
+// (S, NB, B) float32; hyper is (5, S): [sigma_eps, tau_beta, pi, active,
+// lambda_min]; diag_nz is (NB, B/32, B/32) uint8. A block with
+// blk_mask[b] == 0, or a tile whose lanes all have active == 0, is copied
+// through bit-exactly with a zero eta change. Otherwise, per tile of T
+// coordinates: the inner_steps gamma-weighted under-relaxed Jacobi steps of
+// every (lane, coordinate) against the (T, T) tile; the keep gate drops
+// |d_eta| < 1e-8; the rank-T update q[l, :] += scale * d[l, :] R[tile rows,
+// :] over the nonzero 32 x 32 blocks; the unit-diagonal correction.
+template <int LT>
+__global__ void __launch_bounds__(SWEEP_THREADS, 2)
 cavi_block_sweep_s(const int8_t* __restrict__ diag,
+                   const uint8_t* __restrict__ diag_nz,
                    const float* __restrict__ beta,
                    const float* __restrict__ nn,
                    const float* __restrict__ mask,
                    const float* __restrict__ logits_in,
                    const float* __restrict__ mu_in,
                    const float* __restrict__ eta_in,
-                   const float* __restrict__ q_in,
+                   const float* q_in,   // q_in and q_out: no __restrict__,
                    float* __restrict__ logits_out,
                    float* __restrict__ mu_out,
                    float* __restrict__ eta_out,
-                   float* __restrict__ q_out,
+                   float* q_out,        // both are read through q_now
                    float* __restrict__ eta_diff,
                    const int* __restrict__ blk_mask,
                    const float* __restrict__ hyper,
                    int S, int NB, int B, float scale, int inner_steps) {
+    constexpr int L = 4 * LT, LS = lane_stride(LT), RS = row_stride(LT);
     extern __shared__ __align__(16) unsigned char smem[];
-    float* q_s = reinterpret_cast<float*>(smem);            // (LG, B)
-    float* v_s = q_s + LG * B;                              // (T, LG)
-    float* R_s = v_s + T * LG;                              // (T, T)
+    float* R_s = reinterpret_cast<float*>(smem);          // (T, T)
+    float* vc = R_s + T * T;                              // (T, RS): c, d_t
+    float* vd = vc + T * RS;                              // (T, RS): d
+    float* hyp = vd + T * RS;                             // (N_HYP, L)
+    unsigned* rows_s = reinterpret_cast<unsigned*>(hyp + N_HYP * L);  // 4
+    int* first_s = reinterpret_cast<int*>(rows_s + T / NZ);          // B/32
+    // the block's diag_nz, (B/32, B/32)
+    unsigned char* nz = reinterpret_cast<unsigned char*>(first_s + B / NZ);
 
-    const int g = blockIdx.x;
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
-    const int s0 = g * LG;
-    const int nl = min(LG, S - s0);
+    const int s0 = blockIdx.x * L;
+    const int nl = min(L, S - s0);
 
     bool any_on = false;
     for (int l = 0; l < nl; ++l) any_on |= hyper[3 * S + s0 + l] > 0.0f;
     if (!blk_mask[b] || !any_on) {
         for (int l = 0; l < nl; ++l) {
             const size_t off = lane_off(s0 + l, b, NB, B);
-            for (int j = tid; j < B; j += THREADS) {
-                logits_out[off + j] = logits_in[off + j];
-                mu_out[off + j] = mu_in[off + j];
-                eta_out[off + j] = eta_in[off + j];
-                q_out[off + j] = q_in[off + j];
-                eta_diff[off + j] = 0.0f;
+            for (int c = 4 * tid; c < B; c += 4 * SWEEP_THREADS) {
+                *reinterpret_cast<float4*>(logits_out + off + c) =
+                    ld4(logits_in + off + c);
+                *reinterpret_cast<float4*>(mu_out + off + c) =
+                    ld4(mu_in + off + c);
+                *reinterpret_cast<float4*>(eta_out + off + c) =
+                    ld4(eta_in + off + c);
+                *reinterpret_cast<float4*>(q_out + off + c) =
+                    ld4(q_in + off + c);
+                *reinterpret_cast<float4*>(eta_diff + off + c) =
+                    make_float4(0.f, 0.f, 0.f, 0.f);
             }
         }
         return;
     }
 
-    const int j = tid & (T - 1);   // coordinate within the tile
-    const int h = tid / T;         // which half of the lane group
-    float sig_e[HALF], tau_b[HALF], act[HALF], on[HALF], lam[HALF];
-    float base_logit[HALF];
-    bool valid[HALF];
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-        const int l = h * HALF + i;
-        valid[i] = l < nl;
-        const int s = s0 + l;
-        // missing lanes of the last group: inert values, never written
-        sig_e[i] = valid[i] ? hyper[s] : 1.0f;
-        tau_b[i] = valid[i] ? hyper[S + s] : 1.0f;
-        const float pi = valid[i] ? hyper[2 * S + s] : 0.5f;
-        act[i] = valid[i] ? hyper[3 * S + s] : 0.0f;
-        lam[i] = valid[i] ? hyper[4 * S + s] : 0.0f;
-        on[i] = act[i] > 0.0f ? 1.0f : 0.0f;
-        base_logit[i] = logf(pi) - log1pf(-pi) + 0.5f * logf(tau_b[i]);
+    const int w = tid / 32, tx = tid % 8, ly = (tid % 32) / 8;
+    const int jt = 32 * w + 4 * tx;   // the thread's coordinates in a tile
+    const int lo = ly * LS;           // its lanes' offset in a lane-vector row
+    if (tid < L) {
+        // missing lanes of the last tile: inert values, never written
+        const bool ok = tid < nl;
+        const int s = s0 + tid;
+        const float tau = ok ? hyper[S + s] : 1.0f;
+        const float pi = ok ? hyper[2 * S + s] : 0.5f;
+        const float act = ok ? hyper[3 * S + s] : 0.0f;
+        hyp[H_SIG * L + tid] = ok ? hyper[s] : 1.0f;
+        hyp[H_TAU * L + tid] = tau;
+        hyp[H_ONE_LAM * L + tid] = 1.0f + (ok ? hyper[4 * S + s] : 0.0f);
+        hyp[H_BASE * L + tid] = logf(pi) - log1pf(-pi) + 0.5f * logf(tau);
+        hyp[H_ACT * L + tid] = act;
+        hyp[H_ON * L + tid] = act > 0.0f ? 1.0f : 0.0f;
     }
-
-    for (int l = 0; l < LG; ++l) {
-        const size_t off = lane_off(s0 + l, b, NB, B);
-        for (int c = tid; c < B; c += THREADS)
-            q_s[l * B + c] = l < nl ? q_in[off + c] : 0.0f;
-    }
-
     const int8_t* D = diag + static_cast<size_t>(b) * B * B;
+    const int nb32 = B / NZ;
+    {
+        const int* src = reinterpret_cast<const int*>(
+            diag_nz + static_cast<size_t>(b) * nb32 * nb32);
+        for (int i = tid; i < nb32 * nb32 / 4; i += SWEEP_THREADS)
+            reinterpret_cast<int*>(nz)[i] = src[i];
+    }
+    __syncthreads();
+    // q_out is the block's running q for the CTA's lanes. Each 32-column
+    // chunk of it is first written by the rank-T update of the first tile
+    // whose rows hold a nonzero there (at the latest its own tile's): until
+    // then the chunk's q is q_in's.
+    for (int cc = tid; cc < nb32; cc += SWEEP_THREADS) {
+        int first = cc / (T / NZ);
+        for (int t1 = 0; t1 < first; ++t1) {
+            bool hit = false;
+            for (int r = 0; r < T / NZ; ++r)
+                hit |= nz[(t1 * (T / NZ) + r) * nb32 + cc] != 0;
+            if (hit) first = t1;
+        }
+        first_s[cc] = first;
+    }
+    bool valid[LT];
+    size_t lane_base[LT];
+#pragma unroll
+    for (int i = 0; i < LT; ++i) {
+        valid[i] = LT * ly + i < nl;
+        lane_base[i] = lane_off(s0 + LT * ly + i, b, NB, B);
+    }
+
     for (int t0 = 0; t0 < B; t0 += T) {
-        for (int w = tid; w < T * T / 4; w += THREADS) {
-            const int r = w / (T / 4), c4 = w % (T / 4);
-            reinterpret_cast<float4*>(R_s)[w] = i8x4_to_f32(
+        for (int i = tid; i < T * T / 4; i += SWEEP_THREADS) {
+            const int r = i / (T / 4), c4 = i % (T / 4);
+            reinterpret_cast<float4*>(R_s)[i] = i8x4_to_f32(
                 *reinterpret_cast<const int*>(
                     D + static_cast<size_t>(t0 + r) * B + t0 + 4 * c4));
         }
-        __syncthreads();   // R_s loaded; q_s updates of the last tile done
-
-        const size_t jb = static_cast<size_t>(b) * B + t0 + j;
-        const float n_j = nn[jb], beta_j = beta[jb], mask_j = mask[jb];
-        const float rdiag = fabsf(R_s[j * T + j]) * scale;
-        float vt[HALF], mm[HALF], logvt[HALF];
-        float logit0[HALF], mu0[HALF], eta0[HALF];
-        float q_cur[HALF], g_cur[HALF], mu_cur[HALF], eta_cur[HALF];
-        float g_star[HALF], mu_star[HALF], c[HALF], d[HALF];
-#pragma unroll
-        for (int i = 0; i < HALF; ++i) {
-            const int l = h * HALF + i;
-            vt[i] = n_j * (1.0f + lam[i]) / sig_e[i] + tau_b[i];
-            mm[i] = n_j / (vt[i] * sig_e[i]);
-            logvt[i] = logf(vt[i]);
-            const size_t jj = lane_off(s0 + l, b, NB, B) + t0 + j;
-            logit0[i] = valid[i] ? logits_in[jj] : 0.0f;
-            mu0[i] = valid[i] ? mu_in[jj] : 0.0f;
-            eta0[i] = valid[i] ? eta_in[jj] : 0.0f;
-            q_cur[i] = q_s[l * B + t0 + j];
-            g_cur[i] = sigmoid(logit0[i]);
-            mu_cur[i] = mu0[i];
-            eta_cur[i] = eta0[i];
-        }
-        float4* my_v = reinterpret_cast<float4*>(v_s + j * LG + h * HALF);
-
-        for (int step = 0; step < inner_steps; ++step) {
-#pragma unroll
-            for (int i = 0; i < HALF; ++i) {
-                mu_star[i] = mm[i] * (beta_j - q_cur[i]);
-                const float u = base_logit[i] - 0.5f * logvt[i]
-                    + 0.5f * vt[i] * mu_star[i] * mu_star[i];
-                g_star[i] = sigmoid(u);
-                c[i] = g_star[i] * fabsf(mm[i]);
-            }
-            *my_v = make_float4(c[0], c[1], c[2], c[3]);
-            __syncthreads();
-            // relaxation: sum_k c_k |R_kj|, minus the unit diagonal term
-            float acc[HALF] = {0.f, 0.f, 0.f, 0.f};
-            for (int k = 0; k < T; ++k) {
-                const float r = fabsf(R_s[k * T + j]);
-                const float4 v = reinterpret_cast<const float4*>(
-                    v_s + k * LG + h * HALF)[0];
-                acc[0] = fmaf(v.x, r, acc[0]);
-                acc[1] = fmaf(v.y, r, acc[1]);
-                acc[2] = fmaf(v.z, r, acc[2]);
-                acc[3] = fmaf(v.w, r, acc[3]);
-            }
-#pragma unroll
-            for (int i = 0; i < HALF; ++i) {
-                const float w = act[i] / (1.0f + (acc[i] * scale - rdiag * c[i]));
-                g_cur[i] = g_cur[i] + w * (g_star[i] - g_cur[i]);
-                mu_cur[i] = mu_cur[i] + w * (mu_star[i] - mu_cur[i]);
-                d[i] = (g_cur[i] * mu_cur[i] - eta_cur[i]) * mask_j * on[i];
-            }
-            __syncthreads();
-            *my_v = make_float4(d[0], d[1], d[2], d[3]);
-            __syncthreads();
-            // tile-local q refresh: sum_k d_k R_kj - d_j
-            float acc2[HALF] = {0.f, 0.f, 0.f, 0.f};
-            for (int k = 0; k < T; ++k) {
-                const float r = R_s[k * T + j];
-                const float4 v = reinterpret_cast<const float4*>(
-                    v_s + k * LG + h * HALF)[0];
-                acc2[0] = fmaf(v.x, r, acc2[0]);
-                acc2[1] = fmaf(v.y, r, acc2[1]);
-                acc2[2] = fmaf(v.z, r, acc2[2]);
-                acc2[3] = fmaf(v.w, r, acc2[3]);
-            }
-#pragma unroll
-            for (int i = 0; i < HALF; ++i) {
-                q_cur[i] = q_cur[i] + acc2[i] * scale - d[i];
-                eta_cur[i] = eta_cur[i] + d[i];
-            }
-            __syncthreads();
-        }
-
-#pragma unroll
-        for (int i = 0; i < HALF; ++i) {
-            float d_t = (eta_cur[i] - eta0[i]) * mask_j * on[i];
-            const bool keep = fabsf(d_t) >= ETA_DIFF_EPS;
-            d_t = keep ? d_t : 0.0f;
-            d[i] = d_t;
-            if (valid[i]) {
-                const size_t jj = lane_off(s0 + h * HALF + i, b, NB, B) + t0 + j;
-                const float u_new = logf(fmaxf(g_cur[i], 1e-30f))
-                    - log1pf(-fminf(g_cur[i], 1.0f - 1e-7f));
-                logits_out[jj] = keep ? u_new : logit0[i];
-                mu_out[jj] = keep ? mu_cur[i] : mu0[i];
-                const float eta_new = eta0[i] + d_t;
-                eta_out[jj] = eta_new;
-                eta_diff[jj] = eta_new - eta0[i];
-            }
-        }
-        *my_v = make_float4(d[0], d[1], d[2], d[3]);
+        // R_s loaded; the last tile's q updates and lane-vector reads done
         __syncthreads();
 
-        // rank-T update over the whole block width (R symmetric)
-        const int8_t* rows = D + static_cast<size_t>(t0) * B;
-        for (int cg = tid; cg < B / 4; cg += THREADS) {
-            float a[LG][4];
+        const size_t jb = static_cast<size_t>(b) * B + t0 + jt;
+        const float* q_now = first_s[(t0 + jt) / NZ] < t0 / T ? q_out : q_in;
+        const float4 beta4 = ld4(beta + jb), mask4 = ld4(mask + jb);
+        float vt[LT][4], mm[LT][4], logvt[LT][4];
+        float q_cur[LT][4], g_cur[LT][4], mu_cur[LT][4], eta_cur[LT][4];
+        {
+            const float4 n4 = ld4(nn + jb);
 #pragma unroll
-            for (int l = 0; l < LG; ++l)
-                a[l][0] = a[l][1] = a[l][2] = a[l][3] = 0.f;
-            for (int k = 0; k < T; ++k) {
-                const float4 v0 = reinterpret_cast<const float4*>(v_s + k * LG)[0];
-                const float4 v1 = reinterpret_cast<const float4*>(v_s + k * LG)[1];
-                const float dk[LG] = {v0.x, v0.y, v0.z, v0.w,
-                                      v1.x, v1.y, v1.z, v1.w};
-                bool any = false;
+            for (int i = 0; i < LT; ++i) {
+                const int l = LT * ly + i;
+                const float sig_e = hyp[H_SIG * L + l];
+                const float tau_b = hyp[H_TAU * L + l];
+                const float one_lam = hyp[H_ONE_LAM * L + l];
+                const size_t off = lane_base[i] + t0 + jt;
+                const float4 lg = ld4_or0(valid[i], logits_in + off);
+                const float4 m0 = ld4_or0(valid[i], mu_in + off);
+                const float4 e0 = ld4_or0(valid[i], eta_in + off);
+                const float4 q0 = ld4_or0(valid[i], q_now + off);
 #pragma unroll
-                for (int l = 0; l < LG; ++l) any |= dk[l] != 0.0f;
-                if (any) {
-                    const float4 r = i8x4_to_f32(*reinterpret_cast<const int*>(
-                        rows + static_cast<size_t>(k) * B + 4 * cg));
+                for (int e = 0; e < 4; ++e) {
+                    const float n_j = get(n4, e);
+                    vt[i][e] = n_j * one_lam / sig_e + tau_b;
+                    mm[i][e] = n_j / (vt[i][e] * sig_e);
+                    logvt[i][e] = logf(vt[i][e]);
+                    g_cur[i][e] = sigmoid(get(lg, e));
+                    mu_cur[i][e] = get(m0, e);
+                    eta_cur[i][e] = get(e0, e);
+                    q_cur[i][e] = get(q0, e);
+                }
+            }
+        }
+
+        for (int step = 0; step < inner_steps; ++step) {
+            float x[LT][4], g_star[LT][4];
 #pragma unroll
-                    for (int l = 0; l < LG; ++l) {
-                        a[l][0] = fmaf(dk[l], r.x, a[l][0]);
-                        a[l][1] = fmaf(dk[l], r.y, a[l][1]);
-                        a[l][2] = fmaf(dk[l], r.z, a[l][2]);
-                        a[l][3] = fmaf(dk[l], r.w, a[l][3]);
-                    }
+            for (int i = 0; i < LT; ++i) {
+                const float base = hyp[H_BASE * L + LT * ly + i];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float mu_star =
+                        mm[i][e] * (get(beta4, e) - q_cur[i][e]);
+                    const float u = base - 0.5f * logvt[i][e]
+                        + 0.5f * vt[i][e] * mu_star * mu_star;
+                    g_star[i][e] = sigmoid(u);
+                    x[i][e] = g_star[i][e] * fabsf(mm[i][e]);   // c
                 }
             }
 #pragma unroll
-            for (int l = 0; l < LG; ++l) {
-                float* qr = q_s + l * B + 4 * cg;
-                qr[0] += a[l][0] * scale;
-                qr[1] += a[l][1] * scale;
-                qr[2] += a[l][2] * scale;
-                qr[3] += a[l][3] * scale;
+            for (int e = 0; e < 4; ++e) store_column<LT>(vc, jt + e, lo, x, e);
+            __syncthreads();
+            // relaxation: sum_k c_k |R_kj|, minus the unit diagonal term
+            float acc[LT][4];
+            tile_product<LT, true>(acc, R_s, vc, jt, lo);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float rdiag = fabsf(R_s[(jt + e) * T + jt + e]) * scale;
+                float c[LT];
+                load_lanes<LT>(vc + (jt + e) * RS + lo, c);
+#pragma unroll
+                for (int i = 0; i < LT; ++i) {
+                    const int l = LT * ly + i;
+                    const float mu_star =
+                        mm[i][e] * (get(beta4, e) - q_cur[i][e]);
+                    const float wgt = hyp[H_ACT * L + l]
+                        / (1.0f + (acc[i][e] * scale - rdiag * c[i]));
+                    g_cur[i][e] =
+                        g_cur[i][e] + wgt * (g_star[i][e] - g_cur[i][e]);
+                    mu_cur[i][e] =
+                        mu_cur[i][e] + wgt * (mu_star - mu_cur[i][e]);
+                    x[i][e] = (g_cur[i][e] * mu_cur[i][e] - eta_cur[i][e])
+                        * get(mask4, e) * hyp[H_ON * L + l];   // d
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) store_column<LT>(vd, jt + e, lo, x, e);
+            __syncthreads();
+            // tile-local q refresh: sum_k d_k R_kj - d_j
+            tile_product<LT, false>(acc, R_s, vd, jt, lo);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float d[LT];
+                load_lanes<LT>(vd + (jt + e) * RS + lo, d);
+#pragma unroll
+                for (int i = 0; i < LT; ++i) {
+                    q_cur[i][e] = q_cur[i][e] + acc[i][e] * scale - d[i];
+                    eta_cur[i][e] = eta_cur[i][e] + d[i];
+                }
             }
         }
-        __syncthreads();
-        // the stored unit diagonal also moved q at the focal variants
+
+        // the keep gate, the tile's outputs, and d_t into vc (whose last
+        // readers passed the step's second barrier)
+        unsigned moved = 0u;   // bit e: some lane's d_t at jt + e is nonzero
+        {
+            float dt[LT][4];
 #pragma unroll
-        for (int i = 0; i < HALF; ++i)
-            q_s[(h * HALF + i) * B + t0 + j] -= d[i];
-    }
-    __syncthreads();
-    for (int l = 0; l < nl; ++l) {
-        const size_t off = lane_off(s0 + l, b, NB, B);
-        for (int c = tid; c < B; c += THREADS) q_out[off + c] = q_s[l * B + c];
+            for (int i = 0; i < LT; ++i) {
+                const float on = hyp[H_ON * L + LT * ly + i];
+                const size_t off = lane_base[i] + t0 + jt;
+                const float4 lg = ld4_or0(valid[i], logits_in + off);
+                const float4 m0 = ld4_or0(valid[i], mu_in + off);
+                const float4 e0 = ld4_or0(valid[i], eta_in + off);
+                float out_l[4], out_m[4], out_e[4], out_d[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float eta0 = get(e0, e);
+                    float d_t = (eta_cur[i][e] - eta0) * get(mask4, e) * on;
+                    const bool keep = fabsf(d_t) >= ETA_DIFF_EPS;
+                    d_t = keep ? d_t : 0.0f;
+                    dt[i][e] = d_t;
+                    moved |= d_t != 0.0f ? 1u << e : 0u;
+                    const float u_new = logf(fmaxf(g_cur[i][e], 1e-30f))
+                        - log1pf(-fminf(g_cur[i][e], 1.0f - 1e-7f));
+                    out_l[e] = keep ? u_new : get(lg, e);
+                    out_m[e] = keep ? mu_cur[i][e] : get(m0, e);
+                    const float eta_new = eta0 + d_t;
+                    out_e[e] = eta_new;
+                    out_d[e] = eta_new - eta0;
+                }
+                if (valid[i]) {
+                    *reinterpret_cast<float4*>(logits_out + off) =
+                        make_float4(out_l[0], out_l[1], out_l[2], out_l[3]);
+                    *reinterpret_cast<float4*>(mu_out + off) =
+                        make_float4(out_m[0], out_m[1], out_m[2], out_m[3]);
+                    *reinterpret_cast<float4*>(eta_out + off) =
+                        make_float4(out_e[0], out_e[1], out_e[2], out_e[3]);
+                    *reinterpret_cast<float4*>(eta_diff + off) =
+                        make_float4(out_d[0], out_d[1], out_d[2], out_d[3]);
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                store_column<LT>(vc, jt + e, lo, dt, e);
+        }
+        // the warp's 32 rows in which some lane moved: bit 4 tx + e
+        moved |= __shfl_xor_sync(0xffffffffu, moved, 8);
+        moved |= __shfl_xor_sync(0xffffffffu, moved, 16);
+        moved <<= 4 * tx;
+        moved |= __shfl_xor_sync(0xffffffffu, moved, 1);
+        moved |= __shfl_xor_sync(0xffffffffu, moved, 2);
+        moved |= __shfl_xor_sync(0xffffffffu, moved, 4);
+        if (tid % 32 == 0) rows_s[w] = moved;
+        __syncthreads();   // d_t of every lane and the row words in place
+
+        // rank-T update over the nonzero 32 x 32 blocks of the tile's rows
+        // (R symmetric), chunk n of 32 columns to warp n % 4, ascending k
+        const int rb0 = t0 / NZ;   // the tile's first row block
+        int n = 0;
+        for (int cw = 0; cw < nb32; cw += 32) {
+            const int cx = cw + tid % 32;
+            bool hit = cx >= rb0 && cx < rb0 + T / NZ;   // unit diagonal
+            if (cx < nb32) {
+#pragma unroll
+                for (int r = 0; r < T / NZ; ++r)
+                    hit |= nz[(rb0 + r) * nb32 + cx] != 0;
+            } else {
+                hit = false;
+            }
+            unsigned chunks = __ballot_sync(0xffffffffu, hit);
+            for (; chunks; chunks &= chunks - 1, ++n) {
+                if (n % 4 != w) continue;
+                const int cc = cw + __ffs(chunks) - 1;
+                const int c = NZ * cc + 4 * tx;   // the thread's 4 columns
+                float a[LT][4];
+#pragma unroll
+                for (int i = 0; i < LT; ++i)
+                    a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.0f;
+                for (int r = 0; r < T / NZ; ++r) {
+                    if (!nz[(rb0 + r) * nb32 + cc]) continue;
+                    const unsigned rw = rows_s[r];
+                    for (int k8 = 0; k8 < NZ; k8 += 8) {
+                        if (!((rw >> k8) & 0xffu)) continue;
+                        const int k0 = NZ * r + k8;   // row in the tile
+                        int raw[8];
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+                            raw[j] = __ldg(reinterpret_cast<const int*>(
+                                D + static_cast<size_t>(t0 + k0 + j) * B + c));
+#pragma unroll
+                        for (int j = 0; j < 8; ++j) {
+                            const float4 rv = i8x4_to_f32(raw[j]);
+                            float x[LT];
+                            load_lanes<LT>(vc + (k0 + j) * RS + lo, x);
+#pragma unroll
+                            for (int i = 0; i < LT; ++i) {
+                                a[i][0] = fmaf(x[i], rv.x, a[i][0]);
+                                a[i][1] = fmaf(x[i], rv.y, a[i][1]);
+                                a[i][2] = fmaf(x[i], rv.z, a[i][2]);
+                                a[i][3] = fmaf(x[i], rv.w, a[i][3]);
+                            }
+                        }
+                    }
+                }
+                const bool focal = c >= t0 && c < t0 + T;
+                const float* q_now = first_s[cc] < t0 / T ? q_out : q_in;
+#pragma unroll
+                for (int i = 0; i < LT; ++i) {
+                    if (!valid[i]) continue;
+                    float4 q = ld4(q_now + lane_base[i] + c);
+                    q.x += a[i][0] * scale;
+                    q.y += a[i][1] * scale;
+                    q.z += a[i][2] * scale;
+                    q.w += a[i][3] * scale;
+                    if (focal) {
+                        // the stored unit diagonal also moved q at the
+                        // focal variants
+                        const float* dv = vc + (c - t0) * RS + lo + i;
+                        q.x -= dv[0];
+                        q.y -= dv[RS];
+                        q.z -= dv[2 * RS];
+                        q.w -= dv[3 * RS];
+                    }
+                    *reinterpret_cast<float4*>(q_out + lane_base[i] + c) = q;
+                }
+            }
+        }
     }
 }
 
@@ -646,6 +873,36 @@ bool bad_shape(int S, int nb, int B) {
     return S < 0 || nb < 0 || nb > 65535 || B <= 0 || B % T != 0;
 }
 
+template <int LT>
+cudaError_t launch_sweep(const void* diag, const void* diag_nz,
+                         const void* beta, const void* nn, const void* mask,
+                         const void* logits_in, const void* mu_in,
+                         const void* eta_in, const void* q_in,
+                         void* logits_out, void* mu_out, void* eta_out,
+                         void* q_out, void* eta_diff, const void* blk_mask,
+                         const void* hyper, int S, int nb, int B, float scale,
+                         int inner_steps, cudaStream_t stream) {
+    constexpr int L = 4 * LT;
+    const size_t smem = (T * T + 2 * T * row_stride(LT) + N_HYP * L)
+        * sizeof(float) + (T / NZ) * sizeof(unsigned) + B / NZ * sizeof(int)
+        + (B / NZ) * (B / NZ);
+    cudaError_t err = set_smem(
+        reinterpret_cast<const void*>(cavi_block_sweep_s<LT>), smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + L - 1) / L, nb);
+    cavi_block_sweep_s<LT><<<grid, SWEEP_THREADS, smem, stream>>>(
+        static_cast<const int8_t*>(diag), static_cast<const uint8_t*>(diag_nz),
+        static_cast<const float*>(beta), static_cast<const float*>(nn),
+        static_cast<const float*>(mask), static_cast<const float*>(logits_in),
+        static_cast<const float*>(mu_in), static_cast<const float*>(eta_in),
+        static_cast<const float*>(q_in), static_cast<float*>(logits_out),
+        static_cast<float*>(mu_out), static_cast<float*>(eta_out),
+        static_cast<float*>(q_out), static_cast<float*>(eta_diff),
+        static_cast<const int*>(blk_mask), static_cast<const float*>(hyper),
+        S, nb, B, scale, inner_steps);
+    return cudaGetLastError();
+}
+
 template <int LT, int TY>
 cudaError_t launch_coupling(const void* off, const void* off_src,
                             const void* off_dst, const void* inc_ptr,
@@ -677,31 +934,36 @@ extern "C" {
 
 // Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
 // success); it never synchronizes. B must be a positive multiple of T.
-int cavi_block_sweep_s_launch(const void* diag, const void* beta,
-                              const void* nn, const void* mask,
-                              const void* logits_in, const void* mu_in,
-                              const void* eta_in, const void* q_in,
-                              void* logits_out, void* mu_out, void* eta_out,
-                              void* q_out, void* eta_diff,
-                              const void* blk_mask, const void* hyper,
-                              int S, int nb, int B, float scale,
-                              int inner_steps, void* stream) {
-    if (bad_shape(S, nb, B)) return static_cast<int>(cudaErrorInvalidValue);
+//
+// cavi_block_sweep_s with the lane tile L, one of the kernel's instances:
+// 4, 8, 16 or 20 lanes. The state tensors must be 16-byte aligned.
+int cavi_block_sweep_s_launch(const void* diag, const void* diag_nz,
+                              const void* beta, const void* nn,
+                              const void* mask, const void* logits_in,
+                              const void* mu_in, const void* eta_in,
+                              const void* q_in, void* logits_out,
+                              void* mu_out, void* eta_out, void* q_out,
+                              void* eta_diff, const void* blk_mask,
+                              const void* hyper, int S, int nb, int B,
+                              float scale, int inner_steps, int L,
+                              void* stream) {
+    if (bad_shape(S, nb, B) || inner_steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-    const size_t smem = (LG * B + T * LG + T * T) * sizeof(float);
-    cudaError_t err = set_smem(reinterpret_cast<const void*>(cavi_block_sweep_s), smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((S + LG - 1) / LG, nb);
-    cavi_block_sweep_s<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(diag), static_cast<const float*>(beta),
-        static_cast<const float*>(nn), static_cast<const float*>(mask),
-        static_cast<const float*>(logits_in), static_cast<const float*>(mu_in),
-        static_cast<const float*>(eta_in), static_cast<const float*>(q_in),
-        static_cast<float*>(logits_out), static_cast<float*>(mu_out),
-        static_cast<float*>(eta_out), static_cast<float*>(q_out),
-        static_cast<float*>(eta_diff), static_cast<const int*>(blk_mask),
-        static_cast<const float*>(hyper), S, nb, B, scale, inner_steps);
-    return static_cast<int>(cudaGetLastError());
+    const auto st = static_cast<cudaStream_t>(stream);
+#define SWEEP_ARGS diag, diag_nz, beta, nn, mask, logits_in, mu_in, eta_in, \
+        q_in, logits_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, \
+        S, nb, B, scale, inner_steps, st
+    cudaError_t err;
+    switch (L) {
+    case 4: err = launch_sweep<1>(SWEEP_ARGS); break;
+    case 8: err = launch_sweep<2>(SWEEP_ARGS); break;
+    case 16: err = launch_sweep<4>(SWEEP_ARGS); break;
+    case 20: err = launch_sweep<5>(SWEEP_ARGS); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef SWEEP_ARGS
+    return static_cast<int>(err);
 }
 
 // coupling_pass_s in place on q for the (block, slab) entries

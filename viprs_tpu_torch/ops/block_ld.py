@@ -19,7 +19,12 @@ flags the 32 x 32 blocks of each coupling tile that hold a nonzero
 product can change (``cpl_slabs``), so the S-lane coupling kernel launches
 only for those and skips the parts of a tile that are exactly zero (int8
 LD that decays with distance is mostly zero away from the tiles' near
-corner).
+corner). The same flags of the diagonal tiles (``diag_nz``) let the S-lane
+block sweep skip the zero blocks of its rank-T updates.
+
+The CUDA kernels take int8 tiles only: ``from_numpy`` refuses float tiles
+for a CUDA device before anything is uploaded (float32 LD runs on the CPU,
+through the plain versions).
 """
 
 import dataclasses
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 INT8_SCALE = 1.0 / 127.0
-#: Side of the blocks of a coupling tile that ``off_nz`` flags, and the
+#: Side of the blocks of a tile that ``off_nz`` / ``diag_nz`` flag, and the
 #: coordinates of a slab of the S-lane coupling kernel (four blocks).
 NZ_BLOCK = 32
 SLAB = 128
@@ -52,18 +57,22 @@ def incident_tiles(off_src, off_dst, nb):
     return inc_ptr, tiles2[order].astype(np.int32)
 
 
-def nonzero_blocks(off_data):
-    """(n_off, ceil(B/32), ceil(B/32)) uint8: 1 where a 32 x 32 block of a
-    coupling tile holds a nonzero."""
-    off_data = np.asarray(off_data)
-    n, B = off_data.shape[0], off_data.shape[1]
+def nonzero_blocks(tiles, chunk=64):
+    """(n, ceil(B/32), ceil(B/32)) uint8 on the device of ``tiles``: 1 where
+    a 32 x 32 block of one of the n (B, B) tiles (coupling or diagonal)
+    holds a nonzero. Works ``chunk`` tiles at a time, so it never holds a
+    full boolean copy of the tiles."""
+    n, B = tiles.shape[0], tiles.shape[1]
     m = -(-B // NZ_BLOCK)
-    nz = off_data != 0
-    if m * NZ_BLOCK != B:
-        pad = m * NZ_BLOCK - B
-        nz = np.pad(nz, ((0, 0), (0, pad), (0, pad)))
-    return nz.reshape(n, m, NZ_BLOCK, m, NZ_BLOCK).any(axis=(2, 4)) \
-        .astype(np.uint8)
+    pad = m * NZ_BLOCK - B
+    out = torch.empty((n, m, m), dtype=torch.uint8, device=tiles.device)
+    for i in range(0, n, chunk):
+        nz = tiles[i:i + chunk].ne(0).to(torch.uint8)
+        if pad:
+            nz = torch.nn.functional.pad(nz, (0, pad, 0, pad))
+        out[i:i + chunk] = nz.view(-1, m, NZ_BLOCK, m, NZ_BLOCK).amax(
+            dim=(2, 4))
+    return out
 
 
 def coupling_slabs(off_nz, off_src, off_dst, nb):
@@ -103,6 +112,7 @@ class BlockLD:
     :ivar inc_tile: (2*n_off,) int32 incident tiles of each block, ascending.
     :ivar off_nz: (n_off, B/32, B/32) uint8 ``nonzero_blocks``.
     :ivar cpl_slabs: (k,) int32 ``coupling_slabs``.
+    :ivar diag_nz: (NB, B/32, B/32) uint8 ``nonzero_blocks`` of ``diag``.
     :ivar scale: dequantization multiplier (1.0 for float storage).
     """
     diag: torch.Tensor
@@ -114,6 +124,7 @@ class BlockLD:
     inc_tile: torch.Tensor
     off_nz: torch.Tensor
     cpl_slabs: torch.Tensor
+    diag_nz: torch.Tensor
     scale: float
 
     @property
@@ -136,23 +147,41 @@ class BlockLD:
     def from_numpy(cls, diag, off_data, off_src, off_dst, mask, scale, *,
                    device):
         """Upload packed LD arrays (e.g. ``np.asarray`` of the JAX package's
-        ``BlockLD`` fields) to ``device`` without changing a byte."""
+        ``BlockLD`` fields) to ``device`` without changing a byte.
+
+        :raises ValueError: for float tiles on a CUDA device (the kernels
+            take int8 LD), before anything is uploaded.
+        """
         diag = np.ascontiguousarray(diag)
         nb, B = diag.shape[0], diag.shape[1]
         off_data = np.ascontiguousarray(off_data).reshape(-1, B, B)
+        bad = {str(x.dtype) for x in (diag, off_data) if x.dtype != np.int8}
+        if bad and torch.device(device).type == 'cuda':
+            raise ValueError(
+                f"the CUDA kernels take int8 LD tiles, not {', '.join(bad)}: "
+                f"pack the LD with quantize=True to fit on {device}; float "
+                f"tiles run only on the CPU for now")
         off_src = np.asarray(off_src, np.int32).reshape(-1)
         off_dst = np.asarray(off_dst, np.int32).reshape(-1)
         inc_ptr, inc_tile = incident_tiles(off_src, off_dst, nb)
-        off_nz = nonzero_blocks(off_data)
+
+        def host(x):
+            return torch.from_numpy(np.require(x, requirements=['C', 'W']))
 
         def put(x):
-            return torch.from_numpy(np.require(x, requirements=['C', 'W'])).to(device)
-        return cls(diag=put(diag), off_data=put(off_data),
+            return host(x).to(device)
+        # the coupling tiles' flags on the host (the launch plan is built
+        # there); the diagonal tiles' on the device, from the uploaded tiles
+        off_nz = nonzero_blocks(host(off_data))
+        diag_d = put(diag)
+        return cls(diag=diag_d, off_data=put(off_data),
                    off_src=put(off_src), off_dst=put(off_dst),
                    mask=put(np.asarray(mask, np.float32)),
                    inc_ptr=put(inc_ptr), inc_tile=put(inc_tile),
-                   off_nz=put(off_nz),
-                   cpl_slabs=put(coupling_slabs(off_nz, off_src, off_dst, nb)),
+                   off_nz=off_nz.to(device),
+                   cpl_slabs=put(coupling_slabs(off_nz.numpy(), off_src,
+                                                off_dst, nb)),
+                   diag_nz=nonzero_blocks(diag_d),
                    scale=float(scale))
 
 

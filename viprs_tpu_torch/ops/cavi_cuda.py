@@ -14,7 +14,9 @@ of the hybrid EM iteration:
 ``cavi_sweep_s1_skip`` (K2, the activity mask) are the two compositions.
 
 Model grid (S lanes), ``csrc/cavi_s.cu``: ``block_sweep_s`` launches
-``cavi_block_sweep_s`` (one CTA per lane group and block) and
+``cavi_block_sweep_s`` (one CTA per lane tile of 4, 8, 16 or 20 lanes,
+picked by ``sweep_lane_tile``, and block; its rank-T updates skip the zero
+32 x 32 blocks that ``BlockLD.diag_nz`` leaves unflagged) and
 ``coupling_pass_s_inplace`` launches ``coupling_pass_s`` (one CTA per
 block's slab of 128 coordinates that a coupling tile can change, and lane
 tile), which updates q in place; ``coupling_pass_s`` runs it on a clone.
@@ -182,16 +184,32 @@ def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     return new._replace(q=q), eta_diff
 
 
+#: The lane tiles of ``cavi_block_sweep_s``: lanes per CTA, one kernel
+#: instance each. A lane's arithmetic is the same in all of them.
+SWEEP_LANE_TILES = (4, 8, 16, 20)
+
+
+def sweep_lane_tile(S):
+    """The lane tile of ``cavi_block_sweep_s`` for S lanes: the smallest
+    that holds S, else the largest (then ceil(S / 20) lane tiles)."""
+    return next((L for L in SWEEP_LANE_TILES if S <= L), SWEEP_LANE_TILES[-1])
+
+
 def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                  hyper: Hyper, active, blk_mask):
+                  hyper: Hyper, active, blk_mask, inner_steps=INNER_STEPS):
     """Sweep the blocks flagged in ``blk_mask`` ((NB,) int32) for S lanes.
 
     :param state: CaviState of (S, NB, B) float32.
     :param hyper: (S,) hyperparameters; :param active: (S,) float32 step
         scale (0 freezes a lane bit-exactly).
+    :param inner_steps: the kernel's inner steps per tile (a timing probe
+        takes fewer; the plain version runs INNER_STEPS only).
     :returns: (new_state, eta_diff), coupling tiles not applied.
     """
     if state.eta.device.type == 'cpu':
+        if inner_steps != INNER_STEPS:
+            raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
+                             f"steps, not {inner_steps}")
         return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                       active, blk_mask=blk_mask)
     from ._build import build
@@ -202,6 +220,7 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     if B % TILE:
         raise ValueError(f"block size {B} is not a multiple of {TILE}")
     _check('diag', ld.diag, torch.int8, (nb, B, B), dev)
+    _check('diag_nz', ld.diag_nz, torch.uint8, (nb, B // 32, B // 32), dev)
     for name, x in (('std_beta', std_beta), ('n_per_snp', n_per_snp),
                     ('mask', ld.mask)):
         _check(name, x, F32, (nb, B), dev)
@@ -212,12 +231,17 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     _check('hyper', hv, F32, (5, S), dev)
     out = CaviState(*(torch.empty_like(x) for x in state))
     eta_diff = torch.empty_like(state.eta)
+    for name, x in (('diag_nz', ld.diag_nz), ('std_beta', std_beta),
+                    ('n_per_snp', n_per_snp), ('mask', ld.mask),
+                    *zip(CaviState._fields, state)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     err = lib.cavi_block_sweep_s_launch(
-        ld.diag.data_ptr(), std_beta.data_ptr(), n_per_snp.data_ptr(),
-        ld.mask.data_ptr(), *(x.data_ptr() for x in state),
-        *(x.data_ptr() for x in out), eta_diff.data_ptr(),
-        blk_mask.data_ptr(), hv.data_ptr(), S, nb, B,
-        float(np.float32(ld.scale)), INNER_STEPS,
+        ld.diag.data_ptr(), ld.diag_nz.data_ptr(), std_beta.data_ptr(),
+        n_per_snp.data_ptr(), ld.mask.data_ptr(),
+        *(x.data_ptr() for x in state), *(x.data_ptr() for x in out),
+        eta_diff.data_ptr(), blk_mask.data_ptr(), hv.data_ptr(), S, nb, B,
+        float(np.float32(ld.scale)), int(inner_steps), sweep_lane_tile(S),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, 'cavi_block_sweep_s')
     LAUNCHES['cavi_block_sweep_s'] += 1
