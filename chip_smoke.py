@@ -66,27 +66,40 @@ M2. fit the genome with VIPRSMix(ds, 'cuda', K=3).fit(max_iter=500) as
    then with sweep_impl='xla' (K5), each with the launch counters reset just
    before and read just after;
 M3. check the mixture lane kernels (K7, K8) against their plain versions on
-   the cut at S = 20 and K = 3: half the lanes frozen (bit-exact), a union
-   mask at about half the blocks (unflagged blocks bit-exact), and lane
-   independence (3 lanes swept at S = 3 bit-identical to the same lanes at
-   S = 20);
+   the cut at S = 20 and K = 3: half the lanes frozen (bit-exact), every
+   lane frozen (state bit-exact), a union mask at about half the blocks
+   (unflagged blocks bit-exact), lane independence (3 lanes swept at S = 3,
+   and the first lanes at either side of each lane tile's boundary, 4|5,
+   8|9, 20|21, bit-identical to the same lanes at S = 20), K7 and K8 with
+   every 32 x 32 block flagged nonzero bit-identical to the real flags
+   (BlockLD.diag_nz), and K7 at K = 1 and K = 8 (lane tiles 20 and 4);
 M4. bench.py's mixture grid on the genome, VIPRSMixGrid(ds,
    HyperparameterGrid(pi_steps=20, h2_est=0.25, h2_se=0.05), K=3)
    .fit(max_iter=500), cold then warm (K7), then with sweep_impl='skip'
-   (K8), launch counters as in M2;
+   (K8), launch counters as in M2; the cold fit's per-lane nit and h2 held
+   bit for bit to the port's earlier runs; one warm fit under
+   torch.profiler (device time by kernel, the device's busy share);
 M5. check and time the four mixture kernels against their plain versions
    at the genome's shapes (the first iteration's state; CUDA events), and
    hold each kernel's error against a float64 run of its plain version to
-   at most twice the float32 plain version's; time the coupling part of K7
-   and K8 (S = 20) alone, against its plain version and torch.bmm.
+   at most twice the float32 plain version's; K7/K8 against two bounds
+   (every diagonal tile dense, and only its nonzero 32 x 32 blocks in the
+   inner steps and the rank-T updates), their sweep split into inner steps, rank-T updates and
+   the rest by probes of 0 and 1 inner steps, the dense rank-T walk timed
+   (and held bit-identical for K7), K7 at S = 8 and 20 (lane tiles 8 and
+   20), K8 at every block, its union mask and every 20th block; time the
+   coupling part of K7 and K8 (S = 20) alone, against its plain version
+   and torch.bmm.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and its
 FP32 operations at 67 TFLOP/s, the published H100 SXM peaks at 700 W; for
 the coupling passes what the tiles' nonzero entries need, ``coupling_work``,
-and for cavi_block_sweep_s the inner steps and rank-T updates over the
-diagonal tiles' nonzero 32 x 32 blocks, ``sweep_work_nz``)
+and for the lane sweeps cavi_block_sweep_s and cavi_sweep_mix_s(_skip)
+the inner steps and rank-T updates over the diagonal tiles' nonzero 32 x 32
+blocks, ``sweep_work_nz``, with every tile dense beside it as
+``bound_ms_dense``)
 and, for the coupling passes, the time of one PyTorch call computing the
 tile products (``library_ms``; the sweeps have none).
 
@@ -115,6 +128,33 @@ REF_NIT, REF_H2, REF_NIT_ALL_ACTIVE = 96, 0.2156, 112
 PORT_NIT, PORT_H2 = 129, 0.215610
 #: The JAX package's grid(100)+BMA result (BENCH_r05.json): converged lanes.
 REF_GRID_CONVERGED = 100
+#: The port's own results on this genome, the same on every H100 run: the
+#: grid(100) BMA h2, VIPRSMix(K=3)'s nit and h2, and the 20 x K=3 mixture
+#: grid's per-lane nit and h2 (cold), held bit for bit.
+PORT_GRID_BMA_H2 = 0.37959008051545073
+PORT_MIX_NIT, PORT_MIX_H2 = 146, 0.217575
+PORT_MIX_GRID_NIT = [55, 64, 75, 62, 67, 44, 77, 124, 80, 85, 71, 101, 84, 108, 103, 65, 85, 124, 54, 166]
+PORT_MIX_GRID_H2 = [
+    0.23906535928303982,
+    0.24029268447233154,
+    0.24162197274428351,
+    0.24287991913596108,
+    0.24427068825217135,
+    0.24573229520511236,
+    0.24731884832559292,
+    0.24814162537240975,
+    0.2510633883912738,
+    0.2533964816167058,
+    0.2564368785583893,
+    0.26033314742592384,
+    0.2655434538624474,
+    0.2724864166116333,
+    0.2819246590028597,
+    0.29509728694243714,
+    0.3140214325195417,
+    0.3430690418728746,
+    0.39072460728769903,
+    0.2367098005806265]
 FULL_M = 1_100_000
 #: The full record (chip_smoke.json) and the profiler trace go here.
 OUT_DIR = 'chiprun_out'
@@ -275,13 +315,20 @@ def main():
     t0 = time.perf_counter()
     _, info = _build.build()
     phase('build', f"nvcc {' '.join(_build.NVCC_FLAGS)}: "
-                   f"{info['seconds']:.1f} s compile, "
-                   f"{time.perf_counter() - t0:.1f} s with load -> "
+                   f"{info['seconds']:.1f} s compile ("
+                   + ', '.join(f"{k} {v:.1f} s" for k, v in
+                               sorted(info['source_seconds'].items()))
+                   + f"), {time.perf_counter() - t0:.1f} s with load -> "
                    f"{os.path.relpath(info['path'])}")
-    for line in info['ptxas'].splitlines():
-        if 'registers' in line or 'Compiling entry' in line:
-            phase('ptxas', line.strip())
+    ptxas = [line.strip() for line in info['ptxas'].splitlines()
+             if 'registers' in line or 'spill' in line
+             or 'Compiling entry' in line]
+    for line in ptxas:
+        if 'spill' not in line:
+            phase('ptxas', line)
     record['build_seconds'] = info['seconds']
+    record['build_source_seconds'] = info['source_seconds']
+    record['ptxas'] = ptxas
 
     # ---- 3. the genome ----
     import bench
@@ -557,19 +604,25 @@ def main():
         entry('coupling_pass_s1', src, 492, launches['coupling_pass_s1'],
               max(errs_cpl), t1['coupling'], t1['coupling_plain'],
               t1['coupling_bound'], t1['coupling_library']),
-        entry('cavi_block_sweep_s', src_s, 49, g_launch['cavi_block_sweep_s'],
-              max(errs_s), gt['block_sweep'], gt['block_sweep_plain'],
-              gt['block_sweep_bound'], None),
+        dict(entry('cavi_block_sweep_s', src_s, 49,
+                   g_launch['cavi_block_sweep_s'], max(errs_s),
+                   gt['block_sweep'], gt['block_sweep_plain'],
+                   gt['block_sweep_bound'], None),
+             bound_ms_dense=gt['block_sweep_bound_dense'][0]),
         entry('coupling_pass_s', src_s, 1191, g_launch['coupling_pass_s'],
               max(errs_cpl_s), gt['coupling'], gt['coupling_plain'],
               gt['coupling_bound'], gt['coupling_library'])]
-    for name, (replaces, _, _) in MIX_KERNELS.items():
+    for name, (replaces, lanes, _) in MIX_KERNELS.items():
         r = mt[name]
-        kernels.append(entry(name, 'viprs_tpu_torch/csrc/cavi_mix.cu',
-                             replaces.rsplit(':', 1)[1],
-                             m_launch[name][name], max(errs_mix[name]),
-                             r['ms'], r['plain_ms'],
-                             (r['bound_ms'], r['bound_by']), None))
+        e = entry(name, 'viprs_tpu_torch/csrc/cavi_mix.cu',
+                  replaces.rsplit(':', 1)[1], m_launch[name][name],
+                  max(errs_mix[name]), r['ms'], r['plain_ms'],
+                  (r['bound_ms'], r['bound_by']), None)
+        if lanes:
+            # bound_ms counts the nonzero 32 x 32 blocks, this every tile
+            # dense
+            e['bound_ms_dense'] = r['bound_ms_dense']
+        kernels.append(e)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -727,7 +780,7 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
                    f"first lanes at S (lane tile) = {', '.join(widths[1:])} "
                    f"bit-identical to the same lanes at S = {S} (logits, mu, "
                    f"eta, q, eta_diff)")
-    same_bits_dense_walk('G1', sub, state, sb, nf, hyper, act)
+    same_bits_dense_walk('G1', sub, _k3_sweep(state, sb, nf, hyper, act))
     torch.cuda.synchronize()
     rec['sweep_max_abs_err'] = max(errs)
     rec['coupling_max_abs_err'] = max(errs_cpl)
@@ -900,6 +953,9 @@ def grid_genome(ds):
 
     rec['cold'], g = run('cold')
     rec['launches'] = rec['cold']['launches']
+    if rec['cold']['h2'] != PORT_GRID_BMA_H2:
+        fail(f"the grid's BMA h2 {rec['cold']['h2']!r} moved from the port's "
+             f"earlier runs ({PORT_GRID_BMA_H2!r})")
     if min(rec['launches'][k] for k in ('cavi_block_sweep_s',
                                         'coupling_pass_s')) < 1:
         fail(f"an S-lane kernel was never launched: {rec['launches']}")
@@ -935,7 +991,7 @@ def grid_genome(ds):
 def _device_time(prof, wall, trace_name):
     """Device time by kernel from a profiler run, and the device's busy
     share of ``wall`` seconds (the profiler's own cost included); the trace
-    goes to OUT_DIR."""
+    goes to OUT_DIR as ``trace_name`` (None: not written)."""
     import torch
     rows = []
     for ev in prof.key_averages():
@@ -949,8 +1005,9 @@ def _device_time(prof, wall, trace_name):
             rows.append((dev_us, ev.count, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    os.makedirs(OUT_DIR, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
+    if trace_name is not None:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(OUT_DIR, trace_name))
     if not rows:
         phase('profile', "device time not measured (no device events)")
         return {'wall_s': wall, 'device_s': None}
@@ -991,13 +1048,8 @@ def grid_times(ds, errs, errs_cpl):
     check_state(f'S={S}, all {ld.nb} blocks', (st1, d1),
                 cavi_torch.block_sweep(ld, st0, sb, nf, h0, act), errs,
                 TOL_S)
-    same_bits_dense_walk('G4', ld, st0, sb, nf, h0, act)
-    # inner steps: 7 of them between the probes of 1 and 8 steps; the rank-T
-    # updates: the probe of 1 step less that step and the probe of 0 (whose
-    # eta changes are all zero, so it skips every row)
-    step_ms = (ms_sweep - ms_1) / 7
-    split = dict(inner_steps=8 * step_ms, rank_t=ms_1 - step_ms - ms_0,
-                 rest=ms_0, rank_t_dense=ms_dense - 8 * step_ms - ms_0)
+    same_bits_dense_walk('G4', ld, _k3_sweep(st0, sb, nf, h0, act))
+    split = probe_split(ms_sweep, ms_dense, ms_0, ms_1)
     phase('G4', f"S={S} sweep split (ms): 8 inner steps "
                 f"{split['inner_steps']:.3f}, rank-T updates over the "
                 f"nonzero blocks {split['rank_t']:.3f} (every block "
@@ -1104,25 +1156,40 @@ def dense_diag_flags(ld):
     return dataclasses.replace(ld, diag_nz=torch.ones_like(ld.diag_nz))
 
 
-def same_bits_dense_walk(tag, ld, state, sb, nf, hyper, act):
-    """The S-lane block sweep skipping the zero blocks of its rank-T updates
-    gives the bits of its dense walk (every block flagged)."""
+def same_bits_dense_walk(tag, ld, sweep):
+    """A lane sweep skipping the zero blocks of its rank-T updates gives the
+    bits of its dense walk (every block flagged): ``sweep(ld)`` returns its
+    (state, eta_diff) on an LD operator."""
     import torch
-    from viprs_tpu_torch.ops import cavi_cuda
-    from viprs_tpu_torch.ops.cavi_torch import CaviState
-    blk = torch.ones(ld.nb, dtype=torch.int32, device=ld.device)
-    got = cavi_cuda.block_sweep_s(ld, state, sb, nf, hyper, act, blk)
-    want = cavi_cuda.block_sweep_s(dense_diag_flags(ld), state, sb, nf,
-                                   hyper, act, blk)
-    for name, a, b in zip((*CaviState._fields, 'eta_diff'),
-                          (*got[0], got[1]), (*want[0], want[1])):
+    got, want = sweep(ld), sweep(dense_diag_flags(ld))
+    for name, a, b in zip((*got[0]._fields, 'eta_diff'), (*got[0], got[1]),
+                          (*want[0], want[1])):
         if not torch.equal(a, b):
             fail(f"{tag}: the sweep's {name} with the real diag_nz differs "
                  f"from the dense walk's")
-    nz = int(ld.diag_nz.sum())
-    phase('check', f"{tag}: S = {state.eta.shape[0]}, the block sweep with "
-                   f"the real diag_nz ({nz} of {ld.diag_nz.numel()} blocks of "
-                   f"32 x 32 nonzero) bit-identical to the dense walk")
+    phase('check', f"{tag}: S = {got[1].shape[0]}, the sweep with the real "
+                   f"diag_nz ({int(ld.diag_nz.sum())} of "
+                   f"{ld.diag_nz.numel()} blocks of 32 x 32 nonzero) "
+                   f"bit-identical to the dense walk")
+
+
+def _k3_sweep(state, sb, nf, hyper, act):
+    """``same_bits_dense_walk``'s sweep for the S-lane block sweep (K3)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    return lambda x: cavi_cuda.block_sweep_s(
+        x, state, sb, nf, hyper, act,
+        torch.ones(x.nb, dtype=torch.int32, device=x.device))
+
+
+def probe_split(ms_8, ms_dense, ms_0, ms_1):
+    """A lane sweep's time split by its probes of 8, 0 and 1 inner steps and
+    its dense rank-T walk: inner steps are the 7 steps between the probes of
+    1 and 8; the rank-T updates the probe of 1 step less that step and the
+    probe of 0 (whose eta changes are all zero, so it skips every row)."""
+    step_ms = (ms_8 - ms_1) / 7
+    return dict(inner_steps=8 * step_ms, rank_t=ms_1 - step_ms - ms_0,
+                rest=ms_0, rank_t_dense=ms_dense - 8 * step_ms - ms_0)
 
 
 def coupling_times(ld, q, d, blk, widths, errs, tag='G4', exact=None):
@@ -1194,22 +1261,25 @@ def _plain_skip(ld, state, sb, nf, hyper, act, blk):
     return st._replace(q=cavi_torch.coupling_pass(ld, st.q, d, blk)), d
 
 
-def profile_fit(ds, fit_kw):
-    """One warm fit under torch.profiler: device time by kernel, and the
+def profile_fit(ds, fit_kw, make=None, trace_name='fit_trace.json'):
+    """One warm fit of ``make()`` (default VIPRS(ds, 'cuda'), made after
+    np.random.seed(0)) under torch.profiler: device time by kernel, and the
     device's busy share of the fit's wall time (the profiler's own cost
-    included). The trace goes to OUT_DIR."""
+    included). The trace goes to OUT_DIR as ``trace_name`` (None: not
+    written)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from viprs_tpu_torch.model import VIPRS
     np.random.seed(0)
+    model = VIPRS(ds, 'cuda') if make is None else make()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model = VIPRS(ds, 'cuda').fit(**fit_kw)
+        model.fit(**fit_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rec = _device_time(prof, wall, 'fit_trace.json')
+    rec = _device_time(prof, wall, trace_name)
     rec['nit'] = model.optim_result.nit
     return rec
 
@@ -1473,7 +1543,7 @@ def check_mix_state(tag, got, want, errs):
           scale=float(ws.eta.abs().max()))
 
 
-def _mix_lane_state(sub, S, m, rng):
+def _mix_lane_state(sub, S, m, rng, K=MIX_K):
     """S lanes of mixture state on the cut, from the bench mixture grid's
     rows: each row's total pi split over the K components, tau_beta as the
     model's initialization makes it at an h2 of 0.25, gamma and mu spread
@@ -1483,7 +1553,6 @@ def _mix_lane_state(sub, S, m, rng):
     from viprs_tpu_torch.ops import cavi_torch
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
     dev = sub.device
-    K = MIX_K
     rows = HyperparameterGrid(n_snps=m, **MIX_GRID_SPEC).combine_grids()
     total = np.array([rows[i % len(rows)]['pi'] for i in range(S)])
     pis = total[:, None] * rng.dirichlet(np.ones(K), size=S)
@@ -1518,9 +1587,9 @@ def _half_blocks(masks, nb):
 
 def mix_checks(ds, sub, sb, nf, errs):
     """M1 and M3: the mixture kernels against their plain versions on the
-    cut (K = 3; single model, and S = 20 lanes)."""
+    cut (K = 3; single model, and S = 20 lanes; K7 also at K = 1 and 8)."""
     import torch
-    from viprs_tpu_torch.ops import cavi_mix
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_mix
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
     dev = sub.device
     rng = np.random.default_rng(2)
@@ -1555,7 +1624,8 @@ def mix_checks(ds, sub, sb, nf, errs):
                    "0); no block flagged: state bit-exact (gamma, mu, eta, q)")
 
     S = state.eta.shape[0]
-    phase('M3', f"S = {S} lanes, K = {MIX_K}, lane groups of 8")
+    phase('M3', f"S = {S} lanes, K = {MIX_K}, lane tile "
+                f"{cavi_cuda.mix_sweep_lane_tile(S, MIX_K)}")
     act = torch.ones(S, device=dev)
     full = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper, act)
     check_mix_state(f'K7 S={S} all active', full, mix_plain(
@@ -1597,21 +1667,97 @@ def mix_checks(ds, sub, sb, nf, errs):
         fail("K8: unflagged blocks or frozen lanes report an eta change")
     phase('check', "K8 unflagged blocks and frozen lanes bit-exact (gamma, "
                    "mu, eta; eta_diff 0)")
-    lanes = torch.tensor([3, 10, 17], device=dev)
-    got3 = mix_kernel('cavi_sweep_mix_s', sub,
-                      MixState(*(x[lanes].contiguous() for x in state)), sb,
-                      nf, MixHyper(*(x[lanes] for x in hyper)),
-                      torch.ones(3, device=dev))
-    for k, a, b in zip((*MixState._fields, 'eta_diff'), (*got3[0], got3[1]),
-                       (*full[0], full[1])):
-        if not torch.equal(a, b[lanes]):
-            fail(f"mixture lane independence: {k} of lanes 3, 10, 17 swept "
-                 f"at S = 3 differs from the same lanes at S = {S}")
+    got = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper,
+                     torch.zeros_like(act))
+    for k in MixState._fields:
+        if not torch.equal(getattr(got[0], k), getattr(state, k)):
+            fail(f"K7, every lane frozen: {k} changed")
+    if bool(got[1].any()):
+        fail("K7, every lane frozen: an eta change reported")
+    phase('check', "K7 every lane frozen (all-frozen lane tiles): state "
+                   "bit-exact (gamma, mu, eta, q; eta_diff 0)")
+    widths = []
+    for n in (3, *(L + e for L in cavi_cuda.MIX_SWEEP_LANE_TILES
+                   for e in (0, 1))):
+        lanes = torch.tensor([3, 10, 17], device=dev) if n == 3 else \
+            torch.arange(n, device=dev) % S
+        got = mix_kernel('cavi_sweep_mix_s', sub,
+                         MixState(*(x[lanes].contiguous() for x in state)),
+                         sb, nf, MixHyper(*(x[lanes] for x in hyper)),
+                         torch.ones(n, device=dev))
+        L = cavi_cuda.mix_sweep_lane_tile(n, MIX_K)
+        for k, a, b in zip((*MixState._fields, 'eta_diff'),
+                           (*got[0], got[1]), (*full[0], full[1])):
+            if not torch.equal(a, b[lanes]):
+                fail(f"mixture lane independence: {k} at S = {n} (lane tile "
+                     f"{L}) differs from the same lanes at S = {S}")
+        widths.append(f"{n} ({L})")
     phase('check', f"mixture lane independence: lanes 3, 10, 17 at S = 3 "
-                   f"bit-identical to the same lanes at S = {S} (gamma, mu, "
-                   f"eta, q, eta_diff)")
+                   f"and the first lanes at S (lane tile) = "
+                   f"{', '.join(widths[1:])} bit-identical to the same lanes "
+                   f"at S = {S} (gamma, mu, eta, q, eta_diff)")
+    same_bits_dense_walk('M3 K7', sub, lambda x: mix_kernel(
+        'cavi_sweep_mix_s', x, state, sb, nf, hyper, act))
+    same_bits_dense_walk('M3 K8', sub, lambda x: mix_kernel(
+        name, x, st_k8, sb, nf, hyper, half_act, blk))
+    # every K instance family: K = 1 (lane tile 20) and K = 8 (lane tile 4)
+    for K in (1, 8):
+        st_K, h_K = _mix_lane_state(sub, S, ds.m, rng, K)
+        check_mix_state(f'K7 S={S} K={K} (lane tile '
+                        f'{cavi_cuda.mix_sweep_lane_tile(S, K)})',
+                        mix_kernel('cavi_sweep_mix_s', sub, st_K, sb, nf, h_K,
+                                   act),
+                        mix_plain('cavi_sweep_mix_s', sub, st_K, sb, nf, h_K,
+                                  act), errs['cavi_sweep_mix_s'])
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}
+
+
+def mix_lane_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
+    """M5, the mixture lane sweep ``name`` alone (its coupling tiles not
+    applied) on the genome: the sweep split into inner steps, rank-T
+    updates and the rest by probes of 0 and 1 inner steps; the dense
+    rank-T walk (every 32 x 32 block flagged) timed and held bit-identical;
+    and K7 at S = 8 and 20 (lane tiles 8 and 20)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    dense_ld = dense_diag_flags(ld)
+
+    def sweep(x, k):
+        return cavi_cuda.block_sweep_mix(x, st, sb, nf, h, act, blk,
+                                         unit_diag, name, inner_steps=k)
+
+    ms_8, ms_dense, ms_0, ms_1 = (time_ms(lambda: sweep(x, k), reps=5)
+                                  for x, k in ((ld, 8), (dense_ld, 8),
+                                               (ld, 0), (ld, 1)))
+    if name == 'cavi_sweep_mix_s':
+        same_bits_dense_walk('M5 K7', ld, lambda x: sweep(x, 8))
+    del dense_ld
+    split = probe_split(ms_8, ms_dense, ms_0, ms_1)
+    phase('M5', f"{name} sweep alone {ms_8:.3f} ms, split (ms): 8 inner "
+                f"steps {split['inner_steps']:.3f}, rank-T updates over the "
+                f"nonzero blocks {split['rank_t']:.3f} (every block "
+                f"{split['rank_t_dense']:.3f}), the rest (state I/O, "
+                f"dequantizing) {split['rest']:.3f}; probes: 0 steps "
+                f"{ms_0:.3f}, 1 step {ms_1:.3f}, 8 steps every block "
+                f"flagged {ms_dense:.3f}")
+    rec = dict(sweep_ms=ms_8, split=split, every_block_ms=ms_dense)
+    if name == 'cavi_sweep_mix_s':
+        K = st.gamma.shape[1]
+        lane_tiles = {}
+        for n in (8, st.eta.shape[0]):
+            st_n = MixState(*(x[:n].contiguous() for x in st))
+            h_n = MixHyper(*(x[:n] for x in h))
+            lane_tiles[n] = (cavi_cuda.mix_sweep_lane_tile(n, K), time_ms(
+                lambda: cavi_cuda.cavi_sweep_mix_s(ld, st_n, sb, nf, h_n,
+                                                   act[:n]), reps=5))
+        phase('M5', 'K7 by lane tile, all blocks, coupling included: '
+              + ', '.join(f"S = {n} (lane tile {L}) {ms:.3f} ms"
+                          for n, (L, ms) in lane_tiles.items()))
+        rec['lane_tiles'] = lane_tiles
+    torch.cuda.empty_cache()
+    return rec
 
 
 def mix_genome(ds):
@@ -1653,6 +1799,9 @@ def mix_genome(ds):
     if abs(warm['h2'] - REF_MIX_H2) > 0.005:
         fail(f"the mixture h2 {warm['h2']} is not within 0.005 of "
              f"{REF_MIX_H2}")
+    if warm['nit'] != PORT_MIX_NIT or abs(warm['h2'] - PORT_MIX_H2) > 5e-7:
+        fail(f"VIPRSMix moved: nit {warm['nit']}, h2 {warm['h2']:.6f} (the "
+             f"port's earlier runs: {PORT_MIX_NIT}, {PORT_MIX_H2})")
     if cold['launches']['cavi_sweep_mix_s1_skip'] < 1:
         fail(f"the default mixture fit never launched K6: {cold['launches']}")
     if runs["sweep_impl='xla'"]['launches']['cavi_sweep_mix_s1'] < 1:
@@ -1686,11 +1835,15 @@ def mix_grid_genome(ds):
                    valid=int(g.valid_terminated_models.sum()),
                    nit_max=int(g._nit.max()),
                    nit_median=float(np.median(g._nit)),
+                   ms_per_it=1e3 * dt / max(int(g._nit.max()), 1),
                    widths=list(g._chunk_trace),
                    h2_range=[float(h2.min()), float(h2.max())],
+                   nit=[int(x) for x in g._nit], h2=[float(x) for x in h2],
+                   elbo=[float(x) for x in g.elbo()],
                    launches=dict(cavi_cuda.LAUNCHES))
         runs[name] = out
-        phase('M4', f"VIPRSMixGrid(20 x K={MIX_K}) {name}: fit {dt:.3f} s, "
+        phase('M4', f"VIPRSMixGrid(20 x K={MIX_K}) {name}: fit {dt:.3f} s "
+                    f"({out['ms_per_it']:.2f} ms/it at nit max), "
                     f"converged {out['converged']}/20 (JAX package: 20/20), "
                     f"valid {out['valid']}/20, nit max {out['nit_max']} "
                     f"median {out['nit_median']:g}; widths per chunk "
@@ -1710,6 +1863,19 @@ def mix_grid_genome(ds):
     if runs['warm']['widths'] != runs['cold']['widths'] or \
             runs['warm']['nit_max'] != runs['cold']['nit_max']:
         fail("repeated mixture grid fits differ")
+    cold = runs['cold']
+    same = cold['nit'] == PORT_MIX_GRID_NIT and cold['h2'] == PORT_MIX_GRID_H2
+    phase('M4', f"cold per-lane nit {cold['nit']}; h2 {cold['h2']}; ELBO "
+                f"{cold['elbo']}: nit and h2 "
+                f"{'bit-identical to' if same else 'DIFFER from'} the port's "
+                f"earlier runs")
+    if not same:
+        fail("the mixture grid's per-lane nit or h2 moved from the port's "
+             "earlier runs (PORT_MIX_GRID_NIT, PORT_MIX_GRID_H2)")
+    runs['profile'] = profile_fit(
+        ds, dict(max_iter=500), trace_name=None, make=lambda: VIPRSMixGrid(
+            ds, HyperparameterGrid(n_snps=ds.m, **MIX_GRID_SPEC), 'cuda',
+            K=MIX_K))
     return runs
 
 
@@ -1752,8 +1918,12 @@ def mix_times(ds, errs):
         n_blk = ld.nb if blk is None else int(blk.sum())
         n_til = ld.n_off if blk is None else _tiles_touching(ld, blk)
         S_k = S if lanes else 1
-        work = _add(sweep_work(ld, S_k, 2 * K + 2, 2 * K + 3, n_blk),
-                    coupling_work(ld, S_k, blk))
+        work_dense = _add(sweep_work(ld, S_k, 2 * K + 2, 2 * K + 3, n_blk),
+                          coupling_work(ld, S_k, blk))
+        # the lane kernels' bound counts what this LD needs: its nonzero
+        # 32 x 32 blocks
+        work = _add(sweep_work_nz(ld, S_k, 2 * K + 2, 2 * K + 3, blk)[:2],
+                    coupling_work(ld, S_k, blk)) if lanes else work_dense
         b_ms, b_by = bound(*work)
         ms = time_ms(lambda: mix_kernel(name, ld, st, sb, nf, h, a, blk),
                      reps=5)
@@ -1766,7 +1936,9 @@ def mix_times(ds, errs):
         check_accuracy(tag, got, want,
                        mix_plain_f64(name, ld, st, sb, nf, h, a, blk))
         del got, want
+        b_dense = bound(*work_dense)
         rec = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                   bound_ms_dense=b_dense[0], bound_by_dense=b_dense[1],
                    blocks=n_blk, tiles=n_til, S=S_k, bytes=work[0],
                    flops=work[1])
         if skip:
@@ -1776,9 +1948,14 @@ def mix_times(ds, errs):
                 name, ld, st, sb, nf, h, a, few), reps=5)
             rec['plain_ms_5pct'] = time_ms(lambda: mix_plain(
                 name, ld, st, sb, nf, h, a, few), reps=2, warmup=1)
+            if lanes:
+                rec['ms_all_blocks'] = time_ms(lambda: mix_kernel(
+                    name, ld, st, sb, nf, h, a, ones), reps=5)
         if lanes:
-            # the coupling part alone, on the block sweep's output
             mask = ones if blk is None else blk
+            rec.update(mix_lane_probes(name, ld, st, sb, nf, h, a, mask,
+                                       skip))
+            # the coupling part alone, on the block sweep's output
             new, d = cavi_cuda.block_sweep_mix(ld, st, sb, nf, h, a, mask,
                                                skip, name)
             rec['coupling'] = coupling_times(ld, new.q, d, mask, (S_k,),
@@ -1790,9 +1967,14 @@ def mix_times(ds, errs):
                     f"{ms:.3f} ms (plain {plain:.3f} ms); bound {b_ms:.3f} ms "
                     f"by {b_by} ({work[0] / 1e9:.3f} GB, {work[1] / 1e9:.1f} "
                     f"GFLOP) = {100 * b_ms / ms:.0f}% of it"
+                    + (f" (the nonzero 32 x 32 blocks; every tile dense "
+                       f"{b_dense[0]:.3f} ms by {b_dense[1]})" if lanes
+                       else '')
                     + (f"; at {int(few.sum())} blocks {rec['ms_5pct']:.3f} ms "
                        f"(plain {rec['plain_ms_5pct']:.3f} ms)" if skip
-                       else ''))
+                       else '')
+                    + (f"; every block flagged {rec['ms_all_blocks']:.3f} ms"
+                       if skip and lanes else ''))
     del m1, mg
     torch.cuda.empty_cache()
     return out

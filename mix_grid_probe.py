@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""Fit bench.py's 20 x K=3 mixture grid on one NVIDIA GPU with the
+viprs_tpu_torch package of the checkout in the working directory, and time
+its lane kernel (K7/K8) on the fit's first-iteration state.
+
+    cd <checkout> && python3 <path>/mix_grid_probe.py --tag NAME
+
+The checkout's own package, chip_smoke.py helpers and bench.py are imported
+(the working directory goes first on sys.path), so one copy of this script
+compares two checkouts in one machine session: run it in each, in turns.
+It records, in OUT/mix_grid_probe_NAME.json (``--out``, chiprun_out by
+default; the profiler's trace under ``--trace-dir``) and on stdout:
+
+- the card's name and power limit, and the build's seconds;
+- VIPRSMixGrid(ds, HyperparameterGrid(pi_steps=20, h2_est=0.25,
+  h2_se=0.05), 'cuda', K=3).fit(max_iter=500) cold after np.random.seed(0):
+  seconds, chunk widths, and each lane's nit, h2 and final ELBO;
+- one warm fit, and one under torch.profiler (device time by kernel, the
+  device's busy share);
+- cavi_sweep_mix_s (K7) at S = 20 and at its first 8 lanes, and
+  cavi_sweep_mix_s_skip (K8) at the union mask and at every 20th block, on
+  the grid's first-iteration state: CUDA-event ms, and a SHA-256 of each
+  output's bytes (equal digests in two checkouts: bit-identical outputs).
+
+It imports nothing of JAX.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.getcwd())
+
+
+def digest(*tensors):
+    """SHA-256 of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--tag', required=True,
+                    help='name of this checkout in the output file')
+    ap.add_argument('--out', default='chiprun_out',
+                    help='directory of the record')
+    ap.add_argument('--trace-dir', default=os.path.join('viprs_tpu_torch',
+                                                        '_build'),
+                    help='directory of the profiler trace (tens of MB)')
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false", flush=True)
+        sys.exit(1)
+    import bench
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from viprs_tpu_torch.data.dataset import SummaryStatsDataset
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSMixGrid
+    from viprs_tpu_torch.ops import _build, cavi_cuda, cavi_mix
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    rec = {'tag': args.tag, 'cwd': os.getcwd(), 'card': card}
+    print(f"[{args.tag}] {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, info = _build.build()
+    rec['build_seconds'] = info['seconds']
+    rec['ptxas'] = [ln.strip() for ln in info['ptxas'].splitlines()
+                    if 'registers' in ln or 'spill' in ln
+                    or 'Compiling entry' in ln]
+    print(f"[{args.tag}] build {info['seconds']:.1f} s", flush=True)
+
+    dev = torch.device('cuda', 0)
+    ld_blocks, std_beta, n_per_snp = bench.synthesize_genome(
+        m_target=cs.FULL_M)
+    ds = SummaryStatsDataset.from_dense_blocks(
+        ld_blocks, std_beta, n_per_snp, block_size=1024, quantize=True,
+        device=dev)
+    del ld_blocks
+    ld = ds.ld
+
+    def grid():
+        np.random.seed(0)
+        return VIPRSMixGrid(ds, HyperparameterGrid(n_snps=ds.m,
+                                                   **cs.MIX_GRID_SPEC),
+                            'cuda', K=cs.MIX_K)
+
+    fits = {}
+    for name in ('cold', 'warm'):
+        g = grid()
+        torch.cuda.synchronize()
+        cavi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        g.fit(max_iter=500)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        fits[name] = dict(
+            fit_s=dt, widths=list(g._chunk_trace),
+            nit=[int(x) for x in g._nit],
+            h2=[float(x) for x in g.get_heritability()],
+            elbo=[float(x) for x in g.elbo()],
+            valid=int(g.valid_terminated_models.sum()),
+            launches={k: v for k, v in cavi_cuda.LAUNCHES.items() if v})
+        f = fits[name]
+        print(f"[{args.tag}] mixture grid {name}: {dt:.3f} s, nit max "
+              f"{max(f['nit'])} ({1e3 * dt / max(f['nit']):.2f} ms/it), "
+              f"widths {f['widths']}, valid {f['valid']}/20, launches "
+              f"{f['launches']}", flush=True)
+    print(f"[{args.tag}] per-lane nit {fits['cold']['nit']}", flush=True)
+    print(f"[{args.tag}] per-lane h2 {fits['cold']['h2']}", flush=True)
+    print(f"[{args.tag}] per-lane ELBO {fits['cold']['elbo']}", flush=True)
+    rec['fits'] = fits
+
+    g = grid()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.fit(max_iter=500)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cs.OUT_DIR = args.trace_dir
+    rec['profile'] = cs._device_time(prof, wall,
+                                     f'mix_grid_trace_{args.tag}.json')
+    del prof
+
+    # the lane kernel on the grid's first-iteration state
+    g = grid()
+    g.initialize()
+    st, h = g._state, g._hyper_dev()
+    sb, nf = ds.device_inputs()
+    S = st.eta.shape[0]
+    act = torch.ones(S, device=dev)
+    union = (cavi_mix.mix_block_proposal_mask_batch(ld, st, sb, nf, h)
+             .any(dim=0)).to(torch.int32)
+    few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
+    few[::20] = 1
+    first8 = (MixState(*(x[:8].contiguous() for x in st)),
+              MixHyper(*(x[:8] for x in h)), act[:8])
+    runs = {
+        'K7 S=20': lambda: cavi_cuda.cavi_sweep_mix_s(ld, st, sb, nf, h, act),
+        'K7 S=8': lambda: cavi_cuda.cavi_sweep_mix_s(
+            ld, first8[0], sb, nf, first8[1], first8[2]),
+        f'K8 S=20 union mask ({int(union.sum())} blocks)':
+            lambda: cavi_cuda.cavi_sweep_mix_s_skip(ld, st, sb, nf, h, act,
+                                                    union),
+        f'K8 S=20 every 20th block ({int(few.sum())} blocks)':
+            lambda: cavi_cuda.cavi_sweep_mix_s_skip(ld, st, sb, nf, h, act,
+                                                    few)}
+    rec['kernels'] = {}
+    for name, fn in runs.items():
+        ms = cs.time_ms(fn, reps=5)
+        new, d = fn()
+        rec['kernels'][name] = dict(ms=ms, sha256=digest(*new, d))
+        print(f"[{args.tag}] {name}: {ms:.3f} ms, outputs sha256 "
+              f"{rec['kernels'][name]['sha256'][:16]}", flush=True)
+        del new, d
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f'mix_grid_probe_{args.tag}.json'),
+              'w') as f:
+        json.dump(rec, f, indent=1)
+    print(f"[{args.tag}] done", flush=True)
+
+
+if __name__ == '__main__':
+    main()

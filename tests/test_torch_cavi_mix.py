@@ -14,6 +14,8 @@ tests/test_torch_cavi_s.py). Frozen lanes and unflagged blocks must pass
 through bit-exactly.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -321,4 +323,119 @@ def test_mix_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
                 call()
     finally:
         _build.build.cache_clear()
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_mix_sweep_lane_tile_matches_enumeration():
+    """The lane tile of cavi_block_sweep_mix_s by S and K: of the instances
+    that hold K (4 lanes every K, 8 and 20 lanes K <= 3), the smallest that
+    holds S, else the largest with ceil(S / L) lane tiles; every lane is
+    covered exactly once."""
+    assert cavi_cuda.MIX_SWEEP_LANE_TILES == {4: 8, 8: 3, 20: 3}
+    for K in range(1, 9):
+        tiles = (4, 8, 20) if K <= 3 else (4,)
+        for S in range(1, 260):
+            want = min([L for L in tiles if L >= S] or [max(tiles)])
+            L = cavi_cuda.mix_sweep_lane_tile(S, K)
+            assert L == want, (S, K)
+            n_tiles = -(-S // L)
+            assert (n_tiles - 1) * L < S <= n_tiles * L
+    assert [cavi_cuda.mix_sweep_lane_tile(S, 3) for S in (4, 5, 8, 9, 20, 21)] \
+        == [4, 8, 8, 20, 20, 20]
+    assert cavi_cuda.mix_sweep_lane_tile(20, 8) == 4
+
+
+@pytest.mark.parametrize('bad', [None, 'shape', 'dtype', 'layout'])
+def test_block_sweep_mix_checks_diag_nz_before_launching(monkeypatch, bad):
+    """Off the CPU, the lane branch of block_sweep_mix (K7/K8) checks
+    BlockLD.diag_nz (dtype, shape, contiguity) before it launches, and hands
+    the kernel the flags, the inner steps and the lane tile picked by S and
+    K; the single-model branch (K5/K6) launches without reading diag_nz (a
+    stand-in library records the launches; meta tensors take the place of
+    the card's)."""
+    from viprs_tpu_torch.ops import _build
+    calls = {'s': [], 's1': []}
+
+    class Lib:
+        def cavi_block_sweep_mix_s_launch(self, *args):
+            calls['s'].append(args)
+            return 0
+
+        def cavi_block_sweep_mix_s1_launch(self, *args):
+            calls['s1'].append(args)
+            return 0
+
+    monkeypatch.setattr(_build, 'build', lambda: (Lib(), {}))
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev: type('Stream', (), {'cuda_stream': 0}))
+    for name in ('cavi_sweep_mix_s', 'cavi_sweep_mix_s1'):
+        monkeypatch.setitem(cavi_cuda.LAUNCHES, name, 0)
+    nb, B = 2, 256
+    ld = BlockLD.from_numpy(np.zeros((nb, B, B), np.int8),
+                            np.zeros((0, B, B), np.int8), [], [],
+                            np.ones((nb, B), np.float32), 1 / 127,
+                            device='meta')
+    assert ld.diag_nz.shape == (nb, 8, 8) and ld.diag_nz.dtype == torch.uint8
+    nz = {'shape': torch.ones(nb, 4, 4, dtype=torch.uint8, device='meta'),
+          'dtype': torch.ones(nb, 8, 8, dtype=torch.int32, device='meta'),
+          'layout': torch.ones(nb, 8, 8, dtype=torch.uint8,
+                               device='meta').transpose(1, 2)}
+    if bad is not None:
+        ld = dataclasses.replace(ld, diag_nz=nz[bad])
+    z = torch.zeros(nb, B, device='meta')
+    blk = torch.ones(nb, dtype=torch.int32, device='meta')
+
+    def args(S, K):
+        zk = torch.zeros(S, K, nb, B, device='meta')
+        zs = torch.zeros(S, nb, B, device='meta')
+        s = torch.ones(S, device='meta')
+        sk = torch.ones(S, K, device='meta')
+        return ld, MixState(zk, zk, zs, zs), z, z, MixHyper(s, sk, sk, s)
+
+    for S, K, steps in ((9, 3, 3), (20, 5, cavi_cuda.INNER_STEPS)):
+        act = torch.ones(S, device='meta')
+        if bad is None:
+            out, eta_diff = cavi_cuda.block_sweep_mix(
+                *args(S, K), act, blk, True, 'cavi_sweep_mix_s',
+                inner_steps=steps)
+            assert eta_diff.shape == (S, nb, B)
+            L = calls['s'][-1][-2]
+            assert L == cavi_cuda.mix_sweep_lane_tile(S, K) == \
+                (20 if K == 3 else 4)
+            assert calls['s'][-1][-4] == steps
+        else:
+            with pytest.raises(ValueError, match='diag_nz'):
+                cavi_cuda.block_sweep_mix(*args(S, K), act, blk, True,
+                                          'cavi_sweep_mix_s')
+    assert len(calls['s']) == cavi_cuda.LAUNCHES['cavi_sweep_mix_s'] == \
+        (2 if bad is None else 0)
+    # the single model: K5/K6 read no diag_nz, malformed or not
+    out, eta_diff = cavi_cuda.block_sweep_mix(*args(1, 3), None, blk, False,
+                                              'cavi_sweep_mix_s1')
+    assert eta_diff.shape == (1, nb, B)
+    assert len(calls['s1'][0]) == 15 + 7
+    assert cavi_cuda.LAUNCHES['cavi_sweep_mix_s1'] == 1
+
+
+@pytest.mark.parametrize('lanes', [False, True])
+def test_block_sweep_mix_takes_the_inner_steps_probe_on_the_card_only(
+        problem, lanes):
+    """Fewer inner steps are a timing probe of the kernels; the plain
+    version on the CPU runs INNER_STEPS and refuses any other count."""
+    S, K = (3, 3) if lanes else (1, 2)
+    st, hy = make_mix_state(problem, S, K, seed=70 + S)
+    state, sb, nf, hyper = torch_args(problem, st, hy)
+    blk = torch.ones(problem['nb'], dtype=torch.int32)
+    act = torch.ones(S) if lanes else None
+    with pytest.raises(ValueError, match='inner steps'):
+        cavi_cuda.block_sweep_mix(problem['ld'], state, sb, nf, hyper, act,
+                                  blk, False, 'cavi_sweep_mix_s',
+                                  inner_steps=0)
+    got = cavi_cuda.block_sweep_mix(problem['ld'], state, sb, nf, hyper, act,
+                                    blk, False, 'cavi_sweep_mix_s',
+                                    inner_steps=cavi_mix.INNER_STEPS)
+    want = cavi_mix.mix_block_sweep(problem['ld'], state, sb, nf, hyper, act,
+                                    blk_mask=blk)
+    for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(a, b)
     assert sum(cavi_cuda.LAUNCHES.values()) == 0

@@ -18,16 +18,57 @@
 // What bounds them on the card. Single model: one read of the int8
 // diagonal tiles (1.19 GB on the 1.1M-variant genome at B = 1024, 0.35 ms at
 // 3.35 TB/s); the FMA count is ~1% of the FP32 peak's worth. S = 20 lanes at
-// K = 3: per lane and block 8 tiles x (8 inner steps x 2 x 128^2 + 128 x
-// 1024) = 3.1e6 FMA, 7.1e10 FMA per sweep, 2.1 ms at the published 67
-// TFLOP/s FP32, against ~2.3 GB of state traffic (0.7 ms). This first
-// version is simple on purpose: f32 FMA on the CUDA cores, one CTA per
-// block (and lane group), the diagonal tile dequantized into shared memory
-// once per tile, each thread holding the K component values of its
-// coordinates in registers (K is a template parameter, 1..8). No atomics:
-// every result is deterministic. Transcendentals are the exact
-// expf/logf/log1pf (no fast math); log(var_tau) is hoisted out of the inner
-// steps. There is no keep gate (the mixture kernels have none).
+// K = 3 (NB = 1133): if every tile were dense, per lane and block 8 tiles x
+// (8 inner steps x 2 x 128^2 + 128 x 1024) = 3.1e6 FMA, 7.1e10 per sweep,
+// 2.13 ms at the published 67 TFLOP/s FP32; over the genome's nonzero 32 x 32
+// blocks only (92,055 of 145,024 inside the (T, T) tiles, 114,067 of
+// 1,160,192 in all), 3.25e10 FMA, 0.97 ms, against 1.7 GB of state traffic
+// (0.51 ms). cavi_block_sweep_mix_s1 is simple on purpose: f32 FMA on the
+// CUDA cores, one CTA per block, the diagonal tile dequantized into shared
+// memory once per tile, each thread holding the K component values of its
+// coordinate in registers (K is a template parameter, 1..8).
+//
+// cavi_block_sweep_mix_s has cavi_block_sweep_s's design (cavi_s.cu; the
+// pieces both use are in lane_tile.cuh): one CTA per (lane tile of L lanes,
+// LD block), L = 4, 8 or 20 picked by S and K (cavi_cuda.
+// mix_sweep_lane_tile), so each diagonal tile is dequantized once into
+// shared memory for up to 20 lanes. Thread (warp w, tx, ly) owns LT = L/4
+// lanes x E coordinates of the tile: E = 4 (128 threads) at L = 4 and 8,
+// E = 2 (256 threads) at L = 20, so that 20 lanes x K = 3 of state fit in
+// registers. Through the inner steps it keeps each element's K gamma and
+// mu, q and eta in registers (2K + 2 values), and the softmax's per-element
+// constants (n (1 + lambda) / sigma_eps, mm_k and log vt_k: 1 + 2K values)
+// in its own slots of shared memory; mu* is recomputed after the product,
+// and c and d are re-read from the lane vector. The two (T, T) products are
+// register-tiled: per k one float4 (E = 4) or float2 (E = 2) of R's row and
+// LT lane values feed E LT FFMA, |R| an operand modifier. The lane vector
+// (c, then d) is double-buffered in shared memory: two barriers per inner
+// step. The lanes' hyperparameters and the softmax's constant per component
+// sit in shared memory. q lives in q_out, read from q_in until a chunk's
+// first write, and the rank-T update walks only the 32 x 32 blocks
+// BlockLD.diag_nz flags, skipping groups of 8 rows where every lane's change
+// is exactly zero (lane_tile.cuh).
+//
+// Instances: L = 4 for every K, L = 8 and 20 for K <= 3 (14 in all; a thread
+// of the 8- and 20-lane tiles holds 8 and 10 elements, whose 2K + 2 state
+// values would spill past K = 3). Every output is the same fmaf chain, with
+// the same expressions in the same order, as in the earlier lane-group
+// kernel (8 lanes a CTA, a thread per coordinate and 4 lanes), so its outputs
+// are bit-identical to that kernel's (chip_smoke.py's M4 holds the mixture
+// grid's per-lane nit and h2 to them) and a lane's result does not
+// depend on S, its lane tile or its place in it. No atomics; every result is
+// deterministic. Transcendentals are the exact expf/logf/log1pf (no fast
+// math). There is no keep gate (the mixture kernels have none).
+//
+// Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a; no instance
+// spills): at K = 1 / 2 / 3, 128 / 137 / 137 registers a thread at L = 4,
+// 136 / 161 / 181 at L = 8 and 153 / 185 / 217 at L = 20; at L = 4 and
+// K = 4..8, 149 / 161 / 172 / 185 / 197. Shared memory at B = 1024 and
+// K = 3: 172 KiB at L = 20 (one CTA of 8 warps per SM), 105 KiB at L = 8
+// and 87 KiB at L = 4 (2 CTAs of 4 warps); 107 KiB at L = 4, K = 8. Measured
+// on an H100 80GB HBM3 at 700 W (PERF.md): 6.5 ms a sweep at S = 20, K = 3
+// over the genome's 1133 blocks, coupling included; the inner steps take
+// 4.9 ms of it.
 //
 // hyper is (4 + 2K, S) float32 (S = 1 for the single model): rows
 // [sigma_eps, lambda_min, active, log_null_pi, tau_beta_0..K-1,
@@ -37,27 +78,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_tile.cuh"
+#include "lane_tile.cuh"
 
 namespace {
 
-constexpr int T = 128;           // tile width: coordinates updated jointly
 constexpr int THREADS = 256;     // B / 4 int8 column groups at B = 1024
-constexpr int LG = 8;            // lanes per CTA of the S-lane kernel
-constexpr int HALF = LG / 2;     // lanes per thread in its inner steps
-static_assert(THREADS == 2 * T, "two owners per coordinate in the lane kernel");
-static_assert(HALF == 4, "a thread's lanes travel as one float4");
-
-// Dequantize the (T, T) diagonal tile at (t0, t0) of a block into R_s.
-__device__ __forceinline__ void load_tile(const int8_t* D, int B, int t0,
-                                          float* R_s, int tid) {
-    for (int w = tid; w < T * T / 4; w += THREADS) {
-        const int r = w / (T / 4), c4 = w % (T / 4);
-        reinterpret_cast<float4*>(R_s)[w] = i8x4_to_f32(
-            *reinterpret_cast<const int*>(
-                D + static_cast<size_t>(t0 + r) * B + t0 + 4 * c4));
-    }
-}
+static_assert(THREADS == 2 * T, "two threads per coordinate in the S = 1 kernel");
 
 // One CTA per LD block b of the single model. gamma/mu are (K, NB, B),
 // eta/q (NB, B). An unflagged block is copied through bit-exactly with a
@@ -126,7 +152,7 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
     const int8_t* D = diag + static_cast<size_t>(b) * B * B;
     const bool owner = tid < T;
     for (int t0 = 0; t0 < B; t0 += T) {
-        load_tile(D, B, t0, R_s, tid);
+        load_tile<THREADS>(D, B, t0, R_s, tid);
         __syncthreads();   // R_s loaded; q_s updates of the last tile done
 
         const size_t jj = off + t0 + tid;
@@ -252,267 +278,317 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
     for (int j = tid; j < B; j += THREADS) q_out[off + j] = q_s[j];
 }
 
-// One CTA per (lane group g, LD block b) of S lanes. gamma/mu are
-// (S, K, NB, B), eta/q (S, NB, B). A block with blk_mask[b] == 0, or a group
-// whose lanes all have active == 0, is copied through bit-exactly with a
-// zero eta change; within a group a lane with active == 0 keeps its values
+// The lanes' hyperparameters a cavi_block_sweep_mix_s CTA keeps in shared
+// memory, one row of L lanes each: sigma_eps, 1 + lambda_min, active, the
+// gate (active > 0), log_null_pi, then K rows of tau_beta and K of the
+// softmax's constant log(pi) - log(1 - pi) + log(tau_beta) / 2.
+enum { M_SIG, M_ONE_LAM, M_ACT, M_ON, M_LNP, M_TAU };
+__host__ __device__ constexpr int mix_hyp_rows(int K) { return M_TAU + 2 * K; }
+// The values of a (lane, coordinate) element that a thread keeps in its own
+// slots of shared memory through a tile's inner steps: n_j (1 + lambda_min)
+// / sigma_eps, then mm_k = n_j / (vt_k sigma_eps) and log vt_k for each k
+// (vt_k is that first value plus tau_beta_k).
+__host__ __device__ constexpr int mix_slots(int K) { return 1 + 2 * K; }
+
+// The lane tiles (lanes per CTA) of cavi_block_sweep_mix_s and the largest K
+// each holds; cavi_cuda.MIX_SWEEP_LANE_TILES lists the same. 20 lanes run
+// 256 threads of 2 coordinates each, 4 and 8 lanes 128 threads of 4.
+constexpr int MAX_K_L8 = 3, MAX_K_L20 = 3;
+
+// One CTA per (lane tile of L = 4 LT lanes, LD block b); 4 T / E threads.
+// gamma/mu are (S, K, NB, B), eta/q (S, NB, B); hyper is (4 + 2K, S);
+// diag_nz is (NB, B/32, B/32) uint8. A block with blk_mask[b] == 0, or a
+// tile whose lanes all have active == 0, is copied through bit-exactly with
+// a zero eta change; within a tile a lane with active == 0 keeps its values
 // bit for bit (w = 0, and its eta changes are gated by on = active > 0).
-// Thread (j, h) owns coordinate j of the lanes h*HALF .. h*HALF+HALF-1 of
-// the group: per step the softmax (null term first, as
-// _mix_sweep_kernel_batch sums it), w = active / (1 + c) from one shared
-// load of |R| per HALF lanes, the gamma/mu/eta update and the R matvec; after
-// each tile every thread applies the rank-T update to four columns of all
-// LG lanes (one global int8 word feeds LG lanes), skipping rows where every
-// lane's change is exactly zero. Each lane's sums run in a fixed order
-// whatever S or its position, so a lane's result does not depend on which
-// other lanes are swept with it (lane compaction is exact).
-template <int K>
-__global__ void __launch_bounds__(THREADS)
+// Thread (warp w, tx, ly) owns lanes LT ly .. + LT - 1 and coordinates
+// 8 E w + E tx .. + E - 1 of each tile, and keeps their K gamma and mu, q and
+// eta in registers through the inner steps. Per step and element: the
+// K+1-way softmax (null term first, as _mix_sweep_kernel_batch sums it) from
+// the element's slots, c = pip * max_k |mm_k| into the lane vector; the
+// register-tiled |R| product for w = act / (1 + (sum c|R| scale - rdiag c));
+// the gamma/mu/eta update with mu* recomputed; d into the other lane vector;
+// the R product for the tile-local q refresh. After the tile, the rank-T
+// update over the nonzero 32 x 32 blocks (lane_tile.cuh). A lane's
+// arithmetic is the same whatever S, its lane tile or its place in it.
+template <int K, int LT, int E>
+__global__ void __launch_bounds__(sweep_threads(E), 256 / sweep_threads(E))
 cavi_block_sweep_mix_s(const int8_t* __restrict__ diag,
+                       const uint8_t* __restrict__ diag_nz,
                        const float* __restrict__ beta,
                        const float* __restrict__ nn,
                        const float* __restrict__ mask,
                        const float* __restrict__ gamma_in,
                        const float* __restrict__ mu_in,
                        const float* __restrict__ eta_in,
-                       const float* __restrict__ q_in,
+                       const float* q_in,   // q_in and q_out: no __restrict__,
                        float* __restrict__ gamma_out,
                        float* __restrict__ mu_out,
                        float* __restrict__ eta_out,
-                       float* __restrict__ q_out,
+                       float* q_out,        // both are read through q_now
                        float* __restrict__ eta_diff,
                        const int* __restrict__ blk_mask,
                        const float* __restrict__ hyper,
                        int S, int NB, int B, float scale, int inner_steps,
                        int unit_diag) {
+    constexpr int NT = sweep_threads(E), NW = NT / 32;
+    constexpr int L = 4 * LT, LS = lane_stride(LT), RS = row_stride(LT);
+    constexpr int NV = mix_slots(K);
     extern __shared__ __align__(16) unsigned char smem[];
-    float* q_s = reinterpret_cast<float*>(smem);            // (LG, B)
-    float* v_s = q_s + LG * B;                              // (T, LG)
-    float* R_s = v_s + T * LG;                              // (T, T)
+    float* R_s = reinterpret_cast<float*>(smem);          // (T, T)
+    float* vc = R_s + T * T;                              // (T, RS): c, d_t
+    float* vd = vc + T * RS;                              // (T, RS): d
+    float* slot = vd + T * RS;                            // (LT E NV, NT)
+    float* hyp = slot + LT * E * NV * NT;                 // (rows, L)
+    unsigned* rows_s = reinterpret_cast<unsigned*>(hyp + mix_hyp_rows(K) * L);
+    int* first_s = reinterpret_cast<int*>(rows_s + T / NZ);          // B/32
+    // the block's diag_nz, (B/32, B/32)
+    unsigned char* nz = reinterpret_cast<unsigned char*>(first_s + B / NZ);
 
-    const int g = blockIdx.x;
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
-    const int s0 = g * LG;
-    const int nl = min(LG, S - s0);
-    // offsets of (lane s, component k, block b) and (lane s, block b)
-    auto koff = [&](int s, int k) { return ((static_cast<size_t>(s) * K + k) * NB + b) * B; };
-    auto loff = [&](int s) { return (static_cast<size_t>(s) * NB + b) * B; };
+    const int s0 = blockIdx.x * L;
+    const int nl = min(L, S - s0);
+    // (lane s, component k, block b) of gamma/mu
+    auto koff = [&](int s, int k) { return lane_off(s * K + k, b, NB, B); };
 
     bool any_on = false;
     for (int l = 0; l < nl; ++l) any_on |= hyper[2 * S + s0 + l] > 0.0f;
     if (!blk_mask[b] || !any_on) {
         for (int l = 0; l < nl; ++l) {
             const int s = s0 + l;
-            for (int j = tid; j < B; j += THREADS) {
+            const size_t off = lane_off(s, b, NB, B);
+            for (int c = 4 * tid; c < B; c += 4 * NT) {
 #pragma unroll
                 for (int k = 0; k < K; ++k) {
-                    gamma_out[koff(s, k) + j] = gamma_in[koff(s, k) + j];
-                    mu_out[koff(s, k) + j] = mu_in[koff(s, k) + j];
+                    *reinterpret_cast<float4*>(gamma_out + koff(s, k) + c) =
+                        ld4(gamma_in + koff(s, k) + c);
+                    *reinterpret_cast<float4*>(mu_out + koff(s, k) + c) =
+                        ld4(mu_in + koff(s, k) + c);
                 }
-                eta_out[loff(s) + j] = eta_in[loff(s) + j];
-                q_out[loff(s) + j] = q_in[loff(s) + j];
-                eta_diff[loff(s) + j] = 0.0f;
+                *reinterpret_cast<float4*>(eta_out + off + c) =
+                    ld4(eta_in + off + c);
+                *reinterpret_cast<float4*>(q_out + off + c) =
+                    ld4(q_in + off + c);
+                *reinterpret_cast<float4*>(eta_diff + off + c) =
+                    make_float4(0.f, 0.f, 0.f, 0.f);
             }
         }
         return;
     }
 
-    const int j = tid & (T - 1);   // coordinate within the tile
-    const int h = tid / T;         // which half of the lane group
-    float sig_e[HALF], lam[HALF], act[HALF], on[HALF], lnp[HALF];
-    float tau_b[HALF][K], base[HALF][K];
-    bool valid[HALF];
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-        const int l = h * HALF + i;
-        valid[i] = l < nl;
-        const int s = s0 + l;
-        // missing lanes of the last group: inert values, never written
-        sig_e[i] = valid[i] ? hyper[s] : 1.0f;
-        lam[i] = valid[i] ? hyper[S + s] : 0.0f;
-        act[i] = valid[i] ? hyper[2 * S + s] : 0.0f;
-        lnp[i] = valid[i] ? hyper[3 * S + s] : -1.0f;
-        on[i] = act[i] > 0.0f ? 1.0f : 0.0f;
+    const int w = tid / 32, tx = tid % 8, ly = (tid % 32) / 8;
+    const int jt = 8 * E * w + E * tx;   // the thread's coordinates in a tile
+    const int lo = ly * LS;              // its lanes' offset in a lane-vector row
+    if (tid < L) {
+        // missing lanes of the last tile: inert values, never written
+        const bool ok = tid < nl;
+        const int s = s0 + tid;
+        const float act = ok ? hyper[2 * S + s] : 0.0f;
+        hyp[M_SIG * L + tid] = ok ? hyper[s] : 1.0f;
+        hyp[M_ONE_LAM * L + tid] = 1.0f + (ok ? hyper[S + s] : 0.0f);
+        hyp[M_ACT * L + tid] = act;
+        hyp[M_ON * L + tid] = act > 0.0f ? 1.0f : 0.0f;
+        hyp[M_LNP * L + tid] = ok ? hyper[3 * S + s] : -1.0f;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            tau_b[i][k] = valid[i] ? hyper[(4 + k) * S + s] : 1.0f;
-            const float pi = valid[i] ? hyper[(4 + K + k) * S + s] : 0.25f / K;
-            base[i][k] = logf(pi) - log1pf(-pi) + 0.5f * logf(tau_b[i][k]);
+            const float tau = ok ? hyper[(4 + k) * S + s] : 1.0f;
+            const float pi = ok ? hyper[(4 + K + k) * S + s] : 0.25f / K;
+            hyp[(M_TAU + k) * L + tid] = tau;
+            hyp[(M_TAU + K + k) * L + tid] =
+                logf(pi) - log1pf(-pi) + 0.5f * logf(tau);
         }
     }
-
-    for (int l = 0; l < LG; ++l)
-        for (int c = tid; c < B; c += THREADS)
-            q_s[l * B + c] = l < nl ? q_in[loff(s0 + l) + c] : 0.0f;
-
     const int8_t* D = diag + static_cast<size_t>(b) * B * B;
-    float4* my_v = reinterpret_cast<float4*>(v_s + j * LG + h * HALF);
-    for (int t0 = 0; t0 < B; t0 += T) {
-        load_tile(D, B, t0, R_s, tid);
-        __syncthreads();   // R_s loaded; q_s updates of the last tile done
-
-        const size_t jb = static_cast<size_t>(b) * B + t0 + j;
-        const float n_j = nn[jb], beta_j = beta[jb], mask_j = mask[jb];
-        const float rdiag = unit_diag ? mask_j : fabsf(R_s[j * T + j]) * scale;
-        float vt[HALF][K], mm[HALF][K], logvt[HALF][K];
-        float gk[HALF][K], mk[HALF][K], mmax[HALF];
-        float eta0[HALF], eta_cur[HALF], q_cur[HALF], c[HALF], d[HALF];
+    const int nb32 = B / NZ;
+    stage_flags<NT>(diag_nz, b, nb32, nz, tid);
+    __syncthreads();
+    // q_out is the block's running q for the CTA's lanes (see
+    // stage_first_writes)
+    stage_first_writes<NT>(nz, nb32, first_s, tid);
+    bool valid[LT];
+    size_t lane_base[LT];
 #pragma unroll
-        for (int i = 0; i < HALF; ++i) {
-            const int s = s0 + h * HALF + i;
-            mmax[i] = 0.f;
+    for (int i = 0; i < LT; ++i) {
+        valid[i] = LT * ly + i < nl;
+        lane_base[i] = lane_off(s0 + LT * ly + i, b, NB, B);
+    }
+    // slot v of the thread's element (i, e), as mix_slots lists them
+    auto sl = [&](int i, int e, int v) -> float& {
+        return slot[((i * E + e) * NV + v) * NT + tid];
+    };
+
+    for (int t0 = 0; t0 < B; t0 += T) {
+        load_tile<NT>(D, B, t0, R_s, tid);
+        // R_s loaded; the last tile's q updates and lane-vector reads done
+        __syncthreads();
+
+        const size_t jb = static_cast<size_t>(b) * B + t0 + jt;
+        const float* q_now = first_s[(t0 + jt) / NZ] < t0 / T ? q_out : q_in;
+        float n_j[E], beta_j[E], mask_j[E];
+        load_or0<E>(true, nn + jb, n_j);
+        load_or0<E>(true, beta + jb, beta_j);
+        load_or0<E>(true, mask + jb, mask_j);
+        float g[LT][E][K], m[LT][E][K], q_cur[LT][E], eta_cur[LT][E];
+#pragma unroll
+        for (int i = 0; i < LT; ++i) {
+            const int l = LT * ly + i;
+            const int s = s0 + l;
+            const float sig_e = hyp[M_SIG * L + l];
+            const float one_lam = hyp[M_ONE_LAM * L + l];
+            const size_t off = lane_base[i] + t0 + jt;
+            load_or0<E>(valid[i], eta_in + off, eta_cur[i]);
+            load_or0<E>(valid[i], q_now + off, q_cur[i]);
+#pragma unroll
+            for (int e = 0; e < E; ++e) sl(i, e, 0) = n_j[e] * one_lam / sig_e;
 #pragma unroll
             for (int k = 0; k < K; ++k) {
-                vt[i][k] = n_j * (1.0f + lam[i]) / sig_e[i] + tau_b[i][k];
-                mm[i][k] = n_j / (vt[i][k] * sig_e[i]);
-                logvt[i][k] = logf(vt[i][k]);
-                mmax[i] = fmaxf(mmax[i], fabsf(mm[i][k]));
-                gk[i][k] = valid[i] ? gamma_in[koff(s, k) + t0 + j] : 0.0f;
-                mk[i][k] = valid[i] ? mu_in[koff(s, k) + t0 + j] : 0.0f;
+                const float tau_b = hyp[(M_TAU + k) * L + l];
+                float g0[E], m0[E];
+                load_or0<E>(valid[i], gamma_in + koff(s, k) + t0 + jt, g0);
+                load_or0<E>(valid[i], mu_in + koff(s, k) + t0 + jt, m0);
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                    const float vt = n_j[e] * one_lam / sig_e + tau_b;
+                    sl(i, e, 1 + k) = n_j[e] / (vt * sig_e);
+                    sl(i, e, 1 + K + k) = logf(vt);
+                    g[i][e][k] = g0[e];
+                    m[i][e][k] = m0[e];
+                }
             }
-            eta0[i] = valid[i] ? eta_in[loff(s) + t0 + j] : 0.0f;
-            eta_cur[i] = eta0[i];
-            q_cur[i] = q_s[(h * HALF + i) * B + t0 + j];
         }
 
         for (int step = 0; step < inner_steps; ++step) {
-            float ms[HALF][K], gs[HALF][K];
+            float x[LT][E], gs[LT][E][K];
 #pragma unroll
-            for (int i = 0; i < HALF; ++i) {
-                float u[K], umax = lnp[i];
+            for (int i = 0; i < LT; ++i) {
+                const int l = LT * ly + i;
+                const float lnp = hyp[M_LNP * L + l];
 #pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    ms[i][k] = mm[i][k] * (beta_j - q_cur[i]);
-                    u[k] = base[i][k] - 0.5f * logvt[i][k]
-                        + 0.5f * vt[i][k] * ms[i][k] * ms[i][k];
-                    umax = fmaxf(umax, u[k]);
+                for (int e = 0; e < E; ++e) {
+                    const float nv = sl(i, e, 0);
+                    const float qd = beta_j[e] - q_cur[i][e];
+                    float u[K], umax = lnp, mmax = 0.f;
+#pragma unroll
+                    for (int k = 0; k < K; ++k) {
+                        const float mm = sl(i, e, 1 + k);
+                        const float vt = nv + hyp[(M_TAU + k) * L + l];
+                        const float ms = mm * qd;
+                        u[k] = hyp[(M_TAU + K + k) * L + l]
+                            - 0.5f * sl(i, e, 1 + K + k) + 0.5f * vt * ms * ms;
+                        umax = fmaxf(umax, u[k]);
+                        mmax = fmaxf(mmax, fabsf(mm));
+                    }
+                    float denom = expf(lnp - umax);
+#pragma unroll
+                    for (int k = 0; k < K; ++k) {
+                        gs[i][e][k] = expf(u[k] - umax);
+                        denom += gs[i][e][k];
+                    }
+                    float pip = 0.f;
+#pragma unroll
+                    for (int k = 0; k < K; ++k) {
+                        gs[i][e][k] = gs[i][e][k] / denom;
+                        pip += gs[i][e][k];
+                    }
+                    x[i][e] = pip * mmax;   // c
                 }
-                float denom = expf(lnp[i] - umax);
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    gs[i][k] = expf(u[k] - umax);
-                    denom += gs[i][k];
-                }
-                float pip = 0.f;
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    gs[i][k] = gs[i][k] / denom;
-                    pip += gs[i][k];
-                }
-                c[i] = pip * mmax[i];
             }
-            *my_v = make_float4(c[0], c[1], c[2], c[3]);
+#pragma unroll
+            for (int e = 0; e < E; ++e) store_column<LT>(vc, jt + e, lo, x, e);
             __syncthreads();
             // relaxation: sum_k c_k |R_kj|, minus the diagonal term
-            float acc[HALF] = {0.f, 0.f, 0.f, 0.f};
-            for (int k = 0; k < T; ++k) {
-                const float r = fabsf(R_s[k * T + j]);
-                const float4 v = reinterpret_cast<const float4*>(
-                    v_s + k * LG + h * HALF)[0];
-                acc[0] = fmaf(v.x, r, acc[0]);
-                acc[1] = fmaf(v.y, r, acc[1]);
-                acc[2] = fmaf(v.z, r, acc[2]);
-                acc[3] = fmaf(v.w, r, acc[3]);
-            }
+            float acc[LT][E];
+            tile_product<LT, E, true>(acc, R_s, vc, jt, lo);
 #pragma unroll
-            for (int i = 0; i < HALF; ++i) {
-                const float w = act[i] / (1.0f + (acc[i] * scale - rdiag * c[i]));
-                float eta_new = 0.f;
+            for (int e = 0; e < E; ++e) {
+                const float rdiag = unit_diag ? mask_j[e]
+                    : fabsf(R_s[(jt + e) * T + jt + e]) * scale;
+                float c[LT];
+                load_lanes<LT>(vc + (jt + e) * RS + lo, c);
 #pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    gk[i][k] = gk[i][k] + w * (gs[i][k] - gk[i][k]);
-                    mk[i][k] = mk[i][k] + w * (ms[i][k] - mk[i][k]);
-                    eta_new += gk[i][k] * mk[i][k];
+                for (int i = 0; i < LT; ++i) {
+                    const int l = LT * ly + i;
+                    const float wgt = hyp[M_ACT * L + l]
+                        / (1.0f + (acc[i][e] * scale - rdiag * c[i]));
+                    const float qd = beta_j[e] - q_cur[i][e];
+                    float eta_new = 0.f;
+#pragma unroll
+                    for (int k = 0; k < K; ++k) {
+                        // mu* recomputed, rounded on its own: contracted
+                        // into ms - m it would round once less
+                        const float ms = __fmul_rn(sl(i, e, 1 + k), qd);
+                        g[i][e][k] = g[i][e][k] + wgt * (gs[i][e][k] - g[i][e][k]);
+                        m[i][e][k] = m[i][e][k] + wgt * (ms - m[i][e][k]);
+                        eta_new += g[i][e][k] * m[i][e][k];
+                    }
+                    x[i][e] = (eta_new - eta_cur[i][e]) * mask_j[e]
+                        * hyp[M_ON * L + l];   // d
                 }
-                d[i] = (eta_new - eta_cur[i]) * mask_j * on[i];
             }
-            __syncthreads();
-            *my_v = make_float4(d[0], d[1], d[2], d[3]);
+#pragma unroll
+            for (int e = 0; e < E; ++e) store_column<LT>(vd, jt + e, lo, x, e);
             __syncthreads();
             // tile-local q refresh: sum_k d_k R_kj - d_j
-            float acc2[HALF] = {0.f, 0.f, 0.f, 0.f};
-            for (int k = 0; k < T; ++k) {
-                const float r = R_s[k * T + j];
-                const float4 v = reinterpret_cast<const float4*>(
-                    v_s + k * LG + h * HALF)[0];
-                acc2[0] = fmaf(v.x, r, acc2[0]);
-                acc2[1] = fmaf(v.y, r, acc2[1]);
-                acc2[2] = fmaf(v.z, r, acc2[2]);
-                acc2[3] = fmaf(v.w, r, acc2[3]);
-            }
+            tile_product<LT, E, false>(acc, R_s, vd, jt, lo);
 #pragma unroll
-            for (int i = 0; i < HALF; ++i) {
-                q_cur[i] = q_cur[i] + acc2[i] * scale - d[i];
-                eta_cur[i] = eta_cur[i] + d[i];
-            }
-            __syncthreads();
-        }
-
+            for (int e = 0; e < E; ++e) {
+                float d[LT];
+                load_lanes<LT>(vd + (jt + e) * RS + lo, d);
 #pragma unroll
-        for (int i = 0; i < HALF; ++i) {
-            d[i] = (eta_cur[i] - eta0[i]) * mask_j * on[i];
-            if (valid[i]) {
-                const int s = s0 + h * HALF + i;
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    gamma_out[koff(s, k) + t0 + j] = gk[i][k];
-                    mu_out[koff(s, k) + t0 + j] = mk[i][k];
+                for (int i = 0; i < LT; ++i) {
+                    q_cur[i][e] = q_cur[i][e] + acc[i][e] * scale - d[i];
+                    eta_cur[i][e] = eta_cur[i][e] + d[i];
                 }
-                const float eta_new = eta0[i] + d[i];
-                eta_out[loff(s) + t0 + j] = eta_new;
-                eta_diff[loff(s) + t0 + j] = eta_new - eta0[i];
             }
         }
-        *my_v = make_float4(d[0], d[1], d[2], d[3]);
-        __syncthreads();
 
-        // rank-T update over the whole block width (R symmetric)
-        const int8_t* rows = D + static_cast<size_t>(t0) * B;
-        for (int cg = tid; cg < B / 4; cg += THREADS) {
-            float a[LG][4];
+        // the tile's outputs, and d_t into vc (whose last readers passed the
+        // step's second barrier, or the tile's first with no inner step)
+        unsigned moved = 0u;   // bit e: some lane's d_t at jt + e is nonzero
+        {
+            float dt[LT][E];
 #pragma unroll
-            for (int l = 0; l < LG; ++l)
-                a[l][0] = a[l][1] = a[l][2] = a[l][3] = 0.f;
-            for (int k = 0; k < T; ++k) {
-                const float4 v0 = reinterpret_cast<const float4*>(v_s + k * LG)[0];
-                const float4 v1 = reinterpret_cast<const float4*>(v_s + k * LG)[1];
-                const float dk[LG] = {v0.x, v0.y, v0.z, v0.w,
-                                      v1.x, v1.y, v1.z, v1.w};
-                bool any = false;
+            for (int i = 0; i < LT; ++i) {
+                const int s = s0 + LT * ly + i;
+                const float on = hyp[M_ON * L + LT * ly + i];
+                const size_t off = lane_base[i] + t0 + jt;
+                float e0[E], out_e[E], out_d[E];
+                load_or0<E>(valid[i], eta_in + off, e0);
 #pragma unroll
-                for (int l = 0; l < LG; ++l) any |= dk[l] != 0.0f;
-                if (any) {
-                    const float4 r = i8x4_to_f32(*reinterpret_cast<const int*>(
-                        rows + static_cast<size_t>(k) * B + 4 * cg));
+                for (int e = 0; e < E; ++e) {
+                    const float d_t = (eta_cur[i][e] - e0[e]) * mask_j[e] * on;
+                    dt[i][e] = d_t;
+                    moved |= d_t != 0.0f ? 1u << e : 0u;
+                    const float eta_new = e0[e] + d_t;
+                    out_e[e] = eta_new;
+                    out_d[e] = eta_new - e0[e];
+                }
+                if (valid[i]) {
 #pragma unroll
-                    for (int l = 0; l < LG; ++l) {
-                        a[l][0] = fmaf(dk[l], r.x, a[l][0]);
-                        a[l][1] = fmaf(dk[l], r.y, a[l][1]);
-                        a[l][2] = fmaf(dk[l], r.z, a[l][2]);
-                        a[l][3] = fmaf(dk[l], r.w, a[l][3]);
+                    for (int k = 0; k < K; ++k) {
+                        float gk[E], mk[E];
+#pragma unroll
+                        for (int e = 0; e < E; ++e) {
+                            gk[e] = g[i][e][k];
+                            mk[e] = m[i][e][k];
+                        }
+                        store_vec<E>(gamma_out + koff(s, k) + t0 + jt, gk);
+                        store_vec<E>(mu_out + koff(s, k) + t0 + jt, mk);
                     }
+                    store_vec<E>(eta_out + off, out_e);
+                    store_vec<E>(eta_diff + off, out_d);
                 }
             }
 #pragma unroll
-            for (int l = 0; l < LG; ++l) {
-                float* qr = q_s + l * B + 4 * cg;
-                qr[0] += a[l][0] * scale;
-                qr[1] += a[l][1] * scale;
-                qr[2] += a[l][2] * scale;
-                qr[3] += a[l][3] * scale;
-            }
+            for (int e = 0; e < E; ++e)
+                store_column<LT>(vc, jt + e, lo, dt, e);
         }
-        __syncthreads();
-        // the stored unit diagonal also moved q at the focal variants
-#pragma unroll
-        for (int i = 0; i < HALF; ++i)
-            q_s[(h * HALF + i) * B + t0 + j] -= d[i];
+        publish_rows<E>(moved, tx, w, tid, rows_s);
+        __syncthreads();   // d_t of every lane and the row words in place
+        rank_t_update<LT, NW>(D, B, t0, nz, rows_s, first_s, vc, q_in, q_out,
+                              lane_base, valid, scale, tx, w, lo, tid);
     }
-    __syncthreads();
-    for (int l = 0; l < nl; ++l)
-        for (int c = tid; c < B; c += THREADS)
-            q_out[loff(s0 + l) + c] = q_s[l * B + c];
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
@@ -528,13 +604,14 @@ bool bad_shape(int S, int K, int nb, int B) {
 
 struct Args {
     const int8_t* diag;
+    const uint8_t* diag_nz;
     const float *beta, *nn, *mask, *gamma_in, *mu_in, *eta_in, *q_in;
     float *gamma_out, *mu_out, *eta_out, *q_out, *eta_diff;
     const int* blk_mask;
     const float* hyper;
     int S, nb, B;
     float scale;
-    int inner_steps, unit_diag;
+    int inner_steps, unit_diag, L;
     cudaStream_t stream;
 };
 
@@ -550,16 +627,22 @@ cudaError_t launch_s1(const Args& a) {
     return cudaGetLastError();
 }
 
-template <int K>
+template <int K, int LT, int E>
 cudaError_t launch_s(const Args& a) {
-    const size_t smem = (LG * a.B + T * LG + T * T) * sizeof(float);
-    cudaError_t err = set_smem(reinterpret_cast<const void*>(cavi_block_sweep_mix_s<K>), smem);
+    constexpr int L = 4 * LT, NT = sweep_threads(E);
+    const size_t smem = (T * T + 2 * T * row_stride(LT)
+                         + mix_slots(K) * T * L + mix_hyp_rows(K) * L)
+        * sizeof(float) + (T / NZ) * sizeof(unsigned)
+        + a.B / NZ * sizeof(int) + (a.B / NZ) * (a.B / NZ);
+    cudaError_t err = set_smem(
+        reinterpret_cast<const void*>(cavi_block_sweep_mix_s<K, LT, E>), smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((a.S + LG - 1) / LG, a.nb);
-    cavi_block_sweep_mix_s<K><<<grid, THREADS, smem, a.stream>>>(
-        a.diag, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in, a.eta_in, a.q_in,
-        a.gamma_out, a.mu_out, a.eta_out, a.q_out, a.eta_diff, a.blk_mask,
-        a.hyper, a.S, a.nb, a.B, a.scale, a.inner_steps, a.unit_diag);
+    const dim3 grid((a.S + L - 1) / L, a.nb);
+    cavi_block_sweep_mix_s<K, LT, E><<<grid, NT, smem, a.stream>>>(
+        a.diag, a.diag_nz, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in,
+        a.eta_in, a.q_in, a.gamma_out, a.mu_out, a.eta_out, a.q_out,
+        a.eta_diff, a.blk_mask, a.hyper, a.S, a.nb, a.B, a.scale,
+        a.inner_steps, a.unit_diag);
     return cudaGetLastError();
 }
 
@@ -580,15 +663,31 @@ cudaError_t by_k(int K, const Args& a) {
 }
 
 template <int K> struct S1 { static cudaError_t run(const Args& a) { return launch_s1<K>(a); } };
-template <int K> struct SL { static cudaError_t run(const Args& a) { return launch_s<K>(a); } };
+// the instances of cavi_block_sweep_mix_s: 4 lanes for every K, 8 and 20
+// up to MAX_K_L8 / MAX_K_L20 (cavi_cuda.mix_sweep_lane_tile)
+template <int K> struct SL {
+    static cudaError_t run(const Args& a) {
+        if (a.L == 4) return launch_s<K, 1, 4>(a);
+        if constexpr (K <= MAX_K_L8) {
+            if (a.L == 8) return launch_s<K, 2, 4>(a);
+        }
+        if constexpr (K <= MAX_K_L20) {
+            if (a.L == 20) return launch_s<K, 5, 2>(a);
+        }
+        return cudaErrorInvalidValue;
+    }
+};
 
-Args make_args(const void* diag, const void* beta, const void* nn,
-               const void* mask, const void* gamma_in, const void* mu_in,
-               const void* eta_in, const void* q_in, void* gamma_out,
-               void* mu_out, void* eta_out, void* q_out, void* eta_diff,
-               const void* blk_mask, const void* hyper, int S, int nb, int B,
-               float scale, int inner_steps, int unit_diag, void* stream) {
-    return Args{static_cast<const int8_t*>(diag), static_cast<const float*>(beta),
+Args make_args(const void* diag, const void* diag_nz, const void* beta,
+               const void* nn, const void* mask, const void* gamma_in,
+               const void* mu_in, const void* eta_in, const void* q_in,
+               void* gamma_out, void* mu_out, void* eta_out, void* q_out,
+               void* eta_diff, const void* blk_mask, const void* hyper, int S,
+               int nb, int B, float scale, int inner_steps, int unit_diag,
+               int L, void* stream) {
+    return Args{static_cast<const int8_t*>(diag),
+                static_cast<const uint8_t*>(diag_nz),
+                static_cast<const float*>(beta),
                 static_cast<const float*>(nn), static_cast<const float*>(mask),
                 static_cast<const float*>(gamma_in), static_cast<const float*>(mu_in),
                 static_cast<const float*>(eta_in), static_cast<const float*>(q_in),
@@ -596,7 +695,7 @@ Args make_args(const void* diag, const void* beta, const void* nn,
                 static_cast<float*>(eta_out), static_cast<float*>(q_out),
                 static_cast<float*>(eta_diff), static_cast<const int*>(blk_mask),
                 static_cast<const float*>(hyper), S, nb, B, scale, inner_steps,
-                unit_diag, static_cast<cudaStream_t>(stream)};
+                unit_diag, L, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -619,27 +718,30 @@ int cavi_block_sweep_mix_s1_launch(const void* diag, const void* beta,
     if (bad_shape(1, K, nb, B)) return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0) return static_cast<int>(cudaGetLastError());
     return static_cast<int>(by_k<S1>(K, make_args(
-        diag, beta, nn, mask, gamma_in, mu_in, eta_in, q_in, gamma_out, mu_out,
-        eta_out, q_out, eta_diff, blk_mask, hyper, 1, nb, B, scale,
-        inner_steps, unit_diag, stream)));
+        diag, nullptr, beta, nn, mask, gamma_in, mu_in, eta_in, q_in,
+        gamma_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, 1, nb, B,
+        scale, inner_steps, unit_diag, 1, stream)));
 }
 
-int cavi_block_sweep_mix_s_launch(const void* diag, const void* beta,
-                                  const void* nn, const void* mask,
-                                  const void* gamma_in, const void* mu_in,
-                                  const void* eta_in, const void* q_in,
-                                  void* gamma_out, void* mu_out, void* eta_out,
-                                  void* q_out, void* eta_diff,
-                                  const void* blk_mask, const void* hyper,
-                                  int S, int K, int nb, int B, float scale,
-                                  int inner_steps, int unit_diag,
-                                  void* stream) {
-    if (bad_shape(S, K, nb, B)) return static_cast<int>(cudaErrorInvalidValue);
+// cavi_block_sweep_mix_s with the lane tile L: 4, or 8 or 20 for K <= 3.
+// The state tensors and diag_nz must be 16-byte aligned.
+int cavi_block_sweep_mix_s_launch(const void* diag, const void* diag_nz,
+                                  const void* beta, const void* nn,
+                                  const void* mask, const void* gamma_in,
+                                  const void* mu_in, const void* eta_in,
+                                  const void* q_in, void* gamma_out,
+                                  void* mu_out, void* eta_out, void* q_out,
+                                  void* eta_diff, const void* blk_mask,
+                                  const void* hyper, int S, int K, int nb,
+                                  int B, float scale, int inner_steps,
+                                  int unit_diag, int L, void* stream) {
+    if (bad_shape(S, K, nb, B) || inner_steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0 || S == 0) return static_cast<int>(cudaGetLastError());
     return static_cast<int>(by_k<SL>(K, make_args(
-        diag, beta, nn, mask, gamma_in, mu_in, eta_in, q_in, gamma_out, mu_out,
-        eta_out, q_out, eta_diff, blk_mask, hyper, S, nb, B, scale,
-        inner_steps, unit_diag, stream)));
+        diag, diag_nz, beta, nn, mask, gamma_in, mu_in, eta_in, q_in,
+        gamma_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, S, nb,
+        B, scale, inner_steps, unit_diag, L, stream)));
 }
 
 }  // extern "C"

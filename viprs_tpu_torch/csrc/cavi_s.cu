@@ -47,7 +47,7 @@
 // walk. Frozen lanes and unflagged blocks pass through bit-exactly. No
 // atomics; the exact expf/logf/log1pf (no fast math).
 //
-// Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a): 108 / 148 / 253
+// Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a): 128 / 158 / 253
 // / 255 registers a thread for L = 4 / 8 / 16 / 20, the last with 20 bytes
 // of spill stores outside the product loops; with 73 / 77 / 86 / 102 KB of
 // shared memory (B = 1024) that is 3 / 2 / 2 / 2 CTAs (12 / 8 / 8 / 8
@@ -95,114 +95,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_tile.cuh"
+#include "lane_tile.cuh"
 
 namespace {
 
-constexpr int T = 128;           // tile width: coordinates updated jointly
-constexpr int SWEEP_THREADS = 128;   // 4 warps: 32 coordinates x 4 lane groups
 constexpr float ETA_DIFF_EPS = 1e-8f;
-constexpr int NZ = 32;           // side of the blocks BlockLD.diag_nz flags
 // the lane hyperparameters a sweep CTA keeps in shared memory, per lane
 enum { H_SIG, H_TAU, H_ONE_LAM, H_BASE, H_ACT, H_ON, N_HYP };
 
 __device__ __forceinline__ float sigmoid(float x) {
     return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ size_t lane_off(int s, int b, int NB, int B) {
-    return (static_cast<size_t>(s) * NB + b) * B;
-}
-
-// A lane group's stride in the (T, RS) lane vector: float, float2, float4
-// or float4 + float; RS pads the rows against bank conflicts of the stores.
-__host__ __device__ constexpr int lane_stride(int LT) {
-    return LT == 5 ? 8 : LT;
-}
-__host__ __device__ constexpr int row_stride(int LT) {
-    return 4 * lane_stride(LT) + 4;
-}
-
-template <int LT>
-__device__ __forceinline__ void load_lanes(const float* p, float (&v)[LT]) {
-    if constexpr (LT == 1) {
-        v[0] = p[0];
-    } else if constexpr (LT == 2) {
-        const float2 x = *reinterpret_cast<const float2*>(p);
-        v[0] = x.x; v[1] = x.y;
-    } else {
-        static_assert(LT == 4 || LT == 5, "lane tiles of 1, 2, 4 or 5 lanes");
-        const float4 x = *reinterpret_cast<const float4*>(p);
-        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-        if constexpr (LT == 5) v[4] = p[4];
-    }
-}
-
-template <int LT>
-__device__ __forceinline__ void store_lanes(float* p, const float (&v)[LT]) {
-    if constexpr (LT == 1) {
-        p[0] = v[0];
-    } else if constexpr (LT == 2) {
-        *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-    } else {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-        if constexpr (LT == 5) p[4] = v[4];
-    }
-}
-
-// Column e of a thread's (LT, 4) elements into the lane vector's row j.
-template <int LT>
-__device__ __forceinline__ void store_column(float* v, int j, int lo,
-                                             const float (&x)[LT][4], int e) {
-    float col[LT];
-#pragma unroll
-    for (int i = 0; i < LT; ++i) col[i] = x[i][e];
-    store_lanes<LT>(v + j * row_stride(LT) + lo, col);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-
-// p[0..3], or zeros where !ok (a missing lane)
-__device__ __forceinline__ float4 ld4_or0(bool ok, const float* p) {
-    return ok ? ld4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ float get(const float4& v, int e) {
-    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// acc[i][e] = sum over k = 0..T-1, ascending, of v[k][lane i] R[k][j + e]
-// (|R| where ABS): one fmaf chain per element.
-template <int LT, bool ABS>
-__device__ __forceinline__ void tile_product(float (&acc)[LT][4],
-                                             const float* R, const float* v,
-                                             int j, int lo) {
-    constexpr int RS = row_stride(LT);
-#pragma unroll
-    for (int i = 0; i < LT; ++i)
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-    // unrolled by 16 so that the loads run ahead of their FFMA: chip_smoke.py
-    // read a sweep at S = 100 at 20.3 ms, against 21.4 ms unrolled by 4
-    // (H100 80GB HBM3, 700 W; PERF.md)
-#pragma unroll 16
-    for (int k = 0; k < T; ++k) {
-        float4 r = ld4(R + k * T + j);
-        if (ABS) {
-            r.x = fabsf(r.x); r.y = fabsf(r.y);
-            r.z = fabsf(r.z); r.w = fabsf(r.w);
-        }
-        float x[LT];
-        load_lanes<LT>(v + k * RS + lo, x);
-#pragma unroll
-        for (int i = 0; i < LT; ++i) {
-            acc[i][0] = fmaf(x[i], r.x, acc[i][0]);
-            acc[i][1] = fmaf(x[i], r.y, acc[i][1]);
-            acc[i][2] = fmaf(x[i], r.z, acc[i][2]);
-            acc[i][3] = fmaf(x[i], r.w, acc[i][3]);
-        }
-    }
 }
 
 // One CTA per (lane tile of L = 4 LT lanes, LD block b). State tensors are
@@ -289,27 +191,11 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
     }
     const int8_t* D = diag + static_cast<size_t>(b) * B * B;
     const int nb32 = B / NZ;
-    {
-        const int* src = reinterpret_cast<const int*>(
-            diag_nz + static_cast<size_t>(b) * nb32 * nb32);
-        for (int i = tid; i < nb32 * nb32 / 4; i += SWEEP_THREADS)
-            reinterpret_cast<int*>(nz)[i] = src[i];
-    }
+    stage_flags<SWEEP_THREADS>(diag_nz, b, nb32, nz, tid);
     __syncthreads();
-    // q_out is the block's running q for the CTA's lanes. Each 32-column
-    // chunk of it is first written by the rank-T update of the first tile
-    // whose rows hold a nonzero there (at the latest its own tile's): until
-    // then the chunk's q is q_in's.
-    for (int cc = tid; cc < nb32; cc += SWEEP_THREADS) {
-        int first = cc / (T / NZ);
-        for (int t1 = 0; t1 < first; ++t1) {
-            bool hit = false;
-            for (int r = 0; r < T / NZ; ++r)
-                hit |= nz[(t1 * (T / NZ) + r) * nb32 + cc] != 0;
-            if (hit) first = t1;
-        }
-        first_s[cc] = first;
-    }
+    // q_out is the block's running q for the CTA's lanes (see
+    // stage_first_writes)
+    stage_first_writes<SWEEP_THREADS>(nz, nb32, first_s, tid);
     bool valid[LT];
     size_t lane_base[LT];
 #pragma unroll
@@ -319,12 +205,7 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
     }
 
     for (int t0 = 0; t0 < B; t0 += T) {
-        for (int i = tid; i < T * T / 4; i += SWEEP_THREADS) {
-            const int r = i / (T / 4), c4 = i % (T / 4);
-            reinterpret_cast<float4*>(R_s)[i] = i8x4_to_f32(
-                *reinterpret_cast<const int*>(
-                    D + static_cast<size_t>(t0 + r) * B + t0 + 4 * c4));
-        }
+        load_tile<SWEEP_THREADS>(D, B, t0, R_s, tid);
         // R_s loaded; the last tile's q updates and lane-vector reads done
         __syncthreads();
 
@@ -380,7 +261,7 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
             __syncthreads();
             // relaxation: sum_k c_k |R_kj|, minus the unit diagonal term
             float acc[LT][4];
-            tile_product<LT, true>(acc, R_s, vc, jt, lo);
+            tile_product<LT, 4, true>(acc, R_s, vc, jt, lo);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float rdiag = fabsf(R_s[(jt + e) * T + jt + e]) * scale;
@@ -405,7 +286,7 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
             for (int e = 0; e < 4; ++e) store_column<LT>(vd, jt + e, lo, x, e);
             __syncthreads();
             // tile-local q refresh: sum_k d_k R_kj - d_j
-            tile_product<LT, false>(acc, R_s, vd, jt, lo);
+            tile_product<LT, 4, false>(acc, R_s, vd, jt, lo);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 float d[LT];
@@ -462,88 +343,10 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
             for (int e = 0; e < 4; ++e)
                 store_column<LT>(vc, jt + e, lo, dt, e);
         }
-        // the warp's 32 rows in which some lane moved: bit 4 tx + e
-        moved |= __shfl_xor_sync(0xffffffffu, moved, 8);
-        moved |= __shfl_xor_sync(0xffffffffu, moved, 16);
-        moved <<= 4 * tx;
-        moved |= __shfl_xor_sync(0xffffffffu, moved, 1);
-        moved |= __shfl_xor_sync(0xffffffffu, moved, 2);
-        moved |= __shfl_xor_sync(0xffffffffu, moved, 4);
-        if (tid % 32 == 0) rows_s[w] = moved;
+        publish_rows<4>(moved, tx, w, tid, rows_s);
         __syncthreads();   // d_t of every lane and the row words in place
-
-        // rank-T update over the nonzero 32 x 32 blocks of the tile's rows
-        // (R symmetric), chunk n of 32 columns to warp n % 4, ascending k
-        const int rb0 = t0 / NZ;   // the tile's first row block
-        int n = 0;
-        for (int cw = 0; cw < nb32; cw += 32) {
-            const int cx = cw + tid % 32;
-            bool hit = cx >= rb0 && cx < rb0 + T / NZ;   // unit diagonal
-            if (cx < nb32) {
-#pragma unroll
-                for (int r = 0; r < T / NZ; ++r)
-                    hit |= nz[(rb0 + r) * nb32 + cx] != 0;
-            } else {
-                hit = false;
-            }
-            unsigned chunks = __ballot_sync(0xffffffffu, hit);
-            for (; chunks; chunks &= chunks - 1, ++n) {
-                if (n % 4 != w) continue;
-                const int cc = cw + __ffs(chunks) - 1;
-                const int c = NZ * cc + 4 * tx;   // the thread's 4 columns
-                float a[LT][4];
-#pragma unroll
-                for (int i = 0; i < LT; ++i)
-                    a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.0f;
-                for (int r = 0; r < T / NZ; ++r) {
-                    if (!nz[(rb0 + r) * nb32 + cc]) continue;
-                    const unsigned rw = rows_s[r];
-                    for (int k8 = 0; k8 < NZ; k8 += 8) {
-                        if (!((rw >> k8) & 0xffu)) continue;
-                        const int k0 = NZ * r + k8;   // row in the tile
-                        int raw[8];
-#pragma unroll
-                        for (int j = 0; j < 8; ++j)
-                            raw[j] = __ldg(reinterpret_cast<const int*>(
-                                D + static_cast<size_t>(t0 + k0 + j) * B + c));
-#pragma unroll
-                        for (int j = 0; j < 8; ++j) {
-                            const float4 rv = i8x4_to_f32(raw[j]);
-                            float x[LT];
-                            load_lanes<LT>(vc + (k0 + j) * RS + lo, x);
-#pragma unroll
-                            for (int i = 0; i < LT; ++i) {
-                                a[i][0] = fmaf(x[i], rv.x, a[i][0]);
-                                a[i][1] = fmaf(x[i], rv.y, a[i][1]);
-                                a[i][2] = fmaf(x[i], rv.z, a[i][2]);
-                                a[i][3] = fmaf(x[i], rv.w, a[i][3]);
-                            }
-                        }
-                    }
-                }
-                const bool focal = c >= t0 && c < t0 + T;
-                const float* q_now = first_s[cc] < t0 / T ? q_out : q_in;
-#pragma unroll
-                for (int i = 0; i < LT; ++i) {
-                    if (!valid[i]) continue;
-                    float4 q = ld4(q_now + lane_base[i] + c);
-                    q.x += a[i][0] * scale;
-                    q.y += a[i][1] * scale;
-                    q.z += a[i][2] * scale;
-                    q.w += a[i][3] * scale;
-                    if (focal) {
-                        // the stored unit diagonal also moved q at the
-                        // focal variants
-                        const float* dv = vc + (c - t0) * RS + lo + i;
-                        q.x -= dv[0];
-                        q.y -= dv[RS];
-                        q.z -= dv[2 * RS];
-                        q.w -= dv[3 * RS];
-                    }
-                    *reinterpret_cast<float4*>(q_out + lane_base[i] + c) = q;
-                }
-            }
-        }
+        rank_t_update<LT, SWEEP_THREADS / 32>(D, B, t0, nz, rows_s, first_s, vc, q_in, q_out,
+                          lane_base, valid, scale, tx, w, lo, tid);
     }
 }
 

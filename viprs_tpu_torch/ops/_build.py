@@ -42,13 +42,14 @@ SIGNATURES = {
     # eta_diff, q (updated in place), n_slabs, S, nb, B, scale, lane tile,
     # stream
     'coupling_pass_s_launch': [P] * 10 + [I32, I32, I32, I32, F32, I32, P],
-    # the mixture block sweeps (csrc/cavi_mix.cu): diag, beta, n, mask,
-    # gamma, mu, eta, q (in), gamma, mu, eta, q, eta_diff (out), blk_mask,
-    # hyper, [S,] K, nb, B, scale, inner_steps, unit_diag, stream
+    # the mixture block sweeps (csrc/cavi_mix.cu): diag, [diag_nz,] beta, n,
+    # mask, gamma, mu, eta, q (in), gamma, mu, eta, q, eta_diff (out),
+    # blk_mask, hyper, [S,] K, nb, B, scale, inner_steps, unit_diag, [lane
+    # tile,] stream
     'cavi_block_sweep_mix_s1_launch': [P] * 15 + [I32, I32, I32, F32, I32,
                                                   I32, P],
-    'cavi_block_sweep_mix_s_launch': [P] * 15 + [I32, I32, I32, I32, F32,
-                                                 I32, I32, P],
+    'cavi_block_sweep_mix_s_launch': [P] * 16 + [I32, I32, I32, I32, F32,
+                                                 I32, I32, I32, P],
 }
 
 
@@ -70,8 +71,9 @@ def build():
     """Compile (if needed) and load the kernel library.
 
     :returns: (ctypes.CDLL, info) where info holds the library path, the
-        build seconds (0.0 when a build of the same sources existed) and the
-        compiler's ``-Xptxas -v`` report.
+        build seconds (0.0 when a build of the same sources existed), each
+        source's nvcc seconds (``source_seconds``; they run side by side)
+        and the compiler's ``-Xptxas -v`` report.
     """
     srcs = _sources()
     h = hashlib.sha256()
@@ -80,29 +82,42 @@ def build():
             h.update(f.read())
     h.update(' '.join(NVCC_FLAGS).encode())
     lib_path = os.path.join(BUILD_DIR, f'libviprs_cuda_{h.hexdigest()[:16]}.so')
-    info = {'path': lib_path, 'seconds': 0.0, 'ptxas': ''}
+    info = {'path': lib_path, 'seconds': 0.0, 'source_seconds': {},
+            'ptxas': ''}
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{lib_path}.{os.getpid()}.tmp'
         nvcc = _nvcc()
         t0 = time.perf_counter()
-        # one nvcc per source, all at once, then one link
-        objs, procs = [], []
+        # one nvcc per source, all at once (each writing its report to a
+        # file, so none blocks on a full pipe), then one link
+        jobs = []
         for s in (s for s in srcs if s.endswith('.cu')):
             obj = f'{tmp}.{os.path.basename(s)}.o'
             cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', obj, s]
-            objs.append(obj)
-            procs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        logs = [proc.communicate()[0] for _, proc in procs]
-        for (cmd, proc), out in zip(procs, logs):
+            with open(f'{obj}.log', 'w') as log:
+                jobs.append((s, obj, cmd, subprocess.Popen(
+                    cmd, stdout=log, stderr=subprocess.STDOUT)))
+        done = {}
+        while len(done) < len(jobs):
+            for s, _, _, proc in jobs:
+                if s not in done and proc.poll() is not None:
+                    done[s] = time.perf_counter() - t0
+            time.sleep(0.05)
+        logs = []
+        for s, obj, cmd, proc in jobs:
+            with open(f'{obj}.log') as log:
+                logs.append(log.read())
+            os.remove(f'{obj}.log')
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{out}")
+                                   f"{' '.join(cmd)}\n{logs[-1]}")
+        objs = [obj for _, obj, _, _ in jobs]
         cmd = [nvcc, '-shared', *NVCC_FLAGS[:2], '-o', tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info['seconds'] = time.perf_counter() - t0
+        info['source_seconds'] = {os.path.basename(s): t
+                                  for s, t in done.items()}
         info['ptxas'] = ''.join(logs) + proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -116,3 +131,29 @@ def build():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, info
+
+
+def _main(argv):
+    """``python -m viprs_tpu_torch.ops._build [CSRC]``: build the sources
+    in CSRC (default this package's csrc/) into a fresh directory under
+    this package's _build/, and print each source's nvcc seconds and the
+    registers and spills ptxas reports for each kernel instance."""
+    global CSRC, BUILD_DIR
+    import tempfile
+    if argv:
+        CSRC = os.path.abspath(argv[0])
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
+        BUILD_DIR = d
+        _, info = build()
+    print(f"{CSRC}: {info['seconds']:.1f} s; by source: " + ', '.join(
+        f"{k} {v:.1f} s" for k, v in sorted(info['source_seconds'].items())))
+    for line in info['ptxas'].splitlines():
+        if 'Compiling entry' in line or 'registers' in line or \
+                'spill' in line:
+            print(line.strip())
+
+
+if __name__ == '__main__':
+    import sys
+    _main(sys.argv[1:])

@@ -27,8 +27,10 @@ written. A lane with active == 0 passes through bit-exactly.
 
 Mixture prior (VIPRSMix), ``csrc/cavi_mix.cu``: ``block_sweep_mix`` launches
 ``cavi_block_sweep_mix_s1`` (single model, one CTA per block) or
-``cavi_block_sweep_mix_s`` (S lanes, one CTA per lane group and block); the
-coupling tiles after them are the passes above. ``cavi_sweep_mix_s1`` (K5,
+``cavi_block_sweep_mix_s`` (S lanes, one CTA per lane tile of 4, 8 or 20
+lanes, picked by ``mix_sweep_lane_tile``, and block; its rank-T updates skip
+the zero 32 x 32 blocks, as ``block_sweep_s`` does); the coupling tiles after
+them are the passes above. ``cavi_sweep_mix_s1`` (K5,
 all blocks), ``cavi_sweep_mix_s1_skip`` (K6, the activity mask),
 ``cavi_sweep_mix_s`` (K7) and ``cavi_sweep_mix_s_skip`` (K8, the union mask)
 are the compositions, each counted under its own name.
@@ -385,18 +387,41 @@ def _mix_hyper_rows(hyper: MixHyper, active, device):
     return rows.to(device=device, dtype=F32).contiguous()
 
 
+#: The lane tiles of ``cavi_block_sweep_mix_s`` and the largest K each
+#: holds (one kernel instance per K and lane tile): a thread keeps its
+#: elements' K gamma and mu in registers, so 8 and 20 lanes hold K <= 3 and
+#: 4 lanes every K. A lane's arithmetic is the same in all of them.
+MIX_SWEEP_LANE_TILES = {4: 8, 8: 3, 20: 3}
+
+
+def mix_sweep_lane_tile(S, K):
+    """The lane tile of ``cavi_block_sweep_mix_s`` for S lanes of K
+    components: of the tiles that hold K, the smallest that holds S, else
+    the largest (then ceil(S / L) lane tiles)."""
+    tiles = [L for L, k_max in sorted(MIX_SWEEP_LANE_TILES.items())
+             if K <= k_max]
+    return next((L for L in tiles if S <= L), tiles[-1])
+
+
 def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
-                    hyper: MixHyper, active, blk_mask, unit_diag, count):
+                    hyper: MixHyper, active, blk_mask, unit_diag, count,
+                    inner_steps=INNER_STEPS):
     """Mixture sweep of the blocks flagged in ``blk_mask`` ((NB,) int32) for
     S lanes: gamma/mu (S, K, NB, B), eta/q (S, NB, B) float32; hyper (S,) /
     (S, K). ``active``: (S,) float32 step scales, or None for the single
     model (S = 1; kernels K5/K6 have no step scale). ``unit_diag``: the
     relaxation's diagonal term is the variant mask (K6/K8). ``count``: the
-    LAUNCHES entry a launch adds to.
+    LAUNCHES entry a launch adds to. ``inner_steps``: the kernel's inner
+    steps per tile (a timing probe takes fewer; the plain version runs
+    INNER_STEPS only). The lane kernel (``active`` given) reads
+    ``ld.diag_nz``.
 
     :returns: (new_state, eta_diff), coupling tiles not applied.
     """
     if state.eta.device.type == 'cpu':
+        if inner_steps != INNER_STEPS:
+            raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
+                             f"steps, not {inner_steps}")
         return cavi_mix.mix_block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                         active, blk_mask=blk_mask,
                                         unit_diag=unit_diag)
@@ -422,19 +447,29 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     ones = torch.ones(S, dtype=F32, device=dev)
     hv = _mix_hyper_rows(hyper, ones if active is None else active, dev)
     _check('hyper', hv, F32, (4 + 2 * K, S), dev)
+    if active is not None:
+        _check('diag_nz', ld.diag_nz, torch.uint8, (nb, B // 32, B // 32), dev)
+        for name, x in (('diag_nz', ld.diag_nz), ('std_beta', std_beta),
+                        ('n_per_snp', n_per_snp), ('mask', ld.mask),
+                        *zip(MixState._fields, state)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
     out = MixState(*(torch.empty_like(x) for x in state))
     eta_diff = torch.empty_like(state.eta)
-    ptrs = (ld.diag.data_ptr(), std_beta.data_ptr(), n_per_snp.data_ptr(),
-            ld.mask.data_ptr(), *(x.data_ptr() for x in state),
-            *(x.data_ptr() for x in out), eta_diff.data_ptr(),
-            blk_mask.data_ptr(), hv.data_ptr())
-    tail = (nb, B, float(np.float32(ld.scale)), INNER_STEPS, int(unit_diag),
-            torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (std_beta.data_ptr(), n_per_snp.data_ptr(), ld.mask.data_ptr(),
+            *(x.data_ptr() for x in state), *(x.data_ptr() for x in out),
+            eta_diff.data_ptr(), blk_mask.data_ptr(), hv.data_ptr())
+    tail = (nb, B, float(np.float32(ld.scale)), int(inner_steps),
+            int(unit_diag))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if active is None:
-        err = lib.cavi_block_sweep_mix_s1_launch(*ptrs, K, *tail)
+        err = lib.cavi_block_sweep_mix_s1_launch(
+            ld.diag.data_ptr(), *ptrs, K, *tail, stream)
         _raise_on(err, 'cavi_block_sweep_mix_s1')
     else:
-        err = lib.cavi_block_sweep_mix_s_launch(*ptrs, S, K, *tail)
+        err = lib.cavi_block_sweep_mix_s_launch(
+            ld.diag.data_ptr(), ld.diag_nz.data_ptr(), *ptrs, S, K, *tail,
+            mix_sweep_lane_tile(S, K), stream)
         _raise_on(err, 'cavi_block_sweep_mix_s')
     LAUNCHES[count] += 1
     return out, eta_diff
