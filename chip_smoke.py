@@ -60,11 +60,16 @@ G4. check and time the S-lane kernels against their plain versions at the
    run);
 M1. check the single-model mixture kernels (K5, K6) against their plain
    versions on the 8-block cut at K = 3: all blocks, half the blocks
-   flagged, none flagged (bit-exact);
+   flagged, none flagged (bit-exact); then on the cut and on the cut with a
+   third of its off-diagonal 32 x 32 blocks zeroed (zero blocks inside and
+   outside the (T, T) tiles), K5 and K6 against their plain versions and
+   their sweeps with the real diag_nz bit-identical to the dense walk;
 M2. fit the genome with VIPRSMix(ds, 'cuda', K=3).fit(max_iter=500) as
    bench.py does (np.random.seed(0)), cold then warm (the skip sweep K6),
    then with sweep_impl='xla' (K5), each with the launch counters reset just
-   before and read just after;
+   before and read just after; the blocks K6 sweeps per iteration
+   (quantiles, histogram); one warm fit under torch.profiler (device time
+   by kernel, the device's busy share);
 M3. check the mixture lane kernels (K7, K8) against their plain versions on
    the cut at S = 20 and K = 3: half the lanes frozen (bit-exact), every
    lane frozen (state bit-exact), a union mask at about half the blocks
@@ -82,24 +87,24 @@ M4. bench.py's mixture grid on the genome, VIPRSMixGrid(ds,
 M5. check and time the four mixture kernels against their plain versions
    at the genome's shapes (the first iteration's state; CUDA events), and
    hold each kernel's error against a float64 run of its plain version to
-   at most twice the float32 plain version's; K7/K8 against two bounds
+   at most twice the float32 plain version's; each against two bounds
    (every diagonal tile dense, and only its nonzero 32 x 32 blocks in the
-   inner steps and the rank-T updates), their sweep split into inner steps, rank-T updates and
-   the rest by probes of 0 and 1 inner steps, the dense rank-T walk timed
-   (and held bit-identical for K7), K7 at S = 8 and 20 (lane tiles 8 and
-   20), K8 at every block, its union mask and every 20th block; time the
-   coupling part of K7 and K8 (S = 20) alone, against its plain version
-   and torch.bmm.
+   inner steps and the rank-T updates); each block sweep alone, with its
+   bounds, split into inner steps, rank-T updates and the rest by probes
+   of 0 and 1 inner steps, the dense rank-T walk timed (and held
+   bit-identical for K5, K6 and K7), K6's also at every 20th block; K7 at
+   S = 8 and 20 (lane tiles 8 and 20), K6 and K8 at their masks and every
+   20th block, K8 at every block; the coupling part of each alone, against
+   its plain version, its bound and (every tile) torch.bmm.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes it must move at 3.35 TB/s and its
 FP32 operations at 67 TFLOP/s, the published H100 SXM peaks at 700 W; for
 the coupling passes what the tiles' nonzero entries need, ``coupling_work``,
-and for the lane sweeps cavi_block_sweep_s and cavi_sweep_mix_s(_skip)
-the inner steps and rank-T updates over the diagonal tiles' nonzero 32 x 32
-blocks, ``sweep_work_nz``, with every tile dense beside it as
-``bound_ms_dense``)
+and for the sweeps the inner steps and rank-T updates over the diagonal
+tiles' nonzero 32 x 32 blocks, ``sweep_work_nz``, with every tile dense
+beside it as ``bound_ms_dense``)
 and, for the coupling passes, the time of one PyTorch call computing the
 tile products (``library_ms``; the sweeps have none).
 
@@ -285,6 +290,26 @@ def time_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps, warmup=2):
+    """Mean device ms per call over ``reps`` replays of ``fn`` captured in
+    a CUDA graph (CUDA events around the replays). Unlike ``time_ms`` it
+    leaves out the card's waits for the host between calls, which bound a
+    short call: the Python around a launch takes ~0.1-0.2 ms."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    del graph
+    return ms
 
 
 def main():
@@ -528,11 +553,16 @@ def main():
           cavi_cuda.coupling_pass_s1(ld, st1.q, d1, all_blk),
           cavi_torch.refresh_q(ld, st1.q, d1), TOL_COUPLING, errs_cpl)
     lib_cpl = library_coupling_ms(ld, d1)
-    b_sweep = bound(*sweep_work(ld, 1, 4, 5, ld.nb))
+    # the bound by what this LD needs (its nonzero 32 x 32 blocks), and
+    # with every diagonal tile dense
+    b_sweep = bound(*sweep_work_nz(ld, 1, 4, 5)[:2])
+    b_sweep_dense = bound(*sweep_work(ld, 1, 4, 5, ld.nb))
     b_cpl = bound(*coupling_work(ld, 1))
     phase('time', f"first-iteration state, all {ld.nb} blocks: block sweep "
                   f"{ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms, bound "
-                  f"{b_sweep[0]:.3f} ms by {b_sweep[1]}); coupling pass over "
+                  f"{b_sweep[0]:.3f} ms by {b_sweep[1]} over the nonzero 32 "
+                  f"x 32 blocks, every tile dense {b_sweep_dense[0]:.3f} ms "
+                  f"by {b_sweep_dense[1]}); coupling pass over "
                   f"{ld.n_off} tiles {ms_cpl:.3f} ms (plain {plain_cpl:.3f} "
                   f"ms, one torch.bmm of the tile products {lib_cpl:.3f} ms, "
                   f"bound {b_cpl[0]:.3f} ms by {b_cpl[1]})")
@@ -546,18 +576,25 @@ def main():
     check_state(f'{int(few.sum())} of {ld.nb} blocks active',
                 cavi_cuda.cavi_sweep_s1_skip(ld, st0, sb_f, nf_f, h0, act, few),
                 _plain_skip(ld, st0, sb_f, nf_f, h0, act, few), errs_sweep)
-    b_skip = bound(*_add(sweep_work(ld, 1, 4, 5, int(few.sum())),
+    b_skip = bound(*_add(sweep_work_nz(ld, 1, 4, 5, few)[:2],
                          coupling_work(ld, 1, few)))
+    b_skip_dense = bound(*_add(sweep_work(ld, 1, 4, 5, int(few.sum())),
+                               coupling_work(ld, 1, few)))
     phase('time', f"skip branch, {int(few.sum())} of {ld.nb} blocks active, "
                   f"{_tiles_touching(ld, few)} coupling tiles: sweep + "
                   f"coupling {ms_skip:.3f} ms (plain {plain_skip:.3f} ms, "
-                  f"bound {b_skip[0]:.3f} ms by {b_skip[1]})")
+                  f"bound {b_skip[0]:.3f} ms by {b_skip[1]} over the "
+                  f"nonzero 32 x 32 blocks, every tile dense "
+                  f"{b_skip_dense[0]:.3f} ms)")
     record['times_ms'] = dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
-                              block_sweep_bound=b_sweep, coupling=ms_cpl,
+                              block_sweep_bound=b_sweep,
+                              block_sweep_bound_dense=b_sweep_dense,
+                              coupling=ms_cpl,
                               coupling_plain=plain_cpl, coupling_library=lib_cpl,
                               coupling_bound=b_cpl, skip_5pct=ms_skip,
                               skip_5pct_plain=plain_skip,
-                              skip_5pct_bound=b_skip)
+                              skip_5pct_bound=b_skip,
+                              skip_5pct_bound_dense=b_skip_dense)
     record['profile'] = profile_fit(ds, fit_kw)
 
     # ---- G1-G4: the model grid (S lanes) ----
@@ -597,10 +634,11 @@ def main():
     t1, gt, mt = record['times_ms'], record['grid_times_ms'], \
         record['mix_times_ms']
     kernels = [
-        entry('cavi_block_sweep_s1', src, 133,
-              launches['cavi_block_sweep_s1'], max(errs_sweep),
-              t1['block_sweep'], t1['block_sweep_plain'],
-              t1['block_sweep_bound'], None),
+        dict(entry('cavi_block_sweep_s1', src, 133,
+                   launches['cavi_block_sweep_s1'], max(errs_sweep),
+                   t1['block_sweep'], t1['block_sweep_plain'],
+                   t1['block_sweep_bound'], None),
+             bound_ms_dense=t1['block_sweep_bound_dense'][0]),
         entry('coupling_pass_s1', src, 492, launches['coupling_pass_s1'],
               max(errs_cpl), t1['coupling'], t1['coupling_plain'],
               t1['coupling_bound'], t1['coupling_library']),
@@ -618,10 +656,8 @@ def main():
                   replaces.rsplit(':', 1)[1], m_launch[name][name],
                   max(errs_mix[name]), r['ms'], r['plain_ms'],
                   (r['bound_ms'], r['bound_by']), None)
-        if lanes:
-            # bound_ms counts the nonzero 32 x 32 blocks, this every tile
-            # dense
-            e['bound_ms_dense'] = r['bound_ms_dense']
+        # bound_ms counts the nonzero 32 x 32 blocks, this every tile dense
+        e['bound_ms_dense'] = r['bound_ms_dense']
         kernels.append(e)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -1543,6 +1579,36 @@ def check_mix_state(tag, got, want, errs):
           scale=float(ws.eta.abs().max()))
 
 
+def zero_blocks_cut(sub):
+    """The cut with a third of the off-diagonal 32 x 32 blocks of its
+    diagonal tiles set to exact zeros, symmetrically (block (r, c) of tile b
+    where r != c and (r + c + b) % 3 == 0): zero blocks inside the (T, T)
+    tiles and outside them."""
+    from viprs_tpu_torch.ops.block_ld import BlockLD
+    diag = sub.diag.cpu().numpy().copy()
+    m = diag.shape[1] // 32
+    for b in range(diag.shape[0]):
+        for r in range(m):
+            for c in range(m):
+                if r != c and (r + c + b) % 3 == 0:
+                    diag[b, 32 * r:32 * r + 32, 32 * c:32 * c + 32] = 0
+    return BlockLD.from_numpy(
+        diag, sub.off_data.cpu().numpy(), sub.off_src.cpu().numpy(),
+        sub.off_dst.cpu().numpy(), sub.mask.cpu().numpy(), sub.scale,
+        device=sub.device)
+
+
+def zero_blocks(ld):
+    """The diagonal tiles' zero 32 x 32 blocks inside the (T, T) tiles and
+    outside them (BlockLD.diag_nz)."""
+    import torch
+    from viprs_tpu_torch.ops.cavi_torch import TILE
+    zero = ~ld.diag_nz.bool()
+    tile = torch.arange(zero.shape[1], device=zero.device) // (TILE // 32)
+    inside = tile[:, None] == tile[None, :]
+    return int((zero & inside).sum()), int((zero & ~inside).sum())
+
+
 def _mix_lane_state(sub, S, m, rng, K=MIX_K):
     """S lanes of mixture state on the cut, from the bench mixture grid's
     rows: each row's total pi split over the K components, tau_beta as the
@@ -1622,6 +1688,30 @@ def mix_checks(ds, sub, sb, nf, errs):
             fail(f"K6, no block flagged: {k} changed")
     phase('check', "K6 unflagged blocks bit-exact (gamma, mu, eta; eta_diff "
                    "0); no block flagged: state bit-exact (gamma, mu, eta, q)")
+    # the zero-block skip of K5/K6's rank-T updates, on the cut and on the
+    # cut with a third of its off-diagonal 32 x 32 blocks zeroed
+    for tag, x in (('the cut', sub), ('the cut, blocks zeroed',
+                                      zero_blocks_cut(sub))):
+        n_in, n_out = zero_blocks(x)
+        if not (n_in and n_out):
+            fail(f"M1 {tag}: no zero 32 x 32 block inside ({n_in}) or "
+                 f"outside ({n_out}) the (T, T) tiles")
+        check_mix_state(f'K5 on {tag}', mix_kernel(
+            'cavi_sweep_mix_s1', x, one, sb, nf, h1), mix_plain(
+            'cavi_sweep_mix_s1', x, one, sb, nf, h1),
+            errs['cavi_sweep_mix_s1'])
+        check_mix_state(f'K6 on {tag}, half the blocks flagged', mix_kernel(
+            name, x, one, sb, nf, h1, blk=half), mix_plain(
+            name, x, one, sb, nf, h1, blk=half), errs[name])
+        for kname, mask, unit_diag in (
+                ('cavi_sweep_mix_s1', torch.ones_like(half), False),
+                (name, half, True)):
+            same_bits_dense_walk(
+                f'M1 {kname} on {tag} ({n_in} zero blocks inside the (T, '
+                f'T) tiles, {n_out} outside)', x,
+                lambda y: cavi_cuda.block_sweep_mix(
+                    y, MixState(*(v[None] for v in one)), sb, nf,
+                    h1.lanes(), None, mask, unit_diag, kname))
 
     S = state.eta.shape[0]
     phase('M3', f"S = {S} lanes, K = {MIX_K}, lane tile "
@@ -1713,40 +1803,76 @@ def mix_checks(ds, sub, sb, nf, errs):
     return {k: max(v) for k, v in errs.items()}
 
 
-def mix_lane_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
-    """M5, the mixture lane sweep ``name`` alone (its coupling tiles not
-    applied) on the genome: the sweep split into inner steps, rank-T
-    updates and the rest by probes of 0 and 1 inner steps; the dense
-    rank-T walk (every 32 x 32 block flagged) timed and held bit-identical;
-    and K7 at S = 8 and 20 (lane tiles 8 and 20)."""
+def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
+    """M5, the mixture block sweep of ``name`` alone (its coupling tiles not
+    applied) over the blocks flagged in ``blk`` on the genome, against its
+    bounds (the nonzero 32 x 32 blocks, and every tile dense): the sweep
+    split into inner steps, rank-T updates and the rest by probes of 0 and
+    1 inner steps; the dense rank-T walk (every 32 x 32 block flagged)
+    timed and held bit-identical; for K7 the sweep at S = 8 and 20 (lane
+    tiles 8 and 20). ``act`` None: the single model (K5/K6), whose state
+    and hyperparameters go in as one lane."""
     import torch
     from viprs_tpu_torch.ops import cavi_cuda
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    single = act is None
+    if single:
+        st, h = MixState(*(x[None] for x in st)), h.lanes()
+    S, K = st.gamma.shape[:2]
     dense_ld = dense_diag_flags(ld)
 
     def sweep(x, k):
         return cavi_cuda.block_sweep_mix(x, st, sb, nf, h, act, blk,
                                          unit_diag, name, inner_steps=k)
 
-    ms_8, ms_dense, ms_0, ms_1 = (time_ms(lambda: sweep(x, k), reps=5)
-                                  for x, k in ((ld, 8), (dense_ld, 8),
-                                               (ld, 0), (ld, 1)))
-    if name == 'cavi_sweep_mix_s':
-        same_bits_dense_walk('M5 K7', ld, lambda x: sweep(x, 8))
+    # CUDA events around the calls (the card's waits for the host
+    # included) and around replays of a CUDA graph of one call (without)
+    probes = ((ld, 8), (dense_ld, 8), (ld, 0), (ld, 1))
+    ev_8, ev_dense, ev_0, ev_1 = (time_ms(lambda: sweep(x, k), reps=5)
+                                  for x, k in probes)
+    ms_8, ms_dense, ms_0, ms_1 = (graph_ms(lambda: sweep(x, k), reps=5)
+                                  for x, k in probes)
+    if name != 'cavi_sweep_mix_s_skip':   # K8's is held in M3
+        same_bits_dense_walk(f'M5 {name}, {int(blk.sum())} blocks', ld,
+                             lambda x: sweep(x, 8))
     del dense_ld
-    split = probe_split(ms_8, ms_dense, ms_0, ms_1)
-    phase('M5', f"{name} sweep alone {ms_8:.3f} ms, split (ms): 8 inner "
-                f"steps {split['inner_steps']:.3f}, rank-T updates over the "
-                f"nonzero blocks {split['rank_t']:.3f} (every block "
-                f"{split['rank_t_dense']:.3f}), the rest (state I/O, "
-                f"dequantizing) {split['rest']:.3f}; probes: 0 steps "
-                f"{ms_0:.3f}, 1 step {ms_1:.3f}, 8 steps every block "
-                f"flagged {ms_dense:.3f}")
-    rec = dict(sweep_ms=ms_8, split=split, every_block_ms=ms_dense)
+    if single:
+        # the single-model kernel does the same rank-T work at any step
+        # count: the probes split off the inner steps only
+        step = (ms_8 - ms_1) / 7
+        split = dict(inner_steps=8 * step, rest=ms_1 - step,
+                     every_block_extra=ms_dense - ms_8)
+        text = (f"8 inner steps {split['inner_steps']:.3f}, the rest "
+                f"(tile staging, set-up, rank-T updates, state I/O) "
+                f"{split['rest']:.3f}; every block flagged adds "
+                f"{split['every_block_extra']:.3f}")
+    else:
+        split = probe_split(ms_8, ms_dense, ms_0, ms_1)
+        text = (f"8 inner steps {split['inner_steps']:.3f}, rank-T updates "
+                f"over the nonzero blocks {split['rank_t']:.3f} (every "
+                f"block {split['rank_t_dense']:.3f}), the rest (state I/O, "
+                f"tile staging) {split['rest']:.3f}")
+    b_nz = bound(*sweep_work_nz(ld, S, 2 * K + 2, 2 * K + 3, blk)[:2])
+    b_dense = bound(*sweep_work(ld, S, 2 * K + 2, 2 * K + 3,
+                                int(blk.sum())))
+    phase('M5', f"{name} sweep alone, {int(blk.sum())} blocks: "
+                f"{ms_8:.3f} ms in a CUDA graph, {ev_8:.3f} ms by CUDA "
+                f"events (bound {b_nz[0]:.3f} ms by {b_nz[1]} over the "
+                f"nonzero 32 x 32 blocks = {100 * b_nz[0] / ms_8:.0f}% of "
+                f"it; every tile dense {b_dense[0]:.3f} ms by "
+                f"{b_dense[1]}), split (ms, graph): {text}; probes (graph, "
+                f"events): 0 steps {ms_0:.3f}, {ev_0:.3f}; 1 step "
+                f"{ms_1:.3f}, {ev_1:.3f}; 8 steps every block flagged "
+                f"{ms_dense:.3f}, {ev_dense:.3f}")
+    rec = dict(sweep_ms=ms_8, sweep_event_ms=ev_8, split=split,
+               every_block_ms=ms_dense,
+               probe_event_ms=dict(steps_0=ev_0, steps_1=ev_1,
+                                   every_block=ev_dense),
+               sweep_bound_ms=b_nz[0], sweep_bound_by=b_nz[1],
+               sweep_bound_ms_dense=b_dense[0])
     if name == 'cavi_sweep_mix_s':
-        K = st.gamma.shape[1]
         lane_tiles = {}
-        for n in (8, st.eta.shape[0]):
+        for n in (8, S):
             st_n = MixState(*(x[:n].contiguous() for x in st))
             h_n = MixHyper(*(x[:n] for x in h))
             lane_tiles[n] = (cavi_cuda.mix_sweep_lane_tile(n, K), time_ms(
@@ -1758,6 +1884,31 @@ def mix_lane_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
         rec['lane_tiles'] = lane_tiles
     torch.cuda.empty_cache()
     return rec
+
+
+def s1_coupling_times(ld, q, d, blk, errs):
+    """M5, the coupling part of K5/K6 alone: coupling_pass_s1 on the block
+    sweep's output (q, d: (1, NB, B)) over the tiles with an end flagged
+    in ``blk``, against its plain version, torch.bmm and its bound."""
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    n_til = _tiles_touching(ld, blk)
+    ms = time_ms(lambda: cavi_cuda.coupling_pass_s1(ld, q, d, blk), reps=10)
+    dev = graph_ms(lambda: cavi_cuda.coupling_pass_s1(ld, q, d, blk),
+                   reps=10)
+    plain_ms = time_ms(lambda: cavi_torch.coupling_pass(ld, q, d, blk),
+                       reps=2, warmup=1)
+    check(f'coupling_pass_s1 over {n_til} tiles after the mixture sweep',
+          'q', cavi_cuda.coupling_pass_s1(ld, q, d, blk),
+          cavi_torch.coupling_pass(ld, q, d, blk), TOL_COUPLING, errs)
+    lib = library_coupling_ms(ld, d) if n_til == ld.n_off else None
+    b_ms, b_by = bound(*coupling_work(ld, 1, blk))
+    phase('M5', f"coupling_pass_s1 alone, {n_til} tiles: {ms:.3f} ms by CUDA "
+                f"events, {dev:.3f} ms in a CUDA graph (plain "
+                f"{plain_ms:.3f} ms"
+                + (f", torch.bmm {lib:.3f} ms" if lib is not None else '')
+                + f", bound {b_ms:.3f} ms by {b_by})")
+    return dict(ms=ms, graph_ms=dev, plain_ms=plain_ms, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, tiles=n_til)
 
 
 def mix_genome(ds):
@@ -1784,9 +1935,23 @@ def mix_genome(ds):
                           launches=dict(cavi_cuda.LAUNCHES))
         phase('M2', f"VIPRSMix(K={MIX_K}) {name}: {dt:.3f} s, nit {r.nit} "
                     f"({runs[name]['ms_per_it']:.2f} ms/it), h2 "
-                    f"{model.get_heritability():.6f} (JAX package: "
+                    f"{model.get_heritability()!r} (JAX package: "
                     f"{REF_MIX_H2}), pi {np.round(model.pi, 6).tolist()}, "
                     f"'{r.message}'; launches {runs[name]['launches']}")
+        if name == 'warm':
+            # the blocks K6 sweeps per iteration (its activity mask)
+            blocks = np.asarray(model._last_result.act_hist[1:])
+            q = np.quantile(blocks, [0, .1, .25, .5, .75, .9, 1])
+            edges = [0, 57, 114, 227, 567, 1133]
+            hist = np.histogram(blocks, bins=edges)[0].tolist()
+            runs[name]['k6_blocks'] = dict(
+                per_iteration=blocks.tolist(), quantiles=q.tolist(),
+                histogram=dict(edges=edges, counts=hist))
+            phase('M2', f"K6 blocks swept per iteration, of {ds.ld.nb}: "
+                        f"min/10%/25%/median/75%/90%/max "
+                        f"{[int(x) for x in q]}; iterations by blocks "
+                        + ', '.join(f"[{a}, {b}): {c}" for a, b, c in
+                                    zip(edges, edges[1:], hist)))
         if name == 'cold':
             pip = np.concatenate([model.pip[c] for c in model.chromosomes])
             if pip.shape != (ds.m,) or not np.isfinite(pip).all():
@@ -1806,6 +1971,9 @@ def mix_genome(ds):
         fail(f"the default mixture fit never launched K6: {cold['launches']}")
     if runs["sweep_impl='xla'"]['launches']['cavi_sweep_mix_s1'] < 1:
         fail("the all-active mixture fit never launched K5")
+    runs['profile'] = profile_fit(
+        ds, dict(max_iter=500), trace_name=None,
+        make=lambda: VIPRSMix(ds, 'cuda', K=MIX_K))
     return runs
 
 
@@ -1887,6 +2055,7 @@ def mix_times(ds, errs):
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSMix, VIPRSMixGrid
     from viprs_tpu_torch.ops import cavi_cuda, cavi_mix
+    from viprs_tpu_torch.ops.cavi_mix import MixState
     ld = ds.ld
     dev = ld.device
     sb, nf = ds.device_inputs()
@@ -1920,10 +2089,9 @@ def mix_times(ds, errs):
         S_k = S if lanes else 1
         work_dense = _add(sweep_work(ld, S_k, 2 * K + 2, 2 * K + 3, n_blk),
                           coupling_work(ld, S_k, blk))
-        # the lane kernels' bound counts what this LD needs: its nonzero
-        # 32 x 32 blocks
+        # the bound counts what this LD needs: its nonzero 32 x 32 blocks
         work = _add(sweep_work_nz(ld, S_k, 2 * K + 2, 2 * K + 3, blk)[:2],
-                    coupling_work(ld, S_k, blk)) if lanes else work_dense
+                    coupling_work(ld, S_k, blk))
         b_ms, b_by = bound(*work)
         ms = time_ms(lambda: mix_kernel(name, ld, st, sb, nf, h, a, blk),
                      reps=5)
@@ -1937,42 +2105,68 @@ def mix_times(ds, errs):
                        mix_plain_f64(name, ld, st, sb, nf, h, a, blk))
         del got, want
         b_dense = bound(*work_dense)
-        rec = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        # the whole composition (sweep, coupling pass and the small ops
+        # around them) without the card's waits for the host
+        dev_ms = graph_ms(lambda: mix_kernel(name, ld, st, sb, nf, h, a,
+                                             blk), reps=5)
+        rec = dict(ms=ms, graph_ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+                   bound_by=b_by,
                    bound_ms_dense=b_dense[0], bound_by_dense=b_dense[1],
                    blocks=n_blk, tiles=n_til, S=S_k, bytes=work[0],
                    flops=work[1])
+        few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
+        few[::20] = 1
         if skip:
-            few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
-            few[::20] = 1
             rec['ms_5pct'] = time_ms(lambda: mix_kernel(
+                name, ld, st, sb, nf, h, a, few), reps=5)
+            rec['graph_ms_5pct'] = graph_ms(lambda: mix_kernel(
                 name, ld, st, sb, nf, h, a, few), reps=5)
             rec['plain_ms_5pct'] = time_ms(lambda: mix_plain(
                 name, ld, st, sb, nf, h, a, few), reps=2, warmup=1)
+            rec['bound_5pct'] = bound(*_add(
+                sweep_work_nz(ld, S_k, 2 * K + 2, 2 * K + 3, few)[:2],
+                coupling_work(ld, S_k, few)))
             if lanes:
                 rec['ms_all_blocks'] = time_ms(lambda: mix_kernel(
                     name, ld, st, sb, nf, h, a, ones), reps=5)
+        mask = ones if blk is None else blk
+        rec.update(mix_probes(name, ld, st, sb, nf, h, a, mask, skip))
+        if skip and not lanes:
+            rec['at_5pct'] = mix_probes(name, ld, st, sb, nf, h, a, few,
+                                        skip)
+        # the coupling part alone, on the block sweep's output
         if lanes:
-            mask = ones if blk is None else blk
-            rec.update(mix_lane_probes(name, ld, st, sb, nf, h, a, mask,
-                                       skip))
-            # the coupling part alone, on the block sweep's output
             new, d = cavi_cuda.block_sweep_mix(ld, st, sb, nf, h, a, mask,
                                                skip, name)
             rec['coupling'] = coupling_times(ld, new.q, d, mask, (S_k,),
                                              errs[name], tag='M5')[S_k]
-            del new, d
+        else:
+            new, d = cavi_cuda.block_sweep_mix(
+                ld, MixState(*(x[None] for x in st)), sb, nf, h.lanes(),
+                None, mask, skip, name)
+            rec['coupling'] = s1_coupling_times(ld, new.q, d, mask,
+                                                errs[name])
+            if skip:
+                new, d = cavi_cuda.block_sweep_mix(
+                    ld, MixState(*(x[None] for x in st)), sb, nf, h.lanes(),
+                    None, few, skip, name)
+                rec['coupling_5pct'] = s1_coupling_times(ld, new.q, d, few,
+                                                         errs[name])
+        del new, d
         out[name] = rec
         phase('M5', f"{name} (S={S_k}, K={K}), first-iteration state, "
                     f"{n_blk} of {ld.nb} blocks, {n_til} coupling tiles: "
-                    f"{ms:.3f} ms (plain {plain:.3f} ms); bound {b_ms:.3f} ms "
+                    f"{ms:.3f} ms by CUDA events, {dev_ms:.3f} ms in a CUDA "
+                    f"graph (plain {plain:.3f} ms); bound {b_ms:.3f} ms "
                     f"by {b_by} ({work[0] / 1e9:.3f} GB, {work[1] / 1e9:.1f} "
                     f"GFLOP) = {100 * b_ms / ms:.0f}% of it"
                     + (f" (the nonzero 32 x 32 blocks; every tile dense "
-                       f"{b_dense[0]:.3f} ms by {b_dense[1]})" if lanes
-                       else '')
+                       f"{b_dense[0]:.3f} ms by {b_dense[1]})")
                     + (f"; at {int(few.sum())} blocks {rec['ms_5pct']:.3f} ms "
-                       f"(plain {rec['plain_ms_5pct']:.3f} ms)" if skip
-                       else '')
+                       f"by events, {rec['graph_ms_5pct']:.3f} ms in a CUDA "
+                       f"graph (plain {rec['plain_ms_5pct']:.3f} ms, bound "
+                       f"{rec['bound_5pct'][0]:.3f} ms by "
+                       f"{rec['bound_5pct'][1]})" if skip else '')
                     + (f"; every block flagged {rec['ms_all_blocks']:.3f} ms"
                        if skip and lanes else ''))
     del m1, mg

@@ -29,6 +29,9 @@ from viprs_tpu_torch.ops import cavi_cuda, cavi_mix
 from viprs_tpu_torch.ops.block_ld import BlockLD
 from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
 
+from viprs_tpu.data.simulate import simulate_sumstats_blocks
+from viprs_tpu.ops.block_ld import pack_dense_blocks
+
 from test_torch_cavi import interpret, problem  # noqa: F401
 
 ATOL = {'gamma': 1e-5, 'mu': 1e-5, 'eta': 1e-5, 'q': 1e-4, 'eta_diff': 1e-5}
@@ -40,7 +43,7 @@ def make_mix_state(p, S, K, seed=0):
     (S, K)), or one model with ``S=None``."""
     rng = np.random.default_rng(seed)
     L = 1 if S is None else S
-    shape = (L, K, p['nb'], 128)
+    shape = (L, K, p['nb'], p['mask'].shape[1])
     pis = np.geomspace(0.01, 0.05, L)[:, None] * np.linspace(1.0, 0.5, K)
     gamma = (pis[:, :, None, None]
              * np.exp(0.3 * rng.standard_normal(shape))).astype(np.float32)
@@ -105,6 +108,65 @@ def test_plain_k5_matches_pallas(problem, interpret, K):
                                       *torch_args(problem, st, hy))
     want = cavi_pallas.cavi_sweep_mixture_pallas.__wrapped__(
         problem['jld'], *jax_args(problem, st, hy))
+    assert_close(got, want)
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+@pytest.fixture(scope='module')
+def zero_block_problem():
+    """LD tiles of B = 256 (two (T, T) tiles a block) in which a third of
+    the 32 x 32 blocks off the diagonal are set to exact zeros,
+    symmetrically: zero blocks inside the (T, T) tiles and outside them,
+    the blocks that the kernels' rank-T updates skip (BlockLD.diag_nz)."""
+    sim = simulate_sumstats_blocks(n=2000, block_sizes=(300, 150, 100, 60),
+                                   h2=0.3, prop_causal=0.05, seed=5)
+    jld, lay = pack_dense_blocks(sim['ld_blocks'], block_size=256,
+                                 quantize=True)
+    diag = np.array(jld.diag)
+    nb, B, m = diag.shape[0], diag.shape[1], diag.shape[1] // 32
+    for b in range(nb):
+        for r in range(m):
+            for c in range(m):
+                if r != c and (r + c + b) % 3 == 0:
+                    diag[b, 32 * r:32 * r + 32, 32 * c:32 * c + 32] = 0
+    jld = dataclasses.replace(jld, diag=jnp.asarray(diag))
+    sb = lay.to_flat(sim['std_beta']).reshape(lay.nb, B)
+    nf = lay.to_flat(sim['n_per_snp']).reshape(lay.nb, B)
+    ld = BlockLD.from_numpy(
+        *(np.asarray(getattr(jld, f)) for f in
+          ('diag', 'off_data', 'off_src', 'off_dst', 'mask')),
+        jld.scale, device='cpu')
+    return dict(jld=jld, ld=ld, nb=lay.nb, sb=sb, nf=nf,
+                mask=np.asarray(jld.mask))
+
+
+@pytest.mark.parametrize('kernel', ['K5', 'K6'])
+def test_plain_k5_k6_match_pallas_with_zero_blocks(zero_block_problem,
+                                                   interpret, kernel):
+    """The plain K5 and K6 (cavi_mix.mix_block_sweep through
+    cavi_sweep_mix_s1 / _skip) against the Pallas kernels in interpret mode
+    on diagonal tiles whose zero 32 x 32 blocks lie inside and outside the
+    (T, T) tiles, at test_plain_k5_matches_pallas's tolerances."""
+    p = zero_block_problem
+    nz = p['ld'].diag_nz.bool()
+    m = nz.shape[1]
+    in_tile = (np.arange(m)[:, None] // 4) == (np.arange(m)[None] // 4)
+    in_tile = torch.from_numpy(in_tile)
+    assert (~nz & in_tile).any() and (~nz & ~in_tile).any()
+    assert (nz & ~in_tile).any()
+    st, hy = make_mix_state(p, None, 3, seed=33)
+    state, sb, nf, hyper = torch_args(p, st, hy)
+    if kernel == 'K5':
+        got = cavi_cuda.cavi_sweep_mix_s1(p['ld'], state, sb, nf, hyper)
+        want = cavi_pallas.cavi_sweep_mixture_pallas.__wrapped__(
+            p['jld'], *jax_args(p, st, hy))
+    else:
+        blk = np.ones(p['nb'], bool)
+        blk[1::3] = False
+        got = cavi_cuda.cavi_sweep_mix_s1_skip(p['ld'], state, sb, nf, hyper,
+                                               torch.from_numpy(blk))
+        want = cavi_pallas.cavi_sweep_mixture_pallas_skip.__wrapped__(
+            p['jld'], *jax_args(p, st, hy), jnp.asarray(blk))
     assert_close(got, want)
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
 
@@ -347,12 +409,12 @@ def test_mix_sweep_lane_tile_matches_enumeration():
 
 @pytest.mark.parametrize('bad', [None, 'shape', 'dtype', 'layout'])
 def test_block_sweep_mix_checks_diag_nz_before_launching(monkeypatch, bad):
-    """Off the CPU, the lane branch of block_sweep_mix (K7/K8) checks
-    BlockLD.diag_nz (dtype, shape, contiguity) before it launches, and hands
-    the kernel the flags, the inner steps and the lane tile picked by S and
-    K; the single-model branch (K5/K6) launches without reading diag_nz (a
-    stand-in library records the launches; meta tensors take the place of
-    the card's)."""
+    """Off the CPU, both branches of block_sweep_mix, the lanes (K7/K8) and
+    the single model (K5/K6), check BlockLD.diag_nz (dtype, shape,
+    contiguity) before they launch, and hand the kernel the flags, the
+    inner steps, the unit diagonal and (lanes) the lane tile picked by S and
+    K (a stand-in library records the launches; meta tensors take the place
+    of the card's)."""
     from viprs_tpu_torch.ops import _build
     calls = {'s': [], 's1': []}
 
@@ -409,12 +471,25 @@ def test_block_sweep_mix_checks_diag_nz_before_launching(monkeypatch, bad):
                                           'cavi_sweep_mix_s')
     assert len(calls['s']) == cavi_cuda.LAUNCHES['cavi_sweep_mix_s'] == \
         (2 if bad is None else 0)
-    # the single model: K5/K6 read no diag_nz, malformed or not
-    out, eta_diff = cavi_cuda.block_sweep_mix(*args(1, 3), None, blk, False,
-                                              'cavi_sweep_mix_s1')
-    assert eta_diff.shape == (1, nb, B)
-    assert len(calls['s1'][0]) == 15 + 7
-    assert cavi_cuda.LAUNCHES['cavi_sweep_mix_s1'] == 1
+    # the single model: diag, diag_nz and 14 more pointers, then K, nb, B,
+    # scale, inner steps, unit diagonal and the stream
+    for K, steps, unit_diag in ((3, 0, False), (8, cavi_cuda.INNER_STEPS,
+                                                True)):
+        if bad is None:
+            out, eta_diff = cavi_cuda.block_sweep_mix(
+                *args(1, K), None, blk, unit_diag, 'cavi_sweep_mix_s1',
+                inner_steps=steps)
+            assert eta_diff.shape == (1, nb, B)
+            assert len(calls['s1'][-1]) == 16 + 7
+            assert calls['s1'][-1][16:-1] == (
+                K, nb, B, float(np.float32(1 / 127)), steps, int(unit_diag))
+        else:
+            with pytest.raises(ValueError, match='diag_nz'):
+                cavi_cuda.block_sweep_mix(*args(1, K), None, blk, unit_diag,
+                                          'cavi_sweep_mix_s1',
+                                          inner_steps=steps)
+    assert len(calls['s1']) == cavi_cuda.LAUNCHES['cavi_sweep_mix_s1'] == \
+        (2 if bad is None else 0)
 
 
 @pytest.mark.parametrize('lanes', [False, True])

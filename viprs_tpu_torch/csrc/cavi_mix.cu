@@ -15,24 +15,34 @@
 // the same (S, NB, B) eta and q planes. Their plain PyTorch versions are
 // ops/cavi_mix.mix_block_sweep and ops/cavi_torch.coupling_pass.
 //
-// What bounds them on the card. Single model: one read of the int8
-// diagonal tiles (1.19 GB on the 1.1M-variant genome at B = 1024, 0.35 ms at
-// 3.35 TB/s); the FMA count is ~1% of the FP32 peak's worth. S = 20 lanes at
-// K = 3 (NB = 1133): if every tile were dense, per lane and block 8 tiles x
-// (8 inner steps x 2 x 128^2 + 128 x 1024) = 3.1e6 FMA, 7.1e10 per sweep,
-// 2.13 ms at the published 67 TFLOP/s FP32; over the genome's nonzero 32 x 32
-// blocks only (92,055 of 145,024 inside the (T, T) tiles, 114,067 of
-// 1,160,192 in all), 3.25e10 FMA, 0.97 ms, against 1.7 GB of state traffic
-// (0.51 ms). cavi_block_sweep_mix_s1 is simple on purpose: f32 FMA on the
-// CUDA cores, one CTA per block, the diagonal tile dequantized into shared
-// memory once per tile, each thread holding the K component values of its
-// coordinate in registers (K is a template parameter, 1..8).
+// What bounds them on the card. Single model at K = 3 on the 1.1M-variant
+// genome (NB = 1133, B = 1024): over the diagonal tiles' nonzero 32 x 32
+// blocks (114,067 of 1,160,192) and the state planes, 0.21 GB and 3.3
+// GFLOP, 0.063 ms at 3.35 TB/s (every tile dense: 1.19 GB of int8 tiles,
+// 0.38 ms). But each coordinate's two products per inner step are one fmaf
+// chain of T = 128 terms in ascending order (the bits of the earlier
+// kernel), so a block's 8 tiles x 8 steps are a chain of 16,384 dependent
+// FMA at least: the kernel is bound by each CTA's latency, not by the
+// card's rates. cavi_block_sweep_mix_s1: one CTA of 128 threads per block;
+// thread j holds column j of the (T, T) tile as 128 floats in registers, so
+// the chains read only the lane vector (a broadcast, four ahead) from
+// shared memory; the next tile's int8 bytes and per-coordinate inputs, and
+// this tile's flagged 32 x 32 blocks outside it, arrive by cp.async while
+// the steps run; the rank-T update takes the tile's own columns from the
+// registers and the rest from the flagged blocks only; K (1..8) is a
+// template parameter.
 //
-// cavi_block_sweep_mix_s has cavi_block_sweep_s's design (cavi_s.cu; the
-// pieces both use are in lane_tile.cuh): one CTA per (lane tile of L lanes,
-// LD block), L = 4, 8 or 20 picked by S and K (cavi_cuda.
-// mix_sweep_lane_tile), so each diagonal tile is dequantized once into
-// shared memory for up to 20 lanes. Thread (warp w, tx, ly) owns LT = L/4
+// S = 20 lanes at K = 3 (NB = 1133): if every tile were dense, per lane
+// and block 8 tiles x (8 inner steps x 2 x 128^2 + 128 x 1024) = 3.1e6 FMA,
+// 7.1e10 per sweep, 2.13 ms at the published 67 TFLOP/s FP32; over the
+// genome's nonzero 32 x 32 blocks only (92,055 of 145,024 inside the (T, T)
+// tiles, 114,067 of 1,160,192 in all), 3.25e10 FMA, 0.97 ms, against 1.7 GB
+// of state traffic (0.51 ms). cavi_block_sweep_mix_s has
+// cavi_block_sweep_s's design (cavi_s.cu; the pieces both use are in
+// lane_tile.cuh): one CTA per (lane tile of L lanes, LD block), L = 4, 8 or
+// 20 picked by S and K (cavi_cuda.mix_sweep_lane_tile), so each diagonal
+// tile is dequantized once into shared memory for up to 20 lanes. Thread
+// (warp w, tx, ly) owns LT = L/4
 // lanes x E coordinates of the tile: E = 4 (128 threads) at L = 4 and 8,
 // E = 2 (256 threads) at L = 20, so that 20 lanes x K = 3 of state fit in
 // registers. Through the inner steps it keeps each element's K gamma and
@@ -61,11 +71,18 @@
 // math). There is no keep gate (the mixture kernels have none).
 //
 // Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a; no instance
-// spills): at K = 1 / 2 / 3, 128 / 137 / 137 registers a thread at L = 4,
-// 136 / 161 / 181 at L = 8 and 153 / 185 / 217 at L = 20; at L = 4 and
-// K = 4..8, 149 / 161 / 172 / 185 / 197. Shared memory at B = 1024 and
-// K = 3: 172 KiB at L = 20 (one CTA of 8 warps per SM), 105 KiB at L = 8
-// and 87 KiB at L = 4 (2 CTAs of 4 warps); 107 KiB at L = 4, K = 8. Measured
+// spills). cavi_block_sweep_mix_s1: 164 / 167 / 167 registers a thread at
+// K = 1 / 2 / 3 (launch bounds of 3 CTAs of 4 warps per SM; 68.6 KiB of
+// shared memory at K = 3, B = 1024), 224 / 224 / 228 / 236 / 238 at
+// K = 4..8 (2 CTAs). Measured on an H100 80GB HBM3 at 700 W (PERF.md;
+// chip_smoke.py M5, CUDA-graph replays): 0.34 ms a sweep at K = 3 over the
+// genome's 1133 blocks, coupling pass not included (the earlier kernel:
+// 1.96 ms), 0.13 ms at every 20th block. cavi_block_sweep_mix_s: at K = 1 / 2 / 3, 128 / 137 / 137
+// registers a thread at L = 4, 136 / 161 / 181 at L = 8 and 153 / 185 / 217
+// at L = 20; at L = 4 and K = 4..8, 149 / 161 / 172 / 185 / 197. Shared
+// memory at B = 1024 and K = 3: 172 KiB at L = 20 (one CTA of 8 warps per
+// SM), 105 KiB at L = 8 and 87 KiB at L = 4 (2 CTAs of 4 warps); 107 KiB at
+// L = 4, K = 8. Measured
 // on an H100 80GB HBM3 at 700 W (PERF.md): 6.5 ms a sweep at S = 20, K = 3
 // over the genome's 1133 blocks, coupling included; the inner steps take
 // 4.9 ms of it.
@@ -82,22 +99,132 @@
 
 namespace {
 
-constexpr int THREADS = 256;     // B / 4 int8 column groups at B = 1024
-static_assert(THREADS == 2 * T, "two threads per coordinate in the S = 1 kernel");
+// The single-model sweep's CTA: T threads, thread j owning coordinate j of
+// every (T, T) tile of its block.
+constexpr int S1_THREADS = T;
+constexpr int S1_WARPS = S1_THREADS / 32;
+// The flagged 32 x 32 blocks outside a tile that a warp stages by cp.async
+// for its rank-T update; more are read from global memory when used.
+constexpr int OUT_SLOTS = 4;
+// The per-coordinate inputs a tile reads, staged by cp.async a tile ahead:
+// n, beta, the variant mask, eta, then K rows of gamma and K of mu.
+__host__ __device__ constexpr int s1_inputs(int K) { return 4 + 2 * K; }
 
-// One CTA per LD block b of the single model. gamma/mu are (K, NB, B),
-// eta/q (NB, B). An unflagged block is copied through bit-exactly with a
-// zero eta change. Otherwise, per tile of T coordinates: threads 0..T-1 (one
-// per coordinate) take inner_steps steps, each the K+1-way softmax (max
-// seeded by log_null_pi), the |R_tt| matvec for the relaxation weight, the
-// gamma/mu update, eta, and the R_tt matvec for the tile-local q refresh;
-// then all threads apply the rank-T update q[:] += scale * d^T R[tile rows,
-// :] to the block's q in shared memory (rows whose d_k is exactly zero are
-// skipped: exact). unit_diag: the relaxation's diagonal term is the variant
-// mask (_mix_skip_kernel) instead of |R_jj| * scale (_mix_sweep_kernel).
+// Shared memory of a cavi_block_sweep_mix_s1 CTA, in this order: the
+// block's q (B floats), the lane vectors c / d_t and d (T each), the
+// thread's softmax constants vt_k, mm_k, log vt_k (3K rows of T), the
+// softmax's constant per component and tau_beta (2K of 16 slots), two
+// buffers of a tile's per-coordinate inputs (s1_inputs(K) rows of T), two
+// int8 (T, T) tile buffers, each warp's OUT_SLOTS staged 32 x 32 int8
+// blocks, the block's diag_nz flags ((B/32)^2 bytes).
+__host__ __device__ constexpr size_t s1_smem(int K, int B) {
+    return (static_cast<size_t>(B) + 2 * T + 3 * K * T + 16
+            + 2 * s1_inputs(K) * T) * sizeof(float)
+        + 2 * T * T + S1_WARPS * OUT_SLOTS * NZ * NZ
+        + static_cast<size_t>(B / NZ) * (B / NZ);
+}
+
+// By cp.async, 16 bytes a copy: the int8 (T, T) tile at (t0, t0) of the
+// block's tiles D into R_dst, and the tile's per-coordinate inputs (at
+// element offset jt of the (NB, B) planes, gamma/mu's component planes
+// `plane` apart) into in_dst, s1_inputs(K) rows of T.
 template <int K>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void stage_tile_async(
+    const int8_t* D, int B, int t0, int8_t* R_dst, float* in_dst,
+    const float* nn, const float* beta, const float* mask,
+    const float* eta_in, const float* gamma_in, const float* mu_in,
+    size_t jt, size_t plane, int tid) {
+#pragma unroll
+    for (int s = 0; s < T * T / 16 / S1_THREADS; ++s) {
+        const int i = tid + s * S1_THREADS;
+        const int r = i / (T / 16), part = i % (T / 16);
+        cp_async16(R_dst + r * T + 16 * part,
+                   D + static_cast<size_t>(t0 + r) * B + t0 + 16 * part,
+                   true);
+    }
+    for (int i = tid; i < s1_inputs(K) * T / 4; i += S1_THREADS) {
+        const int row = i / (T / 4), c = 4 * (i % (T / 4));
+        const float* src = row == 0 ? nn : row == 1 ? beta
+            : row == 2 ? mask : row == 3 ? eta_in
+            : row < 4 + K ? gamma_in + (row - 4) * plane
+            : mu_in + (row - 4 - K) * plane;
+        cp_async16(in_dst + row * T + c, src + jt + c, true);
+    }
+}
+
+// Warp w's share of the 32-column chunks outside the tile whose rows
+// t0 .. t0 + T - 1 hold a flagged 32 x 32 block: f(cc) for each, chunk n
+// of them (ascending) going to warp n % S1_WARPS.
+template <class F>
+__device__ __forceinline__ void outer_chunks(const unsigned char* nz,
+                                             int nb32, int rb0, int lane,
+                                             int w, F&& f) {
+    int n = 0;
+    for (int cw = 0; cw < nb32; cw += 32) {
+        const int cx = cw + lane;
+        bool hit = false;
+        if (cx < nb32 && (cx < rb0 || cx >= rb0 + T / NZ)) {
+#pragma unroll
+            for (int rb = 0; rb < T / NZ; ++rb)
+                hit |= nz[(rb0 + rb) * nb32 + cx] != 0;
+        }
+        unsigned chunks = __ballot_sync(0xffffffffu, hit);
+        for (; chunks; chunks &= chunks - 1, ++n)
+            if (n % S1_WARPS == w) f(cw + __ffs(chunks) - 1);
+    }
+}
+
+// acc = sum over k = 0..T-1, ascending, of v[k] r[k] (|r[k]| where ABS):
+// one fmaf chain, r from registers, v read four at a time (a broadcast)
+// V_AHEAD float4 loads ahead of its use. The compiler barrier after each
+// load keeps the loads where they are: hoisted all together they would hold
+// 128 more registers and spill.
+constexpr int V_AHEAD = 4;
+template <bool ABS>
+__device__ __forceinline__ float column_product(const float (&r)[T],
+                                                const float* v) {
+    float4 xs[V_AHEAD];
+#pragma unroll
+    for (int a = 0; a < V_AHEAD; ++a) xs[a] = ld4(v + 4 * a);
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < T; k += 4) {
+        const float4 x = xs[(k / 4) % V_AHEAD];
+        if (k + 4 * V_AHEAD < T)
+            xs[(k / 4) % V_AHEAD] = ld4(v + k + 4 * V_AHEAD);
+        asm volatile("" ::: "memory");
+        acc = fmaf(x.x, ABS ? fabsf(r[k]) : r[k], acc);
+        acc = fmaf(x.y, ABS ? fabsf(r[k + 1]) : r[k + 1], acc);
+        acc = fmaf(x.z, ABS ? fabsf(r[k + 2]) : r[k + 2], acc);
+        acc = fmaf(x.w, ABS ? fabsf(r[k + 3]) : r[k + 3], acc);
+    }
+    return acc;
+}
+
+// One CTA of T threads per LD block b of the single model. gamma/mu are
+// (K, NB, B), eta/q (NB, B), diag_nz (NB, B/32, B/32) uint8. An unflagged
+// block is copied through bit-exactly with a zero eta change. Otherwise,
+// per tile of T coordinates (the next tile's int8 bytes and inputs on their
+// way by cp.async meanwhile): thread j converts column j of the tile (its
+// coordinate's R row, symmetric or not) into T registers and takes
+// inner_steps steps, each the K+1-way softmax (max seeded by log_null_pi,
+// the null term added last), the |R| column product for the relaxation
+// weight, the gamma/mu update, eta, and the R column product for the
+// tile-local q refresh; then the rank-T update q[:] += scale * d^T R[tile
+// rows, :] of the block's q in shared memory: the tile's own columns by a
+// third column product from the registers, the columns outside the tile
+// over the 32 x 32 blocks diag_nz flags only (a warp per 32-column chunk,
+// a thread per column; the blocks staged by cp.async while the inner steps
+// run). unit_diag: the relaxation's diagonal term is the variant mask
+// (_mix_skip_kernel) instead of |R_jj| * scale (_mix_sweep_kernel). Every
+// output is the earlier kernel's fmaf chain with its expressions in its
+// order: rows or blocks left out of a chain add exact zeros (for finite d).
+// Three CTAs an SM (at most 168 registers a thread) hold the column and
+// K <= 3's state without spilling; larger K take two.
+template <int K>
+__global__ void __launch_bounds__(S1_THREADS, K <= 3 ? 3 : 2)
 cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
+                        const uint8_t* __restrict__ diag_nz,
                         const float* __restrict__ beta,
                         const float* __restrict__ nn,
                         const float* __restrict__ mask,
@@ -114,168 +241,227 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
                         const float* __restrict__ hyper,
                         int NB, int B, float scale, int inner_steps,
                         int unit_diag) {
+    constexpr int NI = s1_inputs(K);
     extern __shared__ __align__(16) unsigned char smem[];
-    float* q_s = reinterpret_cast<float*>(smem);           // (B,)
-    float* v_s = q_s + B;                                  // (T,) c or d
-    float* R_s = v_s + T;                                  // (T, T)
+    float* q_s = reinterpret_cast<float*>(smem);   // (B,)
+    float* vc = q_s + B;                            // (T,) c, then d_t
+    float* vd = vc + T;                             // (T,) d
+    float* vt_s = vd + T;                           // (K, T)
+    float* mm_s = vt_s + K * T;                     // (K, T)
+    float* lv_s = mm_s + K * T;                     // (K, T)
+    float* hyp = lv_s + K * T;                      // base_k, tau_k
+    float* in_s = hyp + 16;                         // 2 (NI, T)
+    int8_t* R8 = reinterpret_cast<int8_t*>(in_s + 2 * NI * T);  // 2 (T, T)
+    int8_t* out_s = R8 + 2 * T * T;   // (S1_WARPS, OUT_SLOTS, NZ, NZ)
+    unsigned char* nz = reinterpret_cast<unsigned char*>(
+        out_s + S1_WARPS * OUT_SLOTS * NZ * NZ);
 
     const int b = blockIdx.x;
-    const int tid = threadIdx.x;
+    const int j = threadIdx.x;
     const size_t off = static_cast<size_t>(b) * B;
-    const size_t plane = static_cast<size_t>(NB) * B;     // component stride
+    const size_t plane = static_cast<size_t>(NB) * B;   // component stride
 
     if (!blk_mask[b]) {
-        for (int j = tid; j < B; j += THREADS) {
+        for (int c = 4 * j; c < B; c += 4 * S1_THREADS) {
 #pragma unroll
             for (int k = 0; k < K; ++k) {
-                gamma_out[k * plane + off + j] = gamma_in[k * plane + off + j];
-                mu_out[k * plane + off + j] = mu_in[k * plane + off + j];
+                *reinterpret_cast<float4*>(gamma_out + k * plane + off + c) =
+                    ld4(gamma_in + k * plane + off + c);
+                *reinterpret_cast<float4*>(mu_out + k * plane + off + c) =
+                    ld4(mu_in + k * plane + off + c);
             }
-            eta_out[off + j] = eta_in[off + j];
-            q_out[off + j] = q_in[off + j];
-            eta_diff[off + j] = 0.0f;
+            *reinterpret_cast<float4*>(eta_out + off + c) =
+                ld4(eta_in + off + c);
+            *reinterpret_cast<float4*>(q_out + off + c) = ld4(q_in + off + c);
+            *reinterpret_cast<float4*>(eta_diff + off + c) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
         }
         return;
     }
 
-    const float sig_e = hyper[0], lam = hyper[1], lnp = hyper[3];
-    float tau_b[K], base[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-        tau_b[k] = hyper[4 + k];
-        const float pi = hyper[4 + K + k];
-        base[k] = logf(pi) - log1pf(-pi) + 0.5f * logf(tau_b[k]);
-    }
-
-    for (int j = tid; j < B; j += THREADS) q_s[j] = q_in[off + j];
-
     const int8_t* D = diag + static_cast<size_t>(b) * B * B;
-    const bool owner = tid < T;
-    for (int t0 = 0; t0 < B; t0 += T) {
-        load_tile<THREADS>(D, B, t0, R_s, tid);
-        __syncthreads();   // R_s loaded; q_s updates of the last tile done
+    const int nb32 = B / NZ, nt = B / T;
+    stage_tile_async<K>(D, B, 0, R8, in_s, nn, beta, mask, eta_in, gamma_in,
+                        mu_in, off, plane, j);
+    cp_async_commit();
+    stage_flags<S1_THREADS>(diag_nz, b, nb32, nz, j);
+    if (j < K) {
+        const float tau = hyper[4 + j];
+        const float pi = hyper[4 + K + j];
+        hyp[j] = logf(pi) - log1pf(-pi) + 0.5f * logf(tau);
+        hyp[K + j] = tau;
+    }
+    for (int c = 4 * j; c < B; c += 4 * S1_THREADS)
+        *reinterpret_cast<float4*>(q_s + c) = ld4(q_in + off + c);
+    const float sig_e = hyper[0], lam = hyper[1], lnp = hyper[3];
+    const int lane = j % 32, w = j / 32;
+    int8_t* my_out = out_s + w * OUT_SLOTS * NZ * NZ;   // the warp's slots
 
-        const size_t jj = off + t0 + tid;
-        float beta_j = 0.f, mask_j = 0.f, mmax = 0.f, rdiag = 0.f;
-        float eta0 = 0.f, eta_cur = 0.f, q_cur = 0.f;
-        float vt[K], mm[K], logvt[K], g[K], m[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) vt[k] = mm[k] = logvt[k] = g[k] = m[k] = 0.f;
-        if (owner) {
-            const float n_j = nn[jj];
-            beta_j = beta[jj];
-            mask_j = mask[jj];
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-                vt[k] = n_j * (1.0f + lam) / sig_e + tau_b[k];
-                mm[k] = n_j / (vt[k] * sig_e);
-                logvt[k] = logf(vt[k]);
-                mmax = fmaxf(mmax, fabsf(mm[k]));
-                g[k] = gamma_in[k * plane + jj];
-                m[k] = mu_in[k * plane + jj];
-            }
-            rdiag = unit_diag ? mask_j : fabsf(R_s[tid * T + tid]) * scale;
-            eta0 = eta_in[jj];
-            eta_cur = eta0;
-            q_cur = q_s[t0 + tid];
+    for (int t = 0; t < nt; ++t) {
+        const int t0 = t * T;
+        if (t + 1 < nt) {
+            // the other buffers' last readers passed the last tile's d_t
+            // barrier
+            const int nxt = (t + 1) & 1;
+            stage_tile_async<K>(D, B, t0 + T, R8 + nxt * T * T,
+                                in_s + nxt * NI * T, nn, beta, mask, eta_in,
+                                gamma_in, mu_in, off + t0 + T, plane, j);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
+        // the tile and its inputs in place; the last tile's q updates and
+        // lane-vector and staged-block reads done
+        __syncthreads();
+        const int rb0 = t0 / NZ;
+        {
+            // this tile's flagged blocks outside it, into the warp's slots
+            int slot = 0;
+            outer_chunks(nz, nb32, rb0, lane, w, [&](int cc) {
+                for (int rb = 0; rb < T / NZ; ++rb) {
+                    if (!nz[(rb0 + rb) * nb32 + cc]) continue;
+                    if (slot < OUT_SLOTS) {
+                        const int8_t* src = D
+                            + static_cast<size_t>(t0 + NZ * rb + lane) * B
+                            + NZ * cc;
+                        int8_t* dst = my_out + (slot * NZ + lane) * NZ;
+                        cp_async16(dst, src, true);
+                        cp_async16(dst + 16, src + 16, true);
+                    }
+                    ++slot;
+                }
+            });
+            cp_async_commit();
+        }
+        const int8_t* Rt = R8 + (t & 1) * T * T;
+        const float* in_t = in_s + (t & 1) * NI * T;
+        float r[T];   // column j of the tile
+#pragma unroll
+        for (int k = 0; k < T; ++k) r[k] = i8_to_f32(Rt[k * T + j]);
+
+        const size_t jj = off + t0 + j;
+        const float n_j = in_t[j];
+        const float beta_j = in_t[T + j];
+        const float mask_j = in_t[2 * T + j];
+        float g[K], m[K], mmax = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const float vt = n_j * (1.0f + lam) / sig_e + hyp[K + k];
+            const float mm = n_j / (vt * sig_e);
+            vt_s[k * T + j] = vt;
+            mm_s[k * T + j] = mm;
+            lv_s[k * T + j] = logf(vt);
+            mmax = fmaxf(mmax, fabsf(mm));
+            g[k] = in_t[(4 + k) * T + j];
+            m[k] = in_t[(4 + K + k) * T + j];
+        }
+        const float rdiag = unit_diag ? mask_j
+                                      : fabsf(i8_to_f32(Rt[j * T + j])) * scale;
+        const float eta0 = in_t[3 * T + j];
+        float eta_cur = eta0;
+        float q_cur = q_s[t0 + j];
 
         for (int step = 0; step < inner_steps; ++step) {
-            float ms[K], gs[K], c = 0.f, d_in = 0.f;
-            if (owner) {
-                float u[K], umax = lnp;
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    ms[k] = mm[k] * (beta_j - q_cur);
-                    u[k] = base[k] - 0.5f * logvt[k] + 0.5f * vt[k] * ms[k] * ms[k];
-                    umax = fmaxf(umax, u[k]);
-                }
-                float denom = 0.f;
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    gs[k] = expf(u[k] - umax);
-                    denom += gs[k];
-                }
-                denom += expf(lnp - umax);
-                float pip = 0.f;
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    gs[k] = gs[k] / denom;
-                    pip += gs[k];
-                }
-                c = pip * mmax;
-                v_s[tid] = c;
-            }
-            __syncthreads();
-            if (owner) {
-                // relaxation: sum_k c_k |R_kj|, minus the diagonal term
-                float acc = 0.f;
-                for (int k = 0; k < T; ++k)
-                    acc = fmaf(v_s[k], fabsf(R_s[k * T + tid]), acc);
-                const float w = 1.0f / (1.0f + (acc * scale - rdiag * c));
-                float eta_new = 0.f;
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    g[k] = g[k] + w * (gs[k] - g[k]);
-                    m[k] = m[k] + w * (ms[k] - m[k]);
-                    eta_new += g[k] * m[k];
-                }
-                d_in = (eta_new - eta_cur) * mask_j;
-            }
-            __syncthreads();
-            if (owner) v_s[tid] = d_in;
-            __syncthreads();
-            if (owner) {
-                // tile-local q refresh: sum_k d_k R_kj - d_j
-                float acc = 0.f;
-                for (int k = 0; k < T; ++k)
-                    acc = fmaf(v_s[k], R_s[k * T + tid], acc);
-                q_cur = q_cur + acc * scale - d_in;
-                eta_cur = eta_cur + d_in;
-            }
-            __syncthreads();
-        }
-
-        if (owner) {
-            const float d_t = (eta_cur - eta0) * mask_j;
+            float ms[K], gs[K], u[K], umax = lnp;
 #pragma unroll
             for (int k = 0; k < K; ++k) {
-                gamma_out[k * plane + jj] = g[k];
-                mu_out[k * plane + jj] = m[k];
+                ms[k] = mm_s[k * T + j] * (beta_j - q_cur);
+                u[k] = hyp[k] - 0.5f * lv_s[k * T + j]
+                    + 0.5f * vt_s[k * T + j] * ms[k] * ms[k];
+                umax = fmaxf(umax, u[k]);
             }
-            const float eta_new = eta0 + d_t;
-            eta_out[jj] = eta_new;
-            eta_diff[jj] = eta_new - eta0;
-            v_s[tid] = d_t;
+            float denom = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                gs[k] = expf(u[k] - umax);
+                denom += gs[k];
+            }
+            denom += expf(lnp - umax);
+            float pip = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                gs[k] = gs[k] / denom;
+                pip += gs[k];
+            }
+            const float c = pip * mmax;
+            vc[j] = c;
+            __syncthreads();
+            // relaxation: sum_k c_k |R_kj|, minus the diagonal term
+            const float acc = column_product<true>(r, vc);
+            const float wgt = 1.0f / (1.0f + (acc * scale - rdiag * c));
+            float eta_new = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                g[k] = g[k] + wgt * (gs[k] - g[k]);
+                m[k] = m[k] + wgt * (ms[k] - m[k]);
+                eta_new += g[k] * m[k];
+            }
+            const float d_in = (eta_new - eta_cur) * mask_j;
+            vd[j] = d_in;
+            __syncthreads();
+            // tile-local q refresh: sum_k d_k R_kj - d_j
+            const float acc_d = column_product<false>(r, vd);
+            q_cur = q_cur + acc_d * scale - d_in;
+            eta_cur = eta_cur + d_in;
         }
+
+        const float d_t = (eta_cur - eta0) * mask_j;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            gamma_out[k * plane + jj] = g[k];
+            mu_out[k * plane + jj] = m[k];
+        }
+        const float eta_new = eta0 + d_t;
+        eta_out[jj] = eta_new;
+        eta_diff[jj] = eta_new - eta0;
+        // vc's last readers passed the last step's second barrier, or the
+        // tile's first with no inner step
+        vc[j] = d_t;
+        cp_async_wait<0>();   // the staged blocks
         __syncthreads();
 
-        // rank-T update over the whole block width (R symmetric)
-        const int8_t* rows = D + static_cast<size_t>(t0) * B;
-        for (int cg = tid; cg < B / 4; cg += THREADS) {
-            float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-            for (int k = 0; k < T; ++k) {
-                const float dk = v_s[k];
-                if (dk != 0.0f) {
-                    const float4 r = i8x4_to_f32(*reinterpret_cast<const int*>(
-                        rows + static_cast<size_t>(k) * B + 4 * cg));
-                    a0 = fmaf(dk, r.x, a0);
-                    a1 = fmaf(dk, r.y, a1);
-                    a2 = fmaf(dk, r.z, a2);
-                    a3 = fmaf(dk, r.w, a3);
+        // rank-T update (R symmetric), the tile's own columns: the stored
+        // unit diagonal also moved q at the focal variants
+        const float acc_t = column_product<false>(r, vc);
+        q_s[t0 + j] = q_s[t0 + j] + acc_t * scale - d_t;
+        // the columns outside the tile: a thread per column of the warp's
+        // chunks, each flagged block's 32 rows from its slot (or global
+        // memory past the warp's OUT_SLOTS)
+        int slot = 0;
+        outer_chunks(nz, nb32, rb0, lane, w, [&](int cc) {
+            const int col = NZ * cc + lane;
+            float a = 0.f;
+            for (int rb = 0; rb < T / NZ; ++rb) {
+                if (!nz[(rb0 + rb) * nb32 + cc]) continue;
+                int raw[NZ];
+                if (slot < OUT_SLOTS) {
+                    const int8_t* src = my_out + slot * NZ * NZ + lane;
+#pragma unroll
+                    for (int i = 0; i < NZ; ++i) raw[i] = src[i * NZ];
+                } else {
+                    const int8_t* src = D
+                        + static_cast<size_t>(t0 + NZ * rb) * B + col;
+#pragma unroll
+                    for (int i = 0; i < NZ; ++i)
+                        raw[i] = __ldg(src + static_cast<size_t>(i) * B);
+                }
+                ++slot;
+#pragma unroll
+                for (int i = 0; i < NZ; i += 4) {
+                    const float4 dv = ld4(vc + NZ * rb + i);
+                    a = fmaf(dv.x, i8_to_f32(raw[i]), a);
+                    a = fmaf(dv.y, i8_to_f32(raw[i + 1]), a);
+                    a = fmaf(dv.z, i8_to_f32(raw[i + 2]), a);
+                    a = fmaf(dv.w, i8_to_f32(raw[i + 3]), a);
                 }
             }
-            q_s[4 * cg + 0] += a0 * scale;
-            q_s[4 * cg + 1] += a1 * scale;
-            q_s[4 * cg + 2] += a2 * scale;
-            q_s[4 * cg + 3] += a3 * scale;
-        }
-        __syncthreads();
-        // the stored unit diagonal also moved q at the focal variants
-        if (owner) q_s[t0 + tid] -= v_s[tid];
+            q_s[col] += a * scale;
+        });
     }
     __syncthreads();
-    for (int j = tid; j < B; j += THREADS) q_out[off + j] = q_s[j];
+    for (int c = 4 * j; c < B; c += 4 * S1_THREADS)
+        *reinterpret_cast<float4*>(q_out + off + c) = ld4(q_s + c);
 }
 
 // The lanes' hyperparameters a cavi_block_sweep_mix_s CTA keeps in shared
@@ -617,13 +803,15 @@ struct Args {
 
 template <int K>
 cudaError_t launch_s1(const Args& a) {
-    const size_t smem = (a.B + T + T * T) * sizeof(float);
-    cudaError_t err = set_smem(reinterpret_cast<const void*>(cavi_block_sweep_mix_s1<K>), smem);
+    const size_t smem = s1_smem(K, a.B);
+    cudaError_t err = set_smem(
+        reinterpret_cast<const void*>(cavi_block_sweep_mix_s1<K>), smem);
     if (err != cudaSuccess) return err;
-    cavi_block_sweep_mix_s1<K><<<a.nb, THREADS, smem, a.stream>>>(
-        a.diag, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in, a.eta_in, a.q_in,
-        a.gamma_out, a.mu_out, a.eta_out, a.q_out, a.eta_diff, a.blk_mask,
-        a.hyper, a.nb, a.B, a.scale, a.inner_steps, a.unit_diag);
+    cavi_block_sweep_mix_s1<K><<<a.nb, S1_THREADS, smem, a.stream>>>(
+        a.diag, a.diag_nz, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in,
+        a.eta_in, a.q_in, a.gamma_out, a.mu_out, a.eta_out, a.q_out,
+        a.eta_diff, a.blk_mask, a.hyper, a.nb, a.B, a.scale, a.inner_steps,
+        a.unit_diag);
     return cudaGetLastError();
 }
 
@@ -705,20 +893,21 @@ extern "C" {
 // Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
 // success); it never synchronizes. B must be a positive multiple of T and
 // 1 <= K <= 8.
-int cavi_block_sweep_mix_s1_launch(const void* diag, const void* beta,
-                                   const void* nn, const void* mask,
-                                   const void* gamma_in, const void* mu_in,
-                                   const void* eta_in, const void* q_in,
-                                   void* gamma_out, void* mu_out,
-                                   void* eta_out, void* q_out, void* eta_diff,
-                                   const void* blk_mask, const void* hyper,
-                                   int K, int nb, int B, float scale,
-                                   int inner_steps, int unit_diag,
+int cavi_block_sweep_mix_s1_launch(const void* diag, const void* diag_nz,
+                                   const void* beta, const void* nn,
+                                   const void* mask, const void* gamma_in,
+                                   const void* mu_in, const void* eta_in,
+                                   const void* q_in, void* gamma_out,
+                                   void* mu_out, void* eta_out, void* q_out,
+                                   void* eta_diff, const void* blk_mask,
+                                   const void* hyper, int K, int nb, int B,
+                                   float scale, int inner_steps, int unit_diag,
                                    void* stream) {
-    if (bad_shape(1, K, nb, B)) return static_cast<int>(cudaErrorInvalidValue);
+    if (bad_shape(1, K, nb, B) || inner_steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0) return static_cast<int>(cudaGetLastError());
     return static_cast<int>(by_k<S1>(K, make_args(
-        diag, nullptr, beta, nn, mask, gamma_in, mu_in, eta_in, q_in,
+        diag, diag_nz, beta, nn, mask, gamma_in, mu_in, eta_in, q_in,
         gamma_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, 1, nb, B,
         scale, inner_steps, unit_diag, 1, stream)));
 }

@@ -363,22 +363,6 @@ constexpr int CG = 2;            // float4 groups of coordinates a thread owns
 constexpr int TX = CC / (4 * CG);   // threads across a slab
 static_assert(KC % 16 == 0 && KC * CC <= RAW, "staging layout");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(full ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 // A cursor over the chunks of block b's slab that hold a nonzero, in the
 // incident tiles with a flagged end: position p in inc_tile (ascending o),
 // chunk k of the tile's K loop, the tile o and its other block (as ~other

@@ -15,3 +15,9 @@ __device__ __forceinline__ float4 i8x4_to_f32(int w) {
                        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - off,
                        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - off);
 }
+
+// One int8 value as an exact float: b + 1.5 * 2^23 lies in [2^23, 2^24),
+// where a float's unit in the last place is 1.
+__device__ __forceinline__ float i8_to_f32(int b) {
+    return __int_as_float(0x4B400000 + b) - 12582912.0f;
+}

@@ -1,13 +1,14 @@
 // Shared by the S-lane block sweeps cavi_block_sweep_s (cavi_s.cu) and
-// cavi_block_sweep_mix_s (cavi_mix.cu; load_tile also by the single-model
-// cavi_block_sweep_mix_s1): one CTA of 4 T / E threads per (lane tile of
-// L = 4 LT lanes, LD block), thread (warp w, tx, ly) owning lanes
-// LT ly .. LT ly + LT - 1 and the E coordinates 8 E w + E tx .. + E - 1 of a
-// (T, T) diagonal tile (E = 4: 128 threads, 32 coordinates a warp; E = 2:
-// 256 threads, 16 a warp). Here: the lane vector's layout and its loads and
-// stores, the register-tiled (T, T) product, the staging of a block's
-// diag_nz flags and of the chunks' first writes, and the rank-T update over
-// the nonzero 32 x 32 blocks.
+// cavi_block_sweep_mix_s (cavi_mix.cu): one CTA of 4 T / E threads per
+// (lane tile of L = 4 LT lanes, LD block), thread (warp w, tx, ly) owning
+// lanes LT ly .. LT ly + LT - 1 and the E coordinates 8 E w + E tx .. + E - 1
+// of a (T, T) diagonal tile (E = 4: 128 threads, 32 coordinates a warp;
+// E = 2: 256 threads, 16 a warp). Here: the lane vector's layout and its
+// loads and stores, the cp.async helpers (also coupling_pass_s's and
+// cavi_block_sweep_mix_s1's), the register-tiled (T, T) product, the
+// staging of a block's diag_nz flags (also cavi_block_sweep_mix_s1's) and
+// of the chunks' first writes, and the rank-T update over the nonzero
+// 32 x 32 blocks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,6 +109,23 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[E]) {
         *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
     else
         *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// cp.async of 16 bytes (zero-filled where !full), its commit and wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // The (T, T) diagonal tile at (t0, t0) of the block's int8 tiles D as exact

@@ -42,11 +42,11 @@ SIGNATURES = {
     # eta_diff, q (updated in place), n_slabs, S, nb, B, scale, lane tile,
     # stream
     'coupling_pass_s_launch': [P] * 10 + [I32, I32, I32, I32, F32, I32, P],
-    # the mixture block sweeps (csrc/cavi_mix.cu): diag, [diag_nz,] beta, n,
+    # the mixture block sweeps (csrc/cavi_mix.cu): diag, diag_nz, beta, n,
     # mask, gamma, mu, eta, q (in), gamma, mu, eta, q, eta_diff (out),
     # blk_mask, hyper, [S,] K, nb, B, scale, inner_steps, unit_diag, [lane
     # tile,] stream
-    'cavi_block_sweep_mix_s1_launch': [P] * 15 + [I32, I32, I32, F32, I32,
+    'cavi_block_sweep_mix_s1_launch': [P] * 16 + [I32, I32, I32, F32, I32,
                                                   I32, P],
     'cavi_block_sweep_mix_s_launch': [P] * 16 + [I32, I32, I32, I32, F32,
                                                  I32, I32, I32, P],

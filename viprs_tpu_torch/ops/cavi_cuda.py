@@ -28,9 +28,9 @@ written. A lane with active == 0 passes through bit-exactly.
 Mixture prior (VIPRSMix), ``csrc/cavi_mix.cu``: ``block_sweep_mix`` launches
 ``cavi_block_sweep_mix_s1`` (single model, one CTA per block) or
 ``cavi_block_sweep_mix_s`` (S lanes, one CTA per lane tile of 4, 8 or 20
-lanes, picked by ``mix_sweep_lane_tile``, and block; its rank-T updates skip
-the zero 32 x 32 blocks, as ``block_sweep_s`` does); the coupling tiles after
-them are the passes above. ``cavi_sweep_mix_s1`` (K5,
+lanes, picked by ``mix_sweep_lane_tile``, and block); the rank-T updates of
+both skip the zero 32 x 32 blocks, as ``block_sweep_s`` does. The coupling
+tiles after them are the passes above. ``cavi_sweep_mix_s1`` (K5,
 all blocks), ``cavi_sweep_mix_s1_skip`` (K6, the activity mask),
 ``cavi_sweep_mix_s`` (K7) and ``cavi_sweep_mix_s_skip`` (K8, the union mask)
 are the compositions, each counted under its own name.
@@ -413,8 +413,8 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     relaxation's diagonal term is the variant mask (K6/K8). ``count``: the
     LAUNCHES entry a launch adds to. ``inner_steps``: the kernel's inner
     steps per tile (a timing probe takes fewer; the plain version runs
-    INNER_STEPS only). The lane kernel (``active`` given) reads
-    ``ld.diag_nz``.
+    INNER_STEPS only). Both kernels read ``ld.diag_nz`` (their rank-T
+    updates skip the zero 32 x 32 blocks).
 
     :returns: (new_state, eta_diff), coupling tiles not applied.
     """
@@ -447,13 +447,12 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     ones = torch.ones(S, dtype=F32, device=dev)
     hv = _mix_hyper_rows(hyper, ones if active is None else active, dev)
     _check('hyper', hv, F32, (4 + 2 * K, S), dev)
-    if active is not None:
-        _check('diag_nz', ld.diag_nz, torch.uint8, (nb, B // 32, B // 32), dev)
-        for name, x in (('diag_nz', ld.diag_nz), ('std_beta', std_beta),
-                        ('n_per_snp', n_per_snp), ('mask', ld.mask),
-                        *zip(MixState._fields, state)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"{name} is not 16-byte aligned")
+    _check('diag_nz', ld.diag_nz, torch.uint8, (nb, B // 32, B // 32), dev)
+    for name, x in (('diag', ld.diag), ('diag_nz', ld.diag_nz),
+                    ('std_beta', std_beta), ('n_per_snp', n_per_snp),
+                    ('mask', ld.mask), *zip(MixState._fields, state)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     out = MixState(*(torch.empty_like(x) for x in state))
     eta_diff = torch.empty_like(state.eta)
     ptrs = (std_beta.data_ptr(), n_per_snp.data_ptr(), ld.mask.data_ptr(),
@@ -464,7 +463,8 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if active is None:
         err = lib.cavi_block_sweep_mix_s1_launch(
-            ld.diag.data_ptr(), *ptrs, K, *tail, stream)
+            ld.diag.data_ptr(), ld.diag_nz.data_ptr(), *ptrs, K, *tail,
+            stream)
         _raise_on(err, 'cavi_block_sweep_mix_s1')
     else:
         err = lib.cavi_block_sweep_mix_s_launch(
