@@ -9,6 +9,8 @@ log and the order of float32 sums differ between XLA and PyTorch (the same
 bounds the JAX package holds its Pallas kernels to, tests/test_pallas.py).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -197,3 +199,133 @@ def test_block_proposal_mask_matches_jax(problem):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         seen.add(int(got.sum()))
     assert len(seen) > 1        # the gate separates blocks at some eps
+
+
+@pytest.mark.parametrize('mask', ['all', 'one', 'none'])
+def test_coupling_pass_s1_leaves_its_input_untouched_on_cpu(problem, mask):
+    """coupling_pass_s1 returns a new q and never writes its input (the CPU
+    takes the plain version; the card runs the kernel in place on a clone),
+    and equals the plain coupling restriction and, with every block
+    flagged, the JAX package's refresh_q."""
+    nb = problem['nb']
+    st, _ = make_state(problem, 1, seed=21)
+    rng = np.random.default_rng(22)
+    diff = (1e-2 * rng.standard_normal(st[2].shape) * problem['mask']
+            ).astype(np.float32)
+    blk = {'all': np.ones(nb, np.int32), 'none': np.zeros(nb, np.int32),
+           'one': np.eye(nb, dtype=np.int32)[int(problem['ld'].off_src[0])]
+           }[mask]
+    q = torch.from_numpy(st[3].copy())
+    got = cavi_cuda.coupling_pass_s1(problem['ld'], q, torch.from_numpy(diff),
+                                     torch.from_numpy(blk))
+    np.testing.assert_array_equal(q.numpy(), st[3])
+    want = cavi_torch.coupling_pass(problem['ld'], torch.from_numpy(st[3]),
+                                    torch.from_numpy(diff),
+                                    torch.from_numpy(blk))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    if mask == 'all':
+        assert got is not q
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(cavi_jax.refresh_q(
+                problem['jld'], jnp.asarray(st[3]), jnp.asarray(diff))),
+            atol=1e-5, rtol=0)
+    if mask == 'none':
+        np.testing.assert_array_equal(got.numpy(), st[3])
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_coupling_pass_s1_inplace_refuses_cpu_tensors(problem):
+    """The in-place launcher is the kernel's alone: CPU tensors raise (the
+    plain version is coupling_pass_s1's), and q is left as it was."""
+    st, _ = make_state(problem, 1, seed=23)
+    q = torch.from_numpy(st[3].copy())
+    with pytest.raises(ValueError, match='card'):
+        cavi_cuda.coupling_pass_s1_inplace(
+            problem['ld'], q, torch.zeros_like(q),
+            torch.ones(problem['nb'], dtype=torch.int32))
+    np.testing.assert_array_equal(q.numpy(), st[3])
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def _stand_in_lib(monkeypatch, calls):
+    """A stand-in for the kernel library that records each launch's
+    arguments (per launcher name) and reports success; the current stream
+    of a meta device is a dummy."""
+    from viprs_tpu_torch.ops import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.setdefault(name, []).append(args)
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, 'build', lambda: (Lib(), {}))
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev: type('Stream', (), {'cuda_stream': 0}))
+    for name in cavi_cuda.LAUNCHES:
+        monkeypatch.setitem(cavi_cuda.LAUNCHES, name, 0)
+
+
+def _meta_ld(nb, B, n_off):
+    """An int8 LD on the meta device (the card's stand-in) with n_off
+    coupling tiles between consecutive blocks."""
+    return BlockLD.from_numpy(
+        np.zeros((nb, B, B), np.int8), np.ones((n_off, B, B), np.int8),
+        np.arange(n_off), np.arange(n_off) + 1, np.ones((nb, B), np.float32),
+        1 / 127, device='meta')
+
+
+@pytest.mark.parametrize('bad', [None, 'off_nz shape', 'off_nz dtype',
+                                 'off_nz layout', 'cpl_slabs dtype',
+                                 'cpl_slabs layout'])
+def test_coupling_pass_s1_checks_off_nz_and_slabs_before_launching(
+        monkeypatch, bad):
+    """Off the CPU, coupling_pass_s1 checks BlockLD.off_nz (dtype, shape,
+    contiguity) and BlockLD.cpl_slabs (dtype, contiguity) before it
+    launches, and hands the kernel the flags, the slab list and its length;
+    the in-place form returns q itself, the public form a clone (a stand-in
+    library records the launches; meta tensors take the place of the
+    card's)."""
+    calls = {}
+    _stand_in_lib(monkeypatch, calls)
+    nb, B, n_off = 3, 256, 2
+    ld = _meta_ld(nb, B, n_off)
+    assert ld.off_nz.shape == (n_off, 8, 8)
+    assert ld.off_nz.dtype == torch.uint8
+    assert ld.cpl_slabs.dtype == torch.int32
+    n_slabs = ld.cpl_slabs.numel()
+    assert n_slabs == nb * B // 128        # every slab: the tiles are dense
+    wrong = {
+        'off_nz shape': dict(off_nz=torch.ones(n_off, 4, 4, dtype=torch.uint8,
+                                               device='meta')),
+        'off_nz dtype': dict(off_nz=torch.ones(n_off, 8, 8, dtype=torch.int32,
+                                               device='meta')),
+        'off_nz layout': dict(off_nz=torch.ones(
+            n_off, 8, 8, dtype=torch.uint8, device='meta').transpose(1, 2)),
+        'cpl_slabs dtype': dict(cpl_slabs=ld.cpl_slabs.long()),
+        'cpl_slabs layout': dict(cpl_slabs=torch.zeros(
+            2 * n_slabs, dtype=torch.int32, device='meta')[::2]),
+    }
+    if bad is not None:
+        ld = dataclasses.replace(ld, **wrong[bad])
+    q = torch.zeros(1, nb, B, device='meta')
+    blk = torch.ones(nb, dtype=torch.int32, device='meta')
+    if bad is None:
+        assert cavi_cuda.coupling_pass_s1_inplace(ld, q, q, blk) is q
+        out = cavi_cuda.coupling_pass_s1(ld, q, q, blk)
+        assert out is not q and out.shape == q.shape
+        args = calls['coupling_pass_s1_launch']
+        assert len(args) == cavi_cuda.LAUNCHES['coupling_pass_s1'] == 2
+        # off, src, dst, inc_ptr, inc_tile, blk_mask, off_nz, slabs,
+        # eta_diff, q, then n_slabs, nb, B, scale and the stream
+        assert len(args[0]) == 10 + 5
+        assert args[0][10:-1] == (n_slabs, nb, B, float(np.float32(1 / 127)))
+    else:
+        name = bad.split()[0]
+        with pytest.raises(ValueError, match=name):
+            cavi_cuda.coupling_pass_s1_inplace(ld, q, q, blk)
+        with pytest.raises(ValueError, match=name):
+            cavi_cuda.coupling_pass_s1(ld, q, q, blk)
+        assert not calls
+        assert cavi_cuda.LAUNCHES['coupling_pass_s1'] == 0

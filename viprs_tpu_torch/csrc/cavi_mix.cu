@@ -30,7 +30,8 @@
 // this tile's flagged 32 x 32 blocks outside it, arrive by cp.async while
 // the steps run; the rank-T update takes the tile's own columns from the
 // registers and the rest from the flagged blocks only; K (1..8) is a
-// template parameter.
+// template parameter. The spike-and-slab sweep cavi_block_sweep_s1
+// (cavi_s1.cu) has the same design; the pieces both use are in s1_tile.cuh.
 //
 // S = 20 lanes at K = 3 (NB = 1133): if every tile were dense, per lane
 // and block 8 tiles x (8 inner steps x 2 x 128^2 + 128 x 1024) = 3.1e6 FMA,
@@ -96,16 +97,10 @@
 #include <stdint.h>
 
 #include "lane_tile.cuh"
+#include "s1_tile.cuh"
 
 namespace {
 
-// The single-model sweep's CTA: T threads, thread j owning coordinate j of
-// every (T, T) tile of its block.
-constexpr int S1_THREADS = T;
-constexpr int S1_WARPS = S1_THREADS / 32;
-// The flagged 32 x 32 blocks outside a tile that a warp stages by cp.async
-// for its rank-T update; more are read from global memory when used.
-constexpr int OUT_SLOTS = 4;
 // The per-coordinate inputs a tile reads, staged by cp.async a tile ahead:
 // n, beta, the variant mask, eta, then K rows of gamma and K of mu.
 __host__ __device__ constexpr int s1_inputs(int K) { return 4 + 2 * K; }
@@ -114,91 +109,12 @@ __host__ __device__ constexpr int s1_inputs(int K) { return 4 + 2 * K; }
 // block's q (B floats), the lane vectors c / d_t and d (T each), the
 // thread's softmax constants vt_k, mm_k, log vt_k (3K rows of T), the
 // softmax's constant per component and tau_beta (2K of 16 slots), two
-// buffers of a tile's per-coordinate inputs (s1_inputs(K) rows of T), two
-// int8 (T, T) tile buffers, each warp's OUT_SLOTS staged 32 x 32 int8
-// blocks, the block's diag_nz flags ((B/32)^2 bytes).
+// buffers of a tile's per-coordinate inputs (s1_inputs(K) rows of T), then
+// s1_tile_smem(B) (s1_tile.cuh).
 __host__ __device__ constexpr size_t s1_smem(int K, int B) {
     return (static_cast<size_t>(B) + 2 * T + 3 * K * T + 16
             + 2 * s1_inputs(K) * T) * sizeof(float)
-        + 2 * T * T + S1_WARPS * OUT_SLOTS * NZ * NZ
-        + static_cast<size_t>(B / NZ) * (B / NZ);
-}
-
-// By cp.async, 16 bytes a copy: the int8 (T, T) tile at (t0, t0) of the
-// block's tiles D into R_dst, and the tile's per-coordinate inputs (at
-// element offset jt of the (NB, B) planes, gamma/mu's component planes
-// `plane` apart) into in_dst, s1_inputs(K) rows of T.
-template <int K>
-__device__ __forceinline__ void stage_tile_async(
-    const int8_t* D, int B, int t0, int8_t* R_dst, float* in_dst,
-    const float* nn, const float* beta, const float* mask,
-    const float* eta_in, const float* gamma_in, const float* mu_in,
-    size_t jt, size_t plane, int tid) {
-#pragma unroll
-    for (int s = 0; s < T * T / 16 / S1_THREADS; ++s) {
-        const int i = tid + s * S1_THREADS;
-        const int r = i / (T / 16), part = i % (T / 16);
-        cp_async16(R_dst + r * T + 16 * part,
-                   D + static_cast<size_t>(t0 + r) * B + t0 + 16 * part,
-                   true);
-    }
-    for (int i = tid; i < s1_inputs(K) * T / 4; i += S1_THREADS) {
-        const int row = i / (T / 4), c = 4 * (i % (T / 4));
-        const float* src = row == 0 ? nn : row == 1 ? beta
-            : row == 2 ? mask : row == 3 ? eta_in
-            : row < 4 + K ? gamma_in + (row - 4) * plane
-            : mu_in + (row - 4 - K) * plane;
-        cp_async16(in_dst + row * T + c, src + jt + c, true);
-    }
-}
-
-// Warp w's share of the 32-column chunks outside the tile whose rows
-// t0 .. t0 + T - 1 hold a flagged 32 x 32 block: f(cc) for each, chunk n
-// of them (ascending) going to warp n % S1_WARPS.
-template <class F>
-__device__ __forceinline__ void outer_chunks(const unsigned char* nz,
-                                             int nb32, int rb0, int lane,
-                                             int w, F&& f) {
-    int n = 0;
-    for (int cw = 0; cw < nb32; cw += 32) {
-        const int cx = cw + lane;
-        bool hit = false;
-        if (cx < nb32 && (cx < rb0 || cx >= rb0 + T / NZ)) {
-#pragma unroll
-            for (int rb = 0; rb < T / NZ; ++rb)
-                hit |= nz[(rb0 + rb) * nb32 + cx] != 0;
-        }
-        unsigned chunks = __ballot_sync(0xffffffffu, hit);
-        for (; chunks; chunks &= chunks - 1, ++n)
-            if (n % S1_WARPS == w) f(cw + __ffs(chunks) - 1);
-    }
-}
-
-// acc = sum over k = 0..T-1, ascending, of v[k] r[k] (|r[k]| where ABS):
-// one fmaf chain, r from registers, v read four at a time (a broadcast)
-// V_AHEAD float4 loads ahead of its use. The compiler barrier after each
-// load keeps the loads where they are: hoisted all together they would hold
-// 128 more registers and spill.
-constexpr int V_AHEAD = 4;
-template <bool ABS>
-__device__ __forceinline__ float column_product(const float (&r)[T],
-                                                const float* v) {
-    float4 xs[V_AHEAD];
-#pragma unroll
-    for (int a = 0; a < V_AHEAD; ++a) xs[a] = ld4(v + 4 * a);
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < T; k += 4) {
-        const float4 x = xs[(k / 4) % V_AHEAD];
-        if (k + 4 * V_AHEAD < T)
-            xs[(k / 4) % V_AHEAD] = ld4(v + k + 4 * V_AHEAD);
-        asm volatile("" ::: "memory");
-        acc = fmaf(x.x, ABS ? fabsf(r[k]) : r[k], acc);
-        acc = fmaf(x.y, ABS ? fabsf(r[k + 1]) : r[k + 1], acc);
-        acc = fmaf(x.z, ABS ? fabsf(r[k + 2]) : r[k + 2], acc);
-        acc = fmaf(x.w, ABS ? fabsf(r[k + 3]) : r[k + 3], acc);
-    }
-    return acc;
+        + s1_tile_smem(B);
 }
 
 // One CTA of T threads per LD block b of the single model. gamma/mu are
@@ -281,8 +197,14 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
 
     const int8_t* D = diag + static_cast<size_t>(b) * B * B;
     const int nb32 = B / NZ, nt = B / T;
-    stage_tile_async<K>(D, B, 0, R8, in_s, nn, beta, mask, eta_in, gamma_in,
-                        mu_in, off, plane, j);
+    // input row r of a tile: n, beta, mask, eta, gamma_k, mu_k
+    auto src = [&](int row) {
+        return row == 0 ? nn : row == 1 ? beta
+            : row == 2 ? mask : row == 3 ? eta_in
+            : row < 4 + K ? gamma_in + (row - 4) * plane
+            : mu_in + (row - 4 - K) * plane;
+    };
+    stage_tile_async<NI>(D, B, 0, R8, in_s, off, j, src);
     cp_async_commit();
     stage_flags<S1_THREADS>(diag_nz, b, nb32, nz, j);
     if (j < K) {
@@ -303,9 +225,8 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
             // the other buffers' last readers passed the last tile's d_t
             // barrier
             const int nxt = (t + 1) & 1;
-            stage_tile_async<K>(D, B, t0 + T, R8 + nxt * T * T,
-                                in_s + nxt * NI * T, nn, beta, mask, eta_in,
-                                gamma_in, mu_in, off + t0 + T, plane, j);
+            stage_tile_async<NI>(D, B, t0 + T, R8 + nxt * T * T,
+                                 in_s + nxt * NI * T, off + t0 + T, j, src);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -314,26 +235,8 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
         // the tile and its inputs in place; the last tile's q updates and
         // lane-vector and staged-block reads done
         __syncthreads();
-        const int rb0 = t0 / NZ;
-        {
-            // this tile's flagged blocks outside it, into the warp's slots
-            int slot = 0;
-            outer_chunks(nz, nb32, rb0, lane, w, [&](int cc) {
-                for (int rb = 0; rb < T / NZ; ++rb) {
-                    if (!nz[(rb0 + rb) * nb32 + cc]) continue;
-                    if (slot < OUT_SLOTS) {
-                        const int8_t* src = D
-                            + static_cast<size_t>(t0 + NZ * rb + lane) * B
-                            + NZ * cc;
-                        int8_t* dst = my_out + (slot * NZ + lane) * NZ;
-                        cp_async16(dst, src, true);
-                        cp_async16(dst + 16, src + 16, true);
-                    }
-                    ++slot;
-                }
-            });
-            cp_async_commit();
-        }
+        // this tile's flagged blocks outside it, into the warp's slots
+        stage_outer_blocks(D, B, t0, nz, nb32, lane, w, my_out);
         const int8_t* Rt = R8 + (t & 1) * T * T;
         const float* in_t = in_s + (t & 1) * NI * T;
         float r[T];   // column j of the tile
@@ -428,36 +331,7 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
         // the columns outside the tile: a thread per column of the warp's
         // chunks, each flagged block's 32 rows from its slot (or global
         // memory past the warp's OUT_SLOTS)
-        int slot = 0;
-        outer_chunks(nz, nb32, rb0, lane, w, [&](int cc) {
-            const int col = NZ * cc + lane;
-            float a = 0.f;
-            for (int rb = 0; rb < T / NZ; ++rb) {
-                if (!nz[(rb0 + rb) * nb32 + cc]) continue;
-                int raw[NZ];
-                if (slot < OUT_SLOTS) {
-                    const int8_t* src = my_out + slot * NZ * NZ + lane;
-#pragma unroll
-                    for (int i = 0; i < NZ; ++i) raw[i] = src[i * NZ];
-                } else {
-                    const int8_t* src = D
-                        + static_cast<size_t>(t0 + NZ * rb) * B + col;
-#pragma unroll
-                    for (int i = 0; i < NZ; ++i)
-                        raw[i] = __ldg(src + static_cast<size_t>(i) * B);
-                }
-                ++slot;
-#pragma unroll
-                for (int i = 0; i < NZ; i += 4) {
-                    const float4 dv = ld4(vc + NZ * rb + i);
-                    a = fmaf(dv.x, i8_to_f32(raw[i]), a);
-                    a = fmaf(dv.y, i8_to_f32(raw[i + 1]), a);
-                    a = fmaf(dv.z, i8_to_f32(raw[i + 2]), a);
-                    a = fmaf(dv.w, i8_to_f32(raw[i + 3]), a);
-                }
-            }
-            q_s[col] += a * scale;
-        });
+        outer_rank_t(D, B, t0, nz, nb32, lane, w, my_out, vc, q_s, scale);
     }
     __syncthreads();
     for (int c = 4 * j; c < B; c += 4 * S1_THREADS)

@@ -20,9 +20,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_tile.cuh"
+
 namespace {
 
-constexpr int T = 128;          // tile width: coordinates updated jointly
 constexpr int THREADS = 256;    // B / 4 int8 column groups at B = 1024
 constexpr float ETA_DIFF_EPS = 1e-8f;
 
@@ -193,82 +194,153 @@ cavi_block_sweep_s1(const int8_t* __restrict__ diag,
     for (int j = tid; j < B; j += THREADS) q_out[off + j] = q_s[j];
 }
 
-// One CTA per destination block b: q_out[b] = q_in[b] plus, for each
-// coupling tile o incident to b in ascending o (the order in which the
-// sequential TPU pass adds whole tile contributions) whose src or dst block
-// is flagged in blk_mask:
-//   b == src_o:  q[b] += scale * U_o   @ diff[dst_o]   (one warp per row)
-//   b == dst_o:  q[b] += scale * U_o^T @ diff[src_o]   (4 columns a thread)
-// A tile with both ends unflagged carries a zero diff and is skipped.
-__global__ void __launch_bounds__(THREADS)
+// coupling_pass_s1: q[b, c0 .. c0 + 127] += the coupling tiles incident to
+// block b that have a flagged end, in ascending o (the order in which the
+// sequential TPU pass adds whole tile contributions), applied to the sweep's
+// eta change, in place. One CTA of SLAB = 128 threads per entry of `slabs`
+// (BlockLD.cpl_slabs: b * (B / 128) + slab, the slabs of 128 coordinates
+// that some tile's nonzero 32 x 32 blocks reach); thread c owns q[b, c0 + c]
+// and keeps it in a register through the walk. Warp w's 32 coordinates are
+// one 32-block x of the slab: its row block in the tiles b is the source of,
+// its column block in those b is the destination of. Per tile, a warp
+// ballot over BlockLD.off_nz gives the flagged 32 x 32 blocks along x, and
+// only those are read:
+//   b == src_o:  q[i] += scale * sum_j U_o[i, j] diff[dst_o, j]
+//   b == dst_o:  q[c] += scale * sum_i U_o[i, c] diff[src_o, i]
+// Every sum keeps the earlier kernel's bits. That kernel gave each row of
+// the source orientation to a warp: lane l summed the char4 groups
+// j4 = l (mod 32) in ascending order, as four fmaf each, and a
+// __shfl_down_sync tree (16, 8, 4, 2, 1) added the 32 partials. Here one
+// thread computes the same 32 partials over the flagged blocks only (lane
+// 8 g + e of that warp took group e of the blocks cb = g (mod 4)) and adds
+// them in that tree's order. The destination orientation is one
+// ascending-i fmaf chain per column, rows with a zero eta change skipped,
+// as before. A skipped block or row adds exact zeros (for a finite eta
+// change), and every coordinate of the slab takes one q += acc * scale per
+// tile with a flagged end, acc = +0 where nothing reaches it.
+//
+// One difference remains, and only in the sign of a zero: the earlier
+// kernel also added +0 to the slabs of b that no tile reaches, which turns
+// a q of -0 there into +0. The block sweeps never write -0 into q (each
+// writes q + a * scale - d from accumulators that start at +0), so it shows
+// only for a caller's q that holds -0.
+//
+// What bounds it: on the 1.1M-variant genome the 244 coupling tiles hold a
+// nonzero in 350 of their 249,856 blocks of 32 x 32, so the data the pass
+// needs is a few hundred KB (about 0.3 us at 3.35 TB/s); the launch and the
+// chain of dependent reads of each CTA's walk (slab, incident tiles, flags,
+// then the blocks) set its time.
+constexpr int SLAB = 128;
+
+// The source orientation for the thread's row i of U (32-block x): the
+// earlier kernel's warp sum of U[i, :] . v over the flagged blocks.
+__device__ __forceinline__ float row_sum(const int8_t* U, const uint8_t* f,
+                                        const float* v, int i, int x,
+                                        int nb32, int lane, int B) {
+    float p[4][8];   // lane 8 g + e's partial of the earlier warp sum
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) p[g][e] = 0.0f;
+    const int8_t* row = U + static_cast<size_t>(i) * B;
+    for (int cw = 0; cw < nb32; cw += 32) {
+        const int cb = cw + lane;
+        const unsigned m = __ballot_sync(
+            0xffffffffu, cb < nb32 && f[x * nb32 + cb] != 0);
+        if (!m) continue;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+                if (!((m >> (4 * t + g)) & 1u)) continue;
+                const int c = NZ * (cw + 4 * t + g);
+                const int4 w0 = *reinterpret_cast<const int4*>(row + c);
+                const int4 w1 = *reinterpret_cast<const int4*>(row + c + 16);
+                const int words[8] = {w0.x, w0.y, w0.z, w0.w,
+                                      w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const float4 u = i8x4_to_f32(words[e]);
+                    const float4 d = __ldg(reinterpret_cast<const float4*>(
+                        v + c + 4 * e));
+                    p[g][e] = fmaf(u.x, d.x, p[g][e]);
+                    p[g][e] = fmaf(u.y, d.y, p[g][e]);
+                    p[g][e] = fmaf(u.z, d.z, p[g][e]);
+                    p[g][e] = fmaf(u.w, d.w, p[g][e]);
+                }
+            }
+        }
+    }
+    // the shuffle tree: lanes l and l + 16, then + 8, + 4, + 2, + 1
+    float s[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+        s[e] = (p[0][e] + p[2][e]) + (p[1][e] + p[3][e]);
+    return ((s[0] + s[4]) + (s[2] + s[6])) + ((s[1] + s[5]) + (s[3] + s[7]));
+}
+
+// The destination orientation for the thread's column c of U (32-block x):
+// sum over i, ascending, of v[i] U[i, c] over the flagged blocks, rows with
+// v[i] == 0 skipped.
+__device__ __forceinline__ float column_sum(const int8_t* U, const uint8_t* f,
+                                           const float* v, int c, int x,
+                                           int nb32, int lane, int B) {
+    float a = 0.0f;
+    for (int rw = 0; rw < nb32; rw += 32) {
+        const int rb = rw + lane;
+        unsigned m = __ballot_sync(
+            0xffffffffu, rb < nb32 && f[rb * nb32 + x] != 0);
+        for (; m; m &= m - 1) {
+            const int i0 = NZ * (rw + __ffs(m) - 1);
+            const int8_t* col = U + static_cast<size_t>(i0) * B + c;
+            int raw[NZ];
+#pragma unroll
+            for (int i = 0; i < NZ; ++i)
+                raw[i] = __ldg(col + static_cast<size_t>(i) * B);
+#pragma unroll
+            for (int i = 0; i < NZ; ++i) {
+                const float vi = __ldg(v + i0 + i);
+                if (vi != 0.0f) a = fmaf(vi, i8_to_f32(raw[i]), a);
+            }
+        }
+    }
+    return a;
+}
+
+__global__ void __launch_bounds__(SLAB)
 coupling_pass_s1(const int8_t* __restrict__ off,
                  const int* __restrict__ off_src,
                  const int* __restrict__ off_dst,
                  const int* __restrict__ inc_ptr,
                  const int* __restrict__ inc_tile,
                  const int* __restrict__ blk_mask,
-                 const float* __restrict__ q_in,
+                 const uint8_t* __restrict__ off_nz,
+                 const int* __restrict__ slabs,
                  const float* __restrict__ diff,
-                 float* __restrict__ q_out,
+                 float* __restrict__ q,
                  int B, float scale) {
-    extern __shared__ __align__(16) float fsm[];
-    float* q_s = fsm;        // (B,)
-    float* v_s = fsm + B;    // (B,) the other block's eta change
-
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5;
-    const size_t boff = static_cast<size_t>(b) * B;
-    for (int j = tid; j < B; j += THREADS) q_s[j] = q_in[boff + j];
-
+    const int entry = slabs[blockIdx.x];
+    const int b = entry / (B / SLAB);
+    const int c = entry % (B / SLAB) * SLAB + threadIdx.x;   // the coordinate
+    const int lane = threadIdx.x % 32, x = c / NZ, nb32 = B / NZ;
+    float* qp = q + static_cast<size_t>(b) * B + c;
+    float qv = *qp;
+    bool touched = false;
     for (int p = inc_ptr[b]; p < inc_ptr[b + 1]; ++p) {
         const int o = inc_tile[p];
         const int s = off_src[o], d = off_dst[o];
         if (!blk_mask[s] && !blk_mask[d]) continue;
-        const int other = (s == b) ? d : s;
-        __syncthreads();   // the previous tile is done with v_s and q_s
-        for (int j = tid; j < B; j += THREADS)
-            v_s[j] = diff[static_cast<size_t>(other) * B + j];
-        __syncthreads();
         const int8_t* U = off + static_cast<size_t>(o) * B * B;
-        if (s == b) {
-            for (int i = warp; i < B; i += THREADS / 32) {
-                const int8_t* row = U + static_cast<size_t>(i) * B;
-                float acc = 0.f;
-                for (int j4 = lane; j4 < B / 4; j4 += 32) {
-                    const char4 r = *reinterpret_cast<const char4*>(row + 4 * j4);
-                    acc = fmaf(static_cast<float>(r.x), v_s[4 * j4 + 0], acc);
-                    acc = fmaf(static_cast<float>(r.y), v_s[4 * j4 + 1], acc);
-                    acc = fmaf(static_cast<float>(r.z), v_s[4 * j4 + 2], acc);
-                    acc = fmaf(static_cast<float>(r.w), v_s[4 * j4 + 3], acc);
-                }
-                for (int sh = 16; sh > 0; sh >>= 1)
-                    acc += __shfl_down_sync(0xffffffffu, acc, sh);
-                if (lane == 0) q_s[i] += acc * scale;
-            }
-        } else {
-            for (int cg = tid; cg < B / 4; cg += THREADS) {
-                float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-                for (int i = 0; i < B; ++i) {
-                    const float vi = v_s[i];
-                    if (vi != 0.0f) {
-                        const char4 r = *reinterpret_cast<const char4*>(
-                            U + static_cast<size_t>(i) * B + 4 * cg);
-                        a0 = fmaf(vi, static_cast<float>(r.x), a0);
-                        a1 = fmaf(vi, static_cast<float>(r.y), a1);
-                        a2 = fmaf(vi, static_cast<float>(r.z), a2);
-                        a3 = fmaf(vi, static_cast<float>(r.w), a3);
-                    }
-                }
-                q_s[4 * cg + 0] += a0 * scale;
-                q_s[4 * cg + 1] += a1 * scale;
-                q_s[4 * cg + 2] += a2 * scale;
-                q_s[4 * cg + 3] += a3 * scale;
-            }
-        }
+        const uint8_t* f = off_nz + static_cast<size_t>(o) * nb32 * nb32;
+        const float acc = s == b
+            ? row_sum(U, f, diff + static_cast<size_t>(d) * B, c, x, nb32,
+                      lane, B)
+            : column_sum(U, f, diff + static_cast<size_t>(s) * B, c, x,
+                         nb32, lane, B);
+        qv += acc * scale;
+        touched = true;
     }
-    __syncthreads();
-    for (int j = tid; j < B; j += THREADS) q_out[boff + j] = q_s[j];
+    if (touched) *qp = qv;
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
@@ -309,23 +381,24 @@ int cavi_block_sweep_s1_launch(const void* diag, const void* beta,
     return static_cast<int>(cudaGetLastError());
 }
 
+// coupling_pass_s1 in place on q for the (block, slab) entries
+// slabs[0 .. n_slabs). off and eta_diff must be 16-byte aligned.
 int coupling_pass_s1_launch(const void* off, const void* off_src,
                             const void* off_dst, const void* inc_ptr,
                             const void* inc_tile, const void* blk_mask,
-                            const void* q_in, const void* eta_diff,
-                            void* q_out, int nb, int B, float scale,
-                            void* stream) {
-    if (B <= 0 || B % T != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (nb == 0) return static_cast<int>(cudaGetLastError());
-    const size_t smem = 2 * B * sizeof(float);
-    cudaError_t err = set_smem(reinterpret_cast<const void*>(coupling_pass_s1), smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    coupling_pass_s1<<<nb, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+                            const void* off_nz, const void* slabs,
+                            const void* eta_diff, void* q, int n_slabs,
+                            int nb, int B, float scale, void* stream) {
+    if (nb < 0 || n_slabs < 0 || B <= 0 || B % SLAB != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n_slabs == 0) return static_cast<int>(cudaGetLastError());
+    coupling_pass_s1<<<n_slabs, SLAB, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(off), static_cast<const int*>(off_src),
         static_cast<const int*>(off_dst), static_cast<const int*>(inc_ptr),
         static_cast<const int*>(inc_tile), static_cast<const int*>(blk_mask),
-        static_cast<const float*>(q_in), static_cast<const float*>(eta_diff),
-        static_cast<float*>(q_out), B, scale);
+        static_cast<const uint8_t*>(off_nz), static_cast<const int*>(slabs),
+        static_cast<const float*>(eta_diff), static_cast<float*>(q), B,
+        scale);
     return static_cast<int>(cudaGetLastError());
 }
 

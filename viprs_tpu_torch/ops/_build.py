@@ -31,9 +31,9 @@ SIGNATURES = {
     # diag, beta, n, mask, logits, mu, eta, q (in), logits, mu, eta, q,
     # eta_diff (out), blk_mask, hyper, nb, B, scale, inner_steps, stream
     'cavi_block_sweep_s1_launch': [P] * 15 + [I32, I32, F32, I32, P],
-    # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, q_in, eta_diff,
-    # q_out, nb, B, scale, stream
-    'coupling_pass_s1_launch': [P] * 9 + [I32, I32, F32, P],
+    # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, off_nz, slabs,
+    # eta_diff, q (updated in place), n_slabs, nb, B, scale, stream
+    'coupling_pass_s1_launch': [P] * 10 + [I32, I32, I32, F32, P],
     # the S-lane kernels (csrc/cavi_s.cu): diag, diag_nz, then the same
     # pointers, then S, nb, B, scale, inner_steps, lane tile, stream
     'cavi_block_sweep_s_launch': [P] * 16 + [I32, I32, I32, F32, I32, I32,

@@ -7,11 +7,16 @@ of the hybrid EM iteration:
 - ``block_sweep_s1`` launches ``cavi_block_sweep_s1``: the tile-Gauss-Seidel
   sweep of every LD block flagged in a per-block mask (one CTA per block; an
   unflagged block passes through bit-exactly with a zero eta change);
-- ``coupling_pass_s1`` launches ``coupling_pass_s1``: the coupling tiles
-  incident to a flagged block, applied to q from the sweep's eta change.
+- ``coupling_pass_s1_inplace`` launches ``coupling_pass_s1``: the coupling
+  tiles incident to a flagged block, applied in place to q from the sweep's
+  eta change (one CTA per block's slab of 128 coordinates that a coupling
+  tile can change, ``BlockLD.cpl_slabs``, reading only the 32 x 32 blocks
+  ``BlockLD.off_nz`` flags); ``coupling_pass_s1`` runs it on a clone.
 
 ``cavi_sweep_s1`` (TPU kernel K1, all blocks flagged) and
-``cavi_sweep_s1_skip`` (K2, the activity mask) are the two compositions.
+``cavi_sweep_s1_skip`` (K2, the activity mask) are the two compositions;
+they apply the coupling tiles in place on the q their block sweep has just
+written.
 
 Model grid (S lanes), ``csrc/cavi_s.cu``: ``block_sweep_s`` launches
 ``cavi_block_sweep_s`` (one CTA per lane tile of 4, 8, 16 or 20 lanes,
@@ -30,7 +35,7 @@ Mixture prior (VIPRSMix), ``csrc/cavi_mix.cu``: ``block_sweep_mix`` launches
 ``cavi_block_sweep_mix_s`` (S lanes, one CTA per lane tile of 4, 8 or 20
 lanes, picked by ``mix_sweep_lane_tile``, and block); the rank-T updates of
 both skip the zero 32 x 32 blocks, as ``block_sweep_s`` does. The coupling
-tiles after them are the passes above. ``cavi_sweep_mix_s1`` (K5,
+tiles after them are the passes above, in place. ``cavi_sweep_mix_s1`` (K5,
 all blocks), ``cavi_sweep_mix_s1_skip`` (K6, the activity mask),
 ``cavi_sweep_mix_s`` (K7) and ``cavi_sweep_mix_s_skip`` (K8, the union mask)
 are the compositions, each counted under its own name.
@@ -77,6 +82,22 @@ def _check(name, x, dtype, shape, device):
 def _raise_on(err, kernel):
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+
+
+def _check_coupling_ld(ld: BlockLD):
+    """The coupling tiles and their launch plan as the coupling kernels
+    take them: int8 tiles, int32 ends and incidence lists, the uint8
+    32 x 32 flags ``off_nz`` and the int32 slab list ``cpl_slabs``."""
+    dev, nb, B = ld.device, ld.nb, ld.block_size
+    _check('off_data', ld.off_data, torch.int8, (ld.n_off, B, B), dev)
+    for name, x in (('off_src', ld.off_src), ('off_dst', ld.off_dst)):
+        _check(name, x, torch.int32, (ld.n_off,), dev)
+    _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
+    _check('inc_tile', ld.inc_tile, torch.int32, (2 * ld.n_off,), dev)
+    _check('off_nz', ld.off_nz, torch.uint8, (ld.n_off, B // 32, B // 32),
+           dev)
+    _check('cpl_slabs', ld.cpl_slabs, torch.int32,
+           (ld.cpl_slabs.numel(),), dev)
 
 
 def _all_blocks(ld: BlockLD):
@@ -131,36 +152,61 @@ def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     return out, eta_diff
 
 
+def coupling_pass_s1_inplace(ld: BlockLD, q, eta_diff, blk_mask):
+    """``q += `` the coupling tiles incident to a block flagged in
+    ``blk_mask`` ((NB,) int32), applied to ``eta_diff``, at S = 1, in place
+    on the card: one launch of ``coupling_pass_s1``, a CTA for each (block,
+    slab of 128 coordinates) of ``ld.cpl_slabs``, reading only the 32 x 32
+    blocks of a tile that ``ld.off_nz`` flags. q of every other slab is not
+    touched. q, eta_diff: (1, NB, B) float32 CUDA tensors. Returns q."""
+    if ld.n_off == 0:
+        return q
+    if q.device.type == 'cpu':
+        raise ValueError("coupling_pass_s1_inplace runs on the card; "
+                         "coupling_pass_s1 takes CPU tensors")
+    from ._build import build
+    lib, _ = build()
+    dev = ld.device
+    nb, B = ld.nb, ld.block_size
+    _check_coupling_ld(ld)
+    slabs = ld.cpl_slabs
+    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
+    _check('q', q, F32, (1, nb, B), dev)
+    _check('eta_diff', eta_diff, F32, (1, nb, B), dev)
+    for name, x in (('off_data', ld.off_data), ('eta_diff', eta_diff)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    err = lib.coupling_pass_s1_launch(
+        ld.off_data.data_ptr(), ld.off_src.data_ptr(), ld.off_dst.data_ptr(),
+        ld.inc_ptr.data_ptr(), ld.inc_tile.data_ptr(), blk_mask.data_ptr(),
+        ld.off_nz.data_ptr(), slabs.data_ptr(), eta_diff.data_ptr(),
+        q.data_ptr(), slabs.numel(), nb, B, float(np.float32(ld.scale)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, 'coupling_pass_s1')
+    LAUNCHES['coupling_pass_s1'] += 1
+    return q
+
+
 def coupling_pass_s1(ld: BlockLD, q, eta_diff, blk_mask):
     """q plus the coupling tiles incident to a block flagged in
     ``blk_mask`` ((NB,) int32), applied to ``eta_diff``. q, eta_diff:
-    (1, NB, B) float32. Returns a new q (q itself when there is no
+    (1, NB, B) float32. Returns a new q and never writes the given one (on
+    the card the kernel runs in place on a clone; q itself when there is no
     coupling tile)."""
     if ld.n_off == 0:
         return q
     if q.device.type == 'cpu':
         return cavi_torch.coupling_pass(ld, q, eta_diff, blk_mask)
-    from ._build import build
-    lib, _ = build()
-    dev = ld.device
-    nb, B = ld.nb, ld.block_size
-    _check('off_data', ld.off_data, torch.int8, (ld.n_off, B, B), dev)
-    for name, x in (('off_src', ld.off_src), ('off_dst', ld.off_dst)):
-        _check(name, x, torch.int32, (ld.n_off,), dev)
-    _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
-    _check('inc_tile', ld.inc_tile, torch.int32, (2 * ld.n_off,), dev)
-    _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
-    _check('q', q, F32, (1, nb, B), dev)
-    _check('eta_diff', eta_diff, F32, (1, nb, B), dev)
-    q_out = torch.empty_like(q)
-    err = lib.coupling_pass_s1_launch(
-        ld.off_data.data_ptr(), ld.off_src.data_ptr(), ld.off_dst.data_ptr(),
-        ld.inc_ptr.data_ptr(), ld.inc_tile.data_ptr(), blk_mask.data_ptr(),
-        q.data_ptr(), eta_diff.data_ptr(), q_out.data_ptr(), nb, B,
-        float(np.float32(ld.scale)), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, 'coupling_pass_s1')
-    LAUNCHES['coupling_pass_s1'] += 1
-    return q_out
+    return coupling_pass_s1_inplace(ld, q.clone(), eta_diff, blk_mask)
+
+
+def _couple_s1(ld: BlockLD, q, eta_diff, blk_mask):
+    """The coupling tiles after a single-model block sweep: in place on the
+    q the sweep kernel has just written (a fresh tensor) on the card, the
+    plain version on the CPU."""
+    if q.device.type == 'cpu':
+        return coupling_pass_s1(ld, q, eta_diff, blk_mask)
+    return coupling_pass_s1_inplace(ld, q, eta_diff, blk_mask)
 
 
 def cavi_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
@@ -182,7 +228,7 @@ def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_s1(ld, state, std_beta, n_per_snp, hyper,
                                    active, blk_mask)
-    q = coupling_pass_s1(ld, new.q, eta_diff, blk_mask)
+    q = _couple_s1(ld, new.q, eta_diff, blk_mask)
     return new._replace(q=q), eta_diff
 
 
@@ -281,15 +327,8 @@ def coupling_pass_s_inplace(ld: BlockLD, q, eta_diff, blk_mask):
     dev = ld.device
     nb, B = ld.nb, ld.block_size
     S = q.shape[0]
-    _check('off_data', ld.off_data, torch.int8, (ld.n_off, B, B), dev)
-    for name, x in (('off_src', ld.off_src), ('off_dst', ld.off_dst)):
-        _check(name, x, torch.int32, (ld.n_off,), dev)
-    _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
-    _check('inc_tile', ld.inc_tile, torch.int32, (2 * ld.n_off,), dev)
-    _check('off_nz', ld.off_nz, torch.uint8, (ld.n_off, B // 32, B // 32),
-           dev)
+    _check_coupling_ld(ld)
     slabs = ld.cpl_slabs
-    _check('cpl_slabs', slabs, torch.int32, (slabs.numel(),), dev)
     _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
     _check('q', q, F32, (S, nb, B), dev)
     _check('eta_diff', eta_diff, F32, (S, nb, B), dev)
@@ -482,7 +521,7 @@ def _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask, unit_diag,
     new, eta_diff = block_sweep_mix(ld, lanes, std_beta, n_per_snp,
                                     hyper.lanes(), None, blk_mask, unit_diag,
                                     count)
-    q = coupling_pass_s1(ld, new.q, eta_diff, blk_mask)
+    q = _couple_s1(ld, new.q, eta_diff, blk_mask)
     return MixState(new.gamma[0], new.mu[0], new.eta[0], q[0]), eta_diff[0]
 
 
