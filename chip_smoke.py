@@ -442,6 +442,7 @@ def main():
     check('coupling pass vs refresh_q', 'q',
           cavi_cuda.coupling_pass_s1(sub, state.q, diff, ones),
           cavi_torch.refresh_q(sub, state.q, diff), TOL_COUPLING, errs_cpl)
+    s1_zero_block_checks(sub, state, sb, nf, hyper, act, errs_sweep, errs_cpl)
     torch.cuda.synchronize()
 
     # a whole fit on the cut: kernels on the card vs plain versions on the CPU
@@ -546,8 +547,11 @@ def main():
     check_state(f'all {ld.nb} blocks', (st1, d1),
                 cavi_torch.block_sweep(ld, st0, sb_f, nf_f, h0, act),
                 errs_sweep)
-    ms_cpl = time_ms(lambda: cavi_cuda.coupling_pass_s1(ld, st1.q, d1,
-                                                        all_blk), reps=20)
+    # the kernel in place on a copy of q, as the sweeps apply it
+    scratch = st1.q.clone()
+    ms_cpl = time_ms(lambda: cavi_cuda.coupling_pass_s1_inplace(
+        ld, scratch, d1, all_blk), reps=20)
+    del scratch
     plain_cpl = time_ms(lambda: cavi_torch.refresh_q(ld, st1.q, d1), reps=5)
     check(f'coupling pass over {ld.n_off} tiles vs refresh_q', 'q',
           cavi_cuda.coupling_pass_s1(ld, st1.q, d1, all_blk),
@@ -595,6 +599,7 @@ def main():
                               skip_5pct_plain=plain_skip,
                               skip_5pct_bound=b_skip,
                               skip_5pct_bound_dense=b_skip_dense)
+    record['s1_probes'] = s1_probes(ld, st0, sb_f, nf_f, h0, act, few)
     record['profile'] = profile_fit(ds, fit_kw)
 
     # ---- G1-G4: the model grid (S lanes) ----
@@ -633,15 +638,18 @@ def main():
     src_s = 'viprs_tpu_torch/csrc/cavi_s.cu'
     t1, gt, mt = record['times_ms'], record['grid_times_ms'], \
         record['mix_times_ms']
+    p1 = record['s1_probes']
     kernels = [
         dict(entry('cavi_block_sweep_s1', src, 133,
                    launches['cavi_block_sweep_s1'], max(errs_sweep),
                    t1['block_sweep'], t1['block_sweep_plain'],
                    t1['block_sweep_bound'], None),
-             bound_ms_dense=t1['block_sweep_bound_dense'][0]),
-        entry('coupling_pass_s1', src, 492, launches['coupling_pass_s1'],
-              max(errs_cpl), t1['coupling'], t1['coupling_plain'],
-              t1['coupling_bound'], t1['coupling_library']),
+             bound_ms_dense=t1['block_sweep_bound_dense'][0],
+             graph_ms=p1['sweep_graph_ms']),
+        dict(entry('coupling_pass_s1', src, 492, launches['coupling_pass_s1'],
+                   max(errs_cpl), t1['coupling'], t1['coupling_plain'],
+                   t1['coupling_bound'], t1['coupling_library']),
+             graph_ms=p1['coupling_graph_ms']),
         dict(entry('cavi_block_sweep_s', src_s, 49,
                    g_launch['cavi_block_sweep_s'], max(errs_s),
                    gt['block_sweep'], gt['block_sweep_plain'],
@@ -663,6 +671,183 @@ def main():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
+
+
+def _same_state(tag, got, want):
+    """Fail unless two (state, eta_diff) pairs are equal bit for bit."""
+    for name, a, b in zip((*got[0]._fields, 'eta_diff'), (*got[0], got[1]),
+                          (*want[0], want[1])):
+        if not same_bits(a, b):
+            fail(f"{tag}: {name} differs "
+                 + ("only in the sign of a zero" if a.equal(b) else
+                    "in value"))
+
+
+def s1_zero_block_checks(sub, state, sb, nf, hyper, act, errs_sweep,
+                         errs_cpl):
+    """Phase 4, the S = 1 kernels on the cut and on the cut with a third of
+    its 32 x 32 blocks zeroed (inside and outside the (T, T) tiles, and in
+    the coupling tiles): K1 and K2 (half the blocks flagged) against their
+    plain versions; the block sweep and the coupling pass with their real
+    flags (BlockLD.diag_nz, off_nz and cpl_slabs) bit for bit, the sign of
+    a zero included, against their dense walks (every 32 x 32 block
+    flagged); the public coupling pass's input q untouched; the block
+    sweep's probe of 0 inner steps leaving the state as it was."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    dev = sub.device
+    ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
+    half = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
+    half[::2] = 1
+    for tag, x in (('the cut', sub),
+                   ('the cut, blocks zeroed', zero_blocks_cut(sub, True))):
+        n_in, n_out = zero_blocks(x)
+        n_cz, n_cnz = int((x.off_nz == 0).sum()), int(x.off_nz.sum())
+        if not (n_in and n_out and n_cz and n_cnz):
+            fail(f"phase 4, {tag}: the diagonal tiles need zero 32 x 32 "
+                 f"blocks inside ({n_in}) and outside ({n_out}) the (T, T) "
+                 f"tiles, the coupling tiles zero ({n_cz}) and nonzero "
+                 f"({n_cnz}) ones")
+        st = state._replace(q=cavi_torch.compute_q(x, state.eta))
+        check_state(f'K1 on {tag}', cavi_cuda.cavi_sweep_s1(
+            x, st, sb, nf, hyper, act), cavi_torch.cavi_sweep(
+            x, st, sb, nf, hyper, act), errs_sweep)
+        check_state(f'K2 on {tag}, half the blocks flagged',
+                    cavi_cuda.cavi_sweep_s1_skip(x, st, sb, nf, hyper, act,
+                                                 half),
+                    _plain_skip(x, st, sb, nf, hyper, act, half), errs_sweep)
+        dense_d, dense_c = dense_diag_flags(x), dense_off_flags(x)
+        for label, mask in (('every block', ones), ('half the blocks', half)):
+            t = f'{tag}, {label}'
+            got = cavi_cuda.block_sweep_s1(x, st, sb, nf, hyper, act, mask)
+            _same_state(f'K1 block sweep on {t}: the real diag_nz against '
+                        f'the dense walk', got, cavi_cuda.block_sweep_s1(
+                            dense_d, st, sb, nf, hyper, act, mask))
+            new, d = got
+            q0 = new.q.clone()
+            q = cavi_cuda.coupling_pass_s1(x, new.q, d, mask)
+            if not same_bits(new.q, q0):
+                fail(f"coupling_pass_s1 on {t} wrote its input q")
+            if not same_bits(q, cavi_cuda.coupling_pass_s1(dense_c, new.q, d,
+                                                           mask)):
+                fail(f"coupling_pass_s1 on {t}: q with the real off_nz "
+                     f"differs from the dense walk's")
+            check(f'coupling_pass_s1 on {t}', 'q', q, cavi_torch.coupling_pass(
+                x, new.q, d, mask), TOL_COUPLING, errs_cpl)
+        new, d = cavi_cuda.block_sweep_s1(x, st, sb, nf, hyper, act, ones,
+                                          inner_steps=0)
+        if any(not torch.equal(a, b) for a, b in zip(new, st)) or \
+                bool(d.any()):
+            fail(f"K1 block sweep on {tag}, 0 inner steps: the state moved")
+        phase('check', f"{tag} ({n_in} zero 32 x 32 blocks inside the (T, T) "
+                       f"tiles, {n_out} outside, {n_cz} zero and {n_cnz} "
+                       f"nonzero in the {x.n_off} coupling tiles): K1 and K2 "
+                       f"within bounds; the block sweep and the coupling "
+                       f"pass, every block and half the blocks flagged, bit "
+                       f"for bit their dense walks; the coupling pass's "
+                       f"input q untouched; 0 inner steps: state unchanged")
+
+
+def s1_probes(ld, st0, sb, nf, h0, act, few):
+    """Phase 6, the S = 1 kernels on the genome from the first iteration's
+    state, by CUDA events and in a CUDA graph (which leaves out the card's
+    waits for the host): the block sweep over every block, split by its
+    probes of 0 and 1 inner steps, and its dense rank-T walk (every 32 x 32
+    block flagged), held bit for bit; the coupling pass over every tile in
+    place (the kernel), with its clone (the public wrapper) and its dense
+    walk, held bit for bit; K2 at every 20th block, its sweep alone and its
+    coupling part alone; the -0 entries of q before and after the sweep."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    ones = torch.ones(ld.nb, dtype=torch.int32, device=ld.device)
+    inplace = cavi_cuda.coupling_pass_s1_inplace
+
+    def sweep(x, mask, k=8):
+        return cavi_cuda.block_sweep_s1(x, st0, sb, nf, h0, act, mask,
+                                        inner_steps=k)
+
+    dense_ld = dense_diag_flags(ld)
+    probes = ((ld, 8), (dense_ld, 8), (ld, 0), (ld, 1))
+    ev = [time_ms(lambda: sweep(x, ones, k), reps=10) for x, k in probes]
+    gr = [graph_ms(lambda: sweep(x, ones, k), reps=10) for x, k in probes]
+    _same_state('K1 block sweep on the genome: the real diag_nz against the '
+                'dense walk', sweep(ld, ones), sweep(dense_ld, ones))
+    del dense_ld
+    step = (gr[0] - gr[3]) / 7
+    rec = dict(sweep_event_ms=ev[0], sweep_graph_ms=gr[0],
+               split_graph_ms=dict(inner_steps=8 * step, rest=gr[3] - step,
+                                   every_block_extra=gr[1] - gr[0]),
+               probe_event_ms=dict(every_block=ev[1], steps_0=ev[2],
+                                   steps_1=ev[3]),
+               probe_graph_ms=dict(every_block=gr[1], steps_0=gr[2],
+                                   steps_1=gr[3]))
+    phase('time', f"K1 block sweep, all {ld.nb} blocks: {gr[0]:.3f} ms in a "
+                  f"CUDA graph, {ev[0]:.3f} ms by CUDA events; split (graph): "
+                  f"8 inner steps {8 * step:.3f}, the rest (tile staging, "
+                  f"set-up, rank-T updates, state I/O) {gr[3] - step:.3f}; "
+                  f"probes (graph, events): 0 steps {gr[2]:.3f}, {ev[2]:.3f}; "
+                  f"1 step {gr[3]:.3f}, {ev[3]:.3f}; every 32 x 32 block "
+                  f"flagged {gr[1]:.3f}, {ev[1]:.3f} (bit for bit the same "
+                  f"outputs)")
+
+    new, d = sweep(ld, ones)
+    dense_c = dense_off_flags(ld)
+    scratch = new.q.clone()
+    rec.update(
+        coupling_event_ms=time_ms(lambda: inplace(ld, scratch, d, ones),
+                                  reps=20),
+        coupling_graph_ms=graph_ms(lambda: inplace(ld, scratch, d, ones),
+                                   reps=20),
+        coupling_clone_event_ms=time_ms(lambda: cavi_cuda.coupling_pass_s1(
+            ld, new.q, d, ones), reps=20),
+        coupling_dense_graph_ms=graph_ms(
+            lambda: inplace(dense_c, scratch, d, ones), reps=10),
+        neg_zeros_q=dict(state=neg_zeros(st0.q), after_sweep=neg_zeros(new.q)))
+    if not same_bits(cavi_cuda.coupling_pass_s1(ld, new.q, d, ones),
+                     cavi_cuda.coupling_pass_s1(dense_c, new.q, d, ones)):
+        fail("coupling_pass_s1 on the genome: q with the real off_nz differs "
+             "from the dense walk's")
+    del scratch, dense_c
+    phase('time', f"coupling_pass_s1, {ld.n_off} tiles, "
+                  f"{ld.cpl_slabs.numel()} block slabs: in place "
+                  f"{rec['coupling_graph_ms']:.4f} ms in a CUDA graph, "
+                  f"{rec['coupling_event_ms']:.4f} ms by CUDA events; with "
+                  f"the clone {rec['coupling_clone_event_ms']:.4f} ms by "
+                  f"events; every 32 x 32 block flagged (the dense walk, bit "
+                  f"for bit the same q) {rec['coupling_dense_graph_ms']:.3f} "
+                  f"ms in a CUDA graph; q holds {rec['neg_zeros_q']['state']} "
+                  f"-0.0 entries before the sweep, "
+                  f"{rec['neg_zeros_q']['after_sweep']} after it")
+
+    n_few = int(few.sum())
+    new, d = sweep(ld, few)
+    scratch = new.q.clone()
+    k2 = lambda: cavi_cuda.cavi_sweep_s1_skip(ld, st0, sb, nf, h0, act, few)
+    rec['k2_5pct'] = dict(
+        event_ms=time_ms(k2, reps=20), graph_ms=graph_ms(k2, reps=20),
+        sweep_event_ms=time_ms(lambda: sweep(ld, few), reps=20),
+        sweep_graph_ms=graph_ms(lambda: sweep(ld, few), reps=20),
+        coupling_event_ms=time_ms(lambda: inplace(ld, scratch, d, few),
+                                  reps=20),
+        coupling_graph_ms=graph_ms(lambda: inplace(ld, scratch, d, few),
+                                   reps=20),
+        sweep_bound=bound(*sweep_work_nz(ld, 1, 4, 5, few)[:2]),
+        coupling_bound=bound(*coupling_work(ld, 1, few)),
+        blocks=n_few, tiles=_tiles_touching(ld, few))
+    del scratch
+    r = rec['k2_5pct']
+    phase('time', f"K2 at {n_few} of {ld.nb} blocks, {r['tiles']} coupling "
+                  f"tiles: {r['graph_ms']:.3f} ms in a CUDA graph, "
+                  f"{r['event_ms']:.3f} ms by CUDA events; its sweep alone "
+                  f"{r['sweep_graph_ms']:.3f} ms (graph), "
+                  f"{r['sweep_event_ms']:.3f} ms (events), bound "
+                  f"{r['sweep_bound'][0]:.4f} ms by {r['sweep_bound'][1]}; "
+                  f"its coupling part alone {r['coupling_graph_ms']:.4f} ms "
+                  f"(graph), {r['coupling_event_ms']:.4f} ms (events), bound "
+                  f"{r['coupling_bound'][0]:.5f} ms by "
+                  f"{r['coupling_bound'][1]}")
+    torch.cuda.empty_cache()
+    return rec
 
 
 #: The bench grid (bench.py:170-172), and the H100 SXM's published FP32 peak
@@ -1175,13 +1360,7 @@ def dense_tiles(ld, seed=0):
     g = torch.Generator(device=ld.device).manual_seed(seed)
     off = torch.randint(-127, 128, tuple(ld.off_data.shape), generator=g,
                         device=ld.device, dtype=torch.int8)
-    from viprs_tpu_torch.ops.block_ld import coupling_slabs
-    nz = np.ones(tuple(ld.off_nz.shape), np.uint8)
-    slabs = coupling_slabs(nz, ld.off_src.cpu().numpy(),
-                           ld.off_dst.cpu().numpy(), ld.nb)
-    return dataclasses.replace(
-        ld, off_data=off, off_nz=torch.ones_like(ld.off_nz),
-        cpl_slabs=torch.as_tensor(slabs, device=ld.device))
+    return dataclasses.replace(dense_off_flags(ld), off_data=off)
 
 
 def dense_diag_flags(ld):
@@ -1190,6 +1369,36 @@ def dense_diag_flags(ld):
     import dataclasses
     import torch
     return dataclasses.replace(ld, diag_nz=torch.ones_like(ld.diag_nz))
+
+
+def dense_off_flags(ld):
+    """The LD operator with every 32 x 32 block of its coupling tiles
+    flagged nonzero, and the slab list to match: the coupling passes' dense
+    walk."""
+    import dataclasses
+    import torch
+    from viprs_tpu_torch.ops.block_ld import coupling_slabs
+    slabs = coupling_slabs(np.ones(tuple(ld.off_nz.shape), np.uint8),
+                           ld.off_src.cpu().numpy(), ld.off_dst.cpu().numpy(),
+                           ld.nb)
+    return dataclasses.replace(
+        ld, off_nz=torch.ones_like(ld.off_nz),
+        cpl_slabs=torch.as_tensor(slabs, device=ld.device))
+
+
+def same_bits(a, b):
+    """Equal bit for bit, the sign of a zero included (torch.equal holds
+    -0.0 equal to +0.0)."""
+    import torch
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def neg_zeros(x):
+    """The number of entries of x that are -0.0."""
+    import torch
+    return int(((x == 0) & torch.signbit(x)).sum())
 
 
 def same_bits_dense_walk(tag, ld, sweep):
@@ -1579,11 +1788,13 @@ def check_mix_state(tag, got, want, errs):
           scale=float(ws.eta.abs().max()))
 
 
-def zero_blocks_cut(sub):
+def zero_blocks_cut(sub, coupling=False):
     """The cut with a third of the off-diagonal 32 x 32 blocks of its
     diagonal tiles set to exact zeros, symmetrically (block (r, c) of tile b
     where r != c and (r + c + b) % 3 == 0): zero blocks inside the (T, T)
-    tiles and outside them."""
+    tiles and outside them. ``coupling``: also a third of the nonzero blocks
+    of each coupling tile o ((r + 2 c + o) % 3 == 0), its first nonzero
+    block (row-major) kept."""
     from viprs_tpu_torch.ops.block_ld import BlockLD
     diag = sub.diag.cpu().numpy().copy()
     m = diag.shape[1] // 32
@@ -1592,10 +1803,16 @@ def zero_blocks_cut(sub):
             for c in range(m):
                 if r != c and (r + c + b) % 3 == 0:
                     diag[b, 32 * r:32 * r + 32, 32 * c:32 * c + 32] = 0
+    off = sub.off_data.cpu().numpy().copy()
+    if coupling:
+        for o, flags in enumerate(sub.off_nz.cpu().numpy()):
+            nz = list(zip(*np.nonzero(flags)))
+            for r, c in nz[1:]:
+                if (r + 2 * c + o) % 3 == 0:
+                    off[o, 32 * r:32 * r + 32, 32 * c:32 * c + 32] = 0
     return BlockLD.from_numpy(
-        diag, sub.off_data.cpu().numpy(), sub.off_src.cpu().numpy(),
-        sub.off_dst.cpu().numpy(), sub.mask.cpu().numpy(), sub.scale,
-        device=sub.device)
+        diag, off, sub.off_src.cpu().numpy(), sub.off_dst.cpu().numpy(),
+        sub.mask.cpu().numpy(), sub.scale, device=sub.device)
 
 
 def zero_blocks(ld):

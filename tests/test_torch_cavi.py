@@ -329,3 +329,193 @@ def test_coupling_pass_s1_checks_off_nz_and_slabs_before_launching(
             cavi_cuda.coupling_pass_s1(ld, q, q, blk)
         assert not calls
         assert cavi_cuda.LAUNCHES['coupling_pass_s1'] == 0
+
+
+@pytest.fixture(scope='module')
+def zero_block_problem():
+    """LD tiles of B = 256 (two (T, T) tiles a block) in which a third of
+    the 32 x 32 blocks off the diagonal of the diagonal tiles, and a third
+    of the coupling tiles' blocks, are set to exact zeros (the diagonal
+    tiles symmetrically): zero blocks inside the (T, T) tiles, outside them
+    and in the coupling tiles, the blocks that the kernels skip
+    (BlockLD.diag_nz, BlockLD.off_nz)."""
+    sim = simulate_sumstats_blocks(n=2000, block_sizes=(300, 150, 100, 60),
+                                   h2=0.3, prop_causal=0.05, seed=5)
+    jld, lay = pack_dense_blocks(sim['ld_blocks'], block_size=256,
+                                 quantize=True)
+    assert jld.n_off > 0
+    diag, off = np.array(jld.diag), np.array(jld.off_data)
+    nb, B, m = diag.shape[0], diag.shape[1], diag.shape[1] // 32
+    for b in range(nb):
+        for r in range(m):
+            for c in range(m):
+                if r != c and (r + c + b) % 3 == 0:
+                    diag[b, 32 * r:32 * r + 32, 32 * c:32 * c + 32] = 0
+    for o in range(off.shape[0]):
+        for r in range(m):
+            for c in range(m):
+                if (r + 2 * c + o) % 3 == 0:
+                    off[o, 32 * r:32 * r + 32, 32 * c:32 * c + 32] = 0
+    jld = dataclasses.replace(jld, diag=jnp.asarray(diag),
+                              off_data=jnp.asarray(off))
+    sb = lay.to_flat(sim['std_beta']).reshape(lay.nb, B)
+    nf = lay.to_flat(sim['n_per_snp']).reshape(lay.nb, B)
+    ld = BlockLD.from_numpy(
+        *(np.asarray(getattr(jld, f)) for f in
+          ('diag', 'off_data', 'off_src', 'off_dst', 'mask')),
+        jld.scale, device='cpu')
+    return dict(jld=jld, ld=ld, nb=lay.nb, sb=sb, nf=nf,
+                mask=np.asarray(jld.mask))
+
+
+def make_state_b(p, seed):
+    """make_state at S = 1 for a problem of any block size."""
+    rng = np.random.default_rng(seed)
+    shape = (1, p['nb'], p['mask'].shape[1])
+    logits = (np.log(0.05 / 0.95)
+              + 0.3 * rng.standard_normal(shape)).astype(np.float32)
+    mu = (0.05 * rng.standard_normal(shape)).astype(np.float32)
+    eta = (1 / (1 + np.exp(-logits)) * mu * p['mask']).astype(np.float32)
+    q = np.array(cavi_jax.compute_q(p['jld'], jnp.asarray(eta)))
+    hyper = dict(sigma_eps=np.float32([0.7]), tau_beta=np.float32([700.]),
+                 pi=np.float32([0.05]), lambda_min=np.zeros(1, np.float32))
+    return (logits, mu, eta, q), hyper
+
+
+@pytest.mark.parametrize('kernel', ['K1', 'K2'])
+def test_plain_k1_k2_match_pallas_with_zero_blocks(zero_block_problem,
+                                                   interpret, kernel):
+    """The plain K1 and K2 (cavi_torch.block_sweep and coupling_pass
+    through cavi_sweep_s1 / _skip) against the Pallas kernels in interpret
+    mode on diagonal tiles whose zero 32 x 32 blocks lie inside and outside
+    the (T, T) tiles and on coupling tiles with zero blocks, at
+    test_plain_k1_matches_pallas_s1's tolerances."""
+    p = zero_block_problem
+    nz = p['ld'].diag_nz.bool()
+    m = nz.shape[1]
+    in_tile = torch.from_numpy(
+        (np.arange(m)[:, None] // 4) == (np.arange(m)[None] // 4))
+    assert (~nz & in_tile).any() and (~nz & ~in_tile).any()
+    assert (nz & ~in_tile).any()
+    off_nz = p['ld'].off_nz.bool()
+    assert off_nz.any() and not off_nz.all()
+    st, hy = make_state_b(p, seed=31)
+    state, sb, nf, hyper = torch_args(p, st, hy)
+    if kernel == 'K1':
+        got = cavi_cuda.cavi_sweep_s1(p['ld'], state, sb, nf, hyper,
+                                      torch.ones(1))
+        want = cavi_pallas.cavi_sweep_pallas_s1.__wrapped__(
+            p['jld'], *jax_args(p, st, hy), jnp.ones(1), chunk=2)
+    else:
+        blk = np.ones(p['nb'], bool)
+        blk[1::3] = False
+        got = cavi_cuda.cavi_sweep_s1_skip(p['ld'], state, sb, nf, hyper,
+                                           torch.ones(1),
+                                           torch.from_numpy(blk))
+        want = cavi_pallas.cavi_sweep_pallas_s1_skip.__wrapped__(
+            p['jld'], *jax_args(p, st, hy), jnp.ones(1), jnp.asarray(blk),
+            chunk=2)
+    assert_close(got, want)
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize('bad', [None, 'shape', 'dtype', 'layout'])
+def test_block_sweep_s1_checks_diag_nz_before_launching(monkeypatch, bad):
+    """Off the CPU, block_sweep_s1 checks BlockLD.diag_nz (dtype, shape,
+    contiguity) before it launches, and hands the kernel the flags and the
+    inner steps (a stand-in library records the launches; meta tensors take
+    the place of the card's)."""
+    calls = {}
+    _stand_in_lib(monkeypatch, calls)
+    nb, B = 2, 256
+    ld = _meta_ld(nb, B, 0)
+    assert ld.diag_nz.shape == (nb, 8, 8) and ld.diag_nz.dtype == torch.uint8
+    nz = {'shape': torch.ones(nb, 4, 4, dtype=torch.uint8, device='meta'),
+          'dtype': torch.ones(nb, 8, 8, dtype=torch.int32, device='meta'),
+          'layout': torch.ones(nb, 8, 8, dtype=torch.uint8,
+                               device='meta').transpose(1, 2)}
+    if bad is not None:
+        ld = dataclasses.replace(ld, diag_nz=nz[bad])
+    z = torch.zeros(1, nb, B, device='meta')
+    args = (ld, CaviState(z, z, z, z), z[0], z[0],
+            Hyper(*(torch.ones(1, device='meta'),) * 4),
+            torch.ones(1, device='meta'),
+            torch.ones(nb, dtype=torch.int32, device='meta'))
+    if bad is None:
+        for steps in (0, 1, cavi_torch.INNER_STEPS):
+            out, eta_diff = cavi_cuda.block_sweep_s1(*args,
+                                                     inner_steps=steps)
+            assert eta_diff.shape == (1, nb, B)
+        got = calls['cavi_block_sweep_s1_launch']
+        assert len(got) == cavi_cuda.LAUNCHES['cavi_block_sweep_s1'] == 3
+        # diag, diag_nz and 14 more pointers, then nb, B, scale, inner
+        # steps and the stream
+        assert all(len(a) == 16 + 5 for a in got)
+        assert [a[16:-1] for a in got] == [
+            (nb, B, float(np.float32(1 / 127)), s)
+            for s in (0, 1, cavi_torch.INNER_STEPS)]
+        # K1 / K2: the sweep, then the coupling pass in place (none here)
+        out, _ = cavi_cuda.cavi_sweep_s1(*args[:-1])
+        assert cavi_cuda.LAUNCHES['cavi_block_sweep_s1'] == 4
+        assert got[-1][-2] == cavi_torch.INNER_STEPS
+    else:
+        with pytest.raises(ValueError, match='diag_nz'):
+            cavi_cuda.block_sweep_s1(*args)
+        assert not calls
+        assert cavi_cuda.LAUNCHES['cavi_block_sweep_s1'] == 0
+
+
+def test_block_sweep_s1_takes_the_inner_steps_probe_on_the_card_only(problem):
+    """Fewer inner steps are a timing probe of the kernel; the plain version
+    on the CPU runs INNER_STEPS and refuses any other count."""
+    st, hy = make_state(problem, 1, seed=24)
+    state, sb, nf, hyper = torch_args(problem, st, hy)
+    blk = torch.ones(problem['nb'], dtype=torch.int32)
+    act = torch.ones(1)
+    for steps in (0, 1):
+        with pytest.raises(ValueError, match='inner steps'):
+            cavi_cuda.block_sweep_s1(problem['ld'], state, sb, nf, hyper,
+                                     act, blk, inner_steps=steps)
+    got = cavi_cuda.block_sweep_s1(problem['ld'], state, sb, nf, hyper, act,
+                                   blk, inner_steps=cavi_torch.INNER_STEPS)
+    want = cavi_torch.block_sweep(problem['ld'], state, sb, nf, hyper, act,
+                                  blk_mask=blk)
+    for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(a, b)
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_s1_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
+                                                        tmp_path):
+    """A tensor that is not on the CPU goes to the S = 1 kernels or raises:
+    with the CUDA toolkit made unavailable, the build raises, for the block
+    sweep, both coupling wrappers and both compositions."""
+    from viprs_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (made unavailable by the test)")
+
+    monkeypatch.setattr(_build, '_nvcc', no_nvcc)
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path))
+    _build.build.cache_clear()
+    ld = _meta_ld(2, 128, 1)
+    z = torch.zeros(1, 2, 128, device='meta')
+    state = CaviState(z, z, z, z)
+    hyper = Hyper(*(torch.ones(1, device='meta'),) * 4)
+    act = torch.ones(1, device='meta')
+    blk = torch.ones(2, dtype=torch.int32, device='meta')
+    try:
+        for call in (
+                lambda: cavi_cuda.block_sweep_s1(ld, state, z[0], z[0], hyper,
+                                                 act, blk),
+                lambda: cavi_cuda.coupling_pass_s1(ld, z, z, blk),
+                lambda: cavi_cuda.coupling_pass_s1_inplace(ld, z, z, blk),
+                lambda: cavi_cuda.cavi_sweep_s1(ld, state, z[0], z[0], hyper,
+                                                act),
+                lambda: cavi_cuda.cavi_sweep_s1_skip(ld, state, z[0], z[0],
+                                                     hyper, act, blk)):
+            with pytest.raises(RuntimeError, match='nvcc'):
+                call()
+    finally:
+        _build.build.cache_clear()
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0

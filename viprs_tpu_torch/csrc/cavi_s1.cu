@@ -7,42 +7,85 @@
 // coupling pass _off_pass (cavi_pallas.py:492) and, with every block
 // flagged, cavi_jax.refresh_q on the all-active branch. Their plain PyTorch
 // versions are ops/cavi_torch.block_sweep and ops/cavi_torch.coupling_pass.
-//
-// What bounds them on the card: one read of the int8 LD per sweep (diagonal
-// tiles 1.19 GB + coupling tiles 0.26 GB on the 1.1M-variant genome at
-// B = 1024), against 3.35 TB/s of HBM. This first version is simple on
-// purpose: one CTA per LD block, f32 FMAs on the CUDA cores (at S = 1 every
-// product is a matvec, so tensor cores have nothing to reuse), int8 rows
-// read straight from global memory with 4-byte coalesced loads, and no
-// atomics, so every result is deterministic. Transcendentals are the exact
+// No atomics; every result is deterministic. Transcendentals are the exact
 // expf/logf/log1pf (no fast math), as in the reference.
+//
+// What bounds cavi_block_sweep_s1 on the card. On the 1.1M-variant genome
+// (NB = 1133, B = 1024) over the diagonal tiles' nonzero 32 x 32 blocks
+// (114,067 of 1,160,192) and the state planes it needs 0.17 GB, 0.052 ms at
+// 3.35 TB/s (every tile dense: 1.19 GB of int8 tiles, 0.37 ms). But each
+// coordinate's two products per inner step are one fmaf chain of T = 128
+// terms in ascending order (the bits of the earlier kernel), so a block's
+// 8 tiles x 8 steps are a chain of 16,384 dependent FMA at least: the
+// kernel is bound by each CTA's latency, not by the card's rates.
+//
+// Design (cavi_block_sweep_mix_s1's, cavi_mix.cu; the pieces both use are
+// in s1_tile.cuh): one CTA of 128 threads per block; thread j holds column
+// j of the (T, T) tile as 128 floats in registers, so the chains read only
+// the lane vector (a broadcast, four ahead) from shared memory; the next
+// tile's int8 bytes and per-coordinate inputs, and this tile's flagged
+// 32 x 32 blocks outside it, arrive by cp.async while the steps run; the
+// rank-T update takes the tile's own columns from the registers and the
+// rest from the blocks BlockLD.diag_nz flags only. Every output is the
+// earlier kernel's (one CTA of 256 threads, the tile in shared memory):
+// the same expressions in the same order, each product one ascending fmaf
+// chain, and rows or blocks left out of a chain add exact zeros (for
+// finite eta changes).
+//
+// Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a): launch bounds of
+// 3 CTAs of 4 warps per SM (at most 168 registers a thread); 61.5 KiB of
+// shared memory at B = 1024.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lane_tile.cuh"
+#include "s1_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;    // B / 4 int8 column groups at B = 1024
 constexpr float ETA_DIFF_EPS = 1e-8f;
 
 __device__ __forceinline__ float sigmoid(float x) {
     return 1.0f / (1.0f + expf(-x));
 }
 
-// One CTA per LD block b. A block with blk_mask[b] == 0 is copied through
-// bit-exactly with a zero eta change. Otherwise, for each tile t of T
-// coordinates: the (T, T) int8 diagonal tile goes to shared memory, threads
-// 0..T-1 (one per coordinate) take inner_steps gamma-weighted under-relaxed
-// Jacobi steps from a tile-locally refreshed q, the keep gate drops
-// |d_eta| < 1e-8, and all threads apply the rank-T update
-// q[:] += scale * d_t^T R[tile rows, :] to the block's q in shared memory
-// (skipping rows whose d_k is exactly zero: a uniform branch, exact).
+// The per-coordinate inputs a tile reads, staged by cp.async a tile ahead,
+// one row of T each.
+enum { IN_N, IN_BETA, IN_MASK, IN_LOGIT, IN_MU, IN_ETA, N_IN };
+// The per-coordinate constants of a tile that a thread keeps in its own
+// slots of shared memory through the inner steps, one row of T each:
+// var_tau, mu_mult and log var_tau.
+enum { K_VT, K_MM, K_LOGVT, N_CONST };
+
+// Shared memory of a cavi_block_sweep_s1 CTA, in this order: the block's q
+// (B floats), the lane vectors c / d_t and d (T each), the per-coordinate
+// constants (N_CONST rows of T), two buffers of a tile's inputs (N_IN rows
+// of T), then s1_tile_smem(B) (s1_tile.cuh).
+size_t sweep_smem(int B) {
+    return (static_cast<size_t>(B) + 2 * T + N_CONST * T + 2 * N_IN * T)
+        * sizeof(float) + s1_tile_smem(B);
+}
+
+// One CTA of T threads per LD block b; state planes (NB, B), diag_nz
+// (NB, B/32, B/32) uint8. A block with blk_mask[b] == 0 is copied through
+// bit-exactly with a zero eta change. Otherwise, per tile of T coordinates
+// (the next tile's int8 bytes and inputs on their way by cp.async
+// meanwhile): thread j converts column j of the tile (its coordinate's R
+// row, symmetric or not) into T registers and takes inner_steps
+// gamma-weighted under-relaxed Jacobi steps from a tile-locally refreshed q,
+// each the |R| column product for the relaxation weight and the R column
+// product for the refresh; the keep gate drops |d_eta| < 1e-8; then the
+// rank-T update q[:] += scale * d_t^T R[tile rows, :] of the block's q in
+// shared memory: the tile's own columns by a third column product from the
+// registers, the columns outside the tile over the 32 x 32 blocks diag_nz
+// flags only (a warp per 32-column chunk, a thread per column; the blocks
+// staged by cp.async while the inner steps run).
 //
 // hyper: [sigma_eps, tau_beta, pi, active, lambda_min] float32 on the device.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(S1_THREADS, 3)
 cavi_block_sweep_s1(const int8_t* __restrict__ diag,
+                    const uint8_t* __restrict__ diag_nz,
                     const float* __restrict__ beta,
                     const float* __restrict__ nn,
                     const float* __restrict__ mask,
@@ -59,139 +102,147 @@ cavi_block_sweep_s1(const int8_t* __restrict__ diag,
                     const float* __restrict__ hyper,
                     int B, float scale, int inner_steps) {
     extern __shared__ __align__(16) unsigned char smem[];
-    float* q_s = reinterpret_cast<float*>(smem);           // (B,)
-    float* v_s = q_s + B;                                  // (T,) c or d
-    int8_t* R_s = reinterpret_cast<int8_t*>(v_s + T);      // (T, T)
+    float* q_s = reinterpret_cast<float*>(smem);   // (B,)
+    float* vc = q_s + B;                            // (T,) c, then d_t
+    float* vd = vc + T;                             // (T,) d
+    float* k_s = vd + T;                            // (N_CONST, T)
+    float* in_s = k_s + N_CONST * T;                // 2 (N_IN, T)
+    int8_t* R8 = reinterpret_cast<int8_t*>(in_s + 2 * N_IN * T);  // 2 (T, T)
+    int8_t* out_s = R8 + 2 * T * T;   // (S1_WARPS, OUT_SLOTS, NZ, NZ)
+    unsigned char* nz = reinterpret_cast<unsigned char*>(
+        out_s + S1_WARPS * OUT_SLOTS * NZ * NZ);
 
     const int b = blockIdx.x;
-    const int tid = threadIdx.x;
+    const int j = threadIdx.x;
     const size_t off = static_cast<size_t>(b) * B;
 
     if (!blk_mask[b]) {
-        for (int j = tid; j < B; j += THREADS) {
-            logits_out[off + j] = logits_in[off + j];
-            mu_out[off + j] = mu_in[off + j];
-            eta_out[off + j] = eta_in[off + j];
-            q_out[off + j] = q_in[off + j];
-            eta_diff[off + j] = 0.0f;
+        for (int c = 4 * j; c < B; c += 4 * S1_THREADS) {
+            *reinterpret_cast<float4*>(logits_out + off + c) =
+                ld4(logits_in + off + c);
+            *reinterpret_cast<float4*>(mu_out + off + c) =
+                ld4(mu_in + off + c);
+            *reinterpret_cast<float4*>(eta_out + off + c) =
+                ld4(eta_in + off + c);
+            *reinterpret_cast<float4*>(q_out + off + c) = ld4(q_in + off + c);
+            *reinterpret_cast<float4*>(eta_diff + off + c) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
         }
         return;
     }
 
+    const int8_t* D = diag + static_cast<size_t>(b) * B * B;
+    const int nb32 = B / NZ, nt = B / T;
+    auto src = [&](int row) {
+        return row == IN_N ? nn : row == IN_BETA ? beta
+            : row == IN_MASK ? mask : row == IN_LOGIT ? logits_in
+            : row == IN_MU ? mu_in : eta_in;
+    };
+    stage_tile_async<N_IN>(D, B, 0, R8, in_s, off, j, src);
+    cp_async_commit();
+    stage_flags<S1_THREADS>(diag_nz, b, nb32, nz, j);
+    for (int c = 4 * j; c < B; c += 4 * S1_THREADS)
+        *reinterpret_cast<float4*>(q_s + c) = ld4(q_in + off + c);
     const float sig_e = hyper[0], tau_b = hyper[1], pi = hyper[2];
     const float act = hyper[3], lam = hyper[4];
     const float on = act > 0.0f ? 1.0f : 0.0f;
     const float base_logit = logf(pi) - log1pf(-pi) + 0.5f * logf(tau_b);
+    const int lane = j % 32, w = j / 32;
+    int8_t* my_out = out_s + w * OUT_SLOTS * NZ * NZ;   // the warp's slots
 
-    for (int j = tid; j < B; j += THREADS) q_s[j] = q_in[off + j];
-
-    const int8_t* D = diag + static_cast<size_t>(b) * B * B;
-    const bool owner = tid < T;
-    for (int t0 = 0; t0 < B; t0 += T) {
-        for (int w = tid; w < T * T / 4; w += THREADS) {
-            const int r = w / (T / 4), c4 = w % (T / 4);
-            reinterpret_cast<int*>(R_s)[w] = *reinterpret_cast<const int*>(
-                D + static_cast<size_t>(t0 + r) * B + t0 + 4 * c4);
+    for (int t = 0; t < nt; ++t) {
+        const int t0 = t * T;
+        if (t + 1 < nt) {
+            // the other buffers' last readers passed the last tile's d_t
+            // barrier
+            const int nxt = (t + 1) & 1;
+            stage_tile_async<N_IN>(D, B, t0 + T, R8 + nxt * T * T,
+                                   in_s + nxt * N_IN * T, off + t0 + T, j,
+                                   src);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
-        __syncthreads();   // R_s loaded; q_s updates of the last tile done
+        // the tile and its inputs in place; the last tile's q updates and
+        // lane-vector and staged-block reads done
+        __syncthreads();
+        // this tile's flagged blocks outside it, into the warp's slots
+        stage_outer_blocks(D, B, t0, nz, nb32, lane, w, my_out);
+        const int8_t* Rt = R8 + (t & 1) * T * T;
+        const float* in_t = in_s + (t & 1) * N_IN * T;
+        float r[T];   // column j of the tile
+#pragma unroll
+        for (int k = 0; k < T; ++k) r[k] = i8_to_f32(Rt[k * T + j]);
 
-        const size_t jj = off + t0 + tid;
-        float n_j = 0.f, beta_j = 0.f, mask_j = 0.f, vt = 1.f, mm = 0.f;
-        float logvt = 0.f, logit0 = 0.f, mu0 = 0.f, eta0 = 0.f, rdiag = 0.f;
-        float q_cur = 0.f, g_cur = 0.f, mu_cur = 0.f, eta_cur = 0.f;
-        if (owner) {
-            n_j = nn[jj];
-            beta_j = beta[jj];
-            mask_j = mask[jj];
-            vt = n_j * (1.0f + lam) / sig_e + tau_b;
-            mm = n_j / (vt * sig_e);
-            logvt = logf(vt);
-            logit0 = logits_in[jj];
-            mu0 = mu_in[jj];
-            eta0 = eta_in[jj];
-            rdiag = fabsf(static_cast<float>(R_s[tid * T + tid])) * scale;
-            q_cur = q_s[t0 + tid];
-            g_cur = sigmoid(logit0);
-            mu_cur = mu0;
-            eta_cur = eta0;
+        const size_t jj = off + t0 + j;
+        const float n_j = in_t[IN_N * T + j];
+        const float beta_j = in_t[IN_BETA * T + j];
+        const float mask_j = in_t[IN_MASK * T + j];
+        {
+            const float vt = n_j * (1.0f + lam) / sig_e + tau_b;
+            k_s[K_VT * T + j] = vt;
+            k_s[K_MM * T + j] = n_j / (vt * sig_e);
+            k_s[K_LOGVT * T + j] = logf(vt);
         }
+        const float rdiag = fabsf(i8_to_f32(Rt[j * T + j])) * scale;
+        const float eta0 = in_t[IN_ETA * T + j];
+        float q_cur = q_s[t0 + j];
+        float g_cur = sigmoid(in_t[IN_LOGIT * T + j]);
+        float mu_cur = in_t[IN_MU * T + j];
+        float eta_cur = eta0;
 
         for (int step = 0; step < inner_steps; ++step) {
-            float mu_star = 0.f, g_star = 0.f, c = 0.f, d_in = 0.f;
-            if (owner) {
-                mu_star = mm * (beta_j - q_cur);
-                const float u = base_logit - 0.5f * logvt
-                    + 0.5f * vt * mu_star * mu_star;
-                g_star = sigmoid(u);
-                c = g_star * fabsf(mm);
-                v_s[tid] = c;
-            }
+            const float vt = k_s[K_VT * T + j], mm = k_s[K_MM * T + j];
+            const float mu_star = mm * (beta_j - q_cur);
+            const float u = base_logit - 0.5f * k_s[K_LOGVT * T + j]
+                + 0.5f * vt * mu_star * mu_star;
+            const float g_star = sigmoid(u);
+            const float c = g_star * fabsf(mm);
+            vc[j] = c;
             __syncthreads();
-            if (owner) {
-                // relaxation: sum_k c_k |R_kj|, minus the unit diagonal term
-                float acc = 0.f;
-                for (int k = 0; k < T; ++k)
-                    acc = fmaf(v_s[k], fabsf(static_cast<float>(R_s[k * T + tid])), acc);
-                const float w = act / (1.0f + (acc * scale - rdiag * c));
-                g_cur = g_cur + w * (g_star - g_cur);
-                mu_cur = mu_cur + w * (mu_star - mu_cur);
-                d_in = (g_cur * mu_cur - eta_cur) * mask_j * on;
-            }
+            // relaxation: sum_k c_k |R_kj|, minus the unit diagonal term
+            const float acc = column_product<true>(r, vc);
+            const float wgt = act / (1.0f + (acc * scale - rdiag * c));
+            g_cur = g_cur + wgt * (g_star - g_cur);
+            mu_cur = mu_cur + wgt * (mu_star - mu_cur);
+            const float d_in = (g_cur * mu_cur - eta_cur) * mask_j * on;
+            vd[j] = d_in;
             __syncthreads();
-            if (owner) v_s[tid] = d_in;
-            __syncthreads();
-            if (owner) {
-                // tile-local q refresh: sum_k d_k R_kj - d_j
-                float acc = 0.f;
-                for (int k = 0; k < T; ++k)
-                    acc = fmaf(v_s[k], static_cast<float>(R_s[k * T + tid]), acc);
-                q_cur = q_cur + acc * scale - d_in;
-                eta_cur = eta_cur + d_in;
-            }
-            __syncthreads();
+            // tile-local q refresh: sum_k d_k R_kj - d_j
+            const float acc_d = column_product<false>(r, vd);
+            q_cur = q_cur + acc_d * scale - d_in;
+            eta_cur = eta_cur + d_in;
         }
 
-        if (owner) {
-            float d_t = (eta_cur - eta0) * mask_j * on;
-            const bool keep = fabsf(d_t) >= ETA_DIFF_EPS;
-            d_t = keep ? d_t : 0.0f;
-            const float u_new = logf(fmaxf(g_cur, 1e-30f))
-                - log1pf(-fminf(g_cur, 1.0f - 1e-7f));
-            logits_out[jj] = keep ? u_new : logit0;
-            mu_out[jj] = keep ? mu_cur : mu0;
-            const float eta_new = eta0 + d_t;
-            eta_out[jj] = eta_new;
-            eta_diff[jj] = eta_new - eta0;
-            v_s[tid] = d_t;
-        }
+        float d_t = (eta_cur - eta0) * mask_j * on;
+        const bool keep = fabsf(d_t) >= ETA_DIFF_EPS;
+        d_t = keep ? d_t : 0.0f;
+        const float u_new = logf(fmaxf(g_cur, 1e-30f))
+            - log1pf(-fminf(g_cur, 1.0f - 1e-7f));
+        logits_out[jj] = keep ? u_new : in_t[IN_LOGIT * T + j];
+        mu_out[jj] = keep ? mu_cur : in_t[IN_MU * T + j];
+        const float eta_new = eta0 + d_t;
+        eta_out[jj] = eta_new;
+        eta_diff[jj] = eta_new - eta0;
+        // vc's last readers passed the last step's second barrier, or the
+        // tile's first with no inner step
+        vc[j] = d_t;
+        cp_async_wait<0>();   // the staged blocks
         __syncthreads();
 
-        // rank-T update over the whole block width (R symmetric)
-        const int8_t* rows = D + static_cast<size_t>(t0) * B;
-        for (int cg = tid; cg < B / 4; cg += THREADS) {
-            float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-            for (int k = 0; k < T; ++k) {
-                const float dk = v_s[k];
-                if (dk != 0.0f) {
-                    const char4 r = *reinterpret_cast<const char4*>(
-                        rows + static_cast<size_t>(k) * B + 4 * cg);
-                    a0 = fmaf(dk, static_cast<float>(r.x), a0);
-                    a1 = fmaf(dk, static_cast<float>(r.y), a1);
-                    a2 = fmaf(dk, static_cast<float>(r.z), a2);
-                    a3 = fmaf(dk, static_cast<float>(r.w), a3);
-                }
-            }
-            q_s[4 * cg + 0] += a0 * scale;
-            q_s[4 * cg + 1] += a1 * scale;
-            q_s[4 * cg + 2] += a2 * scale;
-            q_s[4 * cg + 3] += a3 * scale;
-        }
-        __syncthreads();
-        // the stored unit diagonal also moved q at the focal variants
-        if (owner) q_s[t0 + tid] -= v_s[tid];
+        // rank-T update (R symmetric), the tile's own columns: the stored
+        // unit diagonal also moved q at the focal variants
+        const float acc_t = column_product<false>(r, vc);
+        q_s[t0 + j] = q_s[t0 + j] + acc_t * scale - d_t;
+        // the columns outside the tile: a thread per column of the warp's
+        // chunks, each flagged block's 32 rows from its slot (or global
+        // memory past the warp's OUT_SLOTS)
+        outer_rank_t(D, B, t0, nz, nb32, lane, w, my_out, vc, q_s, scale);
     }
     __syncthreads();
-    for (int j = tid; j < B; j += THREADS) q_out[off + j] = q_s[j];
+    for (int c = 4 * j; c < B; c += 4 * S1_THREADS)
+        *reinterpret_cast<float4*>(q_out + off + c) = ld4(q_s + c);
 }
 
 // coupling_pass_s1: q[b, c0 .. c0 + 127] += the coupling tiles incident to
@@ -355,29 +406,34 @@ extern "C" {
 
 // Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
 // success); it never synchronizes. B must be a positive multiple of T.
-int cavi_block_sweep_s1_launch(const void* diag, const void* beta,
-                               const void* nn, const void* mask,
-                               const void* logits_in, const void* mu_in,
-                               const void* eta_in, const void* q_in,
-                               void* logits_out, void* mu_out, void* eta_out,
-                               void* q_out, void* eta_diff,
-                               const void* blk_mask, const void* hyper,
-                               int nb, int B, float scale, int inner_steps,
-                               void* stream) {
-    if (B <= 0 || B % T != 0) return static_cast<int>(cudaErrorInvalidValue);
+// cavi_block_sweep_s1 over the nb blocks; the state tensors, beta, n, mask
+// and diag_nz must be 16-byte aligned.
+int cavi_block_sweep_s1_launch(const void* diag, const void* diag_nz,
+                               const void* beta, const void* nn,
+                               const void* mask, const void* logits_in,
+                               const void* mu_in, const void* eta_in,
+                               const void* q_in, void* logits_out,
+                               void* mu_out, void* eta_out, void* q_out,
+                               void* eta_diff, const void* blk_mask,
+                               const void* hyper, int nb, int B, float scale,
+                               int inner_steps, void* stream) {
+    if (nb < 0 || B <= 0 || B % T != 0 || inner_steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0) return static_cast<int>(cudaGetLastError());
-    const size_t smem = (B + T) * sizeof(float) + T * T;
+    const size_t smem = sweep_smem(B);
     cudaError_t err = set_smem(reinterpret_cast<const void*>(cavi_block_sweep_s1), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cavi_block_sweep_s1<<<nb, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(diag), static_cast<const float*>(beta),
-        static_cast<const float*>(nn), static_cast<const float*>(mask),
-        static_cast<const float*>(logits_in), static_cast<const float*>(mu_in),
-        static_cast<const float*>(eta_in), static_cast<const float*>(q_in),
-        static_cast<float*>(logits_out), static_cast<float*>(mu_out),
-        static_cast<float*>(eta_out), static_cast<float*>(q_out),
-        static_cast<float*>(eta_diff), static_cast<const int*>(blk_mask),
-        static_cast<const float*>(hyper), B, scale, inner_steps);
+    cavi_block_sweep_s1<<<nb, S1_THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(diag), static_cast<const uint8_t*>(diag_nz),
+        static_cast<const float*>(beta), static_cast<const float*>(nn),
+        static_cast<const float*>(mask), static_cast<const float*>(logits_in),
+        static_cast<const float*>(mu_in), static_cast<const float*>(eta_in),
+        static_cast<const float*>(q_in), static_cast<float*>(logits_out),
+        static_cast<float*>(mu_out), static_cast<float*>(eta_out),
+        static_cast<float*>(q_out), static_cast<float*>(eta_diff),
+        static_cast<const int*>(blk_mask), static_cast<const float*>(hyper),
+        B, scale, inner_steps);
     return static_cast<int>(cudaGetLastError());
 }
 

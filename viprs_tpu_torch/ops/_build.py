@@ -28,9 +28,10 @@ P, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: argtypes of every exported launcher: each pointer (and the stream) as
 #: c_void_p, so ctypes never truncates a 64-bit address.
 SIGNATURES = {
-    # diag, beta, n, mask, logits, mu, eta, q (in), logits, mu, eta, q,
-    # eta_diff (out), blk_mask, hyper, nb, B, scale, inner_steps, stream
-    'cavi_block_sweep_s1_launch': [P] * 15 + [I32, I32, F32, I32, P],
+    # diag, diag_nz, beta, n, mask, logits, mu, eta, q (in), logits, mu,
+    # eta, q, eta_diff (out), blk_mask, hyper, nb, B, scale, inner_steps,
+    # stream
+    'cavi_block_sweep_s1_launch': [P] * 16 + [I32, I32, F32, I32, P],
     # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, off_nz, slabs,
     # eta_diff, q (updated in place), n_slabs, nb, B, scale, stream
     'coupling_pass_s1_launch': [P] * 10 + [I32, I32, I32, F32, P],

@@ -6,7 +6,9 @@ of the hybrid EM iteration:
 
 - ``block_sweep_s1`` launches ``cavi_block_sweep_s1``: the tile-Gauss-Seidel
   sweep of every LD block flagged in a per-block mask (one CTA per block; an
-  unflagged block passes through bit-exactly with a zero eta change);
+  unflagged block passes through bit-exactly with a zero eta change; its
+  rank-T updates skip the zero 32 x 32 blocks that ``BlockLD.diag_nz``
+  leaves unflagged);
 - ``coupling_pass_s1_inplace`` launches ``coupling_pass_s1``: the coupling
   tiles incident to a flagged block, applied in place to q from the sweep's
   eta change (one CTA per block's slab of 128 coordinates that a coupling
@@ -112,15 +114,22 @@ def _hyper_rows(hyper: Hyper, active, device):
 
 
 def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                   hyper: Hyper, active, blk_mask):
+                   hyper: Hyper, active, blk_mask, inner_steps=INNER_STEPS):
     """Sweep the blocks flagged in ``blk_mask`` ((NB,) int32) at S = 1.
 
     :param state: CaviState of (1, NB, B) float32.
     :param hyper: (1,) hyperparameters; :param active: (1,) float32 step
         scale (0 freezes the model).
-    :returns: (new_state, eta_diff), coupling tiles not applied.
+    :param inner_steps: the kernel's inner steps per tile (a timing probe
+        takes fewer; the plain version runs INNER_STEPS only).
+    :returns: (new_state, eta_diff), coupling tiles not applied. The
+        kernel's rank-T updates read ``ld.diag_nz`` (they skip the zero
+        32 x 32 blocks).
     """
     if state.eta.device.type == 'cpu':
+        if inner_steps != INNER_STEPS:
+            raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
+                             f"steps, not {inner_steps}")
         return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                       active, blk_mask=blk_mask)
     from ._build import build
@@ -130,6 +139,7 @@ def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     if B % TILE:
         raise ValueError(f"block size {B} is not a multiple of {TILE}")
     _check('diag', ld.diag, torch.int8, (nb, B, B), dev)
+    _check('diag_nz', ld.diag_nz, torch.uint8, (nb, B // 32, B // 32), dev)
     for name, x in (('std_beta', std_beta), ('n_per_snp', n_per_snp),
                     ('mask', ld.mask)):
         _check(name, x, F32, (nb, B), dev)
@@ -138,14 +148,19 @@ def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
     hv = _hyper_rows(hyper, active, dev)
     _check('hyper', hv, F32, (5, 1), dev)
+    for name, x in (('diag', ld.diag), ('diag_nz', ld.diag_nz),
+                    ('std_beta', std_beta), ('n_per_snp', n_per_snp),
+                    ('mask', ld.mask), *zip(CaviState._fields, state)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     out = CaviState(*(torch.empty_like(x) for x in state))
     eta_diff = torch.empty_like(state.eta)
     err = lib.cavi_block_sweep_s1_launch(
-        ld.diag.data_ptr(), std_beta.data_ptr(), n_per_snp.data_ptr(),
-        ld.mask.data_ptr(), *(x.data_ptr() for x in state),
-        *(x.data_ptr() for x in out), eta_diff.data_ptr(),
-        blk_mask.data_ptr(), hv.data_ptr(), nb, B,
-        float(np.float32(ld.scale)), INNER_STEPS,
+        ld.diag.data_ptr(), ld.diag_nz.data_ptr(), std_beta.data_ptr(),
+        n_per_snp.data_ptr(), ld.mask.data_ptr(),
+        *(x.data_ptr() for x in state), *(x.data_ptr() for x in out),
+        eta_diff.data_ptr(), blk_mask.data_ptr(), hv.data_ptr(), nb, B,
+        float(np.float32(ld.scale)), int(inner_steps),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, 'cavi_block_sweep_s1')
     LAUNCHES['cavi_block_sweep_s1'] += 1
