@@ -38,7 +38,8 @@ in OUT/mix_probe_NAME.json (``--model viprs``: OUT/s1_probe_NAME.json;
   flagged nonzero and (where the checkout's wrapper takes them) its probes
   of 0 and 1 inner steps; the coupling pass alone on the sweep's output
   over every tile, with every 32 x 32 block of the coupling tiles flagged
-  nonzero, and in place (where the checkout has it); cavi_sweep_s1_skip
+  nonzero, on dense random int8 tiles (seeded) with a third of their
+  32 x 32 blocks zeroed; cavi_sweep_s1_skip
   (K2) at the hybrid's activity mask and at every 20th block, its block
   sweep alone and its coupling pass alone there.
 
@@ -168,7 +169,7 @@ def s1_kernel_runs(ds, st, h, blk):
     import inspect
     import torch
     from viprs_tpu_torch.ops import cavi_cuda
-    from viprs_tpu_torch.ops.block_ld import coupling_slabs
+    from viprs_tpu_torch.ops.block_ld import coupling_slabs, nonzero_blocks
     ld = ds.ld
     dev = ld.device
     sb, nf = ds.device_inputs()
@@ -184,9 +185,25 @@ def s1_kernel_runs(ds, st, h, blk):
     dense_cpl = dataclasses.replace(
         ld, off_nz=torch.ones_like(ld.off_nz),
         cpl_slabs=torch.as_tensor(slabs, device=dev))
+    # dense random coupling tiles with a third of their 32 x 32 blocks
+    # zeroed: each row and column of a tile sums many flagged blocks
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, B = ld.n_off, ld.block_size
+    m = B // 32
+    rb, cb, o = (torch.arange(k, device=dev) for k in (m, m, n))
+    zero = (rb.view(1, m, 1, 1, 1) + 2 * cb.view(1, 1, 1, m, 1)
+            + o.view(n, 1, 1, 1, 1)) % 3 == 0
+    off = torch.randint(-127, 128, (n, m, 32, m, 32), generator=g,
+                        device=dev, dtype=torch.int8).masked_fill(
+        zero, 0).view(n, B, B)
+    off_nz = nonzero_blocks(off)
+    random_cpl = dataclasses.replace(
+        ld, off_data=off, off_nz=off_nz,
+        cpl_slabs=torch.as_tensor(coupling_slabs(
+            off_nz.cpu().numpy(), ld.off_src.cpu().numpy(),
+            ld.off_dst.cpu().numpy(), ld.nb), device=dev))
     probes = 'inner_steps' in inspect.signature(
         cavi_cuda.block_sweep_s1).parameters
-    inplace = getattr(cavi_cuda, 'coupling_pass_s1_inplace', None)
 
     def sweep(x, mask, steps=None):
         kw = {} if steps is None else dict(inner_steps=steps)
@@ -213,6 +230,8 @@ def s1_kernel_runs(ds, st, h, blk):
         'coupling pass alone, every tile': cpl(ld, 'all'),
         'coupling pass alone, every tile, every 32 x 32 block flagged':
             cpl(dense_cpl, 'all'),
+        'coupling pass alone, every tile, dense random tiles with zero '
+        'blocks': cpl(random_cpl, 'all'),
         f'K2 at the activity mask ({n_blk} blocks)': lambda: flat(
             cavi_cuda.cavi_sweep_s1_skip(ld, st, sb, nf, h, act, blk)),
         f'K2 sweep alone at the activity mask ({n_blk} blocks)':
@@ -231,15 +250,6 @@ def s1_kernel_runs(ds, st, h, blk):
                                                                    0))
         runs['K1 sweep alone, 1 inner step'] = lambda: flat(sweep(ld, ones,
                                                                   1))
-    if inplace is not None:
-        q, d, mask = after['all']
-        scratch = q.clone()
-        # timed in place on a scratch copy; the digest is of one call on a
-        # fresh copy
-        runs['coupling pass in place, every tile'] = lambda: (
-            inplace(ld, scratch, d, mask),)
-        runs['coupling pass in place, every tile'].digest = lambda: (
-            inplace(ld, q.clone(), d, mask),)
     return runs
 
 
@@ -366,7 +376,7 @@ def main():
         for name, fn in runs.items():
             ms = cs.time_ms(fn, reps=10)
             g = graph_ms(fn, reps=10)
-            res = getattr(fn, 'digest', fn)()
+            res = fn()
             out[name] = dict(ms=ms, graph_ms=g, sha256=digest(*res))
             print(f"[{args.tag}] {sname}: {name}: {ms:.3f} ms by events, "
                   f"{g:.3f} ms in a CUDA graph, outputs sha256 "
