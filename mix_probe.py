@@ -14,7 +14,7 @@ chip_smoke.py helpers and bench.py are imported (the working directory
 goes first on sys.path), so one copy of this script compares two
 checkouts in one machine session: run it in each, in turns. It records,
 in OUT/mix_probe_NAME.json (``--model viprs``: OUT/s1_probe_NAME.json;
-``--out``, chiprun_out by default) and on stdout:
+OUT is ``--out``) and on stdout:
 
 - the card's name and power limit, the build's seconds and ptxas report;
 - the fit after np.random.seed(0), cold and warm: seconds, nit, h2 (repr),
