@@ -12,7 +12,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
 2. build the CUDA kernels from viprs_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all started together;
 3. synthesize the genome-scale problem of bench.py (AR(1) LD blocks, B = 1024,
-   int8) and pack it with the port's packer;
+   int8) and pack it with the port's packer; F0: pack it a second time as
+   float32 (quantize=False, the JAX package's default): its GB, nonzero
+   32 x 32 blocks of the diagonal and coupling tiles (int8 beside them)
+   and block slabs a coupling tile can change;
 4. check each S = 1 kernel against its plain PyTorch version on a few blocks
    cut from that genome (coupling tiles included): all blocks active, half
    active (quiescent blocks bit-exact), none active, the coupling pass
@@ -108,6 +111,29 @@ M5. check and time the four mixture kernels against their plain versions
    S = 8 and 20 (lane tiles 8 and 20), K6 and K8 at their masks and every
    20th block, K8 at every block; the coupling part of each alone, against
    its plain version, its bound and (every tile) torch.bmm.
+F1. check the float32 instances of the single-model kernels on phase 4's 8
+   blocks cut from the float32 packing against their plain versions with
+   phase 4's and M1's bounds: K1, K2 (half the blocks flagged, none
+   flagged bit-exact), coupling_pass_s1 in place and with its clone, K5 and
+   K6 at K = 3 (unflagged blocks bit-exact); on the cut and on the cut with
+   a third of its 32 x 32 blocks zeroed, every zero-block skip bit for bit
+   (the sign of a zero included) against its dense walk; VIPRS and
+   VIPRSMix(K=3) fits on the float32 cut, on the card against the CPU (h2
+   within 1e-4, nit within 2);
+F2. fit the float32 genome: VIPRS(ds32, 'cuda') with phase 5's arguments
+   cold, warm (3 times) and 'xla'; VIPRSMix(ds32, 'cuda', K=3)
+   .fit(max_iter=500) cold, warm and 'xla'; launch counters reset before
+   each fit and read after it (the float32 instances launched, no int8
+   one); every fit converges, repeated fits take the same nit, h2 within
+   0.005 of the JAX package's and equal to the port's earlier float32 runs
+   (PORT_F32_*), its gap to the int8 fit printed; one warm fit of each
+   under torch.profiler;
+F3. time the float32 instances on the float32 genome's first-iteration
+   state by CUDA events and CUDA graphs beside their plain versions and
+   bounds (4 bytes an element): K1's sweep over every block, alone and
+   with its coupling pass; coupling_pass_s1 over every tile, in place and
+   with its clone, beside torch.bmm of the float32 tiles; K2 at 57 blocks;
+   K5 and K6 at K = 3, their sweeps and coupling parts alone.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -119,7 +145,8 @@ tiles' nonzero 32 x 32 blocks, ``sweep_work_nz``, with every tile dense
 beside it as ``bound_ms_dense``)
 and, for the coupling passes, the time of one PyTorch call computing the
 tile products (``library_ms``; the sweeps have none). The S = 1 kernels'
-lines also carry their time in a CUDA graph (``graph_ms``).
+lines also carry their time in a CUDA graph (``graph_ms``). The float32
+instances (F3) have lines of their own, their names ending in ``_f32``.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -173,6 +200,11 @@ PORT_MIX_GRID_H2 = [
     0.3430690418728746,
     0.39072460728769903,
     0.2367098005806265]
+#: The port's own results on the genome packed as float32 (quantize=False),
+#: the same on every H100 run (F2): nit and h2 of the hybrid VIPRS fit and
+#: of VIPRSMix(K=3).
+PORT_F32_NIT, PORT_F32_H2 = 101, 0.215599
+PORT_F32_MIX_NIT, PORT_F32_MIX_H2 = 146, 0.217578
 FULL_M = 1_100_000
 #: The full record (chip_smoke.json) and the profiler trace go here.
 OUT_DIR = 'chiprun_out'
@@ -355,7 +387,6 @@ def main():
 
     # ---- 2. build ----
     from viprs_tpu_torch.ops import _build, cavi_cuda, cavi_torch
-    from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
     t0 = time.perf_counter()
     _, info = _build.build()
     phase('build', f"nvcc {' '.join(_build.NVCC_FLAGS)}: "
@@ -386,8 +417,14 @@ def main():
     ds = SummaryStatsDataset.from_dense_blocks(
         ld_blocks, std_beta, n_per_snp, block_size=1024, quantize=True,
         device=dev)
-    del ld_blocks
     t_pack = time.perf_counter() - t0
+    # F0: the same genome packed as float32 (quantize=False)
+    t0 = time.perf_counter()
+    ds32 = SummaryStatsDataset.from_dense_blocks(
+        ld_blocks, std_beta, n_per_snp, block_size=1024, quantize=False,
+        device=dev)
+    t_pack32 = time.perf_counter() - t0
+    del ld_blocks
     ld = ds.ld
     phase('data', f"synthesis {t_syn:.1f} s, packing+upload {t_pack:.1f} s: "
                   f"M={ds.m} NB={ld.nb} B={ld.block_size} n_off={ld.n_off} "
@@ -405,6 +442,25 @@ def main():
                   cpl_slabs=ld.cpl_slabs.numel())
     if ld.n_off == 0:
         fail("the genome has no coupling tiles")
+    ld32 = ds32.ld
+    if ld32.diag.dtype != torch.float32 or ld32.nb != ld.nb or \
+            ld32.n_off != ld.n_off:
+        fail(f"F0: the float32 packing differs in shape or type: "
+             f"{ld32.diag.dtype}, NB={ld32.nb}, n_off={ld32.n_off}")
+    nz32, nz8 = _nz_blocks(ld32), _nz_blocks(ld)
+    gb32 = (ld32.diag.numel() * 4 / 1e9, ld32.off_data.numel() * 4 / 1e9)
+    phase('F0', f"float32 packing+upload {t_pack32:.1f} s: LD "
+                f"{gb32[0]:.3f}+{gb32[1]:.3f} GB float32 (int8 "
+                f"{ld.diag.numel() / 1e9:.3f}+{ld.off_data.numel() / 1e9:.3f}"
+                f" GB); nonzero 32 x 32 blocks: diagonal tiles {nz32[0]} of "
+                f"{ld32.diag_nz.numel()} (int8 {nz8[0]}), coupling tiles "
+                f"{nz32[1]} of {ld32.off_nz.numel()} (int8 {nz8[1]}); "
+                f"{ld32.cpl_slabs.numel()} block slabs of 128 coordinates "
+                f"that a float32 tile can change (int8 "
+                f"{ld.cpl_slabs.numel()})")
+    record['f32_data'] = dict(pack_s=t_pack32, gb=gb32, diag_nz_blocks=nz32[0],
+                              off_nz_blocks=nz32[1],
+                              cpl_slabs=ld32.cpl_slabs.numel())
 
     # ---- 4. kernels against their plain versions ----
     src0 = int(ld.off_src[0])
@@ -412,56 +468,11 @@ def main():
     sub = cut_blocks(ld, sel, dev)
     sb, nf = (x.index_select(0, torch.as_tensor(sel, device=dev))
               for x in ds.device_inputs())
-    rng = np.random.default_rng(0)
-    S1 = (1, sub.nb, sub.block_size)
-    pi = 0.002
-    eta0 = torch.as_tensor(rng.standard_normal(S1) * 2e-3, dtype=torch.float32,
-                           device=dev) * sub.mask
-    state = CaviState(
-        logits=torch.full(S1, math.log(pi / (1 - pi)), device=dev),
-        mu=eta0 * 5.0, eta=eta0, q=cavi_torch.compute_q(sub, eta0))
-    hyper = Hyper(*(torch.tensor([v], dtype=torch.float32, device=dev)
-                    for v in (0.75, pi * ds.m / 0.25, pi, 0.0)))
     act = torch.ones(1, device=dev)
     phase('check', f"{sub.nb} blocks cut from the genome, {sub.n_off} "
                    f"coupling tiles, B={sub.block_size}, T=128, 8 inner steps")
     errs_sweep, errs_cpl = [], []
-
-    got = cavi_cuda.cavi_sweep_s1(sub, state, sb, nf, hyper, act)
-    want = cavi_torch.cavi_sweep(sub, state, sb, nf, hyper, act)
-    check_state('all blocks active', got, want, errs_sweep)
-
-    half = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
-    half[::2] = 1
-    got = cavi_cuda.cavi_sweep_s1_skip(sub, state, sb, nf, hyper, act, half)
-    st, d = cavi_torch.block_sweep(sub, state, sb, nf, hyper, act,
-                                   blk_mask=half)
-    want = (st._replace(q=cavi_torch.coupling_pass(sub, st.q, d, half)), d)
-    check_state('half active', got, want, errs_sweep)
-    quiet = half == 0
-    for k in ('logits', 'mu', 'eta'):
-        if not torch.equal(getattr(got[0], k)[0][quiet],
-                           getattr(state, k)[0][quiet]):
-            fail(f"half active: quiescent blocks' {k} changed")
-    if not torch.equal(got[1][0][quiet], torch.zeros_like(got[1][0][quiet])):
-        fail("half active: quiescent blocks report an eta change")
-    phase('check', "half active: quiescent blocks bit-exact (logits, mu, "
-                   "eta; eta_diff 0)")
-
-    none = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
-    got = cavi_cuda.cavi_sweep_s1_skip(sub, state, sb, nf, hyper, act, none)
-    for k in CaviState._fields:
-        if not torch.equal(getattr(got[0], k), getattr(state, k)):
-            fail(f"none active: {k} changed")
-    phase('check', "none active: state bit-exact (logits, mu, eta, q)")
-
-    diff = torch.as_tensor(rng.standard_normal(S1) * 1e-3,
-                           dtype=torch.float32, device=dev) * sub.mask
-    ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
-    check('coupling pass vs refresh_q', 'q',
-          cavi_cuda.coupling_pass_s1(sub, state.q, diff, ones),
-          cavi_torch.refresh_q(sub, state.q, diff), TOL_COUPLING, errs_cpl)
-    s1_zero_block_checks(sub, state, sb, nf, hyper, act, errs_sweep, errs_cpl)
+    s1_cut_checks(sub, ds.m, sb, nf, errs_sweep, errs_cpl)
     torch.cuda.synchronize()
 
     # a whole fit on the cut: kernels on the card vs plain versions on the CPU
@@ -637,6 +648,15 @@ def main():
         'cavi_sweep_mix_s_skip':
             record['mix_grid']["sweep_impl='skip'"]['launches']}
 
+    # ---- F1-F3: float32 LD (the float32 instances) ----
+    errs32 = {k: [] for k in F32_KERNELS}
+    sub32 = f32_checks(ld32, sel, sb, nf, ds.m, errs32)
+    record['f32_cut_fits'] = f32_cut_fits(sub32, sb, nf)
+    del sub32
+    record['f32'] = f32_genome(ds32, fit_kw)
+    record['f32_times_ms'] = f32_times(ds32, errs32)
+    f32_launch = record['f32']['launches']
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)
@@ -680,6 +700,31 @@ def main():
         # bound_ms counts the nonzero 32 x 32 blocks, this every tile dense
         e['bound_ms_dense'] = r['bound_ms_dense']
         kernels.append(e)
+    f3 = record['f32_times_ms']
+    f3_rows = {
+        'cavi_block_sweep_s1_f32': (f3['sweep']['event_ms'],
+                                    f3['sweep']['plain_ms'],
+                                    f3['sweep']['bound'],
+                                    f3['sweep']['bound_dense'],
+                                    f3['sweep']['graph_ms'], None),
+        'coupling_pass_s1_f32': (f3['coupling']['event_ms'],
+                                 f3['coupling']['plain_ms'],
+                                 f3['coupling']['bound'], None,
+                                 f3['coupling']['graph_ms'],
+                                 f3['coupling']['library_ms']),
+        **{name: (f3[name[:-4]]['ms'], f3[name[:-4]]['plain_ms'],
+                  f3[name[:-4]]['bound'], f3[name[:-4]]['bound_dense'],
+                  f3[name[:-4]]['graph_ms'], None)
+           for name in ('cavi_sweep_mix_s1_f32',
+                        'cavi_sweep_mix_s1_skip_f32')}}
+    for name, (replaces, source) in F32_KERNELS.items():
+        ms, plain, bnd, dense, graph, lib = f3_rows[name]
+        e = dict(entry(name, f'viprs_tpu_torch/csrc/{source}', replaces,
+                       f32_launch[name], max(errs32[name]), ms, plain, bnd,
+                       lib), graph_ms=graph)
+        if dense is not None:
+            e['bound_ms_dense'] = dense[0]
+        kernels.append(e)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -696,36 +741,93 @@ def _same_state(tag, got, want):
                     "in value"))
 
 
+def s1_cut_checks(sub, m, sb, nf, errs_sweep, errs_cpl, prefix='',
+                  need_zeros=True):
+    """Phase 4 (F1 with ``prefix`` 'F1 ' on the float32 cut): the S = 1
+    kernels on the cut from phase 4's random state (``_s1_state``) against
+    their plain versions: K1 with every block active; K2 with half of them
+    (quiescent blocks bit-exact, their eta change 0) and with none (the
+    state bit-exact); the coupling pass in place and with its clone (the
+    same bits) against refresh_q; then ``s1_zero_block_checks``."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    from viprs_tpu_torch.ops.cavi_torch import CaviState
+    dev = sub.device
+    rng = np.random.default_rng(0)
+    state, hyper = _s1_state(sub, m, rng)
+    act = torch.ones(1, device=dev)
+    check_state(f'{prefix}all blocks active', cavi_cuda.cavi_sweep_s1(
+        sub, state, sb, nf, hyper, act), cavi_torch.cavi_sweep(
+        sub, state, sb, nf, hyper, act), errs_sweep)
+    half = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
+    half[::2] = 1
+    got = cavi_cuda.cavi_sweep_s1_skip(sub, state, sb, nf, hyper, act, half)
+    check_state(f'{prefix}half active', got,
+                _plain_skip(sub, state, sb, nf, hyper, act, half), errs_sweep)
+    quiet = half == 0
+    for k in ('logits', 'mu', 'eta'):
+        if not same_bits(getattr(got[0], k)[0][quiet],
+                         getattr(state, k)[0][quiet]):
+            fail(f"{prefix}half active: quiescent blocks' {k} changed")
+    if bool(got[1][0][quiet].any()):
+        fail(f"{prefix}half active: quiescent blocks report an eta change")
+    phase('check', f"{prefix}half active: quiescent blocks bit-exact "
+                   f"(logits, mu, eta; eta_diff 0)")
+    got = cavi_cuda.cavi_sweep_s1_skip(sub, state, sb, nf, hyper, act,
+                                       torch.zeros_like(half))
+    for k in CaviState._fields:
+        if not same_bits(getattr(got[0], k), getattr(state, k)):
+            fail(f"{prefix}none active: {k} changed")
+    phase('check', f"{prefix}none active: state bit-exact (logits, mu, eta, "
+                   f"q)")
+    diff = torch.as_tensor(rng.standard_normal(state.q.shape) * 1e-3,
+                           dtype=torch.float32, device=dev) * sub.mask
+    ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
+    q = cavi_cuda.coupling_pass_s1(sub, state.q, diff, ones)
+    q_in = state.q.clone()
+    if cavi_cuda.coupling_pass_s1_inplace(sub, q_in, diff, ones) is not q_in \
+            or not same_bits(q, q_in):
+        fail(f"{prefix}coupling_pass_s1 in place and with its clone differ")
+    check(f'{prefix}coupling pass vs refresh_q', 'q', q,
+          cavi_torch.refresh_q(sub, state.q, diff), TOL_COUPLING, errs_cpl)
+    s1_zero_block_checks(sub, state, sb, nf, hyper, act, errs_sweep,
+                         errs_cpl, prefix, need_zeros)
+
+
 def s1_zero_block_checks(sub, state, sb, nf, hyper, act, errs_sweep,
-                         errs_cpl):
-    """Phase 4, the S = 1 kernels on the cut and on the cut with a third of
-    its 32 x 32 blocks zeroed (inside and outside the (T, T) tiles, and in
-    the coupling tiles): K1 and K2 (half the blocks flagged) against their
-    plain versions; the block sweep and the coupling pass with their real
-    flags (BlockLD.diag_nz, off_nz and cpl_slabs) bit for bit, the sign of
-    a zero included, against their dense walks (every 32 x 32 block
-    flagged); the public coupling pass's input q untouched; the block
-    sweep's probe of 0 inner steps leaving the state as it was."""
+                         errs_cpl, prefix='', need_zeros=True):
+    """Phase 4 (F1 with ``prefix`` 'F1 ' on the float32 cut), the S = 1
+    kernels on the cut and on the cut with a third of its 32 x 32 blocks
+    zeroed (inside and outside the (T, T) tiles, and in the coupling
+    tiles): K1 and K2 (half the blocks flagged) against their plain
+    versions; the block sweep and the coupling pass with their real flags
+    (BlockLD.diag_nz, off_nz and cpl_slabs) bit for bit, the sign of a zero
+    included, against their dense walks (every 32 x 32 block flagged); the
+    public coupling pass's input q untouched; the block sweep's probe of 0
+    inner steps leaving the state as it was. The cut itself must hold zero
+    blocks of every kind unless ``need_zeros`` is false (float32 tiles
+    hold few); the zeroed cut always must."""
     import torch
     from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
     dev = sub.device
     ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
     half = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
     half[::2] = 1
-    for tag, x in (('the cut', sub),
-                   ('the cut, blocks zeroed', zero_blocks_cut(sub))):
+    for tag, x, need in (('the cut', sub, need_zeros),
+                         ('the cut, blocks zeroed', zero_blocks_cut(sub),
+                          True)):
         n_in, n_out = zero_blocks(x)
         n_cz, n_cnz = int((x.off_nz == 0).sum()), int(x.off_nz.sum())
-        if not (n_in and n_out and n_cz and n_cnz):
-            fail(f"phase 4, {tag}: the diagonal tiles need zero 32 x 32 "
-                 f"blocks inside ({n_in}) and outside ({n_out}) the (T, T) "
-                 f"tiles, the coupling tiles zero ({n_cz}) and nonzero "
-                 f"({n_cnz}) ones")
+        if need and not (n_in and n_out and n_cz and n_cnz):
+            fail(f"{prefix or 'phase 4, '}{tag}: the diagonal tiles need "
+                 f"zero 32 x 32 blocks inside ({n_in}) and outside ({n_out}) "
+                 f"the (T, T) tiles, the coupling tiles zero ({n_cz}) and "
+                 f"nonzero ({n_cnz}) ones")
         st = state._replace(q=cavi_torch.compute_q(x, state.eta))
-        check_state(f'K1 on {tag}', cavi_cuda.cavi_sweep_s1(
+        check_state(f'{prefix}K1 on {tag}', cavi_cuda.cavi_sweep_s1(
             x, st, sb, nf, hyper, act), cavi_torch.cavi_sweep(
             x, st, sb, nf, hyper, act), errs_sweep)
-        check_state(f'K2 on {tag}, half the blocks flagged',
+        check_state(f'{prefix}K2 on {tag}, half the blocks flagged',
                     cavi_cuda.cavi_sweep_s1_skip(x, st, sb, nf, hyper, act,
                                                  half),
                     _plain_skip(x, st, sb, nf, hyper, act, half), errs_sweep)
@@ -733,32 +835,36 @@ def s1_zero_block_checks(sub, state, sb, nf, hyper, act, errs_sweep,
         for label, mask in (('every block', ones), ('half the blocks', half)):
             t = f'{tag}, {label}'
             got = cavi_cuda.block_sweep_s1(x, st, sb, nf, hyper, act, mask)
-            _same_state(f'K1 block sweep on {t}: the real diag_nz against '
-                        f'the dense walk', got, cavi_cuda.block_sweep_s1(
-                            dense_d, st, sb, nf, hyper, act, mask))
+            _same_state(f'{prefix}K1 block sweep on {t}: the real diag_nz '
+                        f'against the dense walk', got,
+                        cavi_cuda.block_sweep_s1(dense_d, st, sb, nf, hyper,
+                                                 act, mask))
             new, d = got
             q0 = new.q.clone()
             q = cavi_cuda.coupling_pass_s1(x, new.q, d, mask)
             if not same_bits(new.q, q0):
-                fail(f"coupling_pass_s1 on {t} wrote its input q")
+                fail(f"{prefix}coupling_pass_s1 on {t} wrote its input q")
             if not same_bits(q, cavi_cuda.coupling_pass_s1(dense_c, new.q, d,
                                                            mask)):
-                fail(f"coupling_pass_s1 on {t}: q with the real off_nz "
-                     f"differs from the dense walk's")
-            check(f'coupling_pass_s1 on {t}', 'q', q, cavi_torch.coupling_pass(
-                x, new.q, d, mask), TOL_COUPLING_SWEPT, errs_cpl)
+                fail(f"{prefix}coupling_pass_s1 on {t}: q with the real "
+                     f"off_nz differs from the dense walk's")
+            check(f'{prefix}coupling_pass_s1 on {t}', 'q', q,
+                  cavi_torch.coupling_pass(x, new.q, d, mask),
+                  TOL_COUPLING_SWEPT, errs_cpl)
         new, d = cavi_cuda.block_sweep_s1(x, st, sb, nf, hyper, act, ones,
                                           inner_steps=0)
         if any(not torch.equal(a, b) for a, b in zip(new, st)) or \
                 bool(d.any()):
-            fail(f"K1 block sweep on {tag}, 0 inner steps: the state moved")
-        phase('check', f"{tag} ({n_in} zero 32 x 32 blocks inside the (T, T) "
-                       f"tiles, {n_out} outside, {n_cz} zero and {n_cnz} "
-                       f"nonzero in the {x.n_off} coupling tiles): K1 and K2 "
-                       f"within bounds; the block sweep and the coupling "
-                       f"pass, every block and half the blocks flagged, bit "
-                       f"for bit their dense walks; the coupling pass's "
-                       f"input q untouched; 0 inner steps: state unchanged")
+            fail(f"{prefix}K1 block sweep on {tag}, 0 inner steps: the state "
+                 f"moved")
+        phase('check', f"{prefix}{tag} ({n_in} zero 32 x 32 blocks inside "
+                       f"the (T, T) tiles, {n_out} outside, {n_cz} zero and "
+                       f"{n_cnz} nonzero in the {x.n_off} coupling tiles): K1 "
+                       f"and K2 within bounds; the block sweep and the "
+                       f"coupling pass, every block and half the blocks "
+                       f"flagged, bit for bit their dense walks; the "
+                       f"coupling pass's input q untouched; 0 inner steps: "
+                       f"state unchanged")
 
 
 def s1_probes(ld, st0, sb, nf, h0, act, few):
@@ -846,6 +952,8 @@ def s1_probes(ld, st0, sb, nf, h0, act, few):
                                    reps=20),
         sweep_bound=bound(*sweep_work_nz(ld, 1, 4, 5, few)[:2]),
         coupling_bound=bound(*coupling_work(ld, 1, few)),
+        library_coupling_ms=library_coupling_ms(ld, d, bmm_tiles(
+            ld, _tiles_on(ld, few))),
         blocks=n_few, tiles=_tiles_touching(ld, few))
     del scratch
     r = rec['k2_5pct']
@@ -858,7 +966,8 @@ def s1_probes(ld, st0, sb, nf, h0, act, few):
                   f"its coupling part alone {r['coupling_graph_ms']:.4f} ms "
                   f"(graph), {r['coupling_event_ms']:.4f} ms (events), bound "
                   f"{r['coupling_bound'][0]:.5f} ms by "
-                  f"{r['coupling_bound'][1]}")
+                  f"{r['coupling_bound'][1]}, torch.bmm of its tiles "
+                  f"{r['library_coupling_ms']:.3f} ms")
     torch.cuda.empty_cache()
     return rec
 
@@ -1576,13 +1685,14 @@ def bound(nbytes, flops):
 
 def sweep_work(ld, S, planes_in, planes_out, n_blocks):
     """Bytes and FP32 operations of one block sweep over ``n_blocks`` blocks
-    for S lanes: the blocks' int8 diagonal tiles and beta/n/mask read once,
-    ``planes_in`` float32 state planes of (S, n_blocks, B) read and
-    ``planes_out`` written; per tile, 8 inner steps of two (T x T) matvecs
-    and the rank-T update of the block's q (an FMA is 2 operations)."""
+    for S lanes: the blocks' diagonal tiles (int8 or float32, at their
+    element size) and beta/n/mask read once, ``planes_in`` float32 state
+    planes of (S, n_blocks, B) read and ``planes_out`` written; per tile, 8
+    inner steps of two (T x T) matvecs and the rank-T update of the block's
+    q (an FMA is 2 operations)."""
     from viprs_tpu_torch.ops.cavi_torch import INNER_STEPS, TILE
     B = ld.block_size
-    nbytes = n_blocks * B * B + 4 * n_blocks * B * (
+    nbytes = n_blocks * B * B * ld.diag.element_size() + 4 * n_blocks * B * (
         3 + S * (planes_in + planes_out))
     fma = S * n_blocks * (B // TILE) * (INNER_STEPS * 2 * TILE * TILE
                                         + TILE * B)
@@ -1608,8 +1718,8 @@ def sweep_work_nz(ld, S, planes_in, planes_out, blk=None):
     tiles = torch.arange(m, device=ld.device) // per
     in_tile = tiles[:, None] == tiles[None, :]      # inside a (T, T) tile
     n_inner = int((nz & in_tile).sum())
-    nbytes = 32 * 32 * int(nz.sum()) + nz.numel() + 4 * n_blocks * B * (
-        3 + S * (planes_in + planes_out))
+    nbytes = 32 * 32 * ld.diag.element_size() * int(nz.sum()) + nz.numel() \
+        + 4 * n_blocks * B * (3 + S * (planes_in + planes_out))
     fma = S * 32 * 32 * (INNER_STEPS * 2 * n_inner + int(nz.sum()))
     return nbytes, 2 * fma, n_inner, n_blocks * m * per
 
@@ -1619,7 +1729,8 @@ def coupling_work(ld, S, blk=None):
     flagged end (``blk`` (NB,) int; None: all) needs on this LD, for S
     lanes. int8 LD that decays with distance is mostly exact zeros in the
     coupling tiles, so this counts what the data needs (``BlockLD.off_nz``):
-    the nonzero 32 x 32 blocks of those tiles read once, the eta change of
+    the nonzero 32 x 32 blocks of those tiles read once (at the tiles'
+    element size), the eta change of
     the 32-coordinate chunks they multiply read once, q of the slabs of 128
     coordinates they can change read and written, and one FMA (2
     operations) per nonzero element per lane, each tile applied both ways."""
@@ -1637,7 +1748,8 @@ def coupling_work(ld, S, blk=None):
     writes = torch.zeros(ld.nb, ns, dtype=torch.int32, device=ld.device)
     writes.index_add_(0, src, nz.reshape(-1, ns, 4 * m).any(dim=2).int())
     writes.index_add_(0, dst, nz.reshape(-1, m, ns, 4).any(dim=(1, 3)).int())
-    nbytes = (int(nz.sum()) * 32 * 32 + 4 * S * 32 * int((reads > 0).sum())
+    nbytes = (int(nz.sum()) * 32 * 32 * ld.off_data.element_size()
+              + 4 * S * 32 * int((reads > 0).sum())
               + 2 * 4 * S * 128 * int((writes > 0).sum()))
     return nbytes, 2 * 2 * nnz * S
 
@@ -1646,14 +1758,16 @@ def _add(*works):
     return tuple(sum(w[i] for w in works) for i in range(2))
 
 
-def bmm_tiles(ld):
-    """The float32 coupling tiles and their transposes, (2 n_off, B, B), and
-    the block each one's product reads: the operands of library_coupling_ms
-    that do not depend on the eta change."""
+def bmm_tiles(ld, on=None):
+    """The float32 coupling tiles (those flagged in ``on``, (n_off,) bool;
+    None: all) and their transposes, (2 n, B, B), and the block each one's
+    product reads: the operands of library_coupling_ms that do not depend
+    on the eta change."""
     import torch
-    U = ld.off_data.float()
+    sel = slice(None) if on is None else on
+    U = ld.off_data[sel].float()
     return (torch.cat([U, U.transpose(1, 2)]),
-            torch.cat([ld.off_dst, ld.off_src]).long())
+            torch.cat([ld.off_dst[sel], ld.off_src[sel]]).long())
 
 
 def library_coupling_ms(ld, d, tiles=None):
@@ -1880,6 +1994,69 @@ def _half_blocks(masks, nb):
     return best
 
 
+def mix_s1_cut_checks(sub, one, h1, sb, nf, errs5, errs6, prefix='M1 ',
+                      need_zeros=True):
+    """M1 (F1 with ``prefix`` 'F1 ' on the float32 cut): K5 and K6 at K = 3
+    on the cut against their plain versions, K6 with half the blocks
+    flagged (unflagged blocks bit-exact, their eta change 0) and with none
+    (the state bit-exact); then on the cut and on the cut with a third of
+    its off-diagonal 32 x 32 blocks zeroed, K5 and K6 against their plain
+    versions and their block sweeps with the real diag_nz bit for bit (the
+    sign of a zero included) against the dense walk. The cut itself must
+    hold zero blocks inside and outside the (T, T) tiles unless
+    ``need_zeros`` is false."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    from viprs_tpu_torch.ops.cavi_mix import MixState
+    k5, k6 = 'cavi_sweep_mix_s1', 'cavi_sweep_mix_s1_skip'
+    check_mix_state(f'{prefix}K5 all blocks', mix_kernel(
+        k5, sub, one, sb, nf, h1), mix_plain(k5, sub, one, sb, nf, h1), errs5)
+    half = torch.zeros(sub.nb, dtype=torch.int32, device=sub.device)
+    half[::2] = 1
+    got = mix_kernel(k6, sub, one, sb, nf, h1, blk=half)
+    check_mix_state(f'{prefix}K6 half the blocks flagged', got,
+                    mix_plain(k6, sub, one, sb, nf, h1, blk=half), errs6)
+    quiet = half == 0
+    for k in MixState._fields[:3]:
+        if not same_bits(getattr(got[0], k)[..., quiet, :],
+                         getattr(one, k)[..., quiet, :]):
+            fail(f"{prefix}K6: unflagged blocks' {k} changed")
+    if bool(got[1][quiet].any()):
+        fail(f"{prefix}K6: unflagged blocks report an eta change")
+    got = mix_kernel(k6, sub, one, sb, nf, h1, blk=torch.zeros_like(half))
+    for k in MixState._fields:
+        if not same_bits(getattr(got[0], k), getattr(one, k)):
+            fail(f"{prefix}K6, no block flagged: {k} changed")
+    phase('check', f"{prefix}K6 unflagged blocks bit-exact (gamma, mu, eta; "
+                   f"eta_diff 0); no block flagged: state bit-exact (gamma, "
+                   f"mu, eta, q)")
+    for tag, x, need in (('the cut', sub, need_zeros),
+                         ('the cut, blocks zeroed', zero_blocks_cut(sub),
+                          True)):
+        n_in, n_out = zero_blocks(x)
+        if need and not (n_in and n_out):
+            fail(f"{prefix}{tag}: no zero 32 x 32 block inside ({n_in}) or "
+                 f"outside ({n_out}) the (T, T) tiles")
+        check_mix_state(f'{prefix}K5 on {tag}', mix_kernel(
+            k5, x, one, sb, nf, h1), mix_plain(k5, x, one, sb, nf, h1), errs5)
+        check_mix_state(f'{prefix}K6 on {tag}, half the blocks flagged',
+                        mix_kernel(k6, x, one, sb, nf, h1, blk=half),
+                        mix_plain(k6, x, one, sb, nf, h1, blk=half), errs6)
+        for kname, mask, unit_diag in ((k5, torch.ones_like(half), False),
+                                       (k6, half, True)):
+            def sweep(y):
+                return cavi_cuda.block_sweep_mix(
+                    y, MixState(*(v[None] for v in one)), sb, nf,
+                    h1.lanes(), None, mask, unit_diag, kname)
+            _same_state(f'{prefix}{kname} block sweep on {tag}: the real '
+                        f'diag_nz against the dense walk', sweep(x),
+                        sweep(dense_diag_flags(x)))
+        phase('check', f"{prefix}K5 and K6 on {tag} ({n_in} zero 32 x 32 "
+                       f"blocks inside the (T, T) tiles, {n_out} outside): "
+                       f"within bounds; their block sweeps bit for bit "
+                       f"(the sign of a zero included) their dense walks")
+
+
 def mix_checks(ds, sub, sb, nf, errs):
     """M1 and M3: the mixture kernels against their plain versions on the
     cut (K = 3; single model, and S = 20 lanes; K7 also at K = 1 and 8)."""
@@ -1893,54 +2070,8 @@ def mix_checks(ds, sub, sb, nf, errs):
     nb = sub.nb
     phase('M1', f"K = {MIX_K}, {nb} blocks cut from the genome, {sub.n_off} "
                 f"coupling tiles; hyperparameters of the bench mixture grid")
-    check_mix_state('K5 all blocks', mix_kernel(
-        'cavi_sweep_mix_s1', sub, one, sb, nf, h1), mix_plain(
-        'cavi_sweep_mix_s1', sub, one, sb, nf, h1), errs['cavi_sweep_mix_s1'])
-    half = torch.zeros(nb, dtype=torch.int32, device=dev)
-    half[::2] = 1
-    name = 'cavi_sweep_mix_s1_skip'
-    got = mix_kernel(name, sub, one, sb, nf, h1, blk=half)
-    check_mix_state('K6 half the blocks flagged', got,
-                    mix_plain(name, sub, one, sb, nf, h1, blk=half),
-                    errs[name])
-    quiet = half == 0
-    for k in MixState._fields[:3]:
-        if not torch.equal(getattr(got[0], k)[..., quiet, :],
-                           getattr(one, k)[..., quiet, :]):
-            fail(f"K6: unflagged blocks' {k} changed")
-    if bool(got[1][quiet].any()):
-        fail("K6: unflagged blocks report an eta change")
-    got = mix_kernel(name, sub, one, sb, nf, h1,
-                     blk=torch.zeros_like(half))
-    for k in MixState._fields:
-        if not torch.equal(getattr(got[0], k), getattr(one, k)):
-            fail(f"K6, no block flagged: {k} changed")
-    phase('check', "K6 unflagged blocks bit-exact (gamma, mu, eta; eta_diff "
-                   "0); no block flagged: state bit-exact (gamma, mu, eta, q)")
-    # the zero-block skip of K5/K6's rank-T updates, on the cut and on the
-    # cut with a third of its off-diagonal 32 x 32 blocks zeroed
-    for tag, x in (('the cut', sub), ('the cut, blocks zeroed',
-                                      zero_blocks_cut(sub))):
-        n_in, n_out = zero_blocks(x)
-        if not (n_in and n_out):
-            fail(f"M1 {tag}: no zero 32 x 32 block inside ({n_in}) or "
-                 f"outside ({n_out}) the (T, T) tiles")
-        check_mix_state(f'K5 on {tag}', mix_kernel(
-            'cavi_sweep_mix_s1', x, one, sb, nf, h1), mix_plain(
-            'cavi_sweep_mix_s1', x, one, sb, nf, h1),
-            errs['cavi_sweep_mix_s1'])
-        check_mix_state(f'K6 on {tag}, half the blocks flagged', mix_kernel(
-            name, x, one, sb, nf, h1, blk=half), mix_plain(
-            name, x, one, sb, nf, h1, blk=half), errs[name])
-        for kname, mask, unit_diag in (
-                ('cavi_sweep_mix_s1', torch.ones_like(half), False),
-                (name, half, True)):
-            same_bits_dense_walk(
-                f'M1 {kname} on {tag} ({n_in} zero blocks inside the (T, '
-                f'T) tiles, {n_out} outside)', x,
-                lambda y: cavi_cuda.block_sweep_mix(
-                    y, MixState(*(v[None] for v in one)), sb, nf,
-                    h1.lanes(), None, mask, unit_diag, kname))
+    mix_s1_cut_checks(sub, one, h1, sb, nf, errs['cavi_sweep_mix_s1'],
+                      errs['cavi_sweep_mix_s1_skip'])
 
     S = state.eta.shape[0]
     phase('M3', f"S = {S} lanes, K = {MIX_K}, lane tile "
@@ -2115,12 +2246,12 @@ def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
     return rec
 
 
-def s1_coupling_times(ld, q, d, blk, errs):
-    """M5, the coupling part of K5/K6 alone: coupling_pass_s1 on the block
-    sweep's output (q, d: (1, NB, B)) over the tiles with an end flagged
-    in ``blk``, the kernel in place on a copy of q (as the sweeps apply it)
-    and the public wrapper (a clone, then the kernel), against its plain
-    version, torch.bmm and its bound."""
+def s1_coupling_times(ld, q, d, blk, errs, tag='M5'):
+    """M5 (and F3), the coupling part of K5/K6 alone: coupling_pass_s1 on
+    the block sweep's output (q, d: (1, NB, B)) over the tiles with an end
+    flagged in ``blk``, the kernel in place on a copy of q (as the sweeps
+    apply it) and the public wrapper (a clone, then the kernel), against
+    its plain version, torch.bmm and its bound."""
     from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
     n_til = _tiles_touching(ld, blk)
     scratch = q.clone()
@@ -2133,12 +2264,12 @@ def s1_coupling_times(ld, q, d, blk, errs):
     del scratch
     plain_ms = time_ms(lambda: cavi_torch.coupling_pass(ld, q, d, blk),
                        reps=2, warmup=1)
-    check(f'coupling_pass_s1 over {n_til} tiles after the mixture sweep',
-          'q', cavi_cuda.coupling_pass_s1(ld, q, d, blk),
+    check(f'{tag} coupling_pass_s1 over {n_til} tiles after the mixture '
+          f'sweep', 'q', cavi_cuda.coupling_pass_s1(ld, q, d, blk),
           cavi_torch.coupling_pass(ld, q, d, blk), TOL_COUPLING, errs)
     lib = library_coupling_ms(ld, d) if n_til == ld.n_off else None
     b_ms, b_by = bound(*coupling_work(ld, 1, blk))
-    phase('M5', f"coupling_pass_s1 alone, {n_til} tiles: in place "
+    phase(tag, f"coupling_pass_s1 alone, {n_til} tiles: in place "
                 f"{ms:.4f} ms by CUDA events, {dev:.4f} ms in a CUDA graph; "
                 f"with the clone {ms_clone:.4f} ms by events (plain "
                 f"{plain_ms:.3f} ms"
@@ -2408,6 +2539,380 @@ def mix_times(ds, errs):
                     + (f"; every block flagged {rec['ms_all_blocks']:.3f} ms"
                        if skip and lanes else ''))
     del m1, mg
+    torch.cuda.empty_cache()
+    return out
+
+
+
+# ------------------------------------------------------ float32 LD (F0-F3)
+#: The float32 instances of the single-model kernels, as LAUNCHES names
+#: them: (the TPU kernel line replaced, source).
+F32_KERNELS = {
+    'cavi_block_sweep_s1_f32': (133, 'cavi_s1.cu'),
+    'coupling_pass_s1_f32': (492, 'cavi_s1.cu'),
+    'cavi_sweep_mix_s1_f32': (700, 'cavi_mix.cu'),
+    'cavi_sweep_mix_s1_skip_f32': (1037, 'cavi_mix.cu'),
+}
+
+
+def _s1_state(sub, m, rng):
+    """Phase 4's random S = 1 state on a cut: eta spread around zero, mu =
+    5 eta, q = (R - I) eta, pi = 0.002 and tau_beta as at an h2 of 0.25."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_torch
+    from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
+    dev = sub.device
+    shape = (1, sub.nb, sub.block_size)
+    pi = 0.002
+    eta0 = torch.as_tensor(rng.standard_normal(shape) * 2e-3,
+                           dtype=torch.float32, device=dev) * sub.mask
+    state = CaviState(
+        logits=torch.full(shape, math.log(pi / (1 - pi)), device=dev),
+        mu=eta0 * 5.0, eta=eta0, q=cavi_torch.compute_q(sub, eta0))
+    hyper = Hyper(*(torch.tensor([v], dtype=torch.float32, device=dev)
+                    for v in (0.75, pi * m / 0.25, pi, 0.0)))
+    return state, hyper
+
+
+def _nz_blocks(ld):
+    """The nonzero 32 x 32 blocks of the diagonal and the coupling tiles."""
+    return int(ld.diag_nz.sum()), int(ld.off_nz.sum())
+
+
+def f32_checks(ld32, sel, sb, nf, m, errs):
+    """F1: the float32 instances on phase 4's 8 blocks, cut from the
+    float32 packing, against their plain versions on the card with phase
+    4's and M1's relative bounds: K1, K2 (half the blocks flagged; none
+    flagged: the state bit-exact), the coupling pass in place and with its
+    clone (bit for bit the same q) against refresh_q, K5 and K6 at K = 3;
+    on the cut and on the cut with a third of its 32 x 32 blocks zeroed,
+    each zero-block skip (the block sweeps, the coupling pass) bit for bit
+    against its dense walk, the sign of a zero included. Returns the cut."""
+    import torch
+    dev = ld32.device
+    sub = cut_blocks(ld32, sel, dev)
+    if sub.diag.dtype != torch.float32 or sub.off_data.dtype != torch.float32:
+        fail(f"F1: the cut's tiles are {sub.diag.dtype}, not float32")
+    nz_d, nz_c = _nz_blocks(sub)
+    phase('F1', f"{sub.nb} blocks cut from the float32 packing, {sub.n_off} "
+                f"coupling tiles, scale {sub.scale}: {nz_d} of "
+                f"{sub.diag_nz.numel()} blocks of 32 x 32 nonzero in the "
+                f"diagonal tiles, {nz_c} of {sub.off_nz.numel()} in the "
+                f"coupling tiles")
+    s1_cut_checks(sub, m, sb, nf, errs['cavi_block_sweep_s1_f32'],
+                  errs['coupling_pass_s1_f32'], prefix='F1 ',
+                  need_zeros=False)
+    st20, h20 = _mix_lane_state(sub, 20, m, np.random.default_rng(2))
+    one, h1 = _mix_one(st20, h20, 4)
+    mix_s1_cut_checks(sub, one, h1, sb, nf, errs['cavi_sweep_mix_s1_f32'],
+                      errs['cavi_sweep_mix_s1_skip_f32'], prefix='F1 ',
+                      need_zeros=False)
+    torch.cuda.synchronize()
+    return sub
+
+
+def f32_cut_fits(sub, sb, nf):
+    """F1: VIPRS and VIPRSMix(K=3) on the float32 cut, the kernels on the
+    card against the plain versions on the CPU (np.random.seed(0) each):
+    h2 within 1e-4 and nit within 2, as phase 4 holds the int8 cut fit."""
+    import torch
+    from viprs_tpu_torch.model import VIPRS, VIPRSMix
+    out = {}
+    for label, make in (('VIPRS', VIPRS),
+                        (f'VIPRSMix(K={MIX_K})',
+                         lambda d, w: VIPRSMix(d, w, K=MIX_K))):
+        fits = {}
+        for where in ('cuda', 'cpu'):
+            dsx = _dataset_from_cut(sub, sb, nf, torch.device(where))
+            np.random.seed(0)
+            fits[where] = make(dsx, where).fit(max_iter=500)
+        gc, gp = fits['cuda'], fits['cpu']
+        h_c, h_p = gc.get_heritability(), gp.get_heritability()
+        dh2 = abs(h_c - h_p)
+        out[label] = dict(nit=[gc.optim_result.nit, gp.optim_result.nit],
+                          h2=[h_c, h_p])
+        phase('F1', f"{label} fit on the float32 cut: nit "
+                    f"{gc.optim_result.nit} (card) vs {gp.optim_result.nit} "
+                    f"(plain, CPU); h2 {h_c:.6f} vs {h_p:.6f} (|diff| "
+                    f"{dh2:.2e}, bound 1e-4)")
+        if not (gc.optim_result.success and dh2 <= 1e-4
+                and abs(gc.optim_result.nit - gp.optim_result.nit) <= 2):
+            fail(f"F1: the {label} fit on the float32 cut disagrees with the "
+                 f"plain fit")
+    return out
+
+
+def f32_genome(ds32, fit_kw):
+    """F2: VIPRS and VIPRSMix(K=3) on the genome packed as float32: VIPRS
+    with phase 5's arguments cold, warm (3 times) and all-active
+    (sweep_impl='xla'); VIPRSMix(K=3).fit(max_iter=500) cold, warm and
+    'xla' (K5); launch counters reset before each fit and read after it;
+    one warm fit of each under torch.profiler. Each fit converges, repeated
+    fits take the same nit, h2 lies within 0.005 of the JAX package's and
+    nit and h2 are the port's earlier float32 runs' (PORT_F32_*); the fits
+    launch the float32 instances and no int8 one."""
+    import torch
+    from viprs_tpu_torch.model import VIPRS, VIPRSMix
+    from viprs_tpu_torch.ops import cavi_cuda
+    int8_s1 = ('cavi_block_sweep_s1', 'coupling_pass_s1',
+               'cavi_sweep_mix_s1', 'cavi_sweep_mix_s1_skip')
+    out = {}
+    for model, make, kw_fit, runs_kw, ref, port_int8 in (
+            ('VIPRS', lambda: VIPRS(ds32, 'cuda'), fit_kw,
+             (('cold', {}), ('warm0', {}), ('warm1', {}), ('warm2', {}),
+              ("sweep_impl='xla'", {'sweep_impl': 'xla'})), REF_H2, PORT_H2),
+            (f'VIPRSMix(K={MIX_K})', lambda: VIPRSMix(ds32, 'cuda', K=MIX_K),
+             dict(max_iter=500),
+             (('cold', {}), ('warm0', {}),
+              ("sweep_impl='xla'", {'sweep_impl': 'xla'})), REF_MIX_H2,
+             PORT_MIX_H2)):
+        runs = {}
+        for name, kw in runs_kw:
+            np.random.seed(0)
+            torch.cuda.synchronize()
+            cavi_cuda.reset_launches()
+            t0 = time.perf_counter()
+            m = make().fit(**kw_fit, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            r = m.optim_result
+            launches = {k: v for k, v in cavi_cuda.LAUNCHES.items() if v}
+            runs[name] = dict(seconds=dt, nit=r.nit, h2=m.get_heritability(),
+                              success=bool(r.success), message=r.message,
+                              ms_per_it=1e3 * dt / max(r.nit, 1),
+                              n_skip=getattr(m, '_n_skip', None),
+                              launches=launches)
+            phase('F2', f"{model} on float32 LD, {name}: {dt:.3f} s, nit "
+                        f"{r.nit} ({runs[name]['ms_per_it']:.2f} ms/it), h2 "
+                        f"{m.get_heritability()!r}, '{r.message}'"
+                        + (f", skip-branch iterations {m._n_skip}"
+                           if model == 'VIPRS' else '')
+                        + f"; launches {launches}")
+            if not r.success:
+                fail(f"F2: {model} {name} on float32 LD did not converge: "
+                     f"{r.message}")
+            if any(launches.get(k) for k in int8_s1):
+                fail(f"F2: {model} {name} on float32 LD launched an int8 "
+                     f"kernel: {launches}")
+        cold = runs['cold']
+        warm = sorted(v['seconds'] for k, v in runs.items()
+                      if k.startswith('warm'))
+        if any(v['nit'] != cold['nit'] for k, v in runs.items()
+               if k.startswith('warm')):
+            fail(f"F2: repeated {model} fits on float32 LD took different "
+                 f"numbers of iterations")
+        h2 = runs['warm0']['h2']
+        phase('F2', f"{model} on float32 LD: nit {cold['nit']}, h2 {h2:.6f} "
+                    f"(JAX package: {ref}; the int8 fit: {port_int8}, gap "
+                    f"{h2 - port_int8:+.6f}); warm median "
+                    f"{warm[len(warm) // 2]:.3f} s of {len(warm)}")
+        if abs(h2 - ref) > 0.005:
+            fail(f"F2: {model} h2 {h2} on float32 LD is not within 0.005 of "
+                 f"{ref}")
+        port_nit, port_h2 = (PORT_F32_NIT, PORT_F32_H2) if model == 'VIPRS' \
+            else (PORT_F32_MIX_NIT, PORT_F32_MIX_H2)
+        if cold['nit'] != port_nit or abs(h2 - port_h2) > 5e-7:
+            fail(f"F2: {model} on float32 LD moved: nit {cold['nit']}, h2 "
+                 f"{h2:.6f} (the port's earlier runs: {port_nit}, "
+                 f"{port_h2})")
+        runs['warm_median_s'] = warm[len(warm) // 2]
+        runs['profile'] = profile_fit(ds32, kw_fit, trace_name=None,
+                                      make=make)
+        out[model] = runs
+    s1 = out['VIPRS']
+    mx = out[f'VIPRSMix(K={MIX_K})']
+    launches = {
+        'cavi_block_sweep_s1_f32': s1['cold']['launches'].get(
+            'cavi_block_sweep_s1_f32', 0),
+        'coupling_pass_s1_f32': s1['cold']['launches'].get(
+            'coupling_pass_s1_f32', 0),
+        'cavi_sweep_mix_s1_f32': mx["sweep_impl='xla'"]['launches'].get(
+            'cavi_sweep_mix_s1_f32', 0),
+        'cavi_sweep_mix_s1_skip_f32': mx['cold']['launches'].get(
+            'cavi_sweep_mix_s1_skip_f32', 0)}
+    if min(launches.values()) < 1:
+        fail(f"F2: a float32 instance was never launched: {launches}")
+    out['launches'] = launches
+    return out
+
+
+
+def f32_times(ds32, errs):
+    """F3: the float32 instances on the float32 genome's first-iteration
+    state (VIPRS and VIPRSMix(K=3) after np.random.seed(0)), by CUDA events
+    and in CUDA graphs, each checked against and timed beside its plain
+    version and its bounds (the nonzero 32 x 32 blocks, and every tile
+    dense, at 4 bytes an element): the K1 block sweep over every block,
+    alone and with its coupling pass (K1); coupling_pass_s1 in place over
+    every tile, with its clone, and torch.bmm of the float32 tiles; K2 at
+    every 20th block (57), its coupling part's torch.bmm; K5 and K6 at
+    K = 3 (K6 at its activity mask and at every 20th block), their sweeps
+    alone and their coupling parts alone."""
+    import torch
+    from viprs_tpu_torch.model import VIPRS, VIPRSMix
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_mix, cavi_torch
+    from viprs_tpu_torch.ops.cavi_mix import MixState
+    ld = ds32.ld
+    dev = ld.device
+    sb, nf = ds32.device_inputs()
+    m = VIPRS(ds32, 'cuda')
+    m.initialize_theta(rng=np.random.RandomState(0))
+    m.initialize_variational_parameters()
+    st0, h0 = m._state, m._hyper_dev()
+    act = torch.ones(1, device=dev)
+    ones = torch.ones(ld.nb, dtype=torch.int32, device=dev)
+    few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
+    few[::20] = 1
+    e_sw, e_cpl = errs['cavi_block_sweep_s1_f32'], errs['coupling_pass_s1_f32']
+    out = {}
+
+    def sweep(mask):
+        return cavi_cuda.block_sweep_s1(ld, st0, sb, nf, h0, act, mask)
+
+    k1 = lambda: cavi_cuda.cavi_sweep_s1(ld, st0, sb, nf, h0, act)
+    b_nz = bound(*sweep_work_nz(ld, 1, 4, 5)[:2])
+    b_dense = bound(*sweep_work(ld, 1, 4, 5, ld.nb))
+    b_cpl = bound(*coupling_work(ld, 1))
+    out['sweep'] = dict(
+        event_ms=time_ms(lambda: sweep(ones), reps=10),
+        graph_ms=graph_ms(lambda: sweep(ones), reps=10),
+        with_coupling_event_ms=time_ms(k1, reps=10),
+        with_coupling_graph_ms=graph_ms(k1, reps=10),
+        plain_ms=time_ms(lambda: cavi_torch.block_sweep(
+            ld, st0, sb, nf, h0, act), reps=3, warmup=1),
+        with_coupling_plain_ms=time_ms(lambda: cavi_torch.cavi_sweep(
+            ld, st0, sb, nf, h0, act), reps=3, warmup=1),
+        bound=b_nz, bound_dense=b_dense,
+        with_coupling_bound=bound(*_add(sweep_work_nz(ld, 1, 4, 5)[:2],
+                                        coupling_work(ld, 1))))
+    new, d = sweep(ones)
+    check_state(f'F3 K1 block sweep, all {ld.nb} blocks', (new, d),
+                cavi_torch.block_sweep(ld, st0, sb, nf, h0, act), e_sw)
+    check_state(f'F3 K1 with its coupling pass, all {ld.nb} blocks', k1(),
+                cavi_torch.cavi_sweep(ld, st0, sb, nf, h0, act), e_sw)
+    r = out['sweep']
+    phase('F3', f"K1 float32 block sweep, all {ld.nb} blocks: "
+                f"{r['graph_ms']:.3f} ms in a CUDA graph, {r['event_ms']:.3f} "
+                f"ms by CUDA events (plain {r['plain_ms']:.3f} ms; bound "
+                f"{b_nz[0]:.3f} ms by {b_nz[1]} over the nonzero 32 x 32 "
+                f"blocks = {100 * b_nz[0] / r['graph_ms']:.0f}% of it, every "
+                f"tile dense {b_dense[0]:.3f} ms by {b_dense[1]}); with its "
+                f"coupling pass {r['with_coupling_graph_ms']:.3f} ms (graph), "
+                f"{r['with_coupling_event_ms']:.3f} ms (events), plain "
+                f"{r['with_coupling_plain_ms']:.3f} ms, bound "
+                f"{r['with_coupling_bound'][0]:.3f} ms")
+
+    scratch = new.q.clone()
+    inplace = lambda: cavi_cuda.coupling_pass_s1_inplace(ld, scratch, d, ones)
+    out['coupling'] = dict(
+        event_ms=time_ms(inplace, reps=20), graph_ms=graph_ms(inplace,
+                                                                reps=20),
+        clone_event_ms=time_ms(lambda: cavi_cuda.coupling_pass_s1(
+            ld, new.q, d, ones), reps=20),
+        plain_ms=time_ms(lambda: cavi_torch.refresh_q(ld, new.q, d), reps=3,
+                         warmup=1),
+        library_ms=library_coupling_ms(ld, d), bound=b_cpl)
+    del scratch
+    check(f'F3 coupling_pass_s1 over {ld.n_off} float32 tiles vs refresh_q',
+          'q', cavi_cuda.coupling_pass_s1(ld, new.q, d, ones),
+          cavi_torch.refresh_q(ld, new.q, d), TOL_COUPLING, e_cpl)
+    r = out['coupling']
+    phase('F3', f"coupling_pass_s1 on float32 tiles, {ld.n_off} tiles, "
+                f"{ld.cpl_slabs.numel()} block slabs: in place "
+                f"{r['graph_ms']:.4f} ms in a CUDA graph, {r['event_ms']:.4f} "
+                f"ms by CUDA events, with the clone {r['clone_event_ms']:.4f} "
+                f"ms (plain {r['plain_ms']:.3f} ms, torch.bmm of the float32 "
+                f"tiles {r['library_ms']:.3f} ms, bound {b_cpl[0]:.4f} ms by "
+                f"{b_cpl[1]})")
+    del new, d
+
+    k2 = lambda: cavi_cuda.cavi_sweep_s1_skip(ld, st0, sb, nf, h0, act, few)
+    new, d = sweep(few)
+    scratch = new.q.clone()
+    out['k2_5pct'] = dict(
+        event_ms=time_ms(k2, reps=20), graph_ms=graph_ms(k2, reps=20),
+        sweep_graph_ms=graph_ms(lambda: sweep(few), reps=20),
+        coupling_graph_ms=graph_ms(lambda: cavi_cuda.coupling_pass_s1_inplace(
+            ld, scratch, d, few), reps=20),
+        plain_ms=time_ms(lambda: _plain_skip(ld, st0, sb, nf, h0, act, few),
+                         reps=5),
+        library_coupling_ms=library_coupling_ms(ld, d, bmm_tiles(
+            ld, _tiles_on(ld, few))),
+        bound=bound(*_add(sweep_work_nz(ld, 1, 4, 5, few)[:2],
+                          coupling_work(ld, 1, few))),
+        bound_dense=bound(*_add(sweep_work(ld, 1, 4, 5, int(few.sum())),
+                                coupling_work(ld, 1, few))),
+        blocks=int(few.sum()), tiles=_tiles_touching(ld, few))
+    del scratch, new, d
+    check_state(f'F3 K2 at {int(few.sum())} of {ld.nb} blocks', k2(),
+                _plain_skip(ld, st0, sb, nf, h0, act, few), e_sw)
+    r = out['k2_5pct']
+    phase('F3', f"K2 on float32 LD at {r['blocks']} of {ld.nb} blocks, "
+                f"{r['tiles']} coupling tiles: {r['graph_ms']:.3f} ms in a "
+                f"CUDA graph, {r['event_ms']:.3f} ms by CUDA events (plain "
+                f"{r['plain_ms']:.3f} ms; bound {r['bound'][0]:.4f} ms by "
+                f"{r['bound'][1]}, every tile dense {r['bound_dense'][0]:.4f} "
+                f"ms); its sweep alone {r['sweep_graph_ms']:.3f} ms, its "
+                f"coupling part alone {r['coupling_graph_ms']:.4f} ms (graph; "
+                f"torch.bmm of its tiles {r['library_coupling_ms']:.3f} ms)")
+    del m
+    torch.cuda.empty_cache()
+
+    np.random.seed(0)
+    mm = VIPRSMix(ds32, 'cuda', K=MIX_K)
+    mm.initialize()
+    st, h = mm._state, mm._hyper_dev()
+    K = MIX_K
+    for name, skip in (('cavi_sweep_mix_s1', False),
+                       ('cavi_sweep_mix_s1_skip', True)):
+        e = errs[name + '_f32']
+        blk = cavi_mix.mix_block_proposal_mask(ld, st, sb, nf, h).to(
+            torch.int32) if skip else None
+        mask = ones if blk is None else blk
+        n_blk = int(mask.sum())
+        run = lambda b=blk: mix_kernel(name, ld, st, sb, nf, h, blk=b)
+        work = _add(sweep_work_nz(ld, 1, 2 * K + 2, 2 * K + 3, blk)[:2],
+                    coupling_work(ld, 1, blk))
+        rec = dict(ms=time_ms(run, reps=5), graph_ms=graph_ms(run, reps=5),
+                   plain_ms=time_ms(lambda: mix_plain(
+                       name, ld, st, sb, nf, h, blk=blk), reps=2, warmup=1),
+                   bound=bound(*work), bound_dense=bound(*_add(
+                       sweep_work(ld, 1, 2 * K + 2, 2 * K + 3, n_blk),
+                       coupling_work(ld, 1, blk))), blocks=n_blk)
+        check_mix_state(f'F3 {name} on float32 LD, {n_blk} of {ld.nb} '
+                        f'blocks', run(), mix_plain(name, ld, st, sb, nf, h,
+                                                    blk=blk), e)
+        one = MixState(*(x[None] for x in st))
+
+        def alone(b):
+            return cavi_cuda.block_sweep_mix(ld, one, sb, nf, h.lanes(), None,
+                                             b, skip, name)
+        rec['sweep_graph_ms'] = graph_ms(lambda: alone(mask), reps=5)
+        new, d = alone(mask)
+        rec['coupling'] = s1_coupling_times(ld, new.q, d, mask, e, tag='F3')
+        del new, d
+        if skip:
+            rec['ms_5pct'] = time_ms(lambda: run(few), reps=5)
+            rec['graph_ms_5pct'] = graph_ms(lambda: run(few), reps=5)
+            rec['sweep_graph_ms_5pct'] = graph_ms(lambda: alone(few), reps=5)
+            rec['bound_5pct'] = bound(*_add(
+                sweep_work_nz(ld, 1, 2 * K + 2, 2 * K + 3, few)[:2],
+                coupling_work(ld, 1, few)))
+        out[name] = rec
+        phase('F3', f"{name} (K={K}) on float32 LD, first-iteration state, "
+                    f"{n_blk} of {ld.nb} blocks: {rec['graph_ms']:.3f} ms in "
+                    f"a CUDA graph, {rec['ms']:.3f} ms by CUDA events (plain "
+                    f"{rec['plain_ms']:.3f} ms; bound {rec['bound'][0]:.3f} "
+                    f"ms by {rec['bound'][1]} over the nonzero 32 x 32 "
+                    f"blocks, every tile dense {rec['bound_dense'][0]:.3f} "
+                    f"ms); its sweep alone {rec['sweep_graph_ms']:.3f} ms "
+                    f"(graph)"
+                    + (f"; at {int(few.sum())} blocks "
+                       f"{rec['graph_ms_5pct']:.3f} ms (graph), "
+                       f"{rec['ms_5pct']:.3f} ms (events), its sweep alone "
+                       f"{rec['sweep_graph_ms_5pct']:.3f} ms, bound "
+                       f"{rec['bound_5pct'][0]:.4f} ms" if skip else ''))
+    del mm
     torch.cuda.empty_cache()
     return out
 

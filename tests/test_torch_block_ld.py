@@ -136,22 +136,66 @@ def test_dataset_rejects_malformed_input(sim):
         block_ld.pack_dense_blocks({1: [np.zeros((4, 3))]}, block_size=128)
 
 
-@pytest.mark.parametrize('via', ['from_numpy', 'dataset'])
-def test_float_tiles_on_a_cuda_device_are_refused_up_front(sim, via):
-    """The CUDA kernels take int8 LD: float32 tiles bound for a CUDA device
-    raise a ValueError that names quantize=True before anything is uploaded
-    (so not torch's error for a build without CUDA)."""
+@pytest.mark.parametrize('dtype', [np.float64, np.float16])
+def test_other_float_tiles_on_a_cuda_device_are_refused_up_front(sim, dtype):
+    """The CUDA kernels take int8 or float32 LD: float64 or float16 tiles
+    bound for a CUDA device raise a ValueError that names quantize=True
+    before anything is uploaded (so not torch's error for a build without
+    CUDA)."""
+    packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'], block_size=128)
     with pytest.raises(ValueError, match='quantize=True') as err:
-        if via == 'from_numpy':
-            packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'],
-                                                   block_size=128)
-            packed.to('cuda')
-        else:
-            SummaryStatsDataset.from_dense_blocks(
-                sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'],
-                block_size=128, device=torch.device('cuda', 0))
-    assert 'CPU' in str(err.value)
+        block_ld.BlockLD.from_numpy(
+            packed.diag.astype(dtype), packed.off_data.astype(dtype),
+            packed.off_src, packed.off_dst, packed.mask, packed.scale,
+            device=torch.device('cuda', 0))
+    assert np.dtype(dtype).name in str(err.value)
     assert 'compiled' not in str(err.value)
+
+
+@pytest.mark.parametrize('quantize', [True, False])
+def test_int8_and_float32_tiles_pass_the_check_for_a_cuda_device(
+        sim, quantize, monkeypatch):
+    """int8 and float32 tiles (the packers' two storage types) pass
+    from_numpy's check for a CUDA device: the upload itself is reached (a
+    stand-in records each tensor's move to the card's device)."""
+    moved = []
+
+    def to(self, *args, **kwargs):
+        moved.append((self.dtype, args))
+        return self
+
+    monkeypatch.setattr(torch.Tensor, 'to', to)
+    packed, _ = block_ld.pack_dense_blocks(sim['ld_blocks'], block_size=128,
+                                           quantize=quantize)
+    dev = torch.device('cuda', 0)
+    ld = packed.to(dev)
+    dtype = torch.int8 if quantize else torch.float32
+    assert ld.diag.dtype == ld.off_data.dtype == dtype
+    assert (dtype, (dev,)) in moved
+
+
+@pytest.mark.parametrize('model', ['VIPRSGrid', 'VIPRSMixGrid', 'GridSearch'])
+def test_grid_models_refuse_float32_ld_off_the_cpu(sim, model):
+    """The grid models fit their lanes with the S-lane kernels, which take
+    int8 LD: on a device that is not the CPU (meta, the card's stand-in),
+    float32 LD raises a ValueError naming quantize=True before anything
+    runs; on the CPU it builds."""
+    from viprs_tpu_torch.gridsearch import GridSearch, HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSGrid, VIPRSMixGrid
+    cls = {'VIPRSGrid': VIPRSGrid, 'VIPRSMixGrid': VIPRSMixGrid,
+           'GridSearch': GridSearch}[model]
+    cpu = SummaryStatsDataset.from_dense_blocks(
+        sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'], block_size=128,
+        device='cpu')
+    assert cpu.ld.diag.dtype == torch.float32
+    grid = HyperparameterGrid(n_snps=cpu.m, pi_steps=3)
+    meta = SummaryStatsDataset.from_dense_blocks(
+        sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'], block_size=128,
+        device='meta')
+    with pytest.raises(ValueError, match='quantize=True') as err:
+        cls(meta, grid, 'meta')
+    assert 'float32' in str(err.value)
+    cls(cpu, grid, 'cpu')
 
 
 @pytest.mark.parametrize('quantize', [True, False])

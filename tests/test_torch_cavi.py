@@ -2,7 +2,9 @@
 
 The problem has five LD tiles of B = 128 with four coupling tiles (one LD
 block of 300 variants spans three tiles); its LD, state and
-hyperparameters are made once with numpy and handed to both packages.
+hyperparameters are made once with numpy and handed to both packages. Each
+problem is packed twice, int8 (quantize=True) and float32 (quantize=False,
+the JAX package's default), and every test that takes it runs on both.
 
 Tolerances: atol 1e-5 on eta, mu and gamma and 1e-4 on q, because exp,
 log and the order of float32 sums differ between XLA and PyTorch (the same
@@ -23,18 +25,24 @@ from viprs_tpu.ops.block_ld import pack_dense_blocks
 
 from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
 from viprs_tpu_torch.ops.block_ld import BlockLD
+from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
 from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
 
 ATOL = {'eta': 1e-5, 'mu': 1e-5, 'gamma': 1e-5, 'q': 1e-4, 'eta_diff': 1e-5}
 
 
-@pytest.fixture(scope='module')
-def problem():
+#: The problems' two packings: int8 and float32 LD tiles.
+QUANTIZE = dict(params=[True, False], ids=['int8', 'float32'])
+
+
+@pytest.fixture(scope='module', **QUANTIZE)
+def problem(request):
     sim = simulate_sumstats_blocks(n=2000, block_sizes=(300, 150, 100, 60),
                                    h2=0.3, prop_causal=0.05, seed=5)
     jld, lay = pack_dense_blocks(sim['ld_blocks'], block_size=128,
-                                 quantize=True)
+                                 quantize=request.param)
     assert jld.n_off > 0
+    assert jld.diag.dtype == (jnp.int8 if request.param else jnp.float32)
     sb = lay.to_flat(sim['std_beta']).reshape(lay.nb, 128)
     nf = lay.to_flat(sim['n_per_snp']).reshape(lay.nb, 128)
     ld = BlockLD.from_numpy(
@@ -267,13 +275,15 @@ def _stand_in_lib(monkeypatch, calls):
         monkeypatch.setitem(cavi_cuda.LAUNCHES, name, 0)
 
 
-def _meta_ld(nb, B, n_off):
-    """An int8 LD on the meta device (the card's stand-in) with n_off
-    coupling tiles between consecutive blocks."""
+def _meta_ld(nb, B, n_off, dtype=np.int8):
+    """An LD of int8 (or ``dtype``) tiles on the meta device (the card's
+    stand-in) with n_off coupling tiles between consecutive blocks; the
+    scale is 1/127 for int8 and 1.0 for float tiles, as the packers make
+    it."""
     return BlockLD.from_numpy(
-        np.zeros((nb, B, B), np.int8), np.ones((n_off, B, B), np.int8),
+        np.zeros((nb, B, B), dtype), np.ones((n_off, B, B), dtype),
         np.arange(n_off), np.arange(n_off) + 1, np.ones((nb, B), np.float32),
-        1 / 127, device='meta')
+        1 / 127 if dtype == np.int8 else 1.0, device='meta')
 
 
 @pytest.mark.parametrize('bad', [None, 'off_nz shape', 'off_nz dtype',
@@ -331,18 +341,18 @@ def test_coupling_pass_s1_checks_off_nz_and_slabs_before_launching(
         assert cavi_cuda.LAUNCHES['coupling_pass_s1'] == 0
 
 
-@pytest.fixture(scope='module')
-def zero_block_problem():
-    """LD tiles of B = 256 (two (T, T) tiles a block) in which a third of
-    the 32 x 32 blocks off the diagonal of the diagonal tiles, and a third
-    of the coupling tiles' blocks, are set to exact zeros (the diagonal
-    tiles symmetrically): zero blocks inside the (T, T) tiles, outside them
-    and in the coupling tiles, the blocks that the kernels skip
-    (BlockLD.diag_nz, BlockLD.off_nz)."""
+@pytest.fixture(scope='module', **QUANTIZE)
+def zero_block_problem(request):
+    """LD tiles of B = 256 (two (T, T) tiles a block), int8 or float32, in
+    which a third of the 32 x 32 blocks off the diagonal of the diagonal
+    tiles, and a third of the coupling tiles' blocks, are set to exact
+    zeros (the diagonal tiles symmetrically): zero blocks inside the (T, T)
+    tiles, outside them and in the coupling tiles, the blocks that the
+    kernels skip (BlockLD.diag_nz, BlockLD.off_nz)."""
     sim = simulate_sumstats_blocks(n=2000, block_sizes=(300, 150, 100, 60),
                                    h2=0.3, prop_causal=0.05, seed=5)
     jld, lay = pack_dense_blocks(sim['ld_blocks'], block_size=256,
-                                 quantize=True)
+                                 quantize=request.param)
     assert jld.n_off > 0
     diag, off = np.array(jld.diag), np.array(jld.off_data)
     nb, B, m = diag.shape[0], diag.shape[1], diag.shape[1] // 32
@@ -514,6 +524,136 @@ def test_s1_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
                                                 act),
                 lambda: cavi_cuda.cavi_sweep_s1_skip(ld, state, z[0], z[0],
                                                      hyper, act, blk)):
+            with pytest.raises(RuntimeError, match='nvcc'):
+                call()
+    finally:
+        _build.build.cache_clear()
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def _meta_s1_args(nb, B):
+    """State, inputs, hyperparameters, step scale and an all-blocks mask of
+    one model on the meta device."""
+    z = torch.zeros(1, nb, B, device='meta')
+    return (CaviState(z, z, z, z), z[0], z[0],
+            Hyper(*(torch.ones(1, device='meta'),) * 4),
+            torch.ones(1, device='meta'),
+            torch.ones(nb, dtype=torch.int32, device='meta'))
+
+
+def test_s1_wrappers_launch_the_float32_instances(monkeypatch):
+    """Float32 LD tiles go to the float32 instances of the S = 1 kernels
+    (cavi_block_sweep_s1_f32_launch, coupling_pass_s1_f32_launch) with
+    scale 1.0, counted under their own LAUNCHES names, through K1, K2 and
+    both coupling wrappers; no int8 instance is launched (a stand-in library
+    records the launches; meta tensors take the place of the card's)."""
+    calls = {}
+    _stand_in_lib(monkeypatch, calls)
+    nb, B, n_off = 3, 256, 2
+    ld = _meta_ld(nb, B, n_off, np.float32)
+    assert ld.diag.dtype == ld.off_data.dtype == torch.float32
+    assert ld.scale == 1.0
+    state, sb, nf, hyper, act, blk = _meta_s1_args(nb, B)
+    cavi_cuda.cavi_sweep_s1(ld, state, sb, nf, hyper, act)
+    cavi_cuda.cavi_sweep_s1_skip(ld, state, sb, nf, hyper, act, blk)
+    cavi_cuda.block_sweep_s1(ld, state, sb, nf, hyper, act, blk,
+                             inner_steps=1)
+    q = state.q
+    assert cavi_cuda.coupling_pass_s1_inplace(ld, q, q, blk) is q
+    assert cavi_cuda.coupling_pass_s1(ld, q, q, blk) is not q
+    assert set(calls) == {'cavi_block_sweep_s1_f32_launch',
+                          'coupling_pass_s1_f32_launch'}
+    sweeps = calls['cavi_block_sweep_s1_f32_launch']
+    passes = calls['coupling_pass_s1_f32_launch']
+    assert [a[16:-1] for a in sweeps] == [
+        (nb, B, 1.0, cavi_torch.INNER_STEPS)] * 2 + [(nb, B, 1.0, 1)]
+    assert [a[10:-1] for a in passes] == [
+        (ld.cpl_slabs.numel(), nb, B, 1.0)] * 4
+    assert {k: v for k, v in cavi_cuda.LAUNCHES.items() if v} == {
+        'cavi_block_sweep_s1_f32': 3, 'coupling_pass_s1_f32': 4}
+
+
+def _retyped(ld, diag, off):
+    """``ld`` with its tiles recast (the meta device's stand-in for LD the
+    packers do not make)."""
+    return dataclasses.replace(ld, diag=ld.diag.to(diag),
+                               off_data=ld.off_data.to(off))
+
+
+@pytest.mark.parametrize('diag,off,msg', [
+    (torch.int8, torch.float32, 'share one dtype'),
+    (torch.float32, torch.int8, 'share one dtype'),
+    (torch.float64, torch.float64, 'int8 or float32'),
+    (torch.float16, torch.float16, 'int8 or float32')])
+def test_s1_wrappers_refuse_other_and_mixed_tile_dtypes(monkeypatch, diag,
+                                                        off, msg):
+    """Off the CPU, the S = 1 wrappers take int8 or float32 tiles, diag and
+    off_data alike: mixed int8/float32 tiles and float64 or float16 tiles
+    raise before anything is launched, through each wrapper and the
+    single-model mixture sweep."""
+    calls = {}
+    _stand_in_lib(monkeypatch, calls)
+    nb, B = 2, 128
+    ld = _retyped(_meta_ld(nb, B, 1), diag, off)
+    state, sb, nf, hyper, act, blk = _meta_s1_args(nb, B)
+    q = state.q
+    K = 2
+    zk = torch.zeros(1, K, nb, B, device='meta')
+    mix = MixState(zk, zk, q, q)
+    h = MixHyper(torch.ones(1, device='meta'),
+                 torch.ones(1, K, device='meta'),
+                 torch.ones(1, K, device='meta'),
+                 torch.zeros(1, device='meta'))
+    for call in (
+            lambda: cavi_cuda.block_sweep_s1(ld, state, sb, nf, hyper, act,
+                                             blk),
+            lambda: cavi_cuda.cavi_sweep_s1(ld, state, sb, nf, hyper, act),
+            lambda: cavi_cuda.coupling_pass_s1_inplace(ld, q, q, blk),
+            lambda: cavi_cuda.coupling_pass_s1(ld, q, q, blk),
+            lambda: cavi_cuda.block_sweep_mix(ld, mix, sb, nf, h, None, blk,
+                                              True, 'cavi_sweep_mix_s1')):
+        with pytest.raises(ValueError, match=msg):
+            call()
+    assert not calls
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_s1_float32_wrappers_never_take_the_plain_version_off_cpu(
+        monkeypatch, tmp_path):
+    """Float32 tiles that are not on the CPU go to the S = 1 kernels or
+    raise, as int8 tiles do: with the CUDA toolkit made unavailable, the
+    build raises for the block sweep, both coupling wrappers, K1, K2, and
+    the single-model mixture sweeps K5 and K6."""
+    from viprs_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (made unavailable by the test)")
+
+    monkeypatch.setattr(_build, '_nvcc', no_nvcc)
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path))
+    _build.build.cache_clear()
+    nb, B = 2, 128
+    ld = _meta_ld(nb, B, 1, np.float32)
+    state, sb, nf, hyper, act, blk = _meta_s1_args(nb, B)
+    q = state.q
+    K = 3
+    zk = torch.zeros(K, nb, B, device='meta')
+    one = MixState(zk, zk, q[0], q[0])
+    h1 = MixHyper(torch.ones((), device='meta'), torch.ones(K, device='meta'),
+                  torch.ones(K, device='meta'), torch.zeros((), device='meta'))
+    try:
+        for call in (
+                lambda: cavi_cuda.block_sweep_s1(ld, state, sb, nf, hyper,
+                                                 act, blk),
+                lambda: cavi_cuda.coupling_pass_s1(ld, q, q, blk),
+                lambda: cavi_cuda.coupling_pass_s1_inplace(ld, q, q, blk),
+                lambda: cavi_cuda.cavi_sweep_s1(ld, state, sb, nf, hyper,
+                                                act),
+                lambda: cavi_cuda.cavi_sweep_s1_skip(ld, state, sb, nf, hyper,
+                                                     act, blk),
+                lambda: cavi_cuda.cavi_sweep_mix_s1(ld, one, sb, nf, h1),
+                lambda: cavi_cuda.cavi_sweep_mix_s1_skip(ld, one, sb, nf, h1,
+                                                         blk)):
             with pytest.raises(RuntimeError, match='nvcc'):
                 call()
     finally:

@@ -2,7 +2,8 @@
 against the JAX package's Pallas kernels, on the same bytes.
 
 The problem is the one of tests/test_torch_cavi.py: five LD tiles of
-B = 128 with four coupling tiles. The mixture state (K components), the
+B = 128 with four coupling tiles, packed as int8 and as float32 (every test
+that takes it runs on both). The mixture state (K components), the
 per-lane hyperparameters and q = (R - I) eta are made with numpy and handed
 to both packages; the Pallas kernels run in interpret mode, as
 tests/test_pallas.py runs them. Each plain version is held to its own Pallas
@@ -32,7 +33,7 @@ from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
 from viprs_tpu.data.simulate import simulate_sumstats_blocks
 from viprs_tpu.ops.block_ld import pack_dense_blocks
 
-from test_torch_cavi import interpret, problem  # noqa: F401
+from test_torch_cavi import QUANTIZE, interpret, problem  # noqa: F401
 
 ATOL = {'gamma': 1e-5, 'mu': 1e-5, 'eta': 1e-5, 'q': 1e-4, 'eta_diff': 1e-5}
 
@@ -112,16 +113,17 @@ def test_plain_k5_matches_pallas(problem, interpret, K):
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
 
 
-@pytest.fixture(scope='module')
-def zero_block_problem():
-    """LD tiles of B = 256 (two (T, T) tiles a block) in which a third of
-    the 32 x 32 blocks off the diagonal are set to exact zeros,
-    symmetrically: zero blocks inside the (T, T) tiles and outside them,
-    the blocks that the kernels' rank-T updates skip (BlockLD.diag_nz)."""
+@pytest.fixture(scope='module', **QUANTIZE)
+def zero_block_problem(request):
+    """LD tiles of B = 256 (two (T, T) tiles a block), int8 or float32, in
+    which a third of the 32 x 32 blocks off the diagonal are set to exact
+    zeros, symmetrically: zero blocks inside the (T, T) tiles and outside
+    them, the blocks that the kernels' rank-T updates skip
+    (BlockLD.diag_nz)."""
     sim = simulate_sumstats_blocks(n=2000, block_sizes=(300, 150, 100, 60),
                                    h2=0.3, prop_causal=0.05, seed=5)
     jld, lay = pack_dense_blocks(sim['ld_blocks'], block_size=256,
-                                 quantize=True)
+                                 quantize=request.param)
     diag = np.array(jld.diag)
     nb, B, m = diag.shape[0], diag.shape[1], diag.shape[1] // 32
     for b in range(nb):
@@ -514,3 +516,47 @@ def test_block_sweep_mix_takes_the_inner_steps_probe_on_the_card_only(
     for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
         assert torch.equal(a, b)
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_single_model_mix_sweeps_launch_their_float32_instance(monkeypatch):
+    """Float32 LD tiles take the float32 instance of the single-model
+    mixture sweep (cavi_block_sweep_mix_s1_f32_launch) with scale 1.0 and
+    the float32 coupling pass, through K5 and K6, each counted under its
+    name with _f32 appended (a stand-in library records the launches; meta
+    tensors take the place of the card's)."""
+    from viprs_tpu_torch.ops import _build
+    calls = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(*args):
+                calls.setdefault(name, []).append(args)
+                return 0
+            return launch
+
+    monkeypatch.setattr(_build, 'build', lambda: (Lib(), {}))
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev: type('Stream', (), {'cuda_stream': 0}))
+    for name in cavi_cuda.LAUNCHES:
+        monkeypatch.setitem(cavi_cuda.LAUNCHES, name, 0)
+    nb, B, K = 2, 256, 3
+    ld = BlockLD.from_numpy(np.zeros((nb, B, B), np.float32),
+                            np.ones((1, B, B), np.float32), [0], [1],
+                            np.ones((nb, B), np.float32), 1.0, device='meta')
+    zk = torch.zeros(K, nb, B, device='meta')
+    z = torch.zeros(nb, B, device='meta')
+    one = MixState(zk, zk, z, z)
+    h1 = MixHyper(torch.ones((), device='meta'), torch.ones(K, device='meta'),
+                  torch.ones(K, device='meta'), torch.zeros((), device='meta'))
+    blk = torch.ones(nb, dtype=torch.int32, device='meta')
+    cavi_cuda.cavi_sweep_mix_s1(ld, one, z, z, h1)
+    cavi_cuda.cavi_sweep_mix_s1_skip(ld, one, z, z, h1, blk)
+    assert set(calls) == {'cavi_block_sweep_mix_s1_f32_launch',
+                          'coupling_pass_s1_f32_launch'}
+    # K, nb, B, scale, inner steps, unit diagonal
+    assert [a[16:-1] for a in calls['cavi_block_sweep_mix_s1_f32_launch']] \
+        == [(K, nb, B, 1.0, cavi_cuda.INNER_STEPS, 0),
+            (K, nb, B, 1.0, cavi_cuda.INNER_STEPS, 1)]
+    assert {k: v for k, v in cavi_cuda.LAUNCHES.items() if v} == {
+        'cavi_sweep_mix_s1_f32': 1, 'cavi_sweep_mix_s1_skip_f32': 1,
+        'coupling_pass_s1_f32': 2}

@@ -304,6 +304,53 @@ def test_lane_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
         _build.build.cache_clear()
 
 
+def test_lane_wrappers_refuse_float32_ld_up_front(monkeypatch):
+    """The S-lane kernels (K3/K4, K7/K8, coupling_pass_s) take int8 LD
+    until their float32 instances are ported: off the CPU, float32 tiles
+    raise a ValueError that names quantize=True before anything is built or
+    launched, through every lane wrapper and composition."""
+    from viprs_tpu_torch.ops import _build
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    calls = []
+
+    def no_build():
+        calls.append('build')
+        raise AssertionError("the lane wrappers built the kernels")
+
+    monkeypatch.setattr(_build, 'build', no_build)
+    nb, B, S, K = 2, 128, 3, 2
+    ld = BlockLD.from_numpy(np.zeros((nb, B, B), np.float32),
+                            np.ones((1, B, B), np.float32), [0], [1],
+                            np.ones((nb, B), np.float32), 1.0, device='meta')
+    z = torch.zeros(S, nb, B, device='meta')
+    state = CaviState(z, z, z, z)
+    hyper = Hyper(*(torch.ones(S, device='meta'),) * 4)
+    act = torch.ones(S, device='meta')
+    blk = torch.ones(nb, dtype=torch.int32, device='meta')
+    zk = torch.zeros(S, K, nb, B, device='meta')
+    mix = MixState(zk, zk, z, z)
+    mh = MixHyper(act, torch.ones(S, K, device='meta'),
+                  torch.ones(S, K, device='meta'), act)
+    for call in (
+            lambda: cavi_cuda.block_sweep_s(ld, state, z[0], z[0], hyper,
+                                            act, blk),
+            lambda: cavi_cuda.cavi_sweep_s(ld, state, z[0], z[0], hyper, act),
+            lambda: cavi_cuda.cavi_sweep_s_skip(ld, state, z[0], z[0], hyper,
+                                                act, blk),
+            lambda: cavi_cuda.coupling_pass_s_inplace(ld, z, z, blk),
+            lambda: cavi_cuda.coupling_pass_s(ld, z, z, blk),
+            lambda: cavi_cuda.block_sweep_mix(ld, mix, z[0], z[0], mh, act,
+                                              blk, False, 'cavi_sweep_mix_s'),
+            lambda: cavi_cuda.cavi_sweep_mix_s(ld, mix, z[0], z[0], mh, act),
+            lambda: cavi_cuda.cavi_sweep_mix_s_skip(ld, mix, z[0], z[0], mh,
+                                                    act, blk)):
+        with pytest.raises(ValueError, match='quantize=True') as err:
+            call()
+        assert 'float32 instances' in str(err.value)
+    assert not calls
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
 @pytest.mark.parametrize('bad', [None, 'shape', 'dtype', 'layout'])
 def test_block_sweep_s_checks_diag_nz_before_launching(monkeypatch, bad):
     """Off the CPU, block_sweep_s checks BlockLD.diag_nz (dtype, shape,

@@ -34,6 +34,7 @@ import textwrap
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from viprs_tpu.data.simulate import simulate_sumstats_blocks
 from viprs_tpu.gridsearch import HyperparameterGrid as JaxGrid
@@ -116,6 +117,22 @@ def test_mix_fit_matches_jax(datasets, ladder_trace, K, fit_kw):
     assert_mix_fits_match(jm, tm)
     assert tm.elbo() == pytest.approx(jm.elbo(), rel=1e-6)
     assert tm.mse() == pytest.approx(jm.mse(), rel=1e-5)
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
+def test_mix_fit_on_float32_ld_matches_jax(ladder_trace):
+    """VIPRSMix(K=3) on float32 LD (the JAX package's default packing,
+    which VIPRSMix fits on the card with the single-model kernels' float32
+    instances) against the JAX package's fit, at
+    test_mix_fit_matches_jax's K = 3 settings."""
+    jds, ds = both_datasets(simulate_sumstats_blocks(**SIM), quantize=False)
+    assert ds.ld.diag.dtype == torch.float32
+    jm, tm = fit_mix_both(jds, ds, model_kw=dict(K=3), max_iter=100,
+                          min_iter=6, f_abs_tol=4e-3)
+    assert_clear_of_thresholds(ladder_trace)
+    assert jm.optim_result.success and tm.K == 3
+    assert_mix_fits_match(jm, tm)
+    assert tm.elbo() == pytest.approx(jm.elbo(), rel=1e-6)
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
 
 

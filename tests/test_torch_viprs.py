@@ -39,13 +39,16 @@ from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def both_datasets(sim, scale=1.0, block_size=128):
+def both_datasets(sim, scale=1.0, block_size=128, quantize=True):
+    """Both packages' datasets of a simulation, int8 LD (float32 LD with
+    ``quantize=False``)."""
     sb = {c: scale * v for c, v in sim['std_beta'].items()}
     args = (sim['ld_blocks'], sb, sim['n_per_snp'])
     return (JaxDataset.from_dense_blocks(*args, block_size=block_size,
-                                         quantize=True),
+                                         quantize=quantize),
             SummaryStatsDataset.from_dense_blocks(
-                *args, block_size=block_size, quantize=True, device='cpu'))
+                *args, block_size=block_size, quantize=quantize,
+                device='cpu'))
 
 
 def flat(d, chroms):
@@ -423,11 +426,27 @@ def test_fit_with_coupling_tiles_matches_jax(ladder_trace):
     every sweep); min_iter 29 and f_abs_tol 6e-5 stop it on the ELBO
     clear of every threshold (its max|d eta| shrinks by ~1.3x an
     iteration, too slowly for a clear stop on it)."""
+    _coupled_fit_matches_jax(ladder_trace, True,
+                             dict(max_iter=200, min_iter=29, f_abs_tol=6e-5))
+
+
+def test_fit_on_float32_ld_matches_jax(ladder_trace):
+    """test_fit_with_coupling_tiles_matches_jax on float32 LD (the JAX
+    package's default packing; quantize=False). From iteration ~12 on the
+    two packages' ELBO changes differ by up to ~2e-4 (float32 statistics
+    summed in another order), which straddles the int8 fit's f_abs_tol;
+    f_abs_tol 2e-3 from min_iter 11 stops both on the ELBO, clear of every
+    threshold on both sides."""
+    _coupled_fit_matches_jax(ladder_trace, False,
+                             dict(max_iter=200, min_iter=11, f_abs_tol=2e-3))
+
+
+def _coupled_fit_matches_jax(ladder_trace, quantize, fit_kw):
     sim = simulate_sumstats_blocks(n=3000, block_sizes=(300, 150, 100, 60),
                                    h2=0.4, prop_causal=0.05, seed=9)
-    jds, ds = both_datasets(sim)
+    jds, ds = both_datasets(sim, quantize=quantize)
     assert ds.ld.n_off > 0
-    fit_kw = dict(max_iter=200, min_iter=29, f_abs_tol=6e-5)
+    assert ds.ld.diag.dtype == (torch.int8 if quantize else torch.float32)
     np.random.seed(3)
     jm = JaxVIPRS(jds, mesh='off').fit(**fit_kw)
     assert_clear_of_thresholds(ladder_trace)
@@ -492,10 +511,27 @@ def test_hybrid_rule_matches_jax_em_fit(interpret, hybrid_eps, ladder_trace):
     eps (x_abs_tol = 1e-6) one block of this problem ends within rounding of
     the gate, so the two packages may pick different branches there; the
     epsilons here keep every decision of the run clear of it."""
+    _hybrid_fit_matches_jax(hybrid_eps, ladder_trace, quantize=True)
+
+
+def test_hybrid_rule_on_float32_ld_matches_jax_em_fit(interpret,
+                                                      ladder_trace):
+    """test_hybrid_rule_matches_jax_em_fit on float32 LD (the JAX package's
+    default packing, which VIPRS fits on the card with the kernels'
+    float32 instances): the same active-block counts, iterations, status
+    and ELBO history as em_fit(use_hybrid=True), both branches taken. At
+    eps 1e-5 a block of the float32 run ends within rounding of the gate
+    (as at the default eps on int8 LD); 2e-5, 3e-5 and 5e-5 keep every
+    decision clear of it."""
+    _hybrid_fit_matches_jax(3e-5, ladder_trace, quantize=False)
+
+
+def _hybrid_fit_matches_jax(hybrid_eps, ladder_trace, quantize):
     sim = simulate_sumstats_blocks(
         n=3000, block_sizes=(300, 120, 110, 100, 90, 80, 120, 70, 100, 60),
         h2=0.4, prop_causal=0.03, seed=2)
-    jds, ds = both_datasets(sim)
+    jds, ds = both_datasets(sim, quantize=quantize)
+    assert ds.ld.diag.dtype == (torch.int8 if quantize else torch.float32)
     jld = jds.ld
     nb = jld.nb
     sb, nf = ds.device_inputs()
@@ -560,7 +596,10 @@ def test_import_without_jax_and_cpu_never_launches(tmp_path):
         assert set(cavi_cuda.LAUNCHES) == {
             'cavi_block_sweep_s1', 'coupling_pass_s1', 'cavi_block_sweep_s',
             'coupling_pass_s', 'cavi_sweep_mix_s1', 'cavi_sweep_mix_s1_skip',
-            'cavi_sweep_mix_s', 'cavi_sweep_mix_s_skip'}, cavi_cuda.LAUNCHES
+            'cavi_sweep_mix_s', 'cavi_sweep_mix_s_skip',
+            'cavi_block_sweep_s1_f32', 'coupling_pass_s1_f32',
+            'cavi_sweep_mix_s1_f32', 'cavi_sweep_mix_s1_skip_f32'
+            }, cavi_cuda.LAUNCHES
         assert not any(cavi_cuda.LAUNCHES.values()), cavi_cuda.LAUNCHES
         assert 'jax' not in sys.modules and 'triton' not in sys.modules
         print('ok')

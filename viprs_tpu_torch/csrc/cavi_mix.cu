@@ -71,11 +71,17 @@
 // deterministic. Transcendentals are the exact expf/logf/log1pf (no fast
 // math). There is no keep gate (the mixture kernels have none).
 //
+// cavi_block_sweep_mix_s1 is templated on the LD tile's element type as
+// well: its float32 instances (float LD, scale 1.0) load each tile column
+// from global memory and read the flagged outer blocks there
+// (s1_tile.cuh; cavi_s1.cu says why), with the int8 instances' expressions.
+//
 // Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a; no instance
 // spills). cavi_block_sweep_mix_s1: 164 / 167 / 167 registers a thread at
 // K = 1 / 2 / 3 (launch bounds of 3 CTAs of 4 warps per SM; 68.6 KiB of
 // shared memory at K = 3, B = 1024), 224 / 224 / 228 / 236 / 238 at
-// K = 4..8 (2 CTAs). Measured on an H100 80GB HBM3 at 700 W (PERF.md;
+// K = 4..8 (2 CTAs); its float instances 164 / 166 / 168 and 189 / 194 /
+// 199 / 206 / 209 (20.6 KiB at K = 3). Measured on an H100 80GB HBM3 at 700 W (PERF.md;
 // chip_smoke.py M5, CUDA-graph replays): 0.34 ms a sweep at K = 3 over the
 // genome's 1133 blocks, coupling pass not included (the earlier kernel:
 // 1.96 ms), 0.13 ms at every 20th block. cavi_block_sweep_mix_s: at K = 1 / 2 / 3, 128 / 137 / 137
@@ -110,19 +116,22 @@ __host__ __device__ constexpr int s1_inputs(int K) { return 4 + 2 * K; }
 // thread's softmax constants vt_k, mm_k, log vt_k (3K rows of T), the
 // softmax's constant per component and tau_beta (2K of 16 slots), two
 // buffers of a tile's per-coordinate inputs (s1_inputs(K) rows of T), then
-// s1_tile_smem(B) (s1_tile.cuh).
+// s1_tile_smem<E>(B) (s1_tile.cuh).
+template <class E>
 __host__ __device__ constexpr size_t s1_smem(int K, int B) {
     return (static_cast<size_t>(B) + 2 * T + 3 * K * T + 16
             + 2 * s1_inputs(K) * T) * sizeof(float)
-        + s1_tile_smem(B);
+        + s1_tile_smem<E>(B);
 }
 
 // One CTA of T threads per LD block b of the single model. gamma/mu are
-// (K, NB, B), eta/q (NB, B), diag_nz (NB, B/32, B/32) uint8. An unflagged
-// block is copied through bit-exactly with a zero eta change. Otherwise,
-// per tile of T coordinates (the next tile's int8 bytes and inputs on their
-// way by cp.async meanwhile): thread j converts column j of the tile (its
-// coordinate's R row, symmetric or not) into T registers and takes
+// (K, NB, B), eta/q (NB, B), diag_nz (NB, B/32, B/32) uint8, diag
+// (NB, B, B) of E (int8 or float). An unflagged block is copied through
+// bit-exactly with a zero eta change. Otherwise, per tile of T coordinates
+// (the next tile's inputs, and for int8 its bytes, on their way by
+// cp.async meanwhile): thread j loads column j of the tile (its
+// coordinate's R row, symmetric or not) into T registers (int8: converted
+// from the staged tile; float: from global memory) and takes
 // inner_steps steps, each the K+1-way softmax (max seeded by log_null_pi,
 // the null term added last), the |R| column product for the relaxation
 // weight, the gamma/mu update, eta, and the R column product for the
@@ -130,16 +139,16 @@ __host__ __device__ constexpr size_t s1_smem(int K, int B) {
 // rows, :] of the block's q in shared memory: the tile's own columns by a
 // third column product from the registers, the columns outside the tile
 // over the 32 x 32 blocks diag_nz flags only (a warp per 32-column chunk,
-// a thread per column; the blocks staged by cp.async while the inner steps
-// run). unit_diag: the relaxation's diagonal term is the variant mask
+// a thread per column; int8 blocks staged by cp.async while the inner
+// steps run, float blocks read from global memory). unit_diag: the relaxation's diagonal term is the variant mask
 // (_mix_skip_kernel) instead of |R_jj| * scale (_mix_sweep_kernel). Every
 // output is the earlier kernel's fmaf chain with its expressions in its
 // order: rows or blocks left out of a chain add exact zeros (for finite d).
 // Three CTAs an SM (at most 168 registers a thread) hold the column and
 // K <= 3's state without spilling; larger K take two.
-template <int K>
+template <int K, class E>
 __global__ void __launch_bounds__(S1_THREADS, K <= 3 ? 3 : 2)
-cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
+cavi_block_sweep_mix_s1(const E* __restrict__ diag,
                         const uint8_t* __restrict__ diag_nz,
                         const float* __restrict__ beta,
                         const float* __restrict__ nn,
@@ -167,10 +176,14 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
     float* lv_s = mm_s + K * T;                     // (K, T)
     float* hyp = lv_s + K * T;                      // base_k, tau_k
     float* in_s = hyp + 16;                         // 2 (NI, T)
-    int8_t* R8 = reinterpret_cast<int8_t*>(in_s + 2 * NI * T);  // 2 (T, T)
-    int8_t* out_s = R8 + 2 * T * T;   // (S1_WARPS, OUT_SLOTS, NZ, NZ)
-    unsigned char* nz = reinterpret_cast<unsigned char*>(
-        out_s + S1_WARPS * OUT_SLOTS * NZ * NZ);
+    // int8 tiles: 2 (T, T) tiles, (S1_WARPS, OUT_SLOTS, NZ, NZ) staged
+    // blocks; then the flags
+    int8_t* R8 = reinterpret_cast<int8_t*>(in_s + 2 * NI * T);
+    int8_t* out_s = R8 + 2 * T * T;
+    unsigned char* nz = kInt8<E>
+        ? reinterpret_cast<unsigned char*>(
+              out_s + S1_WARPS * OUT_SLOTS * NZ * NZ)
+        : reinterpret_cast<unsigned char*>(R8);
 
     const int b = blockIdx.x;
     const int j = threadIdx.x;
@@ -195,7 +208,7 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
         return;
     }
 
-    const int8_t* D = diag + static_cast<size_t>(b) * B * B;
+    const E* D = diag + static_cast<size_t>(b) * B * B;
     const int nb32 = B / NZ, nt = B / T;
     // input row r of a tile: n, beta, mask, eta, gamma_k, mu_k
     auto src = [&](int row) {
@@ -240,8 +253,7 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
         const int8_t* Rt = R8 + (t & 1) * T * T;
         const float* in_t = in_s + (t & 1) * NI * T;
         float r[T];   // column j of the tile
-#pragma unroll
-        for (int k = 0; k < T; ++k) r[k] = i8_to_f32(Rt[k * T + j]);
+        load_column(r, Rt, D, B, t0, j);
 
         const size_t jj = off + t0 + j;
         const float n_j = in_t[j];
@@ -259,8 +271,8 @@ cavi_block_sweep_mix_s1(const int8_t* __restrict__ diag,
             g[k] = in_t[(4 + k) * T + j];
             m[k] = in_t[(4 + K + k) * T + j];
         }
-        const float rdiag = unit_diag ? mask_j
-                                      : fabsf(i8_to_f32(Rt[j * T + j])) * scale;
+        const float rdiag = unit_diag
+            ? mask_j : fabsf(diag_value(Rt, D, B, t0, j)) * scale;
         const float eta0 = in_t[3 * T + j];
         float eta_cur = eta0;
         float q_cur = q_s[t0 + j];
@@ -663,7 +675,7 @@ bool bad_shape(int S, int K, int nb, int B) {
 }
 
 struct Args {
-    const int8_t* diag;
+    const void* diag;   // int8_t for every kernel; float for S1F
     const uint8_t* diag_nz;
     const float *beta, *nn, *mask, *gamma_in, *mu_in, *eta_in, *q_in;
     float *gamma_out, *mu_out, *eta_out, *q_out, *eta_diff;
@@ -675,14 +687,14 @@ struct Args {
     cudaStream_t stream;
 };
 
-template <int K>
+template <int K, class E>
 cudaError_t launch_s1(const Args& a) {
-    const size_t smem = s1_smem(K, a.B);
+    const size_t smem = s1_smem<E>(K, a.B);
     cudaError_t err = set_smem(
-        reinterpret_cast<const void*>(cavi_block_sweep_mix_s1<K>), smem);
+        reinterpret_cast<const void*>(cavi_block_sweep_mix_s1<K, E>), smem);
     if (err != cudaSuccess) return err;
-    cavi_block_sweep_mix_s1<K><<<a.nb, S1_THREADS, smem, a.stream>>>(
-        a.diag, a.diag_nz, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in,
+    cavi_block_sweep_mix_s1<K, E><<<a.nb, S1_THREADS, smem, a.stream>>>(
+        static_cast<const E*>(a.diag), a.diag_nz, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in,
         a.eta_in, a.q_in, a.gamma_out, a.mu_out, a.eta_out, a.q_out,
         a.eta_diff, a.blk_mask, a.hyper, a.nb, a.B, a.scale, a.inner_steps,
         a.unit_diag);
@@ -701,8 +713,8 @@ cudaError_t launch_s(const Args& a) {
     if (err != cudaSuccess) return err;
     const dim3 grid((a.S + L - 1) / L, a.nb);
     cavi_block_sweep_mix_s<K, LT, E><<<grid, NT, smem, a.stream>>>(
-        a.diag, a.diag_nz, a.beta, a.nn, a.mask, a.gamma_in, a.mu_in,
-        a.eta_in, a.q_in, a.gamma_out, a.mu_out, a.eta_out, a.q_out,
+        static_cast<const int8_t*>(a.diag), a.diag_nz, a.beta, a.nn, a.mask,
+        a.gamma_in, a.mu_in, a.eta_in, a.q_in, a.gamma_out, a.mu_out, a.eta_out, a.q_out,
         a.eta_diff, a.blk_mask, a.hyper, a.S, a.nb, a.B, a.scale,
         a.inner_steps, a.unit_diag);
     return cudaGetLastError();
@@ -724,7 +736,8 @@ cudaError_t by_k(int K, const Args& a) {
     }
 }
 
-template <int K> struct S1 { static cudaError_t run(const Args& a) { return launch_s1<K>(a); } };
+template <int K> struct S1 { static cudaError_t run(const Args& a) { return launch_s1<K, int8_t>(a); } };
+template <int K> struct S1F { static cudaError_t run(const Args& a) { return launch_s1<K, float>(a); } };
 // the instances of cavi_block_sweep_mix_s: 4 lanes for every K, 8 and 20
 // up to MAX_K_L8 / MAX_K_L20 (cavi_cuda.mix_sweep_lane_tile)
 template <int K> struct SL {
@@ -747,7 +760,7 @@ Args make_args(const void* diag, const void* diag_nz, const void* beta,
                void* eta_diff, const void* blk_mask, const void* hyper, int S,
                int nb, int B, float scale, int inner_steps, int unit_diag,
                int L, void* stream) {
-    return Args{static_cast<const int8_t*>(diag),
+    return Args{diag,
                 static_cast<const uint8_t*>(diag_nz),
                 static_cast<const float*>(beta),
                 static_cast<const float*>(nn), static_cast<const float*>(mask),
@@ -766,7 +779,8 @@ extern "C" {
 
 // Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
 // success); it never synchronizes. B must be a positive multiple of T and
-// 1 <= K <= 8.
+// 1 <= K <= 8. cavi_block_sweep_mix_s1 on int8 tiles (_launch) or float32
+// tiles (_f32_launch).
 int cavi_block_sweep_mix_s1_launch(const void* diag, const void* diag_nz,
                                    const void* beta, const void* nn,
                                    const void* mask, const void* gamma_in,
@@ -781,6 +795,26 @@ int cavi_block_sweep_mix_s1_launch(const void* diag, const void* diag_nz,
         return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0) return static_cast<int>(cudaGetLastError());
     return static_cast<int>(by_k<S1>(K, make_args(
+        diag, diag_nz, beta, nn, mask, gamma_in, mu_in, eta_in, q_in,
+        gamma_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, 1, nb, B,
+        scale, inner_steps, unit_diag, 1, stream)));
+}
+
+int cavi_block_sweep_mix_s1_f32_launch(const void* diag, const void* diag_nz,
+                                       const void* beta, const void* nn,
+                                       const void* mask, const void* gamma_in,
+                                       const void* mu_in, const void* eta_in,
+                                       const void* q_in, void* gamma_out,
+                                       void* mu_out, void* eta_out,
+                                       void* q_out, void* eta_diff,
+                                       const void* blk_mask,
+                                       const void* hyper, int K, int nb,
+                                       int B, float scale, int inner_steps,
+                                       int unit_diag, void* stream) {
+    if (bad_shape(1, K, nb, B) || inner_steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (nb == 0) return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(by_k<S1F>(K, make_args(
         diag, diag_nz, beta, nn, mask, gamma_in, mu_in, eta_in, q_in,
         gamma_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, 1, nb, B,
         scale, inner_steps, unit_diag, 1, stream)));

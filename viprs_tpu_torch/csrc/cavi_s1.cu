@@ -32,9 +32,28 @@
 // chain, and rows or blocks left out of a chain add exact zeros (for
 // finite eta changes).
 //
+// Float32 (dequantized) LD: both kernels are templated on the tile's
+// element type, and their float instances (E = float; the packers' scale
+// 1.0, so acc * scale is exact) run the int8 instances' expressions. A
+// float (T, T) tile is 64 KB: the int8 layout stored as float32 would need
+// ~209 KB of shared memory, one CTA an SM, too few bytes in flight. So a
+// float tile is not staged: thread j loads column j straight from global
+// memory into its registers (a warp's 32 loads of one row are one 128-byte
+// line), and the rank-T update reads every flagged outer block from global
+// memory. Float LD does not round small correlations to zero: on the genome
+// packed as float32, 458,113 of the 1,160,192 diagonal 32 x 32 blocks are
+// nonzero, so the sweep needs 1.9 GB, 0.58 ms at 3.35 TB/s (every tile
+// dense 1.44 ms); its inner steps are the int8 kernel's chains. The float
+// coupling pass reads a source-orientation row with a whole warp (float4
+// loads of the row's flagged blocks, a butterfly of shuffles), each lane's
+// elements fixed by block index so that a skipped zero block changes no
+// bit; the destination orientation is the int8 one, a coalesced column a
+// thread.
+//
 // Registers and occupancy (nvcc 12.9 -Xptxas -v, sm_90a): launch bounds of
-// 3 CTAs of 4 warps per SM (at most 168 registers a thread); 61.5 KiB of
-// shared memory at B = 1024.
+// 3 CTAs of 4 warps per SM (at most 168 registers a thread). int8: 167
+// registers, 61.5 KiB of shared memory at B = 1024; float: 164 registers,
+// 13.5 KiB. coupling_pass_s1: 72 registers (int8), 48 (float). No spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,30 +80,37 @@ enum { K_VT, K_MM, K_LOGVT, N_CONST };
 // Shared memory of a cavi_block_sweep_s1 CTA, in this order: the block's q
 // (B floats), the lane vectors c / d_t and d (T each), the per-coordinate
 // constants (N_CONST rows of T), two buffers of a tile's inputs (N_IN rows
-// of T), then s1_tile_smem(B) (s1_tile.cuh).
+// of T), then s1_tile_smem<E>(B) (s1_tile.cuh): 61.5 KiB for int8 tiles at
+// B = 1024, 13.5 KiB for float tiles.
+template <class E>
 size_t sweep_smem(int B) {
     return (static_cast<size_t>(B) + 2 * T + N_CONST * T + 2 * N_IN * T)
-        * sizeof(float) + s1_tile_smem(B);
+        * sizeof(float) + s1_tile_smem<E>(B);
 }
 
 // One CTA of T threads per LD block b; state planes (NB, B), diag_nz
-// (NB, B/32, B/32) uint8. A block with blk_mask[b] == 0 is copied through
-// bit-exactly with a zero eta change. Otherwise, per tile of T coordinates
-// (the next tile's int8 bytes and inputs on their way by cp.async
-// meanwhile): thread j converts column j of the tile (its coordinate's R
-// row, symmetric or not) into T registers and takes inner_steps
+// (NB, B/32, B/32) uint8, diag (NB, B, B) of E (int8 or float). A block
+// with blk_mask[b] == 0 is copied through bit-exactly with a zero eta
+// change. Otherwise, per tile of T coordinates (the next tile's inputs,
+// and for int8 its bytes, on their way by cp.async meanwhile): thread j
+// loads column j of the tile (its coordinate's R row, symmetric or not)
+// into T registers (int8: converted from the staged tile; float: from
+// global memory) and takes inner_steps
 // gamma-weighted under-relaxed Jacobi steps from a tile-locally refreshed q,
 // each the |R| column product for the relaxation weight and the R column
 // product for the refresh; the keep gate drops |d_eta| < 1e-8; then the
 // rank-T update q[:] += scale * d_t^T R[tile rows, :] of the block's q in
 // shared memory: the tile's own columns by a third column product from the
 // registers, the columns outside the tile over the 32 x 32 blocks diag_nz
-// flags only (a warp per 32-column chunk, a thread per column; the blocks
-// staged by cp.async while the inner steps run).
+// flags only (a warp per 32-column chunk, a thread per column; int8 blocks
+// staged by cp.async while the inner steps run, float blocks read from
+// global memory). Float tiles run the same expressions: their scale is 1.0,
+// and acc * 1.0f is exact.
 //
 // hyper: [sigma_eps, tau_beta, pi, active, lambda_min] float32 on the device.
+template <class E>
 __global__ void __launch_bounds__(S1_THREADS, 3)
-cavi_block_sweep_s1(const int8_t* __restrict__ diag,
+cavi_block_sweep_s1(const E* __restrict__ diag,
                     const uint8_t* __restrict__ diag_nz,
                     const float* __restrict__ beta,
                     const float* __restrict__ nn,
@@ -107,10 +133,14 @@ cavi_block_sweep_s1(const int8_t* __restrict__ diag,
     float* vd = vc + T;                             // (T,) d
     float* k_s = vd + T;                            // (N_CONST, T)
     float* in_s = k_s + N_CONST * T;                // 2 (N_IN, T)
-    int8_t* R8 = reinterpret_cast<int8_t*>(in_s + 2 * N_IN * T);  // 2 (T, T)
-    int8_t* out_s = R8 + 2 * T * T;   // (S1_WARPS, OUT_SLOTS, NZ, NZ)
-    unsigned char* nz = reinterpret_cast<unsigned char*>(
-        out_s + S1_WARPS * OUT_SLOTS * NZ * NZ);
+    // int8 tiles: 2 (T, T) tiles, (S1_WARPS, OUT_SLOTS, NZ, NZ) staged
+    // blocks; then the flags
+    int8_t* R8 = reinterpret_cast<int8_t*>(in_s + 2 * N_IN * T);
+    int8_t* out_s = R8 + 2 * T * T;
+    unsigned char* nz = kInt8<E>
+        ? reinterpret_cast<unsigned char*>(
+              out_s + S1_WARPS * OUT_SLOTS * NZ * NZ)
+        : reinterpret_cast<unsigned char*>(R8);
 
     const int b = blockIdx.x;
     const int j = threadIdx.x;
@@ -131,7 +161,7 @@ cavi_block_sweep_s1(const int8_t* __restrict__ diag,
         return;
     }
 
-    const int8_t* D = diag + static_cast<size_t>(b) * B * B;
+    const E* D = diag + static_cast<size_t>(b) * B * B;
     const int nb32 = B / NZ, nt = B / T;
     auto src = [&](int row) {
         return row == IN_N ? nn : row == IN_BETA ? beta
@@ -172,8 +202,7 @@ cavi_block_sweep_s1(const int8_t* __restrict__ diag,
         const int8_t* Rt = R8 + (t & 1) * T * T;
         const float* in_t = in_s + (t & 1) * N_IN * T;
         float r[T];   // column j of the tile
-#pragma unroll
-        for (int k = 0; k < T; ++k) r[k] = i8_to_f32(Rt[k * T + j]);
+        load_column(r, Rt, D, B, t0, j);
 
         const size_t jj = off + t0 + j;
         const float n_j = in_t[IN_N * T + j];
@@ -185,7 +214,7 @@ cavi_block_sweep_s1(const int8_t* __restrict__ diag,
             k_s[K_MM * T + j] = n_j / (vt * sig_e);
             k_s[K_LOGVT * T + j] = logf(vt);
         }
-        const float rdiag = fabsf(i8_to_f32(Rt[j * T + j])) * scale;
+        const float rdiag = fabsf(diag_value(Rt, D, B, t0, j)) * scale;
         const float eta0 = in_t[IN_ETA * T + j];
         float q_cur = q_s[t0 + j];
         float g_cur = sigmoid(in_t[IN_LOGIT * T + j]);
@@ -330,10 +359,53 @@ __device__ __forceinline__ float row_sum(const int8_t* U, const uint8_t* f,
     return ((s[0] + s[4]) + (s[2] + s[6])) + ((s[1] + s[5]) + (s[3] + s[7]));
 }
 
+// The source orientation on float tiles, for warp w's 32 rows of U
+// (32-block x; lane l owns row 32 x + l): a row at a time, the warp reads
+// the row's flagged blocks as float4 (lane 8 g + e: float4 e of each block
+// cb = g (mod 4), ascending; four blocks, 512 contiguous bytes, a step),
+// one fmaf chain a lane, and a butterfly of __shfl_xor_sync adds the 32
+// partials (every lane gets the same bits); the row's owner keeps its sum.
+// Which lane sums which element does not depend on the flags, so a skipped
+// zero block changes no bit.
+__device__ __forceinline__ float row_sums_f32(const float* U,
+                                             const uint8_t* f,
+                                             const float* v, int x, int nb32,
+                                             int lane, int B) {
+    const int g = lane / 8, e = lane % 8;
+    float mine = 0.0f;
+    for (int r = 0; r < NZ; ++r) {
+        const float* row = U + static_cast<size_t>(NZ * x + r) * B;
+        float p = 0.0f;
+        for (int cw = 0; cw < nb32; cw += 32) {
+            const int cb = cw + lane;
+            const unsigned m = __ballot_sync(
+                0xffffffffu, cb < nb32 && f[x * nb32 + cb] != 0);
+            for (int t = 0; t < 8; ++t) {
+                if (!((m >> (4 * t + g)) & 1u)) continue;
+                const int c = NZ * (cw + 4 * t + g) + 4 * e;
+                const float4 u = __ldg(reinterpret_cast<const float4*>(
+                    row + c));
+                const float4 d = __ldg(reinterpret_cast<const float4*>(
+                    v + c));
+                p = fmaf(u.x, d.x, p);
+                p = fmaf(u.y, d.y, p);
+                p = fmaf(u.z, d.z, p);
+                p = fmaf(u.w, d.w, p);
+            }
+        }
+#pragma unroll
+        for (int o = 16; o; o >>= 1)
+            p += __shfl_xor_sync(0xffffffffu, p, o);
+        if (lane == r) mine = p;
+    }
+    return mine;
+}
+
 // The destination orientation for the thread's column c of U (32-block x):
 // sum over i, ascending, of v[i] U[i, c] over the flagged blocks, rows with
 // v[i] == 0 skipped.
-__device__ __forceinline__ float column_sum(const int8_t* U, const uint8_t* f,
+template <class E>
+__device__ __forceinline__ float column_sum(const E* U, const uint8_t* f,
                                            const float* v, int c, int x,
                                            int nb32, int lane, int B) {
     float a = 0.0f;
@@ -343,23 +415,24 @@ __device__ __forceinline__ float column_sum(const int8_t* U, const uint8_t* f,
             0xffffffffu, rb < nb32 && f[rb * nb32 + x] != 0);
         for (; m; m &= m - 1) {
             const int i0 = NZ * (rw + __ffs(m) - 1);
-            const int8_t* col = U + static_cast<size_t>(i0) * B + c;
-            int raw[NZ];
+            const E* col = U + static_cast<size_t>(i0) * B + c;
+            TileWord<E> raw[NZ];
 #pragma unroll
             for (int i = 0; i < NZ; ++i)
                 raw[i] = __ldg(col + static_cast<size_t>(i) * B);
 #pragma unroll
             for (int i = 0; i < NZ; ++i) {
                 const float vi = __ldg(v + i0 + i);
-                if (vi != 0.0f) a = fmaf(vi, i8_to_f32(raw[i]), a);
+                if (vi != 0.0f) a = fmaf(vi, to_f32(raw[i]), a);
             }
         }
     }
     return a;
 }
 
+template <class E>
 __global__ void __launch_bounds__(SLAB)
-coupling_pass_s1(const int8_t* __restrict__ off,
+coupling_pass_s1(const E* __restrict__ off,
                  const int* __restrict__ off_src,
                  const int* __restrict__ off_dst,
                  const int* __restrict__ inc_ptr,
@@ -381,13 +454,21 @@ coupling_pass_s1(const int8_t* __restrict__ off,
         const int o = inc_tile[p];
         const int s = off_src[o], d = off_dst[o];
         if (!blk_mask[s] && !blk_mask[d]) continue;
-        const int8_t* U = off + static_cast<size_t>(o) * B * B;
+        const E* U = off + static_cast<size_t>(o) * B * B;
         const uint8_t* f = off_nz + static_cast<size_t>(o) * nb32 * nb32;
-        const float acc = s == b
-            ? row_sum(U, f, diff + static_cast<size_t>(d) * B, c, x, nb32,
-                      lane, B)
-            : column_sum(U, f, diff + static_cast<size_t>(s) * B, c, x,
-                         nb32, lane, B);
+        float acc;
+        if constexpr (kInt8<E>)
+            acc = s == b
+                ? row_sum(U, f, diff + static_cast<size_t>(d) * B, c, x,
+                          nb32, lane, B)
+                : column_sum(U, f, diff + static_cast<size_t>(s) * B, c, x,
+                             nb32, lane, B);
+        else   // s == b is the same for the whole CTA: the warps stay whole
+            acc = s == b
+                ? row_sums_f32(U, f, diff + static_cast<size_t>(d) * B, x,
+                               nb32, lane, B)
+                : column_sum(U, f, diff + static_cast<size_t>(s) * B, c, x,
+                             nb32, lane, B);
         qv += acc * scale;
         touched = true;
     }
@@ -400,32 +481,24 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                                 static_cast<int>(bytes));
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
-// success); it never synchronizes. B must be a positive multiple of T.
-// cavi_block_sweep_s1 over the nb blocks; the state tensors, beta, n, mask
-// and diag_nz must be 16-byte aligned.
-int cavi_block_sweep_s1_launch(const void* diag, const void* diag_nz,
-                               const void* beta, const void* nn,
-                               const void* mask, const void* logits_in,
-                               const void* mu_in, const void* eta_in,
-                               const void* q_in, void* logits_out,
-                               void* mu_out, void* eta_out, void* q_out,
-                               void* eta_diff, const void* blk_mask,
-                               const void* hyper, int nb, int B, float scale,
-                               int inner_steps, void* stream) {
+template <class E>
+int launch_sweep_s1(const void* diag, const void* diag_nz, const void* beta,
+                    const void* nn, const void* mask, const void* logits_in,
+                    const void* mu_in, const void* eta_in, const void* q_in,
+                    void* logits_out, void* mu_out, void* eta_out,
+                    void* q_out, void* eta_diff, const void* blk_mask,
+                    const void* hyper, int nb, int B, float scale,
+                    int inner_steps, void* stream) {
     if (nb < 0 || B <= 0 || B % T != 0 || inner_steps < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0) return static_cast<int>(cudaGetLastError());
-    const size_t smem = sweep_smem(B);
-    cudaError_t err = set_smem(reinterpret_cast<const void*>(cavi_block_sweep_s1), smem);
+    const size_t smem = sweep_smem<E>(B);
+    cudaError_t err = set_smem(
+        reinterpret_cast<const void*>(cavi_block_sweep_s1<E>), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cavi_block_sweep_s1<<<nb, S1_THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(diag), static_cast<const uint8_t*>(diag_nz),
+    cavi_block_sweep_s1<E><<<nb, S1_THREADS, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(diag), static_cast<const uint8_t*>(diag_nz),
         static_cast<const float*>(beta), static_cast<const float*>(nn),
         static_cast<const float*>(mask), static_cast<const float*>(logits_in),
         static_cast<const float*>(mu_in), static_cast<const float*>(eta_in),
@@ -437,25 +510,92 @@ int cavi_block_sweep_s1_launch(const void* diag, const void* diag_nz,
     return static_cast<int>(cudaGetLastError());
 }
 
-// coupling_pass_s1 in place on q for the (block, slab) entries
-// slabs[0 .. n_slabs). off and eta_diff must be 16-byte aligned.
-int coupling_pass_s1_launch(const void* off, const void* off_src,
-                            const void* off_dst, const void* inc_ptr,
-                            const void* inc_tile, const void* blk_mask,
-                            const void* off_nz, const void* slabs,
-                            const void* eta_diff, void* q, int n_slabs,
-                            int nb, int B, float scale, void* stream) {
+template <class E>
+int launch_coupling_s1(const void* off, const void* off_src,
+                       const void* off_dst, const void* inc_ptr,
+                       const void* inc_tile, const void* blk_mask,
+                       const void* off_nz, const void* slabs,
+                       const void* eta_diff, void* q, int n_slabs, int nb,
+                       int B, float scale, void* stream) {
     if (nb < 0 || n_slabs < 0 || B <= 0 || B % SLAB != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_slabs == 0) return static_cast<int>(cudaGetLastError());
-    coupling_pass_s1<<<n_slabs, SLAB, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(off), static_cast<const int*>(off_src),
+    coupling_pass_s1<E><<<n_slabs, SLAB, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const E*>(off), static_cast<const int*>(off_src),
         static_cast<const int*>(off_dst), static_cast<const int*>(inc_ptr),
         static_cast<const int*>(inc_tile), static_cast<const int*>(blk_mask),
         static_cast<const uint8_t*>(off_nz), static_cast<const int*>(slabs),
         static_cast<const float*>(eta_diff), static_cast<float*>(q), B,
         scale);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
+// success); it never synchronizes. B must be a positive multiple of T.
+// cavi_block_sweep_s1 over the nb blocks of int8 tiles (_launch) or float32
+// tiles (_f32_launch); the state tensors, beta, n, mask and diag_nz must be
+// 16-byte aligned.
+int cavi_block_sweep_s1_launch(const void* diag, const void* diag_nz,
+                               const void* beta, const void* nn,
+                               const void* mask, const void* logits_in,
+                               const void* mu_in, const void* eta_in,
+                               const void* q_in, void* logits_out,
+                               void* mu_out, void* eta_out, void* q_out,
+                               void* eta_diff, const void* blk_mask,
+                               const void* hyper, int nb, int B, float scale,
+                               int inner_steps, void* stream) {
+    return launch_sweep_s1<int8_t>(
+        diag, diag_nz, beta, nn, mask, logits_in, mu_in, eta_in, q_in,
+        logits_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, nb, B,
+        scale, inner_steps, stream);
+}
+
+int cavi_block_sweep_s1_f32_launch(const void* diag, const void* diag_nz,
+                                   const void* beta, const void* nn,
+                                   const void* mask, const void* logits_in,
+                                   const void* mu_in, const void* eta_in,
+                                   const void* q_in, void* logits_out,
+                                   void* mu_out, void* eta_out, void* q_out,
+                                   void* eta_diff, const void* blk_mask,
+                                   const void* hyper, int nb, int B,
+                                   float scale, int inner_steps,
+                                   void* stream) {
+    return launch_sweep_s1<float>(
+        diag, diag_nz, beta, nn, mask, logits_in, mu_in, eta_in, q_in,
+        logits_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, nb, B,
+        scale, inner_steps, stream);
+}
+
+// coupling_pass_s1 in place on q for the (block, slab) entries
+// slabs[0 .. n_slabs), on int8 (_launch) or float32 (_f32_launch) coupling
+// tiles. off and eta_diff must be 16-byte aligned.
+int coupling_pass_s1_launch(const void* off, const void* off_src,
+                            const void* off_dst, const void* inc_ptr,
+                            const void* inc_tile, const void* blk_mask,
+                            const void* off_nz, const void* slabs,
+                            const void* eta_diff, void* q, int n_slabs,
+                            int nb, int B, float scale, void* stream) {
+    return launch_coupling_s1<int8_t>(off, off_src, off_dst, inc_ptr,
+                                      inc_tile, blk_mask, off_nz, slabs,
+                                      eta_diff, q, n_slabs, nb, B, scale,
+                                      stream);
+}
+
+int coupling_pass_s1_f32_launch(const void* off, const void* off_src,
+                                const void* off_dst, const void* inc_ptr,
+                                const void* inc_tile, const void* blk_mask,
+                                const void* off_nz, const void* slabs,
+                                const void* eta_diff, void* q, int n_slabs,
+                                int nb, int B, float scale, void* stream) {
+    return launch_coupling_s1<float>(off, off_src, off_dst, inc_ptr,
+                                     inc_tile, blk_mask, off_nz, slabs,
+                                     eta_diff, q, n_slabs, nb, B, scale,
+                                     stream);
 }
 
 }  // extern "C"

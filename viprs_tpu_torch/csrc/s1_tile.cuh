@@ -4,16 +4,42 @@
 // (T, T) tile of its block and holding column j of the tile as T floats in
 // registers. Here: the staging of the next tile and its per-coordinate
 // inputs by cp.async, the walk over the flagged 32 x 32 blocks outside a
-// tile, their staging into each warp's slots, the register-column product,
-// and the rank-T update of the columns outside the tile.
+// tile, their staging into each warp's slots, the load of a tile column
+// into registers, the register-column product, and the rank-T update of
+// the columns outside the tile.
+//
+// Each piece takes the LD tile's element type E: int8_t (the quantized LD,
+// values scaled by BlockLD.scale after each sum) or float (float32 LD,
+// scale 1). int8 tiles are staged in shared memory (two (T, T) tiles and
+// each warp's OUT_SLOTS outer blocks: ~61 KB at B = 1024). Stored as
+// float32 the same layout would need ~209 KB, one CTA an SM, so float
+// tiles are not staged at all: thread j loads column j of a tile straight
+// from global memory into its registers (for each row k a warp reads 32
+// consecutive floats, one coalesced 128-byte line), and the rank-T update
+// reads every flagged outer block from global memory, as the int8 update
+// reads the blocks past its slots.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "lane_tile.cuh"
 
 namespace {
+
+// E is the int8 tile element (else float32).
+template <class E>
+constexpr bool kInt8 = std::is_same_v<E, int8_t>;
+// A tile element as a kernel holds it before its conversion: an int8 value
+// widened to int, or the float itself.
+template <class E>
+using TileWord = std::conditional_t<kInt8<E>, int, float>;
+// A tile element as an exact float: i8_to_f32 for an int8 value, the
+// identity for a float.
+__device__ __forceinline__ float to_f32(int b) { return i8_to_f32(b); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
 
 // The single-model sweep's CTA: T threads, thread j owning coordinate j of
 // every (T, T) tile of its block.
@@ -24,29 +50,33 @@ constexpr int S1_WARPS = S1_THREADS / 32;
 constexpr int OUT_SLOTS = 4;
 
 // Bytes of shared memory both sweeps lay out after their float arrays, in
-// this order: two int8 (T, T) tile buffers, each warp's OUT_SLOTS staged
-// 32 x 32 int8 blocks, the block's diag_nz flags ((B/32)^2 bytes).
+// this order: for int8 tiles two (T, T) tile buffers and each warp's
+// OUT_SLOTS staged 32 x 32 blocks; then the block's diag_nz flags ((B/32)^2
+// bytes).
+template <class E>
 __host__ __device__ constexpr size_t s1_tile_smem(int B) {
-    return 2 * T * T + S1_WARPS * OUT_SLOTS * NZ * NZ
+    return (kInt8<E> ? 2 * T * T + S1_WARPS * OUT_SLOTS * NZ * NZ : 0)
         + static_cast<size_t>(B / NZ) * (B / NZ);
 }
 
-// By cp.async, 16 bytes a copy: the int8 (T, T) tile at (t0, t0) of the
-// block's tiles D into R_dst, and the tile's NI per-coordinate inputs into
-// in_dst, NI rows of T: row r from src(r) + jt, jt the tile's element
+// By cp.async, 16 bytes a copy: for int8 tiles the (T, T) tile at (t0, t0)
+// of the block's tiles D into R_dst; the tile's NI per-coordinate inputs
+// into in_dst, NI rows of T: row r from src(r) + jt, jt the tile's element
 // offset in the (NB, B) planes.
-template <int NI, class Src>
-__device__ __forceinline__ void stage_tile_async(const int8_t* D, int B,
-                                                 int t0, int8_t* R_dst,
+template <int NI, class E, class Src>
+__device__ __forceinline__ void stage_tile_async(const E* D, int B, int t0,
+                                                 int8_t* R_dst,
                                                  float* in_dst, size_t jt,
                                                  int tid, Src&& src) {
+    if constexpr (kInt8<E>) {
 #pragma unroll
-    for (int s = 0; s < T * T / 16 / S1_THREADS; ++s) {
-        const int i = tid + s * S1_THREADS;
-        const int r = i / (T / 16), part = i % (T / 16);
-        cp_async16(R_dst + r * T + 16 * part,
-                   D + static_cast<size_t>(t0 + r) * B + t0 + 16 * part,
-                   true);
+        for (int s = 0; s < T * T / 16 / S1_THREADS; ++s) {
+            const int i = tid + s * S1_THREADS;
+            const int r = i / (T / 16), part = i % (T / 16);
+            cp_async16(R_dst + r * T + 16 * part,
+                       D + static_cast<size_t>(t0 + r) * B + t0 + 16 * part,
+                       true);
+        }
     }
     for (int i = tid; i < NI * T / 4; i += S1_THREADS) {
         const int row = i / (T / 4), c = 4 * (i % (T / 4));
@@ -79,29 +109,60 @@ __device__ __forceinline__ void outer_chunks(const unsigned char* nz,
 // The flagged 32 x 32 blocks outside the tile at t0 (rows t0 .. t0 + T - 1
 // of the block's tiles D, row block rb0 = t0 / 32) that warp w updates,
 // into its OUT_SLOTS slots my_out by cp.async (the rest are read from
-// global memory when used), and the commit of their group.
-__device__ __forceinline__ void stage_outer_blocks(const int8_t* D, int B,
-                                                   int t0,
+// global memory when used), and the commit of their group. Float tiles
+// stage none.
+template <class E>
+__device__ __forceinline__ void stage_outer_blocks(const E* D, int B, int t0,
                                                    const unsigned char* nz,
                                                    int nb32, int lane, int w,
                                                    int8_t* my_out) {
-    const int rb0 = t0 / NZ;
-    int slot = 0;
-    outer_chunks(nz, nb32, rb0, lane, w, [&](int cc) {
-        for (int rb = 0; rb < T / NZ; ++rb) {
-            if (!nz[(rb0 + rb) * nb32 + cc]) continue;
-            if (slot < OUT_SLOTS) {
-                const int8_t* src = D
-                    + static_cast<size_t>(t0 + NZ * rb + lane) * B
-                    + NZ * cc;
-                int8_t* dst = my_out + (slot * NZ + lane) * NZ;
-                cp_async16(dst, src, true);
-                cp_async16(dst + 16, src + 16, true);
+    if constexpr (kInt8<E>) {
+        const int rb0 = t0 / NZ;
+        int slot = 0;
+        outer_chunks(nz, nb32, rb0, lane, w, [&](int cc) {
+            for (int rb = 0; rb < T / NZ; ++rb) {
+                if (!nz[(rb0 + rb) * nb32 + cc]) continue;
+                if (slot < OUT_SLOTS) {
+                    const int8_t* src = D
+                        + static_cast<size_t>(t0 + NZ * rb + lane) * B
+                        + NZ * cc;
+                    int8_t* dst = my_out + (slot * NZ + lane) * NZ;
+                    cp_async16(dst, src, true);
+                    cp_async16(dst + 16, src + 16, true);
+                }
+                ++slot;
             }
-            ++slot;
-        }
-    });
-    cp_async_commit();
+        });
+        cp_async_commit();
+    }
+}
+
+// Column j of the tile at t0 as T exact floats into r: from the staged
+// int8 tile Rt, or (float tiles) from the block's tiles D in global memory.
+template <class E>
+__device__ __forceinline__ void load_column(float (&r)[T], const int8_t* Rt,
+                                            const E* D, int B, int t0,
+                                            int j) {
+    if constexpr (kInt8<E>) {
+#pragma unroll
+        for (int k = 0; k < T; ++k) r[k] = i8_to_f32(Rt[k * T + j]);
+    } else {
+        const float* col = D + static_cast<size_t>(t0) * B + t0 + j;
+#pragma unroll
+        for (int k = 0; k < T; ++k)
+            r[k] = __ldg(col + static_cast<size_t>(k) * B);
+    }
+}
+
+// R_jj of the tile at t0 as an exact float (before the scale), from the
+// staged int8 tile Rt or from global memory.
+template <class E>
+__device__ __forceinline__ float diag_value(const int8_t* Rt, const E* D,
+                                            int B, int t0, int j) {
+    if constexpr (kInt8<E>)
+        return i8_to_f32(Rt[j * T + j]);
+    else
+        return __ldg(D + static_cast<size_t>(t0 + j) * B + t0 + j);
 }
 
 // acc = sum over k = 0..T-1, ascending, of v[k] r[k] (|r[k]| where ABS):
@@ -134,10 +195,12 @@ __device__ __forceinline__ float column_product(const float (&r)[T],
 // The rank-T update of the block's q in shared memory q_s over the columns
 // outside the tile at t0: q_s[col] += scale * sum over the tile's rows k,
 // ascending, of vc[k] R[t0 + k][col], a thread per column of warp w's
-// chunks, each flagged block's 32 rows from the warp's slot (staged by
-// stage_outer_blocks, in the same order) or from global memory past its
-// OUT_SLOTS. Blocks left out add exact zeros (for finite vc).
-__device__ __forceinline__ void outer_rank_t(const int8_t* D, int B, int t0,
+// chunks, each flagged block's 32 rows from the warp's slot (int8, staged
+// by stage_outer_blocks, in the same order) or from global memory (past
+// the warp's OUT_SLOTS; every block of a float tile). Blocks left out add
+// exact zeros (for finite vc).
+template <class E>
+__device__ __forceinline__ void outer_rank_t(const E* D, int B, int t0,
                                              const unsigned char* nz,
                                              int nb32, int lane, int w,
                                              const int8_t* my_out,
@@ -150,13 +213,13 @@ __device__ __forceinline__ void outer_rank_t(const int8_t* D, int B, int t0,
         float a = 0.f;
         for (int rb = 0; rb < T / NZ; ++rb) {
             if (!nz[(rb0 + rb) * nb32 + cc]) continue;
-            int raw[NZ];
-            if (slot < OUT_SLOTS) {
+            TileWord<E> raw[NZ];
+            if (kInt8<E> && slot < OUT_SLOTS) {
                 const int8_t* src = my_out + slot * NZ * NZ + lane;
 #pragma unroll
                 for (int i = 0; i < NZ; ++i) raw[i] = src[i * NZ];
             } else {
-                const int8_t* src = D
+                const E* src = D
                     + static_cast<size_t>(t0 + NZ * rb) * B + col;
 #pragma unroll
                 for (int i = 0; i < NZ; ++i)
@@ -166,10 +229,10 @@ __device__ __forceinline__ void outer_rank_t(const int8_t* D, int B, int t0,
 #pragma unroll
             for (int i = 0; i < NZ; i += 4) {
                 const float4 dv = ld4(vc + NZ * rb + i);
-                a = fmaf(dv.x, i8_to_f32(raw[i]), a);
-                a = fmaf(dv.y, i8_to_f32(raw[i + 1]), a);
-                a = fmaf(dv.z, i8_to_f32(raw[i + 2]), a);
-                a = fmaf(dv.w, i8_to_f32(raw[i + 3]), a);
+                a = fmaf(dv.x, to_f32(raw[i]), a);
+                a = fmaf(dv.y, to_f32(raw[i + 1]), a);
+                a = fmaf(dv.z, to_f32(raw[i + 2]), a);
+                a = fmaf(dv.w, to_f32(raw[i + 3]), a);
             }
         }
         q_s[col] += a * scale;

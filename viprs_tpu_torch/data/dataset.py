@@ -1,7 +1,10 @@
 """The device-facing dataset: harmonized summary statistics + blocked LD.
 
 Counterpart of viprs_tpu.data.dataset, built directly from arrays
-(simulations, tests, benchmarks). The LD lives on the dataset's ``device``.
+(simulations, tests, benchmarks). The LD lives on the dataset's ``device``,
+packed as float32 (the default, as in the JAX package) or as int8
+(``quantize=True``). On a CUDA device ``VIPRS`` and ``VIPRSMix`` fit either;
+the grid models (``VIPRSGrid``, ``VIPRSMixGrid``) need int8 there.
 """
 
 import dataclasses

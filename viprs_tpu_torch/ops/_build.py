@@ -35,6 +35,9 @@ SIGNATURES = {
     # off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, off_nz, slabs,
     # eta_diff, q (updated in place), n_slabs, nb, B, scale, stream
     'coupling_pass_s1_launch': [P] * 10 + [I32, I32, I32, F32, P],
+    # the same two kernels' instances for float32 LD tiles
+    'cavi_block_sweep_s1_f32_launch': [P] * 16 + [I32, I32, F32, I32, P],
+    'coupling_pass_s1_f32_launch': [P] * 10 + [I32, I32, I32, F32, P],
     # the S-lane kernels (csrc/cavi_s.cu): diag, diag_nz, then the same
     # pointers, then S, nb, B, scale, inner_steps, lane tile, stream
     'cavi_block_sweep_s_launch': [P] * 16 + [I32, I32, I32, F32, I32, I32,
@@ -49,6 +52,8 @@ SIGNATURES = {
     # tile,] stream
     'cavi_block_sweep_mix_s1_launch': [P] * 16 + [I32, I32, I32, F32, I32,
                                                   I32, P],
+    'cavi_block_sweep_mix_s1_f32_launch': [P] * 16 + [I32, I32, I32, F32,
+                                                      I32, I32, P],
     'cavi_block_sweep_mix_s_launch': [P] * 16 + [I32, I32, I32, I32, F32,
                                                  I32, I32, I32, P],
 }

@@ -22,9 +22,11 @@ LD that decays with distance is mostly zero away from the tiles' near
 corner). The same flags of the diagonal tiles (``diag_nz``) let the S-lane
 block sweep skip the zero blocks of its rank-T updates.
 
-The CUDA kernels take int8 tiles only: ``from_numpy`` refuses float tiles
-for a CUDA device before anything is uploaded (float32 LD runs on the CPU,
-through the plain versions).
+The CUDA kernels take int8 or float32 tiles: ``from_numpy`` refuses any
+other dtype for a CUDA device before anything is uploaded. The single-model
+kernels (VIPRS, VIPRSMix) have an instance for each; the S-lane kernels of
+the grid models take int8 only, and ``VIPRSGrid`` / ``VIPRSMixGrid`` refuse
+float32 LD on the card up front. On the CPU the plain versions take either.
 """
 
 import dataclasses
@@ -149,18 +151,21 @@ class BlockLD:
         """Upload packed LD arrays (e.g. ``np.asarray`` of the JAX package's
         ``BlockLD`` fields) to ``device`` without changing a byte.
 
-        :raises ValueError: for float tiles on a CUDA device (the kernels
-            take int8 LD), before anything is uploaded.
+        :raises ValueError: for tiles neither int8 nor float32 on a CUDA
+            device (the kernels take those two), before anything is
+            uploaded.
         """
         diag = np.ascontiguousarray(diag)
         nb, B = diag.shape[0], diag.shape[1]
         off_data = np.ascontiguousarray(off_data).reshape(-1, B, B)
-        bad = {str(x.dtype) for x in (diag, off_data) if x.dtype != np.int8}
+        bad = {str(x.dtype) for x in (diag, off_data)
+               if x.dtype not in (np.int8, np.float32)}
         if bad and torch.device(device).type == 'cuda':
             raise ValueError(
-                f"the CUDA kernels take int8 LD tiles, not {', '.join(bad)}: "
-                f"pack the LD with quantize=True to fit on {device}; float "
-                f"tiles run only on the CPU for now")
+                f"the CUDA kernels take int8 or float32 LD tiles, not "
+                f"{', '.join(sorted(bad))}: pack the LD with quantize=True "
+                f"(int8) or quantize=False (float32) to fit on {device}; "
+                f"other tiles run only on the CPU")
         off_src = np.asarray(off_src, np.int32).reshape(-1)
         off_dst = np.asarray(off_dst, np.int32).reshape(-1)
         inc_ptr, inc_tile = incident_tiles(off_src, off_dst, nb)
