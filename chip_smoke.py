@@ -134,6 +134,32 @@ F3. time the float32 instances on the float32 genome's first-iteration
    with its coupling pass; coupling_pass_s1 over every tile, in place and
    with its clone, beside torch.bmm of the float32 tiles; K2 at 57 blocks;
    K5 and K6 at K = 3, their sweeps and coupling parts alone.
+F4. check the float32 instances of the lane kernels on phase 4's 8 blocks
+   cut from the float32 packing with G1's and M3's bounds: K3 at S = 100, 3
+   and 13 (frozen lanes bit-exact), K4 at half the blocks (unflagged blocks
+   bit-exact), lane independence across each lane tile's boundary and at
+   S = 101, the coupling pass alone (input q untouched, lane independence
+   across its lane tiles), K7/K8 at S = 20, K = 3 and K7 at K = 1 and 8,
+   each block sweep's zero-block skip bit for bit against its dense walk;
+   on the cut and on the cut with a third of its 32 x 32 blocks zeroed, K3,
+   K4, K7 and K8 at S = 20 against their plain versions and every
+   zero-block skip (the block sweeps, the coupling pass) bit for bit, the
+   sign of a zero included, against its dense walk; a 16-point VIPRSGrid
+   fit and an 8-point VIPRSMixGrid(K=3) fit on the float32 cut, on the card
+   against the CPU (h2 within 1e-4, nit within 2);
+F5. G3 and M4 on the float32 genome: the 100-point grid + BMA cold, warm,
+   sweep_impl='skip' and a fresh fit for select_best_model under
+   torch.profiler, every lane converged, the BMA h2 within 0.005 of the
+   int8 grid's and held bit for bit (PORT_F32_GRID_BMA_H2); the 20 x K=3
+   mixture grid cold, warm, 'skip' and a warm fit under torch.profiler,
+   every lane converged, per-lane nit and h2 held bit for bit
+   (PORT_F32_MIX_GRID_*); launch counters reset before each fit and read
+   after it, and only the lane kernels' float32 instances launched;
+F6. G4 and M5's timings of the lane kernels on the float32 genome's
+   first-iteration state (S = 100 for K3/K4 and the coupling pass at
+   S = 2, 8, 16, 20 and 100 beside torch.bmm of the float32 tiles; K7 at
+   S = 8 and 20, K8 at its mask, every 20th block and every block), beside
+   their plain versions and both bounds at 4 bytes an element.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -145,8 +171,9 @@ tiles' nonzero 32 x 32 blocks, ``sweep_work_nz``, with every tile dense
 beside it as ``bound_ms_dense``)
 and, for the coupling passes, the time of one PyTorch call computing the
 tile products (``library_ms``; the sweeps have none). The S = 1 kernels'
-lines also carry their time in a CUDA graph (``graph_ms``). The float32
-instances (F3) have lines of their own, their names ending in ``_f32``.
+lines, and the lane sweeps', also carry their time in a CUDA graph
+(``graph_ms``). The float32 instances (F3, F6) have lines of their own,
+their names ending in ``_f32``.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -205,6 +232,31 @@ PORT_MIX_GRID_H2 = [
 #: of VIPRSMix(K=3).
 PORT_F32_NIT, PORT_F32_H2 = 101, 0.215599
 PORT_F32_MIX_NIT, PORT_F32_MIX_H2 = 146, 0.217578
+#: ... and of the grids on it (F5), held bit for bit: grid(100)'s BMA h2,
+#: and the 20 x K=3 mixture grid's per-lane nit and h2 (cold).
+PORT_F32_GRID_BMA_H2 = 0.3795550011499705
+PORT_F32_MIX_GRID_NIT = [67, 64, 75, 71, 97, 52, 85, 138, 74, 70, 71, 78, 84, 121, 160, 64, 72, 158, 110, 168]
+PORT_F32_MIX_GRID_H2 = [
+    0.23906582227311576,
+    0.24029260427310972,
+    0.24162015232855494,
+    0.2428815178868986,
+    0.24427261690601826,
+    0.24573658109711052,
+    0.24731619155636908,
+    0.24821834840049006,
+    0.25106427882907817,
+    0.2533973419925087,
+    0.2564832385269536,
+    0.26030360727922525,
+    0.265543104080443,
+    0.27249056620432044,
+    0.2819656073782317,
+    0.29509285426724785,
+    0.31401141295866347,
+    0.343163073519603,
+    0.39070596521829476,
+    0.2366782755778169]
 FULL_M = 1_100_000
 #: The full record (chip_smoke.json) and the profiler trace go here.
 OUT_DIR = 'chiprun_out'
@@ -291,22 +343,24 @@ def cut_blocks(ld, sel, device):
         ld.mask.index_select(0, idx).cpu().numpy(), ld.scale, device=device)
 
 
-def errors(got, want, scale=None):
+def errors(got, want, scale=None, ref=None):
     """(max abs error, max|plain|, relative error as in REL_FLOOR; the floor
-    is taken from ``scale`` where given instead of max|plain|)."""
+    is taken from ``scale`` where given instead of max|plain|; with ``ref``
+    each error is relative to |ref| and the floor from max|ref|)."""
     got, want = got.double(), want.double()
     diff = (got - want).abs()
-    scale = float(want.abs().max()) if scale is None else scale
-    den = want.abs().clamp_min(REL_FLOOR * scale) if scale > 0 else 1.0
+    rel_to = want if ref is None else ref.double()
+    scale = float(rel_to.abs().max()) if scale is None else scale
+    den = rel_to.abs().clamp_min(REL_FLOOR * scale) if scale > 0 else 1.0
     return float(diff.max()), scale, float((diff / den).max())
 
 
-def check(tag, name, got, want, bound, abs_errs, scale=None):
+def check(tag, name, got, want, bound, abs_errs, scale=None, ref=None):
     """Hold ``got`` to ``want`` within ``bound`` (relative, the floor from
-    ``scale`` where given); print the errors and the scale, and record the
-    absolute error."""
-    label = 'max|plain|' if scale is None else 'floor scale'
-    e_abs, scale, e_rel = errors(got, want, scale)
+    ``scale`` where given; relative to ``ref`` where given); print the
+    errors and the scale, and record the absolute error."""
+    label = 'max|plain|' if scale is None and ref is None else 'floor scale'
+    e_abs, scale, e_rel = errors(got, want, scale, ref)
     abs_errs.append(e_abs)
     phase('check', f"{tag}: {name}: relative error {e_rel:.3e} (bound "
                    f"{bound:.0e}); max|kernel - plain| {e_abs:.3e}, "
@@ -316,15 +370,23 @@ def check(tag, name, got, want, bound, abs_errs, scale=None):
              f"relative")
 
 
-def check_state(tag, got, want, errs, tol=TOL):
-    """Compare two (state, eta_diff) pairs within ``tol``."""
+def check_state(tag, got, want, errs, tol=TOL, eta_in=None):
+    """Compare two (state, eta_diff) pairs within ``tol``. With ``eta_in``
+    (the swept state's eta; the float32 lane checks): the kernel's eta_diff
+    must be its eta less eta_in bit for bit, so that its error is eta's, and
+    that error is measured against |eta| (a second sweep's eta changes are
+    small against eta, and an ulp of eta reads as a large error against
+    the change itself)."""
     import torch
     (gs, gd), (ws, wd) = got, want
     pairs = {'eta': (gs.eta, ws.eta), 'mu': (gs.mu, ws.mu), 'q': (gs.q, ws.q),
-             'gamma': (torch.sigmoid(gs.logits), torch.sigmoid(ws.logits)),
-             'eta_diff': (gd, wd)}
+             'gamma': (torch.sigmoid(gs.logits), torch.sigmoid(ws.logits))}
     for k, (a, b) in pairs.items():
         check(tag, k, a, b, tol[k], errs)
+    if eta_in is not None and not same_bits(gd, gs.eta - eta_in):
+        fail(f"{tag}: eta_diff is not eta less the swept eta bit for bit")
+    check(tag, 'eta_diff', gd, wd, tol['eta_diff'], errs,
+          ref=None if eta_in is None else ws.eta)
 
 
 def time_ms(fn, reps, warmup=2):
@@ -657,6 +719,29 @@ def main():
     record['f32_times_ms'] = f32_times(ds32, errs32)
     f32_launch = record['f32']['launches']
 
+    # ---- F4-F6: float32 LD, the grid models (the lane kernels' float32
+    # instances) ----
+    sub32 = f32_lane_checks(ds32, sel, sb, nf, errs32)
+    record['f32_grid_cut_fits'] = f32_grid_cut_fits(sub32, sb, nf)
+    del sub32
+    record['f32_grid'] = grid_genome(ds32)
+    record['f32_mix_grid'] = mix_grid_genome(ds32)
+    record['f32_grid_times_ms'] = grid_times(
+        ds32, errs32['cavi_block_sweep_s_f32'], errs32['coupling_pass_s_f32'])
+    record['f32_mix_times_ms'] = mix_times(
+        ds32, {k: errs32[k + '_f32'] for k in ('cavi_sweep_mix_s',
+                                               'cavi_sweep_mix_s_skip')},
+        names=('cavi_sweep_mix_s', 'cavi_sweep_mix_s_skip'))
+    f32_launch.update(
+        cavi_block_sweep_s_f32=record['f32_grid']['launches'][
+            'cavi_block_sweep_s_f32'],
+        coupling_pass_s_f32=record['f32_grid']['launches'][
+            'coupling_pass_s_f32'],
+        cavi_sweep_mix_s_f32=record['f32_mix_grid']['cold']['launches'][
+            'cavi_sweep_mix_s_f32'],
+        cavi_sweep_mix_s_skip_f32=record['f32_mix_grid']["sweep_impl='skip'"][
+            'launches']['cavi_sweep_mix_s_skip_f32'])
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)
@@ -687,13 +772,15 @@ def main():
                    g_launch['cavi_block_sweep_s'], max(errs_s),
                    gt['block_sweep'], gt['block_sweep_plain'],
                    gt['block_sweep_bound'], None),
-             bound_ms_dense=gt['block_sweep_bound_dense'][0]),
+             bound_ms_dense=gt['block_sweep_bound_dense'][0],
+             graph_ms=gt['block_sweep_graph']),
         entry('coupling_pass_s', src_s, 1191, g_launch['coupling_pass_s'],
               max(errs_cpl_s), gt['coupling'], gt['coupling_plain'],
               gt['coupling_bound'], gt['coupling_library'])]
     for name, (replaces, lanes, _) in MIX_KERNELS.items():
         r = mt[name]
-        e = entry(name, 'viprs_tpu_torch/csrc/cavi_mix.cu',
+        e = entry(name, 'viprs_tpu_torch/csrc/'
+                  + ('mix_lane.cuh' if lanes else 'cavi_mix.cu'),
                   replaces.rsplit(':', 1)[1], m_launch[name][name],
                   max(errs_mix[name]), r['ms'], r['plain_ms'],
                   (r['bound_ms'], r['bound_by']), None)
@@ -717,11 +804,26 @@ def main():
                   f3[name[:-4]]['graph_ms'], None)
            for name in ('cavi_sweep_mix_s1_f32',
                         'cavi_sweep_mix_s1_skip_f32')}}
+    gt32, mt32 = record['f32_grid_times_ms'], record['f32_mix_times_ms']
+    f6_rows = {
+        'cavi_block_sweep_s_f32': (
+            gt32['block_sweep'], gt32['block_sweep_plain'],
+            gt32['block_sweep_bound'], gt32['block_sweep_bound_dense'],
+            gt32['block_sweep_graph'], None),
+        'coupling_pass_s_f32': (
+            gt32['coupling'], gt32['coupling_plain'], gt32['coupling_bound'],
+            None, None, gt32['coupling_library']),
+        **{name + '_f32': (mt32[name]['ms'], mt32[name]['plain_ms'],
+                           (mt32[name]['bound_ms'], mt32[name]['bound_by']),
+                           (mt32[name]['bound_ms_dense'],),
+                           mt32[name]['graph_ms'], None)
+           for name in ('cavi_sweep_mix_s', 'cavi_sweep_mix_s_skip')}}
     for name, (replaces, source) in F32_KERNELS.items():
-        ms, plain, bnd, dense, graph, lib = f3_rows[name]
-        e = dict(entry(name, f'viprs_tpu_torch/csrc/{source}', replaces,
-                       f32_launch[name], max(errs32[name]), ms, plain, bnd,
-                       lib), graph_ms=graph)
+        ms, plain, bnd, dense, graph, lib = {**f3_rows, **f6_rows}[name]
+        e = entry(name, f'viprs_tpu_torch/csrc/{source}', replaces,
+                  f32_launch[name], max(errs32[name]), ms, plain, bnd, lib)
+        if graph is not None:
+            e['graph_ms'] = graph
         if dense is not None:
             e['bound_ms_dense'] = dense[0]
         kernels.append(e)
@@ -1021,8 +1123,9 @@ def _sub_hyper(h, idx):
     return Hyper(*(x[idx] for x in h))
 
 
-def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
-    """G1: the S-lane kernels against their plain versions on the cut."""
+def grid_checks(ds, sub, sb, nf, errs, errs_cpl, prefix=''):
+    """G1 (F4 with ``prefix`` 'F4 ' on the float32 cut): the S-lane kernels
+    against their plain versions on the cut."""
     import torch
     from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
     from viprs_tpu_torch.ops.cavi_torch import CaviState
@@ -1033,29 +1136,32 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
     state = _lane_state(sub, S, rng, hyper)
     ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
     act = torch.ones(S, device=dev)
-    phase('G1', f"S = {S} lanes (bench grid rows), {sub.nb} blocks, "
-                f"{sub.n_off} coupling tiles, lane tile "
-                f"{cavi_cuda.sweep_lane_tile(S)}")
+    phase(prefix.strip() or 'G1',
+          f"S = {S} lanes (bench grid rows), {sub.nb} blocks, {sub.n_off} "
+          f"coupling tiles, {sub.diag.dtype} tiles, lane tile "
+          f"{cavi_cuda.sweep_lane_tile(S)}")
     rec = {}
+    # float32 LD (F4): eta_diff held to eta less the swept eta (check_state)
+    f32 = sub.diag.dtype == torch.float32
 
     full = cavi_cuda.cavi_sweep_s(sub, state, sb, nf, hyper, act)
-    check_state('S=100 all active', full,
+    check_state(f'{prefix}S=100 all active', full,
                 cavi_torch.cavi_sweep(sub, state, sb, nf, hyper, act), errs,
-                TOL_S)
+                TOL_S, state.eta if f32 else None)
 
     half_act = act.clone()
     half_act[1::2] = 0.0
     got = cavi_cuda.cavi_sweep_s(sub, state, sb, nf, hyper, half_act)
-    check_state('S=100 half the lanes frozen', got,
+    check_state(f'{prefix}S=100 half the lanes frozen', got,
                 cavi_torch.cavi_sweep(sub, state, sb, nf, hyper, half_act),
-                errs, TOL_S)
+                errs, TOL_S, state.eta if f32 else None)
     for k in CaviState._fields:
         if not torch.equal(getattr(got[0], k)[1::2], getattr(state, k)[1::2]):
-            fail(f"frozen lanes: {k} changed")
+            fail(f"{prefix}frozen lanes: {k} changed")
     if bool(got[1][1::2].any()):
-        fail("frozen lanes report an eta change")
-    phase('check', "S=100 frozen lanes bit-exact (logits, mu, eta, q; "
-                   "eta_diff 0)")
+        fail(f"{prefix}frozen lanes report an eta change")
+    phase('check', f"{prefix}S=100 frozen lanes bit-exact (logits, mu, eta, "
+                   f"q; eta_diff 0)")
 
     # K4's mask: the union over the live lanes (half of them frozen) of
     # the proposal masks, at the gate epsilon that flags half the blocks
@@ -1068,41 +1174,42 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
             blk, blk_eps = cand, float(eps)
     blk = blk.to(torch.int32)
     if not 0 < int(blk.sum()) < sub.nb:
-        fail("no gate epsilon splits the cut's blocks")
+        fail(f"{prefix}no gate epsilon splits the cut's blocks")
     st_k4 = full[0]
     got = cavi_cuda.cavi_sweep_s_skip(sub, st_k4, sb, nf, hyper, half_act,
                                       blk)
-    check_state(f'K4, S=100, union mask at eps {blk_eps:.1e} flags '
+    check_state(f'{prefix}K4, S=100, union mask at eps {blk_eps:.1e} flags '
                 f'{int(blk.sum())} of {sub.nb} blocks', got,
                 _plain_lanes(sub, st_k4, sb, nf, hyper, half_act, blk), errs,
-                TOL_S)
+                TOL_S, st_k4.eta if f32 else None)
     state_k4 = st_k4
     quiet = blk == 0
     for k in ('logits', 'mu', 'eta'):
         if not torch.equal(getattr(got[0], k)[:, quiet],
                            getattr(state_k4, k)[:, quiet]):
-            fail(f"K4: quiescent blocks' {k} changed")
+            fail(f"{prefix}K4: quiescent blocks' {k} changed")
         if not torch.equal(getattr(got[0], k)[1::2],
                            getattr(state_k4, k)[1::2]):
-            fail(f"K4: frozen lanes' {k} changed")
+            fail(f"{prefix}K4: frozen lanes' {k} changed")
     if bool(got[1][:, quiet].any()) or bool(got[1][1::2].any()):
-        fail("K4: quiescent blocks or frozen lanes report an eta change")
-    phase('check', "K4 quiescent blocks and frozen lanes bit-exact (logits, "
-                   "mu, eta; eta_diff 0)")
+        fail(f"{prefix}K4: quiescent blocks or frozen lanes report an eta "
+             f"change")
+    phase('check', f"{prefix}K4 quiescent blocks and frozen lanes bit-exact "
+                   f"(logits, mu, eta; eta_diff 0)")
 
     diff = torch.as_tensor(rng.standard_normal(tuple(state.q.shape)) * 1e-3,
                            dtype=torch.float32, device=dev) * sub.mask
-    coupling_checks(sub, state.q, diff, errs_cpl)
+    coupling_checks(sub, state.q, diff, errs_cpl, prefix)
 
     for n in (3, 13):
         idx = torch.arange(n, device=dev) * 7
         st_n = CaviState(*(x[idx].contiguous() for x in state))
         h_n = _sub_hyper(hyper, idx)
         a_n = torch.ones(n, device=dev)
-        check_state(f'S={n}', cavi_cuda.cavi_sweep_s(sub, st_n, sb, nf, h_n,
-                                                     a_n),
+        check_state(f'{prefix}S={n}', cavi_cuda.cavi_sweep_s(
+            sub, st_n, sb, nf, h_n, a_n),
                     cavi_torch.cavi_sweep(sub, st_n, sb, nf, h_n, a_n), errs,
-                    TOL_S)
+                    TOL_S, st_n.eta if f32 else None)
 
     widths = []
     for n in (3, *(L + e for L in cavi_cuda.SWEEP_LANE_TILES for e in (0, 1)),
@@ -1115,27 +1222,29 @@ def grid_checks(ds, sub, sb, nf, errs, errs_cpl):
         for name, a, b in zip((*CaviState._fields, 'eta_diff'),
                               (*got[0], got[1]), (*full[0], full[1])):
             if not torch.equal(a, b[lanes]):
-                fail(f"lane independence: {name} at S = {n} (lane tile "
-                     f"{cavi_cuda.sweep_lane_tile(n)}) differs from the same "
-                     f"lanes at S = {S}")
+                fail(f"{prefix}lane independence: {name} at S = {n} (lane "
+                     f"tile {cavi_cuda.sweep_lane_tile(n)}) differs from the "
+                     f"same lanes at S = {S}")
         widths.append(f"{n} ({cavi_cuda.sweep_lane_tile(n)})")
-    phase('check', f"lane independence: lanes 3, 50, 97 at S = 3 and the "
-                   f"first lanes at S (lane tile) = {', '.join(widths[1:])} "
-                   f"bit-identical to the same lanes at S = {S} (logits, mu, "
-                   f"eta, q, eta_diff)")
-    same_bits_dense_walk('G1', sub, _k3_sweep(state, sb, nf, hyper, act))
+    phase('check', f"{prefix}lane independence: lanes 3, 50, 97 at S = 3 and "
+                   f"the first lanes at S (lane tile) = "
+                   f"{', '.join(widths[1:])} bit-identical to the same lanes "
+                   f"at S = {S} (logits, mu, eta, q, eta_diff)")
+    same_bits_dense_walk(prefix.strip() or 'G1', sub,
+                         _k3_sweep(state, sb, nf, hyper, act))
     torch.cuda.synchronize()
     rec['sweep_max_abs_err'] = max(errs)
     rec['coupling_max_abs_err'] = max(errs_cpl)
     return rec
 
 
-def coupling_checks(sub, q, diff, errs):
-    """G1, the S-lane coupling pass alone on the cut (S = 100 lanes): against
-    refresh_q; its input q untouched; frozen lanes (a zero eta change) and
-    the slabs that no tile with a flagged end reaches bit-exact; every lane
-    bit-identical whatever the width it is applied at, across the lane
-    tiles' boundaries and past the largest tile (S = 101)."""
+def coupling_checks(sub, q, diff, errs, prefix=''):
+    """G1 (F4 with ``prefix`` 'F4 '), the S-lane coupling pass alone on the
+    cut (S = 100 lanes): against refresh_q; its input q untouched; frozen
+    lanes (a zero eta change) and the slabs that no tile with a flagged end
+    reaches bit-exact; every lane bit-identical whatever the width it is
+    applied at, across the lane tiles' boundaries and past the largest tile
+    (S = 101)."""
     import torch
     from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
     dev = sub.device
@@ -1143,33 +1252,33 @@ def coupling_checks(sub, q, diff, errs):
     ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
     q0 = q.clone()
     full = cavi_cuda.coupling_pass_s(sub, q, diff, ones)
-    check(f'coupling_pass_s vs refresh_q, S={S}', 'q', full,
+    check(f'{prefix}coupling_pass_s vs refresh_q, S={S}', 'q', full,
           cavi_torch.refresh_q(sub, q, diff), TOL_COUPLING_S, errs)
     if not torch.equal(q, q0):
-        fail("coupling_pass_s wrote its input q")
+        fail(f"{prefix}coupling_pass_s wrote its input q")
 
     frozen = diff.clone()
     frozen[1::2] = 0.0
     got = cavi_cuda.coupling_pass_s(sub, q, frozen, ones)
-    check(f'coupling_pass_s, S={S}, half the lanes frozen', 'q', got,
+    check(f'{prefix}coupling_pass_s, S={S}, half the lanes frozen', 'q', got,
           cavi_torch.refresh_q(sub, q, frozen), TOL_COUPLING_S, errs)
     if not torch.equal(got[1::2], q[1::2]):
-        fail("coupling_pass_s: frozen lanes' q changed")
+        fail(f"{prefix}coupling_pass_s: frozen lanes' q changed")
 
     blk = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
     blk[int(sub.off_dst[0])] = 1
     got = cavi_cuda.coupling_pass_s(sub, q, diff, blk)
-    check(f'coupling_pass_s, S={S}, block {int(sub.off_dst[0])} flagged',
-          'q', got, cavi_torch.coupling_pass(sub, q, diff, blk),
+    check(f'{prefix}coupling_pass_s, S={S}, block {int(sub.off_dst[0])} '
+          f'flagged', 'q', got, cavi_torch.coupling_pass(sub, q, diff, blk),
           TOL_COUPLING_S, errs)
     idle = ~_slabs_with_work(sub, blk).reshape(-1)
     view = (S, idle.numel(), 128)
     if not torch.equal(got.reshape(view)[:, idle], q.reshape(view)[:, idle]):
-        fail("coupling_pass_s: a slab that no tile with a flagged end "
-             "reaches changed")
-    phase('check', f"coupling_pass_s: input q untouched; frozen lanes and "
-                   f"the {int(idle.sum())} of {idle.numel()} block slabs that "
-                   f"no tile with a flagged end reaches bit-exact")
+        fail(f"{prefix}coupling_pass_s: a slab that no tile with a flagged "
+             f"end reaches changed")
+    phase('check', f"{prefix}coupling_pass_s: input q untouched; frozen "
+                   f"lanes and the {int(idle.sum())} of {idle.numel()} block "
+                   f"slabs that no tile with a flagged end reaches bit-exact")
 
     widths = []
     for n in (3, *(L + e for L in cavi_cuda.COUPLING_LANE_TILES[:-1]
@@ -1179,18 +1288,21 @@ def coupling_checks(sub, q, diff, errs):
         got = cavi_cuda.coupling_pass_s(sub, q[lanes].contiguous(),
                                         diff[lanes].contiguous(), ones)
         if not torch.equal(got, full[lanes]):
-            fail(f"coupling lane independence: S = {n} (lane tile "
+            fail(f"{prefix}coupling lane independence: S = {n} (lane tile "
                  f"{cavi_cuda.coupling_lane_tile(n)}) differs from the same "
                  f"lanes at S = {S}")
         widths.append(f"{n} ({cavi_cuda.coupling_lane_tile(n)})")
-    phase('check', f"coupling lane independence: lanes 3, 50, 97 at S = 3 "
+    phase('check', f"{prefix}coupling lane independence: lanes 3, 50, 97 at "
+                   f"S = 3 "
                    f"and the first lanes at S (lane tile) = "
                    f"{', '.join(widths[1:])} bit-identical to the same lanes "
                    f"at S = {S}")
 
 
-def grid_cut_fit(sub, sb, nf):
-    """G2: a 16-point grid fit on the cut, card against CPU."""
+def grid_cut_fit(sub, sb, nf, tag='G2', nit_window=3):
+    """G2 (F4 on the float32 cut): a 16-point grid fit on the cut, card
+    against CPU: every lane valid, h2 within 1e-4, nit within
+    ``nit_window``, the lanes compacted."""
     import torch
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSGrid
@@ -1209,22 +1321,24 @@ def grid_cut_fit(sub, sb, nf):
     h2_c, h2_p = gc.get_heritability(), gp.get_heritability()
     widths = ([w for w, *_ in gc._chunk_trace],
               [w for w, *_ in gp._chunk_trace])
-    phase('G2', f"16-point grid on the cut, chunk_iters=2: card "
+    phase(tag, f"16-point grid on the {sub.diag.dtype} cut, chunk_iters=2: "
+               f"card "
                 f"{fits['card_s']:.1f} s, CPU {fits['plain_s']:.1f} s; "
                 f"widths per chunk (card) {_runs(widths[0])}, (CPU) "
                 f"{_runs(widths[1])}")
     for i in range(len(nit_c)):
-        phase('G2', f"lane {i:2d}: nit {nit_c[i]:3d} vs {nit_p[i]:3d}, "
+        phase(tag, f"lane {i:2d}: nit {nit_c[i]:3d} vs {nit_p[i]:3d}, "
                     f"status {st_c[i]} vs {st_p[i]}, h2 {h2_c[i]:.6f} vs "
                     f"{h2_p[i]:.6f}")
     dh2 = float(np.max(np.abs(h2_c - h2_p)))
     dnit = int(np.max(np.abs(nit_c.astype(int) - nit_p)))
     if not (gc.valid_terminated_models.all() and gp.valid_terminated_models.all()
-            and dh2 <= 1e-4 and dnit <= 3 and min(widths[0]) < 16):
-        fail(f"the grid fit on the cut disagrees with the plain fit "
+            and dh2 <= 1e-4 and dnit <= nit_window and min(widths[0]) < 16):
+        fail(f"{tag}: the grid fit on the cut disagrees with the plain fit "
              f"(max |dh2| {dh2:.2e}, max |dnit| {dnit}) or did not compact")
-    phase('check', f"grid fit on the cut: max |dh2| {dh2:.2e} (bound 1e-4), "
-                   f"max |dnit| {dnit} (bound 3), every lane valid")
+    phase('check', f"{tag} grid fit on the cut: max |dh2| {dh2:.2e} (bound "
+                   f"1e-4), max |dnit| {dnit} (bound {nit_window}), every "
+                   f"lane valid")
     return {'nit': [nit_c.tolist(), nit_p.tolist()],
             'status': [st_c.tolist(), st_p.tolist()],
             'h2': [h2_c.tolist(), h2_p.tolist()], 'widths': widths,
@@ -1243,13 +1357,27 @@ def _runs(widths):
 
 
 def grid_genome(ds):
-    """G3: the 100-point grid + BMA on the genome, as bench.py runs it."""
+    """G3 (F5 on the genome packed as float32): the 100-point grid + BMA on
+    the genome, as bench.py runs it, cold, warm and with
+    sweep_impl='skip', launch counters reset before each fit and read
+    after it (the lane kernels' instances for the LD's tiles launched, no
+    other one); select_best_model on a fresh fit under torch.profiler. The
+    cold fit's BMA h2 is held bit for bit to the port's earlier runs
+    (PORT_GRID_BMA_H2, or PORT_F32_GRID_BMA_H2 for float32 LD, which must
+    also converge on every lane and lie within 0.005 of the int8 grid's)."""
     import torch
     from viprs_tpu_torch.gridsearch import (HyperparameterGrid,
                                             bayesian_model_average,
                                             select_best_model)
     from viprs_tpu_torch.model import VIPRSGrid
     from viprs_tpu_torch.ops import cavi_cuda
+    f32 = ds.ld.diag.dtype == torch.float32
+    tag, held, trace = ('F5', PORT_F32_GRID_BMA_H2, None) if f32 else \
+        ('G3', PORT_GRID_BMA_H2, 'grid_trace.json')
+    lane = ('cavi_block_sweep_s', 'coupling_pass_s')
+    mine = [k + '_f32' if f32 else k for k in lane]
+    # every kernel instance of the other tile type
+    other = [k for k in cavi_cuda.LAUNCHES if k.endswith('_f32') != f32]
     rec = {}
 
     def run(name, bma=True, **kw):
@@ -1268,6 +1396,7 @@ def grid_genome(ds):
         out = dict(fit_s=t_fit, converged=int(g.converged_models.sum()),
                    valid=int(g.valid_terminated_models.sum()),
                    nit_max=int(nit.max()), nit_median=float(np.median(nit)),
+                   ms_per_it=1e3 * t_fit / max(int(nit.max()), 1),
                    widths=[w for w, *_ in g._chunk_trace],
                    act_trace=list(g._act_trace))
         if bma:
@@ -1278,37 +1407,51 @@ def grid_genome(ds):
                        h2=g.get_heritability(), pi=g.pi,
                        sigma_eps=g.sigma_epsilon)
         out['launches'] = dict(cavi_cuda.LAUNCHES)
-        msg = (f"{name}: fit {t_fit:.3f} s, converged {out['converged']}/100 "
-               f"(JAX package: {REF_GRID_CONVERGED}/100), valid "
-               f"{out['valid']}/100, nit max {out['nit_max']} median "
-               f"{out['nit_median']:g}; widths per chunk "
-               f"{_runs(out['widths'])}; launches {out['launches']}")
+        msg = (f"{name}: fit {t_fit:.3f} s ({out['ms_per_it']:.2f} ms/it at "
+               f"nit max), converged {out['converged']}/100 (JAX package: "
+               f"{REF_GRID_CONVERGED}/100), valid {out['valid']}/100, nit max "
+               f"{out['nit_max']} median {out['nit_median']:g}; widths per "
+               f"chunk {_runs(out['widths'])}; launches "
+               f"{ {k: v for k, v in out['launches'].items() if v} }")
         if bma:
-            msg += (f"; BMA {out['bma_s']:.3f} s: h2 {out['h2']:.6f}, pi "
+            msg += (f"; BMA {out['bma_s']:.3f} s: h2 {out['h2']!r}, pi "
                     f"{out['pi']:.6g}, sigma_eps {out['sigma_eps']:.6f}")
-        phase('G3', msg)
+        phase(tag, msg)
         if out['valid'] < 100:
-            fail(f"{name}: only {out['valid']}/100 grid points terminated "
-                 f"validly")
+            fail(f"{tag} {name}: only {out['valid']}/100 grid points "
+                 f"terminated validly")
+        if f32 and out['converged'] < 100:
+            fail(f"{tag} {name}: only {out['converged']}/100 grid points "
+                 f"converged")
+        if any(out['launches'][k] for k in other):
+            fail(f"{tag} {name}: the grid on {ds.ld.diag.dtype} LD launched "
+                 f"another tile type's kernel: {out['launches']}")
         if bma and not (np.isfinite(out['h2']) and 0.0 < out['h2'] < 1.0):
-            fail(f"{name}: the BMA h2 {out['h2']} is not in (0, 1)")
+            fail(f"{tag} {name}: the BMA h2 {out['h2']} is not in (0, 1)")
         return out, g
 
     rec['cold'], g = run('cold')
     rec['launches'] = rec['cold']['launches']
-    if rec['cold']['h2'] != PORT_GRID_BMA_H2:
-        fail(f"the grid's BMA h2 {rec['cold']['h2']!r} moved from the port's "
-             f"earlier runs ({PORT_GRID_BMA_H2!r})")
-    if min(rec['launches'][k] for k in ('cavi_block_sweep_s',
-                                        'coupling_pass_s')) < 1:
-        fail(f"an S-lane kernel was never launched: {rec['launches']}")
+    if f32:
+        gap = rec['cold']['h2'] - PORT_GRID_BMA_H2
+        phase(tag, f"BMA h2 on float32 LD {rec['cold']['h2']!r}, the int8 "
+                   f"grid's {PORT_GRID_BMA_H2!r}: gap {gap:+.3e} (bound "
+                   f"0.005)")
+        if abs(gap) > 0.005:
+            fail(f"{tag}: the grid's BMA h2 on float32 LD is not within 0.005 "
+                 f"of the int8 grid's")
+    if rec['cold']['h2'] != held:
+        fail(f"{tag}: the grid's BMA h2 {rec['cold']['h2']!r} moved from the "
+             f"port's earlier runs ({held!r})")
+    if min(rec['launches'][k] for k in mine) < 1:
+        fail(f"{tag}: an S-lane kernel was never launched: {rec['launches']}")
     pip = np.concatenate([g.pip[c] for c in g.chromosomes])
     if pip.shape != (ds.m,) or not np.isfinite(pip).all():
         fail("the BMA posterior PIP is not finite of shape (M,)")
     rec['warm'], _ = run('warm')
     rec['skip'], _ = run("sweep_impl='skip'", bma=False, sweep_impl='skip')
-    if rec['skip']['launches']['cavi_block_sweep_s'] < 1:
-        fail("the skip grid fit launched no S-lane sweep")
+    if rec['skip']['launches'][mine[0]] < 1:
+        fail(f"{tag}: the skip grid fit launched no S-lane sweep")
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1323,10 +1466,10 @@ def grid_genome(ds):
     elbos[~g.valid_terminated_models] = -np.inf
     sel['index'] = int(np.argmax(elbos))
     sel['row'] = {k: float(v) for k, v in g.fix_params.items()}
-    phase('G3', f"select_best_model (ELBO): index {sel['index']}, "
-                f"{sel['row']}, h2 {g.get_heritability():.6f}")
+    phase(tag, f"select_best_model (ELBO): index {sel['index']}, "
+               f"{sel['row']}, h2 {g.get_heritability():.6f}")
     sel['profile'] = _device_time(prof, sel['fit_s'] + sel['select_s'],
-                                  'grid_trace.json')
+                                  trace)
     rec['select'] = sel
     return rec
 
@@ -1364,14 +1507,19 @@ def _device_time(prof, wall, trace_name):
 
 
 def grid_times(ds, errs, errs_cpl):
-    """G4: the S-lane kernels against their plain versions at the genome's
-    shapes, S = 100, from the first iteration's state."""
+    """G4 (F6 on the genome packed as float32): the S-lane kernels against
+    their plain versions at the genome's shapes, S = 100, from the first
+    iteration's state; the coupling pass also on dense random int8 tiles
+    (G4 only)."""
     import torch
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSGrid
     from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
     ld = ds.ld
     dev = ld.device
+    f32 = ld.diag.dtype == torch.float32
+    tag = 'F6' if f32 else 'G4'
+    pre = 'F6 ' if f32 else ''
     np.random.seed(0)
     g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **GRID_SPEC), 'cuda')
     g.initialize_theta()
@@ -1385,15 +1533,17 @@ def grid_times(ds, errs, errs_cpl):
     ms_sweep, ms_dense, ms_0, ms_1 = (time_ms(lambda: cavi_cuda.block_sweep_s(
         x, st0, sb, nf, h0, act, ones, inner_steps=k), reps=5)
         for x, k in ((ld, 8), (dense_ld, 8), (ld, 0), (ld, 1)))
+    graph_sweep = graph_ms(lambda: cavi_cuda.block_sweep_s(
+        ld, st0, sb, nf, h0, act, ones), reps=5)
     plain_sweep = time_ms(lambda: cavi_torch.block_sweep(
         ld, st0, sb, nf, h0, act), reps=2, warmup=1)
     st1, d1 = cavi_cuda.block_sweep_s(ld, st0, sb, nf, h0, act, ones)
-    check_state(f'S={S}, all {ld.nb} blocks', (st1, d1),
+    check_state(f'{pre}S={S}, all {ld.nb} blocks', (st1, d1),
                 cavi_torch.block_sweep(ld, st0, sb, nf, h0, act), errs,
-                TOL_S)
-    same_bits_dense_walk('G4', ld, _k3_sweep(st0, sb, nf, h0, act))
+                TOL_S, st0.eta if f32 else None)
+    same_bits_dense_walk(tag, ld, _k3_sweep(st0, sb, nf, h0, act))
     split = probe_split(ms_sweep, ms_dense, ms_0, ms_1)
-    phase('G4', f"S={S} sweep split (ms): 8 inner steps "
+    phase(tag, f"S={S} sweep split (ms): 8 inner steps "
                 f"{split['inner_steps']:.3f}, rank-T updates over the "
                 f"nonzero blocks {split['rank_t']:.3f} (every block "
                 f"{split['rank_t_dense']:.3f}), the rest (state I/O, "
@@ -1412,23 +1562,36 @@ def grid_times(ds, errs, errs_cpl):
         lane_tiles[n] = (cavi_cuda.sweep_lane_tile(n), time_ms(
             lambda: cavi_cuda.block_sweep_s(ld, st_n, sb, nf, h_n, a_n, ones),
             reps=5))
-    phase('G4', 'block sweep by lane tile, all blocks: ' + ', '.join(
+    phase(tag, 'block sweep by lane tile, all blocks: ' + ', '.join(
         f"S = {n} (lane tile {L}) {ms:.3f} ms"
         for n, (L, ms) in lane_tiles.items()))
-    cpl = coupling_times(ld, st1.q, d1, ones, COUPLING_WIDTHS, errs_cpl)
-    dense = dense_tiles(ld)
-    cpl_dense = coupling_times(dense, st1.q, d1, ones, COUPLING_WIDTHS,
-                               errs_cpl, tag='G4 dense', exact=refresh_q_f64)
-    del dense
+    cpl = coupling_times(ld, st1.q, d1, ones, COUPLING_WIDTHS, errs_cpl,
+                         tag=tag)
+    cpl_dense = None
+    if not f32:
+        dense = dense_tiles(ld)
+        cpl_dense = coupling_times(dense, st1.q, d1, ones, COUPLING_WIDTHS,
+                                   errs_cpl, tag='G4 dense',
+                                   exact=refresh_q_f64)
+        del dense
     few = torch.zeros(ld.nb, dtype=torch.int32, device=dev)
     few[::20] = 1
     ms_skip = time_ms(lambda: cavi_cuda.cavi_sweep_s_skip(
         ld, st0, sb, nf, h0, act, few), reps=5)
+    graph_skip = graph_ms(lambda: cavi_cuda.cavi_sweep_s_skip(
+        ld, st0, sb, nf, h0, act, few), reps=5)
     plain_skip = time_ms(lambda: _plain_lanes(ld, st0, sb, nf, h0, act, few),
                          reps=2, warmup=1)
-    check_state(f'K4, S={S}, {int(few.sum())} of {ld.nb} blocks',
+    check_state(f'{pre}K4, S={S}, {int(few.sum())} of {ld.nb} blocks',
                 cavi_cuda.cavi_sweep_s_skip(ld, st0, sb, nf, h0, act, few),
-                _plain_lanes(ld, st0, sb, nf, h0, act, few), errs, TOL_S)
+                _plain_lanes(ld, st0, sb, nf, h0, act, few), errs, TOL_S,
+                st0.eta if f32 else None)
+    # K4's coupling part as one PyTorch call: torch.bmm of the tiles it
+    # touches with the eta change of its block sweep
+    _, d_few = cavi_cuda.block_sweep_s(ld, st0, sb, nf, h0, act, few)
+    lib_skip = library_coupling_ms(ld, d_few, bmm_tiles(ld, _tiles_on(ld,
+                                                                      few)))
+    del d_few
     b_sweep = bound(*sweep_work(ld, S, 4, 5, ld.nb))
     work_nz = sweep_work_nz(ld, S, 4, 5)
     b_sweep_nz = bound(*work_nz[:2])
@@ -1437,8 +1600,9 @@ def grid_times(ds, errs, errs_cpl):
     b_skip_nz = bound(*_add(sweep_work_nz(ld, S, 4, 5, few),
                             coupling_work(ld, S, few)))
     c = cpl[S]
-    phase('G4', f"S={S}, first-iteration state, all {ld.nb} blocks: block "
-                f"sweep {ms_sweep:.3f} ms (plain {plain_sweep:.3f} ms; bound "
+    phase(tag, f"S={S}, first-iteration state, all {ld.nb} blocks: block "
+                f"sweep {ms_sweep:.3f} ms by CUDA events, {graph_sweep:.3f} "
+                f"ms in a CUDA graph (plain {plain_sweep:.3f} ms; bound "
                 f"by what the data needs {b_sweep_nz[0]:.3f} ms by "
                 f"{b_sweep_nz[1]} = {100 * b_sweep_nz[0] / ms_sweep:.1f}% of "
                 f"it, the inner steps over the {work_nz[2]} of "
@@ -1450,11 +1614,14 @@ def grid_times(ds, errs, errs_cpl):
                 f"bound {c['bound_ms']:.3f} ms by {c['bound_by']}); skip "
                 f"sweep at {int(few.sum())} blocks, "
                 f"{_tiles_touching(ld, few)} coupling tiles {ms_skip:.3f} ms "
-                f"(plain {plain_skip:.3f} ms, bound {b_skip_nz[0]:.3f} ms by "
-                f"{b_skip_nz[1]}, every tile dense {b_skip[0]:.3f} ms)")
+                f"by events, {graph_skip:.3f} ms in a CUDA graph (plain "
+                f"{plain_skip:.3f} ms, bound {b_skip_nz[0]:.3f} ms by "
+                f"{b_skip_nz[1]}, every tile dense {b_skip[0]:.3f} ms; its "
+                f"coupling part as one torch.bmm {lib_skip:.3f} ms)")
     del g, st0, st1, d1
     torch.cuda.empty_cache()
-    return dict(block_sweep=ms_sweep, block_sweep_plain=plain_sweep,
+    return dict(block_sweep=ms_sweep, block_sweep_graph=graph_sweep,
+                block_sweep_plain=plain_sweep,
                 block_sweep_bound=b_sweep_nz, block_sweep_bound_dense=b_sweep,
                 block_sweep_tile_blocks=work_nz[2:],
                 block_sweep_lane_tiles=lane_tiles,
@@ -1463,9 +1630,10 @@ def grid_times(ds, errs, errs_cpl):
                 coupling_plain=c['plain_ms'], coupling_library=c['library_ms'],
                 coupling_bound=(c['bound_ms'], c['bound_by']),
                 coupling_widths=cpl, coupling_widths_dense=cpl_dense,
-                skip_5pct=ms_skip,
+                skip_5pct=ms_skip, skip_5pct_graph=graph_skip,
                 skip_5pct_plain=plain_skip, skip_5pct_bound=b_skip_nz,
-                skip_5pct_bound_dense=b_skip)
+                skip_5pct_bound_dense=b_skip,
+                skip_5pct_library_coupling=lib_skip)
 
 
 #: G4 times the S-lane coupling pass at these widths: the grid's chunks
@@ -1525,19 +1693,17 @@ def neg_zeros(x):
 
 def same_bits_dense_walk(tag, ld, sweep):
     """A lane sweep skipping the zero blocks of its rank-T updates gives the
-    bits of its dense walk (every block flagged): ``sweep(ld)`` returns its
-    (state, eta_diff) on an LD operator."""
-    import torch
+    bits of its dense walk (every block flagged), the sign of a zero
+    included: ``sweep(ld)`` returns its (state, eta_diff) on an LD
+    operator."""
     got, want = sweep(ld), sweep(dense_diag_flags(ld))
-    for name, a, b in zip((*got[0]._fields, 'eta_diff'), (*got[0], got[1]),
-                          (*want[0], want[1])):
-        if not torch.equal(a, b):
-            fail(f"{tag}: the sweep's {name} with the real diag_nz differs "
-                 f"from the dense walk's")
+    _same_state(f"{tag}: the sweep with the real diag_nz against the dense "
+                f"walk", got, want)
     phase('check', f"{tag}: S = {got[1].shape[0]}, the sweep with the real "
                    f"diag_nz ({int(ld.diag_nz.sum())} of "
                    f"{ld.diag_nz.numel()} blocks of 32 x 32 nonzero) "
-                   f"bit-identical to the dense walk")
+                   f"bit-identical to the dense walk (the sign of a zero "
+                   f"included)")
 
 
 def _k3_sweep(state, sb, nf, hyper, act):
@@ -1814,7 +1980,7 @@ def _slabs_with_work(ld, blk):
 
 def refresh_q_f64(ld, q, d):
     """cavi_torch.refresh_q in float64 on float64 copies of q and the eta
-    change (the LD stays int8)."""
+    change (the LD keeps its tile type)."""
     import torch
     from viprs_tpu_torch.ops import cavi_torch
     cavi_torch.F32 = torch.float64
@@ -1868,9 +2034,9 @@ def mix_plain(name, ld, state, sb, nf, hyper, act=None, blk=None):
 
 
 def mix_plain_f64(name, ld, state, sb, nf, hyper, act=None, blk=None):
-    """``mix_plain`` in float64 on float64 copies of the inputs (the LD stays
-    int8): the plain versions cast to their modules' ``F32``, which is
-    float64 for the duration of the call."""
+    """``mix_plain`` in float64 on float64 copies of the inputs (the LD keeps
+    its tile type): the plain versions cast to their modules' ``F32``, which
+    is float64 for the duration of the call."""
     import torch
     from viprs_tpu_torch.ops import cavi_mix, cavi_torch
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
@@ -2060,10 +2226,6 @@ def mix_s1_cut_checks(sub, one, h1, sb, nf, errs5, errs6, prefix='M1 ',
 def mix_checks(ds, sub, sb, nf, errs):
     """M1 and M3: the mixture kernels against their plain versions on the
     cut (K = 3; single model, and S = 20 lanes; K7 also at K = 1 and 8)."""
-    import torch
-    from viprs_tpu_torch.ops import cavi_cuda, cavi_mix
-    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
-    dev = sub.device
     rng = np.random.default_rng(2)
     state, hyper = _mix_lane_state(sub, 20, ds.m, rng)
     one, h1 = _mix_one(state, hyper, 4)
@@ -2072,60 +2234,79 @@ def mix_checks(ds, sub, sb, nf, errs):
                 f"coupling tiles; hyperparameters of the bench mixture grid")
     mix_s1_cut_checks(sub, one, h1, sb, nf, errs['cavi_sweep_mix_s1'],
                       errs['cavi_sweep_mix_s1_skip'])
+    mix_lane_checks(ds.m, sub, sb, nf, state, hyper, rng,
+                    errs['cavi_sweep_mix_s'], errs['cavi_sweep_mix_s_skip'])
+    return {k: max(v) for k, v in errs.items()}
 
+
+def mix_lane_checks(m, sub, sb, nf, state, hyper, rng, errs7, errs8,
+                    prefix='M3 '):
+    """M3 (F4 with ``prefix`` 'F4 ' on the float32 cut): the mixture lane
+    kernels K7 and K8 against their plain versions on the cut at S = 20 and
+    K = 3 from ``state``: half the lanes frozen (bit-exact), every lane
+    frozen, a union mask at about half the blocks (unflagged blocks
+    bit-exact), lane independence (3 lanes at S = 3 and the first lanes on
+    either side of each lane tile's boundary), K7 and K8 with every 32 x 32
+    block flagged bit for bit their sweeps with the real flags, and K7 at
+    K = 1 and 8 (lane tiles 20 and 4; states drawn from ``rng``)."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_mix
+    from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    dev = sub.device
+    nb = sub.nb
     S = state.eta.shape[0]
-    phase('M3', f"S = {S} lanes, K = {MIX_K}, lane tile "
-                f"{cavi_cuda.mix_sweep_lane_tile(S, MIX_K)}")
+    phase(prefix.strip(), f"S = {S} lanes, K = {MIX_K}, {sub.diag.dtype} "
+                          f"tiles, lane tile "
+                          f"{cavi_cuda.mix_sweep_lane_tile(S, MIX_K)}")
     act = torch.ones(S, device=dev)
     full = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper, act)
-    check_mix_state(f'K7 S={S} all active', full, mix_plain(
-        'cavi_sweep_mix_s', sub, state, sb, nf, hyper, act),
-        errs['cavi_sweep_mix_s'])
+    check_mix_state(f'{prefix}K7 S={S} all active', full, mix_plain(
+        'cavi_sweep_mix_s', sub, state, sb, nf, hyper, act), errs7)
     half_act = act.clone()
     half_act[1::2] = 0.0
     got = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper, half_act)
-    check_mix_state(f'K7 S={S} half the lanes frozen', got, mix_plain(
-        'cavi_sweep_mix_s', sub, state, sb, nf, hyper, half_act),
-        errs['cavi_sweep_mix_s'])
+    check_mix_state(f'{prefix}K7 S={S} half the lanes frozen', got, mix_plain(
+        'cavi_sweep_mix_s', sub, state, sb, nf, hyper, half_act), errs7)
     for k in MixState._fields:
         if not torch.equal(getattr(got[0], k)[1::2], getattr(state, k)[1::2]):
-            fail(f"K7: frozen lanes' {k} changed")
+            fail(f"{prefix}K7: frozen lanes' {k} changed")
     if bool(got[1][1::2].any()):
-        fail("K7: frozen lanes report an eta change")
-    phase('check', "K7 frozen lanes bit-exact (gamma, mu, eta, q; eta_diff "
-                   "0)")
+        fail(f"{prefix}K7: frozen lanes report an eta change")
+    phase('check', f"{prefix}K7 frozen lanes bit-exact (gamma, mu, eta, q; "
+                   f"eta_diff 0)")
     st_k8 = full[0]
     blk = _half_blocks(lambda eps: (cavi_mix.mix_block_proposal_mask_batch(
         sub, st_k8, sb, nf, hyper, eps=eps) & (half_act > 0)[:, None])
         .any(dim=0), nb).to(torch.int32)
     if not 0 < int(blk.sum()) < nb:
-        fail("no gate epsilon splits the cut's blocks")
+        fail(f"{prefix}no gate epsilon splits the cut's blocks")
     name = 'cavi_sweep_mix_s_skip'
     got = mix_kernel(name, sub, st_k8, sb, nf, hyper, half_act, blk)
-    check_mix_state(f'K8 S={S} union mask flags {int(blk.sum())} of {nb} '
-                    f'blocks, half the lanes frozen', got, mix_plain(
+    check_mix_state(f'{prefix}K8 S={S} union mask flags {int(blk.sum())} of '
+                    f'{nb} blocks, half the lanes frozen', got, mix_plain(
                         name, sub, st_k8, sb, nf, hyper, half_act, blk),
-                    errs[name])
+                    errs8)
     quiet = blk == 0
     for k in MixState._fields[:3]:
         if not torch.equal(getattr(got[0], k)[..., quiet, :],
                            getattr(st_k8, k)[..., quiet, :]) or \
                 not torch.equal(getattr(got[0], k)[1::2],
                                 getattr(st_k8, k)[1::2]):
-            fail(f"K8: unflagged blocks' or frozen lanes' {k} changed")
+            fail(f"{prefix}K8: unflagged blocks' or frozen lanes' {k} changed")
     if bool(got[1][:, quiet].any()) or bool(got[1][1::2].any()):
-        fail("K8: unflagged blocks or frozen lanes report an eta change")
-    phase('check', "K8 unflagged blocks and frozen lanes bit-exact (gamma, "
-                   "mu, eta; eta_diff 0)")
+        fail(f"{prefix}K8: unflagged blocks or frozen lanes report an eta "
+             f"change")
+    phase('check', f"{prefix}K8 unflagged blocks and frozen lanes bit-exact "
+                   f"(gamma, mu, eta; eta_diff 0)")
     got = mix_kernel('cavi_sweep_mix_s', sub, state, sb, nf, hyper,
                      torch.zeros_like(act))
     for k in MixState._fields:
         if not torch.equal(getattr(got[0], k), getattr(state, k)):
-            fail(f"K7, every lane frozen: {k} changed")
+            fail(f"{prefix}K7, every lane frozen: {k} changed")
     if bool(got[1].any()):
-        fail("K7, every lane frozen: an eta change reported")
-    phase('check', "K7 every lane frozen (all-frozen lane tiles): state "
-                   "bit-exact (gamma, mu, eta, q; eta_diff 0)")
+        fail(f"{prefix}K7, every lane frozen: an eta change reported")
+    phase('check', f"{prefix}K7 every lane frozen (all-frozen lane tiles): "
+                   f"state bit-exact (gamma, mu, eta, q; eta_diff 0)")
     widths = []
     for n in (3, *(L + e for L in cavi_cuda.MIX_SWEEP_LANE_TILES
                    for e in (0, 1))):
@@ -2139,31 +2320,30 @@ def mix_checks(ds, sub, sb, nf, errs):
         for k, a, b in zip((*MixState._fields, 'eta_diff'),
                            (*got[0], got[1]), (*full[0], full[1])):
             if not torch.equal(a, b[lanes]):
-                fail(f"mixture lane independence: {k} at S = {n} (lane tile "
-                     f"{L}) differs from the same lanes at S = {S}")
+                fail(f"{prefix}mixture lane independence: {k} at S = {n} (lane "
+                     f"tile {L}) differs from the same lanes at S = {S}")
         widths.append(f"{n} ({L})")
-    phase('check', f"mixture lane independence: lanes 3, 10, 17 at S = 3 "
-                   f"and the first lanes at S (lane tile) = "
+    phase('check', f"{prefix}mixture lane independence: lanes 3, 10, 17 at "
+                   f"S = 3 and the first lanes at S (lane tile) = "
                    f"{', '.join(widths[1:])} bit-identical to the same lanes "
                    f"at S = {S} (gamma, mu, eta, q, eta_diff)")
-    same_bits_dense_walk('M3 K7', sub, lambda x: mix_kernel(
+    same_bits_dense_walk(f'{prefix}K7', sub, lambda x: mix_kernel(
         'cavi_sweep_mix_s', x, state, sb, nf, hyper, act))
-    same_bits_dense_walk('M3 K8', sub, lambda x: mix_kernel(
+    same_bits_dense_walk(f'{prefix}K8', sub, lambda x: mix_kernel(
         name, x, st_k8, sb, nf, hyper, half_act, blk))
     # every K instance family: K = 1 (lane tile 20) and K = 8 (lane tile 4)
     for K in (1, 8):
-        st_K, h_K = _mix_lane_state(sub, S, ds.m, rng, K)
-        check_mix_state(f'K7 S={S} K={K} (lane tile '
+        st_K, h_K = _mix_lane_state(sub, S, m, rng, K)
+        check_mix_state(f'{prefix}K7 S={S} K={K} (lane tile '
                         f'{cavi_cuda.mix_sweep_lane_tile(S, K)})',
                         mix_kernel('cavi_sweep_mix_s', sub, st_K, sb, nf, h_K,
                                    act),
                         mix_plain('cavi_sweep_mix_s', sub, st_K, sb, nf, h_K,
-                                  act), errs['cavi_sweep_mix_s'])
+                                  act), errs7)
     torch.cuda.synchronize()
-    return {k: max(v) for k, v in errs.items()}
 
 
-def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
+def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag, tag='M5'):
     """M5, the mixture block sweep of ``name`` alone (its coupling tiles not
     applied) over the blocks flagged in ``blk`` on the genome, against its
     bounds (the nonzero 32 x 32 blocks, and every tile dense): the sweep
@@ -2193,7 +2373,7 @@ def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
     ms_8, ms_dense, ms_0, ms_1 = (graph_ms(lambda: sweep(x, k), reps=5)
                                   for x, k in probes)
     if name != 'cavi_sweep_mix_s_skip':   # K8's is held in M3
-        same_bits_dense_walk(f'M5 {name}, {int(blk.sum())} blocks', ld,
+        same_bits_dense_walk(f'{tag} {name}, {int(blk.sum())} blocks', ld,
                              lambda x: sweep(x, 8))
     del dense_ld
     if single:
@@ -2215,7 +2395,7 @@ def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
     b_nz = bound(*sweep_work_nz(ld, S, 2 * K + 2, 2 * K + 3, blk)[:2])
     b_dense = bound(*sweep_work(ld, S, 2 * K + 2, 2 * K + 3,
                                 int(blk.sum())))
-    phase('M5', f"{name} sweep alone, {int(blk.sum())} blocks: "
+    phase(tag, f"{name} sweep alone, {int(blk.sum())} blocks: "
                 f"{ms_8:.3f} ms in a CUDA graph, {ev_8:.3f} ms by CUDA "
                 f"events (bound {b_nz[0]:.3f} ms by {b_nz[1]} over the "
                 f"nonzero 32 x 32 blocks = {100 * b_nz[0] / ms_8:.0f}% of "
@@ -2238,7 +2418,7 @@ def mix_probes(name, ld, st, sb, nf, h, act, blk, unit_diag):
             lane_tiles[n] = (cavi_cuda.mix_sweep_lane_tile(n, K), time_ms(
                 lambda: cavi_cuda.cavi_sweep_mix_s(ld, st_n, sb, nf, h_n,
                                                    act[:n]), reps=5))
-        phase('M5', 'K7 by lane tile, all blocks, coupling included: '
+        phase(tag, 'K7 by lane tile, all blocks, coupling included: '
               + ', '.join(f"S = {n} (lane tile {L}) {ms:.3f} ms"
                           for n, (L, ms) in lane_tiles.items()))
         rec['lane_tiles'] = lane_tiles
@@ -2347,12 +2527,24 @@ def mix_genome(ds):
 
 
 def mix_grid_genome(ds):
-    """M4: bench.py's 20-point mixture grid (K = 3) on the genome, cold,
-    warm and with the union-gated sweep; launch counters as in M2."""
+    """M4 (F5 on the genome packed as float32): bench.py's 20-point mixture
+    grid (K = 3) on the genome, cold, warm and with the union-gated sweep;
+    launch counters as in M2 (the lane kernels' instances for the LD's
+    tiles launched, no other one). The cold fit's per-lane nit and h2 are
+    held bit for bit to the port's earlier runs (PORT_MIX_GRID_*, or
+    PORT_F32_MIX_GRID_* for float32 LD, on which every lane must also
+    converge); one warm fit under torch.profiler."""
     import torch
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSMixGrid
     from viprs_tpu_torch.ops import cavi_cuda
+    f32 = ds.ld.diag.dtype == torch.float32
+    tag, held_nit, held_h2 = \
+        ('F5', PORT_F32_MIX_GRID_NIT, PORT_F32_MIX_GRID_H2) if f32 else \
+        ('M4', PORT_MIX_GRID_NIT, PORT_MIX_GRID_H2)
+    sfx = '_f32' if f32 else ''
+    # every kernel instance of the other tile type
+    other = [k for k in cavi_cuda.LAUNCHES if k.endswith('_f32') != f32]
     runs = {}
     for name, kw in (('cold', {}), ('warm', {}),
                      ("sweep_impl='skip'", {'sweep_impl': 'skip'})):
@@ -2379,36 +2571,45 @@ def mix_grid_genome(ds):
                    elbo=[float(x) for x in g.elbo()],
                    launches=dict(cavi_cuda.LAUNCHES))
         runs[name] = out
-        phase('M4', f"VIPRSMixGrid(20 x K={MIX_K}) {name}: fit {dt:.3f} s "
-                    f"({out['ms_per_it']:.2f} ms/it at nit max), "
-                    f"converged {out['converged']}/20 (JAX package: 20/20), "
-                    f"valid {out['valid']}/20, nit max {out['nit_max']} "
-                    f"median {out['nit_median']:g}; widths per chunk "
-                    f"{_runs(out['widths'])}; h2 {h2.min():.4f}..{h2.max():.4f}"
-                    f"; launches {out['launches']}")
+        phase(tag, f"VIPRSMixGrid(20 x K={MIX_K}) on {ds.ld.diag.dtype} LD "
+                   f"{name}: fit {dt:.3f} s ({out['ms_per_it']:.2f} ms/it at "
+                   f"nit max), converged {out['converged']}/20 (JAX package: "
+                   f"20/20), valid {out['valid']}/20, nit max "
+                   f"{out['nit_max']} median {out['nit_median']:g}; widths "
+                   f"per chunk {_runs(out['widths'])}; h2 "
+                   f"{h2.min():.4f}..{h2.max():.4f}; launches "
+                   f"{ {k: v for k, v in out['launches'].items() if v} }")
         if name != "sweep_impl='skip'" and out['valid'] < 20:
-            fail(f"{name}: only {out['valid']}/20 mixture grid points "
+            fail(f"{tag} {name}: only {out['valid']}/20 mixture grid points "
                  f"terminated validly")
+        if f32 and name != "sweep_impl='skip'" and out['converged'] < 20:
+            fail(f"{tag} {name}: only {out['converged']}/20 mixture grid "
+                 f"points converged")
+        if any(out['launches'][k] for k in other):
+            fail(f"{tag} {name}: the mixture grid on {ds.ld.diag.dtype} LD "
+                 f"launched another tile type's kernel: {out['launches']}")
         if name == 'cold':
             pip = np.concatenate([g.pip[c] for c in g.chromosomes])
             if pip.shape != (ds.m, 20) or not np.isfinite(pip).all():
                 fail("the mixture grid's PIP is not finite of shape (M, 20)")
-    if runs['cold']['launches']['cavi_sweep_mix_s'] < 1:
-        fail("the mixture grid never launched K7")
-    if runs["sweep_impl='skip'"]['launches']['cavi_sweep_mix_s_skip'] < 1:
-        fail("the union-gated mixture grid never launched K8")
+    if runs['cold']['launches']['cavi_sweep_mix_s' + sfx] < 1:
+        fail(f"{tag}: the mixture grid never launched K7")
+    if runs["sweep_impl='skip'"]['launches']['cavi_sweep_mix_s_skip' + sfx] \
+            < 1:
+        fail(f"{tag}: the union-gated mixture grid never launched K8")
     if runs['warm']['widths'] != runs['cold']['widths'] or \
             runs['warm']['nit_max'] != runs['cold']['nit_max']:
-        fail("repeated mixture grid fits differ")
+        fail(f"{tag}: repeated mixture grid fits differ")
     cold = runs['cold']
-    same = cold['nit'] == PORT_MIX_GRID_NIT and cold['h2'] == PORT_MIX_GRID_H2
-    phase('M4', f"cold per-lane nit {cold['nit']}; h2 {cold['h2']}; ELBO "
-                f"{cold['elbo']}: nit and h2 "
-                f"{'bit-identical to' if same else 'DIFFER from'} the port's "
-                f"earlier runs")
+    same = cold['nit'] == held_nit and cold['h2'] == held_h2
+    phase(tag, f"cold per-lane nit {cold['nit']}; h2 {cold['h2']}; ELBO "
+               f"{cold['elbo']}: nit and h2 "
+               f"{'bit-identical to' if same else 'DIFFER from'} the port's "
+               f"earlier runs")
     if not same:
-        fail("the mixture grid's per-lane nit or h2 moved from the port's "
-             "earlier runs (PORT_MIX_GRID_NIT, PORT_MIX_GRID_H2)")
+        fail(f"{tag}: the mixture grid's per-lane nit or h2 moved from the "
+             f"port's earlier runs ({'PORT_F32' if f32 else 'PORT'}"
+             f"_MIX_GRID_NIT, _H2)")
     runs['profile'] = profile_fit(
         ds, dict(max_iter=500), trace_name=None, make=lambda: VIPRSMixGrid(
             ds, HyperparameterGrid(n_snps=ds.m, **MIX_GRID_SPEC), 'cuda',
@@ -2416,10 +2617,11 @@ def mix_grid_genome(ds):
     return runs
 
 
-def mix_times(ds, errs):
-    """M5: the mixture kernels against their plain versions at the genome's
-    shapes, from the first iteration's state of VIPRSMix(K=3) and of the
-    20-point mixture grid: checks, times, and the work that bounds them."""
+def mix_times(ds, errs, names=tuple(MIX_KERNELS)):
+    """M5 (F6 on the genome packed as float32): the mixture kernels
+    ``names`` against their plain versions at the genome's shapes, from the
+    first iteration's state of VIPRSMix(K=3) and of the 20-point mixture
+    grid: checks, times, and the work that bounds them."""
     import torch
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSMix, VIPRSMixGrid
@@ -2427,11 +2629,17 @@ def mix_times(ds, errs):
     from viprs_tpu_torch.ops.cavi_mix import MixState
     ld = ds.ld
     dev = ld.device
+    tag = 'F6' if ld.diag.dtype == torch.float32 else 'M5'
     sb, nf = ds.device_inputs()
     K = MIX_K
-    np.random.seed(0)
-    m1 = VIPRSMix(ds, 'cuda', K=K)
-    m1.initialize()
+    inputs = {}
+    if not all(MIX_KERNELS[n][1] for n in names):
+        np.random.seed(0)
+        m1 = VIPRSMix(ds, 'cuda', K=K)
+        m1.initialize()
+        inputs['cavi_sweep_mix_s1'] = inputs['cavi_sweep_mix_s1_skip'] = (
+            m1._state, m1._hyper_dev(), None)
+        del m1
     np.random.seed(0)
     mg = VIPRSMixGrid(ds, HyperparameterGrid(n_snps=ds.m, **MIX_GRID_SPEC),
                       'cuda', K=K)
@@ -2439,13 +2647,12 @@ def mix_times(ds, errs):
     S = mg.n_models
     act = torch.ones(S, device=dev)
     ones = torch.ones(ld.nb, dtype=torch.int32, device=dev)
-    inputs = {
-        'cavi_sweep_mix_s1': (m1._state, m1._hyper_dev(), None),
-        'cavi_sweep_mix_s1_skip': (m1._state, m1._hyper_dev(), None),
-        'cavi_sweep_mix_s': (mg._state, mg._hyper_dev(), act),
-        'cavi_sweep_mix_s_skip': (mg._state, mg._hyper_dev(), act)}
+    inputs['cavi_sweep_mix_s'] = inputs['cavi_sweep_mix_s_skip'] = (
+        mg._state, mg._hyper_dev(), act)
+    del mg
     out = {}
-    for name, (st, h, a) in inputs.items():
+    for name in names:
+        st, h, a = inputs[name]
         lanes, skip = MIX_KERNELS[name][1:]
         blk = None
         if skip:
@@ -2468,9 +2675,9 @@ def mix_times(ds, errs):
                         reps=2, warmup=1)
         got = mix_kernel(name, ld, st, sb, nf, h, a, blk)
         want = mix_plain(name, ld, st, sb, nf, h, a, blk)
-        tag = f'{name} at the genome, {n_blk} of {ld.nb} blocks'
-        check_mix_state(tag, got, want, errs[name])
-        check_accuracy(tag, got, want,
+        what = f'{tag} {name} at the genome, {n_blk} of {ld.nb} blocks'
+        check_mix_state(what, got, want, errs[name])
+        check_accuracy(what, got, want,
                        mix_plain_f64(name, ld, st, sb, nf, h, a, blk))
         del got, want
         b_dense = bound(*work_dense)
@@ -2499,31 +2706,31 @@ def mix_times(ds, errs):
                 rec['ms_all_blocks'] = time_ms(lambda: mix_kernel(
                     name, ld, st, sb, nf, h, a, ones), reps=5)
         mask = ones if blk is None else blk
-        rec.update(mix_probes(name, ld, st, sb, nf, h, a, mask, skip))
+        rec.update(mix_probes(name, ld, st, sb, nf, h, a, mask, skip, tag))
         if skip and not lanes:
             rec['at_5pct'] = mix_probes(name, ld, st, sb, nf, h, a, few,
-                                        skip)
+                                        skip, tag)
         # the coupling part alone, on the block sweep's output
         if lanes:
             new, d = cavi_cuda.block_sweep_mix(ld, st, sb, nf, h, a, mask,
                                                skip, name)
             rec['coupling'] = coupling_times(ld, new.q, d, mask, (S_k,),
-                                             errs[name], tag='M5')[S_k]
+                                             errs[name], tag=tag)[S_k]
         else:
             new, d = cavi_cuda.block_sweep_mix(
                 ld, MixState(*(x[None] for x in st)), sb, nf, h.lanes(),
                 None, mask, skip, name)
             rec['coupling'] = s1_coupling_times(ld, new.q, d, mask,
-                                                errs[name])
+                                                errs[name], tag)
             if skip:
                 new, d = cavi_cuda.block_sweep_mix(
                     ld, MixState(*(x[None] for x in st)), sb, nf, h.lanes(),
                     None, few, skip, name)
                 rec['coupling_5pct'] = s1_coupling_times(ld, new.q, d, few,
-                                                         errs[name])
+                                                         errs[name], tag)
         del new, d
         out[name] = rec
-        phase('M5', f"{name} (S={S_k}, K={K}), first-iteration state, "
+        phase(tag, f"{name} (S={S_k}, K={K}), first-iteration state, "
                     f"{n_blk} of {ld.nb} blocks, {n_til} coupling tiles: "
                     f"{ms:.3f} ms by CUDA events, {dev_ms:.3f} ms in a CUDA "
                     f"graph (plain {plain:.3f} ms); bound {b_ms:.3f} ms "
@@ -2538,7 +2745,7 @@ def mix_times(ds, errs):
                        f"{rec['bound_5pct'][1]})" if skip else '')
                     + (f"; every block flagged {rec['ms_all_blocks']:.3f} ms"
                        if skip and lanes else ''))
-    del m1, mg
+    del inputs
     torch.cuda.empty_cache()
     return out
 
@@ -2552,6 +2759,11 @@ F32_KERNELS = {
     'coupling_pass_s1_f32': (492, 'cavi_s1.cu'),
     'cavi_sweep_mix_s1_f32': (700, 'cavi_mix.cu'),
     'cavi_sweep_mix_s1_skip_f32': (1037, 'cavi_mix.cu'),
+    # the lane kernels (F4-F6)
+    'cavi_block_sweep_s_f32': (49, 'cavi_s.cu'),
+    'coupling_pass_s_f32': (1191, 'cavi_s.cu'),
+    'cavi_sweep_mix_s_f32': (849, 'mix_lane.cuh'),
+    'cavi_sweep_mix_s_skip_f32': (1593, 'mix_lane.cuh'),
 }
 
 
@@ -2914,6 +3126,147 @@ def f32_times(ds32, errs):
                        f"{rec['bound_5pct'][0]:.4f} ms" if skip else ''))
     del mm
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------- float32 LD, the grid models (F4-F6)
+def f32_lane_checks(ds32, sel, sb, nf, errs):
+    """F4: the float32 instances of the lane kernels on phase 4's 8 blocks,
+    cut from the float32 packing, with G1's and M3's bounds: K3 at S = 100,
+    3 and 13 (frozen lanes bit-exact), K4 at half the blocks (unflagged
+    blocks bit-exact), lane independence across each lane tile's boundary
+    and at S = 101, the coupling pass alone (input q untouched, lane
+    independence), the dense walk (``grid_checks``); K7/K8 at S = 20,
+    K = 3 and K7 at K = 1 and 8 (``mix_lane_checks``); then every
+    zero-block skip on the cut and the zeroed cut (``lane_zero_block_checks``).
+    Returns the cut."""
+    import torch
+    sub = cut_blocks(ds32.ld, sel, ds32.ld.device)
+    if sub.diag.dtype != torch.float32 or sub.off_data.dtype != torch.float32:
+        fail(f"F4: the cut's tiles are {sub.diag.dtype}, not float32")
+    grid_checks(ds32, sub, sb, nf, errs['cavi_block_sweep_s_f32'],
+                errs['coupling_pass_s_f32'], prefix='F4 ')
+    rng = np.random.default_rng(2)
+    state, hyper = _mix_lane_state(sub, 20, ds32.m, rng)
+    mix_lane_checks(ds32.m, sub, sb, nf, state, hyper, rng,
+                    errs['cavi_sweep_mix_s_f32'],
+                    errs['cavi_sweep_mix_s_skip_f32'], prefix='F4 ')
+    lane_zero_block_checks(sub, ds32.m, sb, nf, errs, prefix='F4 ')
+    torch.cuda.synchronize()
+    return sub
+
+
+def lane_zero_block_checks(sub, m, sb, nf, errs, prefix='F4 '):
+    """F4, the lane kernels on the cut and on the cut with a third of its
+    32 x 32 blocks zeroed (inside and outside the (T, T) tiles, and in the
+    coupling tiles), at S = 20 (the bench grid's rows; K = 3 for the
+    mixture): K3 and K4 (half the blocks flagged), K7 and K8 against their
+    plain versions; the block sweeps (every block, and half the blocks
+    flagged) and the coupling pass with their real flags bit for bit, the
+    sign of a zero included, against their dense walks (every 32 x 32 block
+    flagged), and the coupling pass's input q untouched. ``errs``: the
+    F32_KERNELS error lists."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
+    dev = sub.device
+    S = 20
+    ones = torch.ones(sub.nb, dtype=torch.int32, device=dev)
+    half = torch.zeros(sub.nb, dtype=torch.int32, device=dev)
+    half[::2] = 1
+    act = torch.ones(S, device=dev)
+    hyper = grid_hyper(m, S, dev)
+    for tag, x, need in (('the cut', sub, False),
+                         ('the cut, blocks zeroed', zero_blocks_cut(sub),
+                          True)):
+        n_in, n_out = zero_blocks(x)
+        n_cz, n_cnz = int((x.off_nz == 0).sum()), int(x.off_nz.sum())
+        if need and not (n_in and n_out and n_cz and n_cnz):
+            fail(f"{prefix}{tag}: the diagonal tiles need zero 32 x 32 "
+                 f"blocks inside ({n_in}) and outside ({n_out}) the (T, T) "
+                 f"tiles, the coupling tiles zero ({n_cz}) and nonzero "
+                 f"({n_cnz}) ones")
+        rng = np.random.default_rng(3)
+        state = _lane_state(x, S, rng, hyper)
+        check_state(f'{prefix}K3 S={S} on {tag}', cavi_cuda.cavi_sweep_s(
+            x, state, sb, nf, hyper, act), cavi_torch.cavi_sweep(
+            x, state, sb, nf, hyper, act), errs['cavi_block_sweep_s_f32'],
+            TOL_S, state.eta)
+        check_state(f'{prefix}K4 S={S} on {tag}, half the blocks flagged',
+                    cavi_cuda.cavi_sweep_s_skip(x, state, sb, nf, hyper, act,
+                                                half),
+                    _plain_lanes(x, state, sb, nf, hyper, act, half),
+                    errs['cavi_block_sweep_s_f32'], TOL_S, state.eta)
+        dense_d, dense_c = dense_diag_flags(x), dense_off_flags(x)
+        for label, mask in (('every block', ones), ('half the blocks', half)):
+            t = f'{tag}, {label}'
+            got = cavi_cuda.block_sweep_s(x, state, sb, nf, hyper, act, mask)
+            _same_state(f'{prefix}K3 block sweep on {t}: the real diag_nz '
+                        f'against the dense walk', got,
+                        cavi_cuda.block_sweep_s(dense_d, state, sb, nf, hyper,
+                                                act, mask))
+            new, d = got
+            q0 = new.q.clone()
+            q = cavi_cuda.coupling_pass_s(x, new.q, d, mask)
+            if not same_bits(new.q, q0):
+                fail(f"{prefix}coupling_pass_s on {t} wrote its input q")
+            if not same_bits(q, cavi_cuda.coupling_pass_s(dense_c, new.q, d,
+                                                          mask)):
+                fail(f"{prefix}coupling_pass_s on {t}: q with the real "
+                     f"off_nz differs from the dense walk's")
+        mst, mh = _mix_lane_state(x, S, m, rng)
+        for name, mask in (('cavi_sweep_mix_s', None),
+                           ('cavi_sweep_mix_s_skip', half)):
+            check_mix_state(f'{prefix}{name} S={S} on {tag}', mix_kernel(
+                name, x, mst, sb, nf, mh, act, mask), mix_plain(
+                name, x, mst, sb, nf, mh, act, mask), errs[name + '_f32'])
+            skip = mask is not None
+
+            def sweep(y, b=ones if mask is None else mask):
+                return cavi_cuda.block_sweep_mix(y, mst, sb, nf, mh, act, b,
+                                                 skip, name)
+            _same_state(f'{prefix}{name} block sweep on {tag}: the real '
+                        f'diag_nz against the dense walk', sweep(x),
+                        sweep(dense_d))
+        phase('check', f"{prefix}{tag} ({n_in} zero 32 x 32 blocks inside "
+                       f"the (T, T) tiles, {n_out} outside, {n_cz} zero and "
+                       f"{n_cnz} nonzero in the {x.n_off} coupling tiles): "
+                       f"K3, K4, K7 and K8 within bounds; the K3 block sweep "
+                       f"and the coupling pass, every block and half the "
+                       f"blocks flagged, and the K7 and K8 block sweeps bit "
+                       f"for bit their dense walks; the coupling pass's "
+                       f"input q untouched")
+
+
+def f32_grid_cut_fits(sub, sb, nf):
+    """F4: a 16-point VIPRSGrid fit (as G2) and an 8-point VIPRSMixGrid(K=3)
+    fit on the float32 cut, the kernels on the card against the plain
+    versions on the CPU (np.random.seed(0) each): per lane h2 within 1e-4
+    and nit within 2."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSMixGrid
+    out = {'VIPRSGrid': grid_cut_fit(sub, sb, nf, tag='F4', nit_window=2)}
+    fits = {}
+    for where in ('cuda', 'cpu'):
+        dsx = _dataset_from_cut(sub, sb, nf, torch.device(where))
+        np.random.seed(0)
+        fits[where] = VIPRSMixGrid(dsx, HyperparameterGrid(
+            pi_steps=8, n_snps=dsx.m), where, K=MIX_K).fit(max_iter=300)
+    gc, gp = fits['cuda'], fits['cpu']
+    nit_c = np.array([r.nit for r in gc.optim_results])
+    nit_p = np.array([r.nit for r in gp.optim_results])
+    h2_c, h2_p = gc.get_heritability(), gp.get_heritability()
+    dh2 = float(np.max(np.abs(h2_c - h2_p)))
+    dnit = int(np.max(np.abs(nit_c - nit_p)))
+    phase('F4', f"VIPRSMixGrid(8 x K={MIX_K}) on the float32 cut: nit "
+                f"{nit_c.tolist()} (card) vs {nit_p.tolist()} (plain, CPU); "
+                f"max |dh2| {dh2:.2e} (bound 1e-4), max |dnit| {dnit} "
+                f"(bound 2)")
+    if not (gc.valid_terminated_models.all() and dh2 <= 1e-4 and dnit <= 2):
+        fail("F4: the mixture grid fit on the float32 cut disagrees with the "
+             "plain fit")
+    out['VIPRSMixGrid'] = dict(nit=[nit_c.tolist(), nit_p.tolist()],
+                               h2=[h2_c.tolist(), h2_p.tolist()])
     return out
 
 

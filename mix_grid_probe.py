@@ -19,8 +19,12 @@ default; the profiler's trace under ``--trace-dir``) and on stdout:
   device's busy share);
 - cavi_sweep_mix_s (K7) at S = 20 and at its first 8 lanes, and
   cavi_sweep_mix_s_skip (K8) at the union mask and at every 20th block, on
-  the grid's first-iteration state: CUDA-event ms, and a SHA-256 of each
-  output's bytes (equal digests in two checkouts: bit-identical outputs).
+  the grid's first-iteration state; and, on the first-iteration state of
+  bench.py's 100-point VIPRSGrid, cavi_sweep_s (K3) at S = 100, 16 and 2,
+  cavi_sweep_s_skip (K4) at every 20th block and coupling_pass_s at S = 2,
+  8, 16, 20 and 100 on the block sweep's output: CUDA-event ms, and a
+  SHA-256 of each output's bytes (equal digests in two checkouts:
+  bit-identical outputs).
 
 It imports nothing of JAX.
 """
@@ -66,9 +70,10 @@ def main():
     from torch.profiler import ProfilerActivity, profile
     from viprs_tpu_torch.data.dataset import SummaryStatsDataset
     from viprs_tpu_torch.gridsearch import HyperparameterGrid
-    from viprs_tpu_torch.model import VIPRSMixGrid
+    from viprs_tpu_torch.model import VIPRSGrid, VIPRSMixGrid
     from viprs_tpu_torch.ops import _build, cavi_cuda, cavi_mix
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
+    from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
@@ -160,14 +165,43 @@ def main():
         f'K8 S=20 every 20th block ({int(few.sum())} blocks)':
             lambda: cavi_cuda.cavi_sweep_mix_s_skip(ld, st, sb, nf, h, act,
                                                     few)}
+    # the model grid's lane kernels on its first-iteration state
+    np.random.seed(0)
+    gg = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **cs.GRID_SPEC),
+                   'cuda')
+    gg.initialize_theta()
+    gg.initialize_variational_parameters()
+    gs, gh = gg._state, gg._hyper_dev()
+    gact = torch.ones(gs.eta.shape[0], device=dev)
+    ones = torch.ones(ld.nb, dtype=torch.int32, device=dev)
+
+    def lanes(n):
+        return (CaviState(*(x[:n].contiguous() for x in gs)),
+                Hyper(*(x[:n] for x in gh)), gact[:n])
+
+    def k3(n):
+        st_n, h_n, a_n = lanes(n)
+        return lambda: cavi_cuda.cavi_sweep_s(ld, st_n, sb, nf, h_n, a_n)
+
+    def coupling(n):
+        q, d = (x[:n].contiguous() for x in (new.q, d1))
+        return lambda: (cavi_cuda.coupling_pass_s(ld, q, d, ones),)
+
+    new, d1 = cavi_cuda.block_sweep_s(ld, gs, sb, nf, gh, gact, ones)
+    runs.update({f'K3 S={n}': k3(n) for n in (100, 16, 2)})
+    runs[f'K4 S=100 every 20th block ({int(few.sum())} blocks)'] = \
+        lambda: cavi_cuda.cavi_sweep_s_skip(ld, gs, sb, nf, gh, gact, few)
+    runs.update({f'coupling_pass_s S={n}': coupling(n)
+                 for n in (2, 8, 16, 20, 100)})
     rec['kernels'] = {}
     for name, fn in runs.items():
         ms = cs.time_ms(fn, reps=5)
-        new, d = fn()
-        rec['kernels'][name] = dict(ms=ms, sha256=digest(*new, d))
+        out = fn()
+        flat = (*out[0], out[1]) if len(out) == 2 else out
+        rec['kernels'][name] = dict(ms=ms, sha256=digest(*flat))
         print(f"[{args.tag}] {name}: {ms:.3f} ms, outputs sha256 "
               f"{rec['kernels'][name]['sha256'][:16]}", flush=True)
-        del new, d
+        del out, flat
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f'mix_grid_probe_{args.tag}.json'),
               'w') as f:

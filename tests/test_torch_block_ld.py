@@ -175,27 +175,24 @@ def test_int8_and_float32_tiles_pass_the_check_for_a_cuda_device(
 
 
 @pytest.mark.parametrize('model', ['VIPRSGrid', 'VIPRSMixGrid', 'GridSearch'])
-def test_grid_models_refuse_float32_ld_off_the_cpu(sim, model):
-    """The grid models fit their lanes with the S-lane kernels, which take
-    int8 LD: on a device that is not the CPU (meta, the card's stand-in),
-    float32 LD raises a ValueError naming quantize=True before anything
-    runs; on the CPU it builds."""
+def test_grid_models_build_on_float32_ld_off_the_cpu(sim, model):
+    """The grid models fit their lanes with the S-lane kernels, which have
+    float32 instances: on a device that is not the CPU (meta, the card's
+    stand-in) float32 LD builds the model, as on the CPU, with the grid's
+    points as its lanes."""
     from viprs_tpu_torch.gridsearch import GridSearch, HyperparameterGrid
     from viprs_tpu_torch.model import VIPRSGrid, VIPRSMixGrid
     cls = {'VIPRSGrid': VIPRSGrid, 'VIPRSMixGrid': VIPRSMixGrid,
            'GridSearch': GridSearch}[model]
-    cpu = SummaryStatsDataset.from_dense_blocks(
-        sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'], block_size=128,
-        device='cpu')
-    assert cpu.ld.diag.dtype == torch.float32
-    grid = HyperparameterGrid(n_snps=cpu.m, pi_steps=3)
-    meta = SummaryStatsDataset.from_dense_blocks(
-        sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'], block_size=128,
-        device='meta')
-    with pytest.raises(ValueError, match='quantize=True') as err:
-        cls(meta, grid, 'meta')
-    assert 'float32' in str(err.value)
-    cls(cpu, grid, 'cpu')
+    for device in ('meta', 'cpu'):
+        ds = SummaryStatsDataset.from_dense_blocks(
+            sim['ld_blocks'], sim['std_beta'], sim['n_per_snp'],
+            block_size=128, device=device)
+        assert ds.ld.diag.dtype == torch.float32
+        assert ds.ld.diag.device.type == device
+        m = cls(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=3), device)
+        grid = m.model if model == 'GridSearch' else m
+        assert grid.n_models == 3 and grid.device.type == device
 
 
 @pytest.mark.parametrize('quantize', [True, False])

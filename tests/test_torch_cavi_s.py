@@ -304,49 +304,108 @@ def test_lane_wrappers_never_take_the_plain_version_off_cpu(monkeypatch,
         _build.build.cache_clear()
 
 
-def test_lane_wrappers_refuse_float32_ld_up_front(monkeypatch):
-    """The S-lane kernels (K3/K4, K7/K8, coupling_pass_s) take int8 LD
-    until their float32 instances are ported: off the CPU, float32 tiles
-    raise a ValueError that names quantize=True before anything is built or
-    launched, through every lane wrapper and composition."""
-    from viprs_tpu_torch.ops import _build
+#: The lane wrappers and compositions (K3/K4, the coupling pass, K7/K8) as
+#: (name, call(ld, args)), and the kernel launchers each one reaches.
+LANE_CALLS = {
+    'block_sweep_s': (
+        lambda ld, a: cavi_cuda.block_sweep_s(ld, a['state'], a['z'], a['z'],
+                                              a['hyper'], a['act'], a['blk']),
+        {'cavi_block_sweep_s'}),
+    'cavi_sweep_s': (
+        lambda ld, a: cavi_cuda.cavi_sweep_s(ld, a['state'], a['z'], a['z'],
+                                             a['hyper'], a['act']),
+        {'cavi_block_sweep_s', 'coupling_pass_s'}),
+    'cavi_sweep_s_skip': (
+        lambda ld, a: cavi_cuda.cavi_sweep_s_skip(
+            ld, a['state'], a['z'], a['z'], a['hyper'], a['act'], a['blk']),
+        {'cavi_block_sweep_s', 'coupling_pass_s'}),
+    'coupling_pass_s_inplace': (
+        lambda ld, a: cavi_cuda.coupling_pass_s_inplace(ld, a['q'], a['q'],
+                                                        a['blk']),
+        {'coupling_pass_s'}),
+    'coupling_pass_s': (
+        lambda ld, a: cavi_cuda.coupling_pass_s(ld, a['q'], a['q'], a['blk']),
+        {'coupling_pass_s'}),
+    'block_sweep_mix': (
+        lambda ld, a: cavi_cuda.block_sweep_mix(
+            ld, a['mix'], a['z'], a['z'], a['mh'], a['act'], a['blk'], False,
+            'cavi_sweep_mix_s'),
+        {'cavi_block_sweep_mix_s'}),
+    'cavi_sweep_mix_s': (
+        lambda ld, a: cavi_cuda.cavi_sweep_mix_s(ld, a['mix'], a['z'], a['z'],
+                                                 a['mh'], a['act']),
+        {'cavi_block_sweep_mix_s', 'coupling_pass_s'}),
+    'cavi_sweep_mix_s_skip': (
+        lambda ld, a: cavi_cuda.cavi_sweep_mix_s_skip(
+            ld, a['mix'], a['z'], a['z'], a['mh'], a['act'], a['blk']),
+        {'cavi_block_sweep_mix_s', 'coupling_pass_s'})}
+
+
+def _meta_lane_args(S, K, nb, B):
+    """State, inputs, hyperparameters, step scales and an all-blocks mask of
+    S lanes (K mixture components) on the meta device."""
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
-    calls = []
-
-    def no_build():
-        calls.append('build')
-        raise AssertionError("the lane wrappers built the kernels")
-
-    monkeypatch.setattr(_build, 'build', no_build)
-    nb, B, S, K = 2, 128, 3, 2
-    ld = BlockLD.from_numpy(np.zeros((nb, B, B), np.float32),
-                            np.ones((1, B, B), np.float32), [0], [1],
-                            np.ones((nb, B), np.float32), 1.0, device='meta')
     z = torch.zeros(S, nb, B, device='meta')
-    state = CaviState(z, z, z, z)
-    hyper = Hyper(*(torch.ones(S, device='meta'),) * 4)
-    act = torch.ones(S, device='meta')
-    blk = torch.ones(nb, dtype=torch.int32, device='meta')
     zk = torch.zeros(S, K, nb, B, device='meta')
-    mix = MixState(zk, zk, z, z)
-    mh = MixHyper(act, torch.ones(S, K, device='meta'),
-                  torch.ones(S, K, device='meta'), act)
-    for call in (
-            lambda: cavi_cuda.block_sweep_s(ld, state, z[0], z[0], hyper,
-                                            act, blk),
-            lambda: cavi_cuda.cavi_sweep_s(ld, state, z[0], z[0], hyper, act),
-            lambda: cavi_cuda.cavi_sweep_s_skip(ld, state, z[0], z[0], hyper,
-                                                act, blk),
-            lambda: cavi_cuda.coupling_pass_s_inplace(ld, z, z, blk),
-            lambda: cavi_cuda.coupling_pass_s(ld, z, z, blk),
-            lambda: cavi_cuda.block_sweep_mix(ld, mix, z[0], z[0], mh, act,
-                                              blk, False, 'cavi_sweep_mix_s'),
-            lambda: cavi_cuda.cavi_sweep_mix_s(ld, mix, z[0], z[0], mh, act),
-            lambda: cavi_cuda.cavi_sweep_mix_s_skip(ld, mix, z[0], z[0], mh,
-                                                    act, blk)):
-        with pytest.raises(ValueError, match='quantize=True') as err:
-            call()
-        assert 'float32 instances' in str(err.value)
+    act = torch.ones(S, device='meta')
+    return dict(state=CaviState(z, z, z, z), z=z[0], q=z,
+                hyper=Hyper(*(torch.ones(S, device='meta'),) * 4), act=act,
+                blk=torch.ones(nb, dtype=torch.int32, device='meta'),
+                mix=MixState(zk, zk, z, z),
+                mh=MixHyper(act, torch.ones(S, K, device='meta'),
+                            torch.ones(S, K, device='meta'), act))
+
+
+@pytest.mark.parametrize('call', list(LANE_CALLS))
+def test_lane_wrappers_launch_the_float32_instances(monkeypatch, call):
+    """Float32 LD tiles go to the float32 instances of the lane kernels
+    (cavi_block_sweep_s_f32_launch, coupling_pass_s_f32_launch,
+    cavi_block_sweep_mix_s_f32_launch) with scale 1.0, counted under their
+    names with _f32 appended; the same call on int8 tiles launches the int8
+    instances with the int8 scale and no float32 one (a stand-in library
+    records the launches; meta tensors take the place of the card's)."""
+    from test_torch_cavi import _meta_ld, _stand_in_lib
+    fn, launchers = LANE_CALLS[call]
+    S, K, nb, B, n_off = 5, 2, 3, 256, 2
+    args = _meta_lane_args(S, K, nb, B)
+    for dtype, sfx, scale in ((np.float32, '_f32', 1.0),
+                              (np.int8, '', np.float32(1 / 127))):
+        calls = {}
+        _stand_in_lib(monkeypatch, calls)
+        ld = _meta_ld(nb, B, n_off, dtype)
+        fn(ld, args)
+        assert set(calls) == {k + sfx + '_launch' for k in launchers}
+        # the scale follows the pointers: (S, [K,] nb, B, scale, ...) for
+        # the sweeps, (n_slabs, S, nb, B, scale, L) for the coupling pass
+        for name, launches in calls.items():
+            at = 14 if name.startswith('coupling') else (
+                20 if 'mix' in name else 19)
+            assert [a[at] for a in launches] == [scale] * len(launches), name
+        counted = {k: v for k, v in cavi_cuda.LAUNCHES.items() if v}
+        assert all(k.endswith('_f32') == (sfx == '_f32') for k in counted)
+        assert sum(counted.values()) == sum(map(len, calls.values()))
+
+
+@pytest.mark.parametrize('diag,off,msg', [
+    (torch.float64, torch.float64, 'int8 or float32'),
+    (torch.float16, torch.float16, 'int8 or float32'),
+    (torch.int8, torch.float32, 'share one dtype'),
+    (torch.float32, torch.int8, 'share one dtype')])
+def test_lane_wrappers_refuse_other_tile_dtypes_up_front(monkeypatch, diag,
+                                                         off, msg):
+    """Off the CPU, the lane wrappers take int8 or float32 tiles, diag and
+    off_data alike: float64 or float16 tiles and mixed int8/float32 tiles
+    raise a ValueError through every lane wrapper and composition before
+    anything is launched."""
+    from test_torch_cavi import _meta_ld, _retyped, _stand_in_lib
+    calls = {}
+    _stand_in_lib(monkeypatch, calls)
+    nb, B = 2, 128
+    ld = _retyped(_meta_ld(nb, B, 1), diag, off)
+    args = _meta_lane_args(3, 2, nb, B)
+    for fn, _ in LANE_CALLS.values():
+        with pytest.raises(ValueError, match=msg):
+            fn(ld, args)
     assert not calls
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
 

@@ -23,6 +23,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from viprs_tpu.data.dataset import SummaryStatsDataset as JaxDataset
 from viprs_tpu.data.simulate import simulate_sumstats_blocks
@@ -51,9 +52,10 @@ BENCH_GRID = dict(pi_steps=20, sigma_epsilon_steps=5, n_snps=1_099_965,
 
 
 def both_datasets(seed, n, block_sizes, h2, block_size, scale=1.0,
-                  null_tail=0):
-    """One simulated problem in both packages; ``null_tail`` zeroes the
-    marginal betas of that many trailing variants."""
+                  null_tail=0, quantize=True):
+    """One simulated problem in both packages, its LD packed as int8 (or
+    float32 with ``quantize=False``); ``null_tail`` zeroes the marginal
+    betas of that many trailing variants."""
     sim = simulate_sumstats_blocks(n=n, block_sizes=block_sizes, h2=h2,
                                    prop_causal=0.04, seed=seed)
     sb = {c: scale * v for c, v in sim['std_beta'].items()}
@@ -61,9 +63,10 @@ def both_datasets(seed, n, block_sizes, h2, block_size, scale=1.0,
         v[len(v) - null_tail:] = 0.0
     args = (sim['ld_blocks'], sb, sim['n_per_snp'])
     return (JaxDataset.from_dense_blocks(*args, block_size=block_size,
-                                         quantize=True),
+                                         quantize=quantize),
             SummaryStatsDataset.from_dense_blocks(
-                *args, block_size=block_size, quantize=True, device='cpu'))
+                *args, block_size=block_size, quantize=quantize,
+                device='cpu'))
 
 
 def fit_both(jds, ds, spec, seed=9, **fit_kw):
@@ -258,6 +261,14 @@ def test_bma_on_the_jax_fit_matches_jax(datasets):
     jm = JaxVIPRSGrid(jds, JaxGrid(n_snps=jds.m, **GRID_12), mesh='off')
     jm.fit(max_iter=200)
     tm = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **GRID_12), 'cpu')
+    assert_bma_on_carried_state_matches(jm, tm)
+
+
+def assert_bma_on_carried_state_matches(jm, tm):
+    """BMA of the port's grid ``tm`` on the state, hyperparameters, sigma_g,
+    fix mask, per-lane statuses and ELBOs of the JAX grid fit ``jm``,
+    carried across on the same bytes, against the JAX package's BMA of
+    ``jm``: hyperparameters, sigma_g, state and h2 within rtol 1e-6."""
     tm._state = CaviState.from_numpy(*(np.asarray(x) for x in jm._state),
                                      device='cpu')
     tm._hyper = Hyper(*(np.asarray(x, np.float64) for x in jm._hyper))
@@ -295,6 +306,25 @@ def test_bma_on_the_jax_fit_matches_jax(datasets):
     assert 0.0 < tm.get_heritability() < 1.0
     assert tm.get_heritability() == pytest.approx(jm.get_heritability(),
                                                   rel=1e-6)
+
+
+def test_grid_fit_on_float32_ld_matches_jax(ladder_trace):
+    """test_grid_fit_matches_jax's 12-point grid in one call on float32 LD
+    (the JAX package's default packing, quantize=False), both packages from
+    one np.random seed, then BMA on the JAX fit's carried state. The int8
+    test's min_iter 7 and f_abs_tol 3e-3 stop every lane on the ELBO clear
+    of every threshold on float32 LD as well (the guard replays the JAX
+    run's ladder); the fits are held exactly."""
+    jds, ds = both_datasets(21, 3000, (250, 200), 0.35, 128, quantize=False)
+    assert ds.ld.diag.dtype == torch.float32 and ds.ld.nb <= 12
+    jm, tm = fit_both(jds, ds, GRID_12, max_iter=200, min_iter=7,
+                      f_abs_tol=3e-3)
+    assert_clear_of_thresholds(ladder_trace)
+    assert_grids_match(jm, tm)
+    assert tm.converged_models.all()
+    assert_bma_on_carried_state_matches(jm, VIPRSGrid(ds, HyperparameterGrid(
+        n_snps=ds.m, **GRID_12), 'cpu'))
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
 
 
 def test_grid_search_and_unported_paths(datasets):

@@ -312,6 +312,24 @@ def test_mix_grid_matches_jax(datasets, ladder_trace, K, S, chunk_iters):
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
 
 
+def test_mix_grid_on_float32_ld_matches_jax(ladder_trace):
+    """test_mix_grid_matches_jax's one-call case (K = 3, S = 8) on float32
+    LD (the JAX package's default packing, quantize=False): min_iter 5 and
+    f_abs_tol 0.2 stop every lane clear of every threshold on float32 LD
+    as well (ELBO changes far above the packages' ~1e-4 rounding), and the
+    fits are held exactly."""
+    jds, ds = both_datasets(simulate_sumstats_blocks(**SIM), quantize=False)
+    assert ds.ld.diag.dtype == torch.float32 and ds.ld.nb <= 12
+    S, K = 8, 3
+    jm, tm = fit_grid_both(jds, ds, dict(pi_steps=S), K, max_iter=60,
+                           min_iter=5, f_abs_tol=0.2)
+    assert_clear_of_thresholds(ladder_trace)
+    assert_mix_grids_match(jm, tm)
+    assert tm._chunk_trace == jax_widths(ladder_trace) == [S]
+    assert tm.n_models == S and tm.valid_terminated_models.all()
+    assert sum(cavi_cuda.LAUNCHES.values()) == 0
+
+
 def test_mix_grid_restart_on_negative_mse_matches_jax(ladder_trace):
     """A 4-point pi grid on betas scaled 1.7x: the MSE goes negative, the
     lanes it hit restart once with sigma_epsilon fixed at 0.95 (which then

@@ -598,7 +598,9 @@ def test_import_without_jax_and_cpu_never_launches(tmp_path):
             'coupling_pass_s', 'cavi_sweep_mix_s1', 'cavi_sweep_mix_s1_skip',
             'cavi_sweep_mix_s', 'cavi_sweep_mix_s_skip',
             'cavi_block_sweep_s1_f32', 'coupling_pass_s1_f32',
-            'cavi_sweep_mix_s1_f32', 'cavi_sweep_mix_s1_skip_f32'
+            'cavi_sweep_mix_s1_f32', 'cavi_sweep_mix_s1_skip_f32',
+            'cavi_block_sweep_s_f32', 'coupling_pass_s_f32',
+            'cavi_sweep_mix_s_f32', 'cavi_sweep_mix_s_skip_f32'
             }, cavi_cuda.LAUNCHES
         assert not any(cavi_cuda.LAUNCHES.values()), cavi_cuda.LAUNCHES
         assert 'jax' not in sys.modules and 'triton' not in sys.modules

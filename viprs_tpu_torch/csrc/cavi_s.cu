@@ -91,6 +91,23 @@
 // instance, so a lane's result does not depend on S, its lane tile or its
 // place in it; a lane with a zero diff adds +0 and keeps q. q of a slab no
 // tile with a flagged end reaches is never touched.
+//
+// Both kernels are templated on the LD tile's element type Tile: int8_t,
+// or float for float32 (dequantized) LD with scale 1; the int8 instances
+// are the int8-only kernels' code (same registers, same bits). A float
+// (T, T) tile is copied into the same float32 R_s by cp.async
+// (lane_tile.cuh stage_tile_f32), the next tile's copy issued once this
+// tile's inner steps are done and running under its rank-T update, which
+// reads a float4 of R's row where it read four int8 values; the shared
+// layout keeps its size. The float coupling pass stages its chunks raw as
+// well, 4x the bytes, in a ring of 2 stages beside the diff ring of 3
+// (raw_stages), the conversion a copy or a transpose from rows padded to
+// KC + 4 floats: 69.7 / 74.8 / 81.5 / 110.2 KiB of shared memory at L = 4
+// / 16 / 32 / 100, 3 / 3 / 2 / 2 CTAs an SM. Registers of the float
+// instances (nvcc 12.9, sm_90a): sweep 126 / 152 / 248 / 255 at L = 4 / 8
+// / 16 / 20 (the last with 24 bytes of spill), coupling 209 / 240 / 168 /
+// 96 at L = 4 / 16 / 32 / 100 (the last with 72 bytes of spill; its launch
+// bounds cap it at 102).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,10 +132,13 @@ __device__ __forceinline__ float sigmoid(float x) {
 // coordinates: the inner_steps gamma-weighted under-relaxed Jacobi steps of
 // every (lane, coordinate) against the (T, T) tile; the keep gate drops
 // |d_eta| < 1e-8; the rank-T update q[l, :] += scale * d[l, :] R[tile rows,
-// :] over the nonzero 32 x 32 blocks; the unit-diagonal correction.
-template <int LT>
+// :] over the nonzero 32 x 32 blocks; the unit-diagonal correction. diag
+// is (NB, B, B) of Tile: int8 (dequantized into R_s by load_tile) or float
+// (copied into R_s by cp.async, the next tile's copy in flight during the
+// rank-T update of this one; scale 1).
+template <int LT, class Tile>
 __global__ void __launch_bounds__(SWEEP_THREADS, 2)
-cavi_block_sweep_s(const int8_t* __restrict__ diag,
+cavi_block_sweep_s(const Tile* __restrict__ diag,
                    const uint8_t* __restrict__ diag_nz,
                    const float* __restrict__ beta,
                    const float* __restrict__ nn,
@@ -189,7 +209,8 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
         hyp[H_ACT * L + tid] = act;
         hyp[H_ON * L + tid] = act > 0.0f ? 1.0f : 0.0f;
     }
-    const int8_t* D = diag + static_cast<size_t>(b) * B * B;
+    const Tile* D = diag + static_cast<size_t>(b) * B * B;
+    if constexpr (!kInt8<Tile>) stage_tile_f32<SWEEP_THREADS>(D, B, 0, R_s, tid);
     const int nb32 = B / NZ;
     stage_flags<SWEEP_THREADS>(diag_nz, b, nb32, nz, tid);
     __syncthreads();
@@ -205,7 +226,10 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
     }
 
     for (int t0 = 0; t0 < B; t0 += T) {
-        load_tile<SWEEP_THREADS>(D, B, t0, R_s, tid);
+        if constexpr (kInt8<Tile>)
+            load_tile<SWEEP_THREADS>(D, B, t0, R_s, tid);
+        else
+            cp_async_wait<0>();
         // R_s loaded; the last tile's q updates and lane-vector reads done
         __syncthreads();
 
@@ -345,6 +369,11 @@ cavi_block_sweep_s(const int8_t* __restrict__ diag,
         }
         publish_rows<4>(moved, tx, w, tid, rows_s);
         __syncthreads();   // d_t of every lane and the row words in place
+        // R_s is read no more in this tile: the next float tile's copy
+        if constexpr (!kInt8<Tile>) {
+            if (t0 + T < B)
+                stage_tile_f32<SWEEP_THREADS>(D, B, t0 + T, R_s, tid);
+        }
         rank_t_update<LT, SWEEP_THREADS / 32>(D, B, t0, nz, rows_s, first_s, vc, q_in, q_out,
                           lane_base, valid, scale, tx, w, lo, tid);
     }
@@ -362,6 +391,22 @@ constexpr int STAGES = 3;        // cp.async ring depth: 2 chunks ahead
 constexpr int CG = 2;            // float4 groups of coordinates a thread owns
 constexpr int TX = CC / (4 * CG);   // threads across a slab
 static_assert(KC % 16 == 0 && KC * CC <= RAW, "staging layout");
+// A float chunk is staged raw as well, 4 times the bytes: in the source
+// orientation with rows of KC + 4 floats (so that the transposing
+// conversion reads eight rows' 16-byte words from distinct banks). Its raw
+// ring has 2 stages, not STAGES: a raw chunk is needed only until its
+// conversion, one iteration before its product, so chunk n + 2 may take
+// chunk n's stage. With the diff ring of STAGES and the two W buffers that
+// is 110 KiB at 100 lanes, 2 CTAs an SM.
+template <class Tile>
+constexpr int raw_stride = kInt8<Tile> ? SST : KC + 4;
+template <class Tile>
+constexpr int raw_elems = kInt8<Tile> ? RAW : CC * (KC + 4);
+template <class Tile>
+constexpr int raw_stages = kInt8<Tile> ? STAGES : 2;
+// tile elements a 16-byte cp.async moves
+template <class Tile>
+constexpr int per_copy = 16 / static_cast<int>(sizeof(Tile));
 
 // A cursor over the chunks of block b's slab that hold a nonzero, in the
 // incident tiles with a flagged end: position p in inc_tile (ascending o),
@@ -440,12 +485,12 @@ struct TileWalk {
 };
 
 // Issue the cp.async copies of cursor c's chunk into one ring stage: the
-// (L, KC) diff rows of lanes s0.. (zero past S) and the int8 U chunk, rows
-// k (U[k0 + k][c0 ..], b the tile's destination) or columns k
+// (L, KC) diff rows of lanes s0.. (zero past S) and the U chunk (int8 or
+// float), rows k (U[k0 + k][c0 ..], b the tile's destination) or columns k
 // (U[c0 + c][k0 ..], b its source).
-template <int L, int NT>
+template <int L, int NT, class Tile>
 __device__ __forceinline__ void stage_chunk(
-    const Cursor& c, float* a, int8_t* u, const int8_t* __restrict__ off,
+    const Cursor& c, float* a, Tile* u, const Tile* __restrict__ off,
     const float* __restrict__ diff, int c0, int s0, int S, int NB, int B) {
     const int k0 = c.k * KC;
     const int other = c.other_block();
@@ -460,29 +505,50 @@ __device__ __forceinline__ void stage_chunk(
             cp_async16(a + l * AST + 4 * part, src, ok);
         }
     }
-    const int8_t* U = off + static_cast<size_t>(c.o) * B * B;
+    const Tile* U = off + static_cast<size_t>(c.o) * B * B;
     const bool as_src = c.as_src();
+    constexpr int PC = per_copy<Tile>, RST = raw_stride<Tile>;
 #pragma unroll
-    for (int j = 0; j < (KC * CC / 16 + NT - 1) / NT; ++j) {
+    for (int j = 0; j < (KC * CC / PC + NT - 1) / NT; ++j) {
         const int i = threadIdx.x + j * NT;
-        if (i < KC * CC / 16) {
+        if (i < KC * CC / PC) {
             if (as_src) {
-                const int r = i / (KC / 16), part = i % (KC / 16);
-                cp_async16(u + r * SST + 16 * part,
-                           U + static_cast<size_t>(c0 + r) * B + k0 + 16 * part,
+                const int r = i / (KC / PC), part = i % (KC / PC);
+                cp_async16(u + r * RST + PC * part,
+                           U + static_cast<size_t>(c0 + r) * B + k0 + PC * part,
                            true);
             } else {
-                const int r = i / (CC / 16), part = i % (CC / 16);
-                cp_async16(u + r * CC + 16 * part,
-                           U + static_cast<size_t>(k0 + r) * B + c0 + 16 * part,
+                const int r = i / (CC / PC), part = i % (CC / PC);
+                cp_async16(u + r * CC + PC * part,
+                           U + static_cast<size_t>(k0 + r) * B + c0 + PC * part,
                            true);
             }
         }
     }
 }
 
-// A staged int8 chunk as exact floats W[k][c] (KC, CC): U's rows as they
-// are, or its columns transposed, so that both orientations feed one loop.
+// A staged chunk as exact floats W[k][c] (KC, CC): U's rows as they are, or
+// its columns transposed, so that both orientations feed one loop. A float
+// chunk's rows are copied, its columns transposed from their padded rows.
+template <int NT>
+__device__ __forceinline__ void convert_chunk(bool as_src, const float* u,
+                                              float* w) {
+    if (as_src) {
+        for (int i = threadIdx.x; i < CC * (KC / 4); i += NT) {
+            const int c = i % CC, h = i / CC;
+            const float4 f = ld4(u + c * raw_stride<float> + 4 * h);
+            float* col = w + 4 * h * CC + c;
+            col[0] = f.x;
+            col[CC] = f.y;
+            col[2 * CC] = f.z;
+            col[3 * CC] = f.w;
+        }
+    } else {
+        for (int i = threadIdx.x; i < KC * CC / 4; i += NT)
+            reinterpret_cast<float4*>(w)[i] = ld4(u + 4 * i);
+    }
+}
+
 template <int NT>
 __device__ __forceinline__ void convert_chunk(bool as_src, const int8_t* u,
                                               float* w) {
@@ -553,10 +619,11 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[LT][4 * CG],
 // takes only the tiles with a flagged end and skips their chunks that are
 // zero in the slab (exact zero products), so a CTA with none returns at
 // once. q is updated in place: a CTA reads diff and writes only q[its
-// lanes, b, its slab].
-template <int LT, int TY>
+// lanes, b, its slab]. off is (n_off, B, B) of Tile: int8, or float
+// (scale 1).
+template <int LT, int TY, class Tile>
 __global__ void __launch_bounds__(TX * TY, 2)
-coupling_pass_s(const int8_t* __restrict__ off,
+coupling_pass_s(const Tile* __restrict__ off,
                 const int* __restrict__ off_src,
                 const int* __restrict__ off_dst,
                 const int* __restrict__ inc_ptr,
@@ -571,7 +638,9 @@ coupling_pass_s(const int8_t* __restrict__ off,
     extern __shared__ __align__(16) unsigned char smem[];
     float* a_s = reinterpret_cast<float*>(smem);        // STAGES x (L, AST)
     float* w_s = a_s + STAGES * L * AST;                 // 2 x (KC, CC)
-    int8_t* u_s = reinterpret_cast<int8_t*>(w_s + 2 * KC * CC);  // STAGES x RAW
+    // raw_stages<Tile> x raw_elems<Tile>
+    Tile* u_s = reinterpret_cast<Tile*>(w_s + 2 * KC * CC);
+    constexpr int RS = raw_stages<Tile>, RE = raw_elems<Tile>;
 
     const int entry = slabs[blockIdx.x];
     const int b = entry / (B / CC);
@@ -581,7 +650,8 @@ coupling_pass_s(const int8_t* __restrict__ off,
     const TileWalk walk{inc_tile, off_src, off_dst, blk_mask, off_nz, b,
                         inc_ptr[b + 1], B / KC, B / 32, c0 / 32};
 
-    // chunk n of the walk goes to ring stage n % STAGES and W buffer n % 2;
+    // chunk n of the walk goes to ring stage n % STAGES (its raw chunk to
+    // raw stage n % RS) and W buffer n % 2;
     // one cursor stages chunks STAGES - 1 = 2 ahead of the product, and each
     // is converted into W one iteration before its product. Bit n % STAGES
     // of `srcs` / `ends` says whether staged chunk n is of a tile that b is
@@ -591,8 +661,8 @@ coupling_pass_s(const int8_t* __restrict__ off,
     unsigned srcs = 0u, ends = 0u;
     auto stage = [&]() {
         const int st = staged % STAGES;
-        stage_chunk<L, NT>(cl, a_s + st * L * AST, u_s + st * RAW, off, diff,
-                           c0, s0, S, NB, B);
+        stage_chunk<L, NT>(cl, a_s + st * L * AST, u_s + staged % RS * RE, off,
+                           diff, c0, s0, S, NB, B);
         const int p = cl.p;
         const unsigned bit = 1u << st;
         srcs = cl.as_src() ? srcs | bit : srcs & ~bit;
@@ -621,7 +691,7 @@ coupling_pass_s(const int8_t* __restrict__ off,
         cp_async_commit();
         if (n + 1 < staged)
             convert_chunk<NT>((srcs >> ((n + 1) % STAGES)) & 1u,
-                              u_s + ((n + 1) % STAGES) * RAW,
+                              u_s + ((n + 1) % RS) * RE,
                               w_s + ((n + 1) % 2) * KC * CC);
         mma_chunk<LT, TY>(acc, a_s + (n % STAGES) * L * AST,
                              w_s + (n % 2) * KC * CC, tx, ty);
@@ -660,7 +730,7 @@ bool bad_shape(int S, int nb, int B) {
     return S < 0 || nb < 0 || nb > 65535 || B <= 0 || B % T != 0;
 }
 
-template <int LT>
+template <int LT, class Tile>
 cudaError_t launch_sweep(const void* diag, const void* diag_nz,
                          const void* beta, const void* nn, const void* mask,
                          const void* logits_in, const void* mu_in,
@@ -674,11 +744,11 @@ cudaError_t launch_sweep(const void* diag, const void* diag_nz,
         * sizeof(float) + (T / NZ) * sizeof(unsigned) + B / NZ * sizeof(int)
         + (B / NZ) * (B / NZ);
     cudaError_t err = set_smem(
-        reinterpret_cast<const void*>(cavi_block_sweep_s<LT>), smem);
+        reinterpret_cast<const void*>(cavi_block_sweep_s<LT, Tile>), smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((S + L - 1) / L, nb);
-    cavi_block_sweep_s<LT><<<grid, SWEEP_THREADS, smem, stream>>>(
-        static_cast<const int8_t*>(diag), static_cast<const uint8_t*>(diag_nz),
+    cavi_block_sweep_s<LT, Tile><<<grid, SWEEP_THREADS, smem, stream>>>(
+        static_cast<const Tile*>(diag), static_cast<const uint8_t*>(diag_nz),
         static_cast<const float*>(beta), static_cast<const float*>(nn),
         static_cast<const float*>(mask), static_cast<const float*>(logits_in),
         static_cast<const float*>(mu_in), static_cast<const float*>(eta_in),
@@ -690,7 +760,7 @@ cudaError_t launch_sweep(const void* diag, const void* diag_nz,
     return cudaGetLastError();
 }
 
-template <int LT, int TY>
+template <int LT, int TY, class Tile>
 cudaError_t launch_coupling(const void* off, const void* off_src,
                             const void* off_dst, const void* inc_ptr,
                             const void* inc_tile, const void* blk_mask,
@@ -700,13 +770,13 @@ cudaError_t launch_coupling(const void* off, const void* off_src,
                             cudaStream_t stream) {
     constexpr int L = LT * TY;
     const size_t smem = (STAGES * L * AST + 2 * KC * CC) * sizeof(float)
-        + STAGES * RAW;
+        + raw_stages<Tile> * raw_elems<Tile> * sizeof(Tile);
     cudaError_t err = set_smem(
-        reinterpret_cast<const void*>(coupling_pass_s<LT, TY>), smem);
+        reinterpret_cast<const void*>(coupling_pass_s<LT, TY, Tile>), smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(n_slabs, (S + L - 1) / L);
-    coupling_pass_s<LT, TY><<<grid, TX * TY, smem, stream>>>(
-        static_cast<const int8_t*>(off), static_cast<const int*>(off_src),
+    coupling_pass_s<LT, TY, Tile><<<grid, TX * TY, smem, stream>>>(
+        static_cast<const Tile*>(off), static_cast<const int*>(off_src),
         static_cast<const int*>(off_dst), static_cast<const int*>(inc_ptr),
         static_cast<const int*>(inc_tile), static_cast<const int*>(blk_mask),
         static_cast<const uint8_t*>(off_nz), static_cast<const int*>(slabs),
@@ -715,25 +785,17 @@ cudaError_t launch_coupling(const void* off, const void* off_src,
     return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
-// success); it never synchronizes. B must be a positive multiple of T.
-//
-// cavi_block_sweep_s with the lane tile L, one of the kernel's instances:
-// 4, 8, 16 or 20 lanes. The state tensors must be 16-byte aligned.
-int cavi_block_sweep_s_launch(const void* diag, const void* diag_nz,
-                              const void* beta, const void* nn,
-                              const void* mask, const void* logits_in,
-                              const void* mu_in, const void* eta_in,
-                              const void* q_in, void* logits_out,
-                              void* mu_out, void* eta_out, void* q_out,
-                              void* eta_diff, const void* blk_mask,
-                              const void* hyper, int S, int nb, int B,
-                              float scale, int inner_steps, int L,
-                              void* stream) {
+// The lane tile L's instance of cavi_block_sweep_s for Tile: 4, 8, 16 or 20
+// lanes.
+template <class Tile>
+int sweep_by_lane_tile(const void* diag, const void* diag_nz,
+                       const void* beta, const void* nn, const void* mask,
+                       const void* logits_in, const void* mu_in,
+                       const void* eta_in, const void* q_in, void* logits_out,
+                       void* mu_out, void* eta_out, void* q_out,
+                       void* eta_diff, const void* blk_mask,
+                       const void* hyper, int S, int nb, int B, float scale,
+                       int inner_steps, int L, void* stream) {
     if (bad_shape(S, nb, B) || inner_steps < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (nb == 0 || S == 0) return static_cast<int>(cudaGetLastError());
@@ -743,25 +805,25 @@ int cavi_block_sweep_s_launch(const void* diag, const void* diag_nz,
         S, nb, B, scale, inner_steps, st
     cudaError_t err;
     switch (L) {
-    case 4: err = launch_sweep<1>(SWEEP_ARGS); break;
-    case 8: err = launch_sweep<2>(SWEEP_ARGS); break;
-    case 16: err = launch_sweep<4>(SWEEP_ARGS); break;
-    case 20: err = launch_sweep<5>(SWEEP_ARGS); break;
+    case 4: err = launch_sweep<1, Tile>(SWEEP_ARGS); break;
+    case 8: err = launch_sweep<2, Tile>(SWEEP_ARGS); break;
+    case 16: err = launch_sweep<4, Tile>(SWEEP_ARGS); break;
+    case 20: err = launch_sweep<5, Tile>(SWEEP_ARGS); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef SWEEP_ARGS
     return static_cast<int>(err);
 }
 
-// coupling_pass_s in place on q for the (block, slab) entries
-// slabs[0 .. n_slabs), with the lane tile L, one of the kernel's instances:
-// 4, 16, 32 or 100 lanes.
-int coupling_pass_s_launch(const void* off, const void* off_src,
-                           const void* off_dst, const void* inc_ptr,
-                           const void* inc_tile, const void* blk_mask,
-                           const void* off_nz, const void* slabs,
-                           const void* eta_diff, void* q, int n_slabs, int S,
-                           int nb, int B, float scale, int L, void* stream) {
+// The lane tile L's instance of coupling_pass_s for Tile: 4, 16, 32 or 100
+// lanes.
+template <class Tile>
+int coupling_by_lane_tile(const void* off, const void* off_src,
+                          const void* off_dst, const void* inc_ptr,
+                          const void* inc_tile, const void* blk_mask,
+                          const void* off_nz, const void* slabs,
+                          const void* eta_diff, void* q, int n_slabs, int S,
+                          int nb, int B, float scale, int L, void* stream) {
     if (bad_shape(S, nb, B) || B % CC != 0 || n_slabs < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_slabs == 0 || S == 0) return static_cast<int>(cudaGetLastError());
@@ -770,14 +832,64 @@ int coupling_pass_s_launch(const void* off, const void* off_src,
         off_nz, slabs, n_slabs, eta_diff, q, S, nb, B, scale, st
     cudaError_t err;
     switch (L) {
-    case 4: err = launch_coupling<1, 4>(COUPLING_ARGS); break;
-    case 16: err = launch_coupling<4, 4>(COUPLING_ARGS); break;
-    case 32: err = launch_coupling<4, 8>(COUPLING_ARGS); break;
-    case 100: err = launch_coupling<5, 20>(COUPLING_ARGS); break;
+    case 4: err = launch_coupling<1, 4, Tile>(COUPLING_ARGS); break;
+    case 16: err = launch_coupling<4, 4, Tile>(COUPLING_ARGS); break;
+    case 32: err = launch_coupling<4, 8, Tile>(COUPLING_ARGS); break;
+    case 100: err = launch_coupling<5, 20, Tile>(COUPLING_ARGS); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef COUPLING_ARGS
     return static_cast<int>(err);
 }
+
+}  // namespace
+
+extern "C" {
+
+// Each launcher enqueues on `stream` and returns cudaGetLastError() (0 on
+// success); it never synchronizes. B must be a positive multiple of T.
+//
+// cavi_block_sweep_s on int8 tiles (_launch) or float32 tiles (_f32_launch)
+// with the lane tile L, one of the kernel's instances: 4, 8, 16 or 20
+// lanes. The state tensors (and float tiles) must be 16-byte aligned.
+#define SWEEP_PARAMS const void* diag, const void* diag_nz, \
+        const void* beta, const void* nn, const void* mask, \
+        const void* logits_in, const void* mu_in, const void* eta_in, \
+        const void* q_in, void* logits_out, void* mu_out, void* eta_out, \
+        void* q_out, void* eta_diff, const void* blk_mask, \
+        const void* hyper, int S, int nb, int B, float scale, \
+        int inner_steps, int L, void* stream
+#define SWEEP_ARGS diag, diag_nz, beta, nn, mask, logits_in, mu_in, eta_in, \
+        q_in, logits_out, mu_out, eta_out, q_out, eta_diff, blk_mask, hyper, \
+        S, nb, B, scale, inner_steps, L, stream
+int cavi_block_sweep_s_launch(SWEEP_PARAMS) {
+    return sweep_by_lane_tile<int8_t>(SWEEP_ARGS);
+}
+
+int cavi_block_sweep_s_f32_launch(SWEEP_PARAMS) {
+    return sweep_by_lane_tile<float>(SWEEP_ARGS);
+}
+#undef SWEEP_PARAMS
+#undef SWEEP_ARGS
+
+// coupling_pass_s on int8 tiles (_launch) or float32 tiles (_f32_launch)
+// in place on q for the (block, slab) entries slabs[0 .. n_slabs), with the
+// lane tile L, one of the kernel's instances: 4, 16, 32 or 100 lanes.
+#define COUPLING_PARAMS const void* off, const void* off_src, \
+        const void* off_dst, const void* inc_ptr, const void* inc_tile, \
+        const void* blk_mask, const void* off_nz, const void* slabs, \
+        const void* eta_diff, void* q, int n_slabs, int S, int nb, int B, \
+        float scale, int L, void* stream
+#define COUPLING_ARGS off, off_src, off_dst, inc_ptr, inc_tile, blk_mask, \
+        off_nz, slabs, eta_diff, q, n_slabs, S, nb, B, scale, L, stream
+int coupling_pass_s_launch(COUPLING_PARAMS) {
+    return coupling_by_lane_tile<int8_t>(COUPLING_ARGS);
+}
+
+int coupling_pass_s_f32_launch(COUPLING_PARAMS) {
+    return coupling_by_lane_tile<float>(COUPLING_ARGS);
+}
+#undef COUPLING_PARAMS
+#undef COUPLING_ARGS
 
 }  // extern "C"

@@ -9,14 +9,42 @@
 // staging of a block's diag_nz flags (also cavi_block_sweep_mix_s1's) and
 // of the chunks' first writes, and the rank-T update over the nonzero
 // 32 x 32 blocks.
+//
+// The pieces that read the LD tiles take their element type (Tile, E in
+// s1_tile.cuh): int8_t (the quantized LD, values scaled by BlockLD.scale
+// after each sum) or float (float32 LD, scale 1). The lane sweeps keep the
+// (T, T) diagonal tile as floats in shared memory either way: an int8 tile
+// is dequantized into it by load_tile, a float tile copied by
+// stage_tile_f32 (cp.async, 16 bytes a copy, the next tile's copy issued
+// before the rank-T update of this one).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "int8_tile.cuh"
 
 namespace {
+
+// E is the int8 tile element (else float32).
+template <class E>
+constexpr bool kInt8 = std::is_same_v<E, int8_t>;
+// A tile element as a kernel holds it before its conversion: an int8 value
+// widened to int, or the float itself.
+template <class E>
+using TileWord = std::conditional_t<kInt8<E>, int, float>;
+// A tile element as an exact float: i8_to_f32 for an int8 value, the
+// identity for a float.
+__device__ __forceinline__ float to_f32(int b) { return i8_to_f32(b); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+// Four consecutive tile elements as a kernel loads them (one int of four
+// int8 values, or a float4), and as exact floats.
+template <class E>
+using TileWord4 = std::conditional_t<kInt8<E>, int, float4>;
+__device__ __forceinline__ float4 to_f32x4(int w) { return i8x4_to_f32(w); }
+__device__ __forceinline__ float4 to_f32x4(float4 v) { return v; }
 
 constexpr int T = 128;           // tile width: coordinates updated jointly
 constexpr int NZ = 32;           // side of the blocks BlockLD.diag_nz flags
@@ -141,6 +169,20 @@ __device__ __forceinline__ void load_tile(const int8_t* D, int B, int t0,
     }
 }
 
+// The (T, T) diagonal tile at (t0, t0) of the block's float tiles D into R_s
+// by cp.async, 16 bytes a copy, by the CTA's NT threads, and the commit of
+// their group (the caller waits for it and synchronizes before R_s is read).
+template <int NT>
+__device__ __forceinline__ void stage_tile_f32(const float* D, int B, int t0,
+                                               float* R_s, int tid) {
+    for (int i = tid; i < T * T / 4; i += NT) {
+        const int r = i / (T / 4), c4 = i % (T / 4);
+        cp_async16(R_s + 4 * i,
+                   D + static_cast<size_t>(t0 + r) * B + t0 + 4 * c4, true);
+    }
+    cp_async_commit();
+}
+
 // acc[i][e] = sum over k = 0..T-1, ascending, of v[k][lane i] R[k][j + e]
 // (|R| where ABS): one fmaf chain per element. Per k one float4 (E = 4) or
 // float2 (E = 2) of R's row and LT lane values feed E LT FMA.
@@ -244,10 +286,12 @@ __device__ __forceinline__ void publish_rows(unsigned moved, int tx, int w,
 // columns goes to warp n % NW of the CTA's NW warps, whose thread (tx, ly)
 // takes 4 of its columns; the tile's own four chunks are always visited.
 // Each accumulator is one fmaf chain over the rows in ascending order;
-// skipped blocks and rows add exact zeros (for finite d).
-template <int LT, int NW>
+// skipped blocks and rows add exact zeros (for finite d). R's rows come from
+// the block's tiles D in global memory, 4 consecutive elements a load (an
+// int of int8 values, or a float4), 8 rows of a group in flight.
+template <int LT, int NW, class Tile>
 __device__ __forceinline__ void rank_t_update(
-    const int8_t* D, int B, int t0, const unsigned char* nz,
+    const Tile* D, int B, int t0, const unsigned char* nz,
     const unsigned* rows_s, const int* first_s, const float* vc,
     const float* q_in, float* q_out, const size_t (&lane_base)[LT],
     const bool (&valid)[LT], float scale, int tx, int w, int lo, int tid) {
@@ -280,14 +324,14 @@ __device__ __forceinline__ void rank_t_update(
                 for (int k8 = 0; k8 < NZ; k8 += 8) {
                     if (!((rw >> k8) & 0xffu)) continue;
                     const int k0 = NZ * r + k8;   // row in the tile
-                    int raw[8];
+                    TileWord4<Tile> raw[8];
 #pragma unroll
                     for (int j = 0; j < 8; ++j)
-                        raw[j] = __ldg(reinterpret_cast<const int*>(
+                        raw[j] = __ldg(reinterpret_cast<const TileWord4<Tile>*>(
                             D + static_cast<size_t>(t0 + k0 + j) * B + c));
 #pragma unroll
                     for (int j = 0; j < 8; ++j) {
-                        const float4 rv = i8x4_to_f32(raw[j]);
+                        const float4 rv = to_f32x4(raw[j]);
                         float x[LT];
                         load_lanes<LT>(vc + (k0 + j) * RS + lo, x);
 #pragma unroll

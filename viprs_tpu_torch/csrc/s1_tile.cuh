@@ -23,23 +23,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "lane_tile.cuh"
 
 namespace {
-
-// E is the int8 tile element (else float32).
-template <class E>
-constexpr bool kInt8 = std::is_same_v<E, int8_t>;
-// A tile element as a kernel holds it before its conversion: an int8 value
-// widened to int, or the float itself.
-template <class E>
-using TileWord = std::conditional_t<kInt8<E>, int, float>;
-// A tile element as an exact float: i8_to_f32 for an int8 value, the
-// identity for a float.
-__device__ __forceinline__ float to_f32(int b) { return i8_to_f32(b); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
 
 // The single-model sweep's CTA: T threads, thread j owning coordinate j of
 // every (T, T) tile of its block.

@@ -3,8 +3,7 @@
 Counterpart of viprs_tpu.data.dataset, built directly from arrays
 (simulations, tests, benchmarks). The LD lives on the dataset's ``device``,
 packed as float32 (the default, as in the JAX package) or as int8
-(``quantize=True``). On a CUDA device ``VIPRS`` and ``VIPRSMix`` fit either;
-the grid models (``VIPRSGrid``, ``VIPRSMixGrid``) need int8 there.
+(``quantize=True``); every model fits either, on the CPU or a CUDA device.
 """
 
 import dataclasses

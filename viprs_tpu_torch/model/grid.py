@@ -5,14 +5,14 @@ grid points are the S lanes of one fit (the lane kernels K3/K4 on the card),
 finished lanes are masked out, and the survivors are compacted between
 chunks (model/viprs.py). The serial warm-started ``pathwise`` mode is not
 ported yet (ROADMAP.md, Queue 1). On the card the lane kernels take int8
-LD (``quantize=True``); float32 LD is refused there before anything runs.
+(``quantize=True``) or float32 (``quantize=False``) LD, each through its own
+instances.
 
 The grid rows are held as numpy columns (no pandas at import time or in the
 fit); ``to_validation_table`` imports pandas inside the call.
 """
 
 import numpy as np
-import torch
 
 from .viprs import VIPRS
 from ..ops.cavi_torch import CaviState, Hyper
@@ -21,19 +21,6 @@ from ..utils.optimize import OptimizeResult, summarize_statuses
 
 _HYPER_FIELD = {'sigma_epsilon': 'sigma_eps', 'tau_beta': 'tau_beta',
                 'pi': 'pi', 'lambda_min': 'lambda_min'}
-
-
-def refuse_float_ld_on_card(dataset, device, model):
-    """The grid models fit their lanes with the S-lane kernels, which take
-    int8 LD tiles only (for now): float32 LD on a device other than the CPU
-    raises, naming quantize=True, before anything runs."""
-    if torch.device(device).type != 'cpu' and \
-            dataset.ld.diag.dtype != torch.int8:
-        raise ValueError(
-            f"{model} fits its lanes with the S-lane kernels, which take "
-            f"int8 LD tiles on {device} until their float32 instances are "
-            f"ported, not {dataset.ld.diag.dtype}: pack the LD with "
-            f"quantize=True (VIPRS and VIPRSMix fit float32 LD on the card)")
 
 
 def grid_columns(grid):
@@ -56,7 +43,6 @@ class VIPRSGrid(VIPRS):
     """
 
     def __init__(self, dataset, grid, device, **kwargs):
-        refuse_float_ld_on_card(dataset, device, 'VIPRSGrid')
         self.grid_columns = grid_columns(grid)
         self.n_models = self._n_grid = len(next(iter(
             self.grid_columns.values())))

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import _dispatch
-from .grid import grid_columns, refuse_float_ld_on_card
+from .grid import grid_columns
 from .mix import VIPRSMix
 from ..data.ldsc import simple_ldsc
 from ..ops import mix_em_loop as mel
@@ -46,7 +46,6 @@ class VIPRSMixGrid(VIPRSMix):
     """
 
     def __init__(self, dataset, grid, device, K=1, **kwargs):
-        refuse_float_ld_on_card(dataset, device, 'VIPRSMixGrid')
         self.grid_columns = grid_columns(grid)
         self.n_models = len(next(iter(self.grid_columns.values())))
         self.validation_result = None

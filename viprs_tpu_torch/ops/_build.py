@@ -46,6 +46,11 @@ SIGNATURES = {
     # eta_diff, q (updated in place), n_slabs, S, nb, B, scale, lane tile,
     # stream
     'coupling_pass_s_launch': [P] * 10 + [I32, I32, I32, I32, F32, I32, P],
+    # the same two kernels' instances for float32 LD tiles
+    'cavi_block_sweep_s_f32_launch': [P] * 16 + [I32, I32, I32, F32, I32,
+                                                 I32, P],
+    'coupling_pass_s_f32_launch': [P] * 10 + [I32, I32, I32, I32, F32, I32,
+                                              P],
     # the mixture block sweeps (csrc/cavi_mix.cu): diag, diag_nz, beta, n,
     # mask, gamma, mu, eta, q (in), gamma, mu, eta, q, eta_diff (out),
     # blk_mask, hyper, [S,] K, nb, B, scale, inner_steps, unit_diag, [lane
@@ -56,6 +61,9 @@ SIGNATURES = {
                                                       I32, I32, P],
     'cavi_block_sweep_mix_s_launch': [P] * 16 + [I32, I32, I32, I32, F32,
                                                  I32, I32, I32, P],
+    # its float32-tile instances (csrc/cavi_mix_s_f32.cu)
+    'cavi_block_sweep_mix_s_f32_launch': [P] * 16 + [I32, I32, I32, I32,
+                                                     F32, I32, I32, I32, P],
 }
 
 

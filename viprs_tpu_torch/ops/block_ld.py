@@ -22,11 +22,9 @@ LD that decays with distance is mostly zero away from the tiles' near
 corner). The same flags of the diagonal tiles (``diag_nz``) let the S-lane
 block sweep skip the zero blocks of its rank-T updates.
 
-The CUDA kernels take int8 or float32 tiles: ``from_numpy`` refuses any
-other dtype for a CUDA device before anything is uploaded. The single-model
-kernels (VIPRS, VIPRSMix) have an instance for each; the S-lane kernels of
-the grid models take int8 only, and ``VIPRSGrid`` / ``VIPRSMixGrid`` refuse
-float32 LD on the card up front. On the CPU the plain versions take either.
+The CUDA kernels take int8 or float32 tiles, each kernel with an instance
+for each: ``from_numpy`` refuses any other dtype for a CUDA device before
+anything is uploaded. On the CPU the plain versions take either.
 """
 
 import dataclasses

@@ -18,11 +18,7 @@ of the hybrid EM iteration:
 ``cavi_sweep_s1`` (TPU kernel K1, all blocks flagged) and
 ``cavi_sweep_s1_skip`` (K2, the activity mask) are the two compositions;
 they apply the coupling tiles in place on the q their block sweep has just
-written. Both kernels, and the single-model mixture sweep below, have an
-instance for int8 LD tiles and one for float32 (dequantized) tiles; the
-wrappers launch the one that matches ``ld.diag.dtype`` (``diag`` and
-``off_data`` share it), and count the float32 instances under their names
-with ``_f32`` appended.
+written.
 
 Model grid (S lanes), ``csrc/cavi_s.cu``: ``block_sweep_s`` launches
 ``cavi_block_sweep_s`` (one CTA per lane tile of 4, 8, 16 or 20 lanes,
@@ -44,9 +40,13 @@ both skip the zero 32 x 32 blocks, as ``block_sweep_s`` does. The coupling
 tiles after them are the passes above, in place. ``cavi_sweep_mix_s1`` (K5,
 all blocks), ``cavi_sweep_mix_s1_skip`` (K6, the activity mask),
 ``cavi_sweep_mix_s`` (K7) and ``cavi_sweep_mix_s_skip`` (K8, the union mask)
-are the compositions, each counted under its own name. The S-lane kernels
-(K3/K4, K7/K8 and ``coupling_pass_s``) take int8 tiles only, and refuse
-float32 LD up front.
+are the compositions, each counted under its own name.
+
+Every kernel has an instance for int8 LD tiles and one for float32
+(dequantized) tiles; the wrappers launch the one that matches
+``ld.diag.dtype`` (``diag`` and ``off_data`` share it; any other dtype
+raises before anything is built or launched), and count the float32
+instances under their names with ``_f32`` appended.
 
 Each kernel wrapper takes the plain version in ops/cavi_torch.py for CPU
 tensors, and for CUDA tensors launches its kernel or raises: there is no
@@ -67,13 +67,15 @@ F32 = torch.float32
 LAUNCHES = {'cavi_block_sweep_s1': 0, 'coupling_pass_s1': 0,
             'cavi_block_sweep_s1_f32': 0, 'coupling_pass_s1_f32': 0,
             'cavi_block_sweep_s': 0, 'coupling_pass_s': 0,
+            'cavi_block_sweep_s_f32': 0, 'coupling_pass_s_f32': 0,
             'cavi_sweep_mix_s1': 0, 'cavi_sweep_mix_s1_skip': 0,
             'cavi_sweep_mix_s1_f32': 0, 'cavi_sweep_mix_s1_skip_f32': 0,
-            'cavi_sweep_mix_s': 0, 'cavi_sweep_mix_s_skip': 0}
+            'cavi_sweep_mix_s': 0, 'cavi_sweep_mix_s_skip': 0,
+            'cavi_sweep_mix_s_f32': 0, 'cavi_sweep_mix_s_skip_f32': 0}
 
-#: The LD tile types of the single-model (S = 1) kernels, and the suffix of
-#: each instance's launcher and LAUNCHES names.
-_S1_TILE_SUFFIX = {torch.int8: '', torch.float32: '_f32'}
+#: The LD tile types of the kernels, and the suffix of each instance's
+#: launcher and LAUNCHES names.
+_TILE_SUFFIX = {torch.int8: '', torch.float32: '_f32'}
 
 
 def reset_launches():
@@ -98,36 +100,26 @@ def _raise_on(err, kernel):
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
-def _s1_tiles(ld: BlockLD):
-    """The suffix of the S = 1 kernel instance for the LD's tiles
-    (``_S1_TILE_SUFFIX``): int8 or float32, ``diag`` and ``off_data`` alike;
+def _tiles(ld: BlockLD):
+    """The suffix of the kernel instance for the LD's tiles
+    (``_TILE_SUFFIX``): int8 or float32, ``diag`` and ``off_data`` alike;
     any other dtype raises."""
-    if ld.diag.dtype not in _S1_TILE_SUFFIX:
-        raise ValueError(f"the S = 1 kernels take int8 or float32 LD tiles, "
+    if ld.diag.dtype not in _TILE_SUFFIX:
+        raise ValueError(f"the CUDA kernels take int8 or float32 LD tiles, "
                          f"not {ld.diag.dtype}")
     if ld.off_data.dtype != ld.diag.dtype:
         raise ValueError(f"diag ({ld.diag.dtype}) and off_data "
                          f"({ld.off_data.dtype}) must share one dtype")
-    return _S1_TILE_SUFFIX[ld.diag.dtype]
+    return _TILE_SUFFIX[ld.diag.dtype]
 
 
-def _refuse_float_lanes(ld: BlockLD):
-    """The S-lane kernels take int8 LD tiles only (for now)."""
-    bad = {str(x.dtype) for x in (ld.diag, ld.off_data)
-           if x.dtype != torch.int8}
-    if bad:
-        raise ValueError(
-            f"the S-lane kernels take int8 LD tiles until their float32 "
-            f"instances are ported, not {', '.join(sorted(bad))}: pack the "
-            f"LD with quantize=True to fit model lanes on {ld.device}")
-
-
-def _check_coupling_ld(ld: BlockLD, dtype=torch.int8):
+def _check_coupling_ld(ld: BlockLD):
     """The coupling tiles and their launch plan as the coupling kernels
-    take them: ``dtype`` tiles, int32 ends and incidence lists, the uint8
-    32 x 32 flags ``off_nz`` and the int32 slab list ``cpl_slabs``."""
+    take them: int8 or float32 tiles (``diag``'s type), int32 ends and
+    incidence lists, the uint8 32 x 32 flags ``off_nz`` and the int32 slab
+    list ``cpl_slabs``."""
     dev, nb, B = ld.device, ld.nb, ld.block_size
-    _check('off_data', ld.off_data, dtype, (ld.n_off, B, B), dev)
+    _check('off_data', ld.off_data, ld.diag.dtype, (ld.n_off, B, B), dev)
     for name, x in (('off_src', ld.off_src), ('off_dst', ld.off_dst)):
         _check(name, x, torch.int32, (ld.n_off,), dev)
     _check('inc_ptr', ld.inc_ptr, torch.int32, (nb + 1,), dev)
@@ -168,7 +160,7 @@ def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
                              f"steps, not {inner_steps}")
         return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                       active, blk_mask=blk_mask)
-    kernel = 'cavi_block_sweep_s1' + _s1_tiles(ld)
+    kernel = 'cavi_block_sweep_s1' + _tiles(ld)
     from ._build import build
     lib, _ = build()
     dev = ld.device
@@ -216,12 +208,12 @@ def coupling_pass_s1_inplace(ld: BlockLD, q, eta_diff, blk_mask):
     if q.device.type == 'cpu':
         raise ValueError("coupling_pass_s1_inplace runs on the card; "
                          "coupling_pass_s1 takes CPU tensors")
-    kernel = 'coupling_pass_s1' + _s1_tiles(ld)
+    kernel = 'coupling_pass_s1' + _tiles(ld)
     from ._build import build
     lib, _ = build()
     dev = ld.device
     nb, B = ld.nb, ld.block_size
-    _check_coupling_ld(ld, ld.off_data.dtype)
+    _check_coupling_ld(ld)
     slabs = ld.cpl_slabs
     _check('blk_mask', blk_mask, torch.int32, (nb,), dev)
     _check('q', q, F32, (1, nb, B), dev)
@@ -313,7 +305,7 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
                              f"steps, not {inner_steps}")
         return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                       active, blk_mask=blk_mask)
-    _refuse_float_lanes(ld)
+    kernel = 'cavi_block_sweep_s' + _tiles(ld)
     from ._build import build
     lib, _ = build()
     dev = ld.device
@@ -321,7 +313,7 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     S = state.eta.shape[0]
     if B % TILE:
         raise ValueError(f"block size {B} is not a multiple of {TILE}")
-    _check('diag', ld.diag, torch.int8, (nb, B, B), dev)
+    _check('diag', ld.diag, ld.diag.dtype, (nb, B, B), dev)
     _check('diag_nz', ld.diag_nz, torch.uint8, (nb, B // 32, B // 32), dev)
     for name, x in (('std_beta', std_beta), ('n_per_snp', n_per_snp),
                     ('mask', ld.mask)):
@@ -333,20 +325,20 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     _check('hyper', hv, F32, (5, S), dev)
     out = CaviState(*(torch.empty_like(x) for x in state))
     eta_diff = torch.empty_like(state.eta)
-    for name, x in (('diag_nz', ld.diag_nz), ('std_beta', std_beta),
-                    ('n_per_snp', n_per_snp), ('mask', ld.mask),
-                    *zip(CaviState._fields, state)):
+    for name, x in (('diag', ld.diag), ('diag_nz', ld.diag_nz),
+                    ('std_beta', std_beta), ('n_per_snp', n_per_snp),
+                    ('mask', ld.mask), *zip(CaviState._fields, state)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    err = lib.cavi_block_sweep_s_launch(
+    err = getattr(lib, kernel + '_launch')(
         ld.diag.data_ptr(), ld.diag_nz.data_ptr(), std_beta.data_ptr(),
         n_per_snp.data_ptr(), ld.mask.data_ptr(),
         *(x.data_ptr() for x in state), *(x.data_ptr() for x in out),
         eta_diff.data_ptr(), blk_mask.data_ptr(), hv.data_ptr(), S, nb, B,
         float(np.float32(ld.scale)), int(inner_steps), sweep_lane_tile(S),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, 'cavi_block_sweep_s')
-    LAUNCHES['cavi_block_sweep_s'] += 1
+    _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
     return out, eta_diff
 
 
@@ -376,7 +368,7 @@ def coupling_pass_s_inplace(ld: BlockLD, q, eta_diff, blk_mask):
     if q.device.type == 'cpu':
         raise ValueError("coupling_pass_s_inplace runs on the card; "
                          "coupling_pass_s takes CPU tensors")
-    _refuse_float_lanes(ld)
+    kernel = 'coupling_pass_s' + _tiles(ld)
     from ._build import build
     lib, _ = build()
     dev = ld.device
@@ -391,14 +383,14 @@ def coupling_pass_s_inplace(ld: BlockLD, q, eta_diff, blk_mask):
                     ('eta_diff', eta_diff)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
-    err = lib.coupling_pass_s_launch(
+    err = getattr(lib, kernel + '_launch')(
         ld.off_data.data_ptr(), ld.off_src.data_ptr(), ld.off_dst.data_ptr(),
         ld.inc_ptr.data_ptr(), ld.inc_tile.data_ptr(), blk_mask.data_ptr(),
         ld.off_nz.data_ptr(), slabs.data_ptr(), eta_diff.data_ptr(),
         q.data_ptr(), slabs.numel(), S, nb, B, float(np.float32(ld.scale)),
         coupling_lane_tile(S), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, 'coupling_pass_s')
-    LAUNCHES['coupling_pass_s'] += 1
+    _raise_on(err, kernel)
+    LAUNCHES[kernel] += 1
     return q
 
 
@@ -505,11 +497,11 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     (S, K). ``active``: (S,) float32 step scales, or None for the single
     model (S = 1; kernels K5/K6 have no step scale). ``unit_diag``: the
     relaxation's diagonal term is the variant mask (K6/K8). ``count``: the
-    LAUNCHES entry a launch adds to (with ``_f32`` appended for the
-    single-model kernel's float32 instance). ``inner_steps``: the kernel's
-    inner steps per tile (a timing probe takes fewer; the plain version runs
-    INNER_STEPS only). Both kernels read ``ld.diag_nz`` (their rank-T
-    updates skip the zero 32 x 32 blocks). The lanes take int8 LD only.
+    LAUNCHES entry a launch adds to (with ``_f32`` appended for a float32
+    instance). ``inner_steps``: the kernel's inner steps per tile (a timing
+    probe takes fewer; the plain version runs INNER_STEPS only). Both
+    kernels read ``ld.diag_nz`` (their rank-T updates skip the zero 32 x 32
+    blocks).
 
     :returns: (new_state, eta_diff), coupling tiles not applied.
     """
@@ -520,11 +512,7 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
         return cavi_mix.mix_block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                         active, blk_mask=blk_mask,
                                         unit_diag=unit_diag)
-    if active is None:
-        sfx = _s1_tiles(ld)
-    else:
-        _refuse_float_lanes(ld)
-        sfx = ''
+    sfx = _tiles(ld)
     from ._build import build
     lib, _ = build()
     dev = ld.device
@@ -568,10 +556,11 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
             stream)
         _raise_on(err, kernel)
     else:
-        err = lib.cavi_block_sweep_mix_s_launch(
+        kernel = 'cavi_block_sweep_mix_s' + sfx
+        err = getattr(lib, kernel + '_launch')(
             ld.diag.data_ptr(), ld.diag_nz.data_ptr(), *ptrs, S, K, *tail,
             mix_sweep_lane_tile(S, K), stream)
-        _raise_on(err, 'cavi_block_sweep_mix_s')
+        _raise_on(err, kernel)
     LAUNCHES[count + sfx] += 1
     return out, eta_diff
 
