@@ -160,6 +160,33 @@ F6. G4 and M5's timings of the lane kernels on the float32 genome's
    S = 2, 8, 16, 20 and 100 beside torch.bmm of the float32 tiles; K7 at
    S = 8 and 20, K8 at its mask, every 20th block and every block), beside
    their plain versions and both bounds at 4 bytes an element.
+P0. model selection on the 8-block cut and its float32 twin, the kernels
+   on the card against the plain versions on the CPU: the PUMAS split
+   bit-equal (and factorized on the card within 1e-9 of the host's);
+   viprs_fit's selection flow on a 16-point grid (split, fit,
+   pseudo_validate, select_best_model by pseudo-R^2, restore, refit) with
+   the CPU's per-lane nit, selected row and refit nit, pseudo-R^2 within
+   1e-5 and h2 within 1e-6; the pathwise 16-point grid with the CPU's
+   per-lane nit and status; the host-stepped VIPRSMix(K=3) with the CPU's
+   nit; LDPredInf within 1e-6 and infer_lambda_min within 1e-9;
+P1. the PUMAS split of the int8 genome (0.8, seed 0) on the host, timed,
+   its identity n b = n_t b_train + (n - n_t) b_test on every variant and
+   finite halves, and the same split factorized on the card (timed, within
+   1e-9);
+P2. viprs_fit's selection flow on the genome, int8 and float32 LD: the
+   bench grid(100) fitted on the split (K3), pseudo_validate,
+   select_best_model by pseudo-R^2, restore_full_sumstats and the hybrid
+   refit of the selected row (K1/K2), each step timed, the launches per
+   step (only the LD's tile type), the selected row and the refit's h2
+   held to the port's earlier runs (PORT_PV_*, PORT_F32_PV_*);
+P3. the pathwise grid(100) on the int8 genome: per-lane nit and status,
+   the row with the best ELBO, seconds, and K1 launched once an iteration;
+P4. the host-stepped VIPRSMix(K=3) on the int8 genome (K5 every
+   iteration; h2 within 0.005 of the JAX package's) beside the fused fit,
+   then GridSearch over VIPRSMix (one VIPRSMixGrid, K7) by pseudo-R^2 on
+   bench.py's 20-point mixture grid after its model's split;
+P5. LDPredInf (CG iterations, relative residual, seconds) and
+   infer_lambda_min (value, seconds) on both packings.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -173,7 +200,8 @@ and, for the coupling passes, the time of one PyTorch call computing the
 tile products (``library_ms``; the sweeps have none). The S = 1 kernels'
 lines, and the lane sweeps', also carry their time in a CUDA graph
 (``graph_ms``). The float32 instances (F3, F6) have lines of their own,
-their names ending in ``_f32``.
+their names ending in ``_f32``. ``paths`` gives each kernel's launches
+on each selection path of P2-P4 that launched it.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -742,6 +770,21 @@ def main():
         cavi_sweep_mix_s_skip_f32=record['f32_mix_grid']["sweep_impl='skip'"][
             'launches']['cavi_sweep_mix_s_skip_f32'])
 
+    # ---- P0-P5: model selection (the PUMAS split, pseudo-validation,
+    # the pathwise grid, the host-stepped mixture loop, LDPredInf) ----
+    paths = {}
+    sub32 = cut_blocks(ld32, sel, dev)
+    record['select_cut'] = {'int8': select_cut_checks(sub, sb, nf),
+                            'float32': select_cut_checks(sub32, sb, nf)}
+    del sub32
+    record['select'] = select_genome(ds, paths)
+    record['select_f32'] = select_genome(ds32, paths)
+    record['pathwise'] = pathwise_genome(ds, paths)
+    record['mix_select'] = mix_select_genome(ds, paths)
+    record['ldpred_lambda'] = {'int8': ldpred_lambda_genome(ds),
+                               'float32': ldpred_lambda_genome(ds32)}
+    record['select_paths'] = paths
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)
@@ -827,6 +870,10 @@ def main():
         if dense is not None:
             e['bound_ms_dense'] = dense[0]
         kernels.append(e)
+    # the launches of each kernel on each selection path (P2-P4)
+    for e in kernels:
+        e['paths'] = {p: paths[p][e['name']] for p in SELECT_PATHS
+                      if paths.get(p, {}).get(e['name'])}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -3268,6 +3315,453 @@ def f32_grid_cut_fits(sub, sb, nf):
     out['VIPRSMixGrid'] = dict(nit=[nit_c.tolist(), nit_p.tolist()],
                                h2=[h2_c.tolist(), h2_p.tolist()])
     return out
+
+
+# ------------------------------------------- model selection (P0-P5)
+#: The port's own results of viprs_fit's selection flow on the genome (P2),
+#: the same on every H100 run: the grid row selected by pseudo-R^2 and the
+#: refit's h2 (int8 LD; float32 LD).
+PORT_PV_INDEX, PORT_PV_H2 = 12, 0.24172945622183165
+PORT_F32_PV_INDEX, PORT_F32_PV_H2 = 12, 0.24172779422571386
+#: The kernels of each selection path, as LAUNCHES names them (float32
+#: instances with '_f32' appended).
+SELECT_PATHS = ('P2 grid fit', 'P2 refit', 'P2 grid fit f32', 'P2 refit f32',
+                'P3 pathwise', 'P4 host-stepped VIPRSMix', 'P4 fused VIPRSMix',
+                'P4 GridSearch(VIPRSMix)')
+
+
+def _pv_index(scores):
+    """select_best_model's pseudo-validation choice."""
+    return int(np.argmax(np.nan_to_num(np.asarray(scores, np.float64),
+                                       nan=0., neginf=0., posinf=0.)))
+
+
+def _launched(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+#: P0's ELBO tolerance (select_cut_checks).
+P0_F_ABS_TOL = 1e-9
+
+
+def select_cut_checks(sub, sb, nf):
+    """P0 on one packing of the 8-block cut: the selection layer with the
+    kernels on the card against the plain versions on the CPU. The split is
+    the same host arithmetic on both (bit for bit), and its factorizations
+    on the card hold to the host's within 1e-9; viprs_fit's selection flow
+    on a 16-point grid (split, fit, pseudo_validate, select_best_model by
+    pseudo-R^2, restore, refit) gives the CPU's nit on every lane, the
+    CPU's selected row, pseudo-R^2 within 1e-5 (relative) and the refit's
+    nit and h2 within 1e-6; the pathwise 16-point grid the CPU's per-lane
+    nit and status; the host-stepped VIPRSMix(K=3) the CPU's nit; LDPredInf
+    the CPU's posterior means within 1e-6 of the largest; infer_lambda_min
+    the CPU's value within 1e-9. The fits take f_abs_tol = P0_F_ABS_TOL:
+    the ELBO at n = 350,000 carries ~1e-4 of float32 summation order, so
+    its test at the default 1e-6 lands on either side by rounding (the
+    pathwise grid's lane 3 stopped on the ELBO on the CPU and on max
+    |d eta| on the card at the same iteration, on an H100); below it only
+    an unchanged state stops a fit on the ELBO, and the fits stop on
+    max |d eta| instead."""
+    import torch
+    from viprs_tpu_torch.data.split import sumstats_train_test_split
+    from viprs_tpu_torch.gridsearch import (HyperparameterGrid,
+                                            select_best_model)
+    from viprs_tpu_torch.model import LDPredInf, VIPRS, VIPRSGrid, VIPRSMix
+    kind = str(sub.diag.dtype).replace('torch.', '')
+    tag = f'P0 {kind}'
+    where = ('cuda', 'cpu')
+    dss = {w: _dataset_from_cut(sub, sb, nf, torch.device(w)) for w in where}
+    rec = {}
+
+    sp = {w: sumstats_train_test_split(dss[w], 0.8, seed=0) for w in where}
+    t0 = time.perf_counter()
+    sp_dev = sumstats_train_test_split(dss['cuda'], 0.8, seed=0,
+                                       chol_device='cuda')
+    t_dev = time.perf_counter() - t0
+    keys = ('train_beta', 'test_beta')
+    same = all(np.array_equal(sp['cuda'][c][k], sp['cpu'][c][k])
+               for c in sp['cpu'] for k in keys)
+    d_dev = max(float(np.abs(sp_dev[c][k] - sp['cpu'][c][k]).max())
+                for c in sp['cpu'] for k in keys)
+    rec['split'] = dict(bit_equal=same, card_chol_max_abs_diff=d_dev,
+                        card_chol_s=t_dev)
+    phase(tag, f"PUMAS split of the cut: the card's dataset and the CPU's "
+               f"{'bit-equal' if same else 'DIFFER'}; factorized on the card "
+               f"({t_dev:.2f} s): max |diff| {d_dev:.2e} (bound 1e-9)")
+    if not same or not d_dev <= 1e-9:
+        fail(f"{tag}: the split on the card differs from the CPU's")
+
+    flow = {}
+    for w in where:
+        np.random.seed(0)
+        g = VIPRSGrid(dss[w], HyperparameterGrid(pi_steps=16,
+                                                 n_snps=dss[w].m), w)
+        g.split_gwas_sumstats(prop_train=0.8, seed=0)
+        g.fit(max_iter=300, f_abs_tol=P0_F_ABS_TOL)
+        nit, st = g._last_result.nit.copy(), g._last_result.status.copy()
+        pv = g.pseudo_validate()
+        select_best_model(g, criterion='pseudo_validation')
+        g.restore_full_sumstats()
+        g.fit(max_iter=300, f_abs_tol=P0_F_ABS_TOL)
+        flow[w] = dict(nit=nit.tolist(), status=st.tolist(), pv=pv.tolist(),
+                       index=_pv_index(g.validation_result[
+                           'Pseudo_Validation_R2']),
+                       refit_nit=g.optim_result.nit,
+                       refit_h2=g.get_heritability(),
+                       refit_message=g.optim_results[0].message)
+    c, p = flow['cuda'], flow['cpu']
+    pv_c, pv_p = np.asarray(c['pv']), np.asarray(p['pv'])
+    d_pv = float(np.max(np.abs(pv_c - pv_p) / np.abs(pv_p)))
+    d_h2 = abs(c['refit_h2'] - p['refit_h2'])
+    phase(tag, f"selection flow, 16-point grid: nit per lane {c['nit']} "
+               f"(card) vs {p['nit']} (CPU); pseudo-R^2 max relative |diff| "
+               f"{d_pv:.2e} (bound 1e-5); selected row {c['index']} vs "
+               f"{p['index']}; refit nit {c['refit_nit']} vs "
+               f"{p['refit_nit']}, h2 {c['refit_h2']:.8f} vs "
+               f"{p['refit_h2']:.8f} (|diff| {d_h2:.2e}, bound 1e-6), "
+               f"'{c['refit_message']}'")
+    if not (c['nit'] == p['nit'] and c['status'] == p['status']
+            and d_pv <= 1e-5 and c['index'] == p['index']
+            and c['refit_nit'] == p['refit_nit'] and d_h2 <= 1e-6):
+        fail(f"{tag}: the selection flow on the card disagrees with the CPU")
+    rec['flow'] = flow
+
+    path = {}
+    for w in where:
+        np.random.seed(0)
+        g = VIPRSGrid(dss[w], HyperparameterGrid(pi_steps=16,
+                                                 n_snps=dss[w].m), w)
+        g.fit(pathwise=True, max_iter=300, f_abs_tol=P0_F_ABS_TOL)
+        path[w] = dict(nit=g._last_result.nit.tolist(),
+                       status=g._last_result.status.tolist(),
+                       elbo=g.validation_result['ELBO'].tolist())
+    phase(tag, f"pathwise 16-point grid: nit {path['cuda']['nit']} (card) "
+               f"vs {path['cpu']['nit']} (CPU); status "
+               f"{path['cuda']['status']} vs {path['cpu']['status']}")
+    if path['cuda']['nit'] != path['cpu']['nit'] or \
+            path['cuda']['status'] != path['cpu']['status']:
+        fail(f"{tag}: the pathwise grid on the card disagrees with the CPU")
+    rec['pathwise'] = path
+
+    mix = {}
+    for w in where:
+        np.random.seed(0)
+        m = VIPRSMix(dss[w], w, K=MIX_K).fit(fused=False, max_iter=300,
+                                             f_abs_tol=P0_F_ABS_TOL)
+        mix[w] = dict(nit=m.optim_result.nit, h2=m.get_heritability(),
+                      message=m.optim_result.message)
+    phase(tag, f"host-stepped VIPRSMix(K={MIX_K}): nit {mix['cuda']['nit']} "
+               f"(card) vs {mix['cpu']['nit']} (CPU), h2 "
+               f"{mix['cuda']['h2']:.8f} vs {mix['cpu']['h2']:.8f}, "
+               f"'{mix['cuda']['message']}'")
+    if mix['cuda']['nit'] != mix['cpu']['nit']:
+        fail(f"{tag}: the host-stepped VIPRSMix on the card disagrees with "
+             f"the CPU")
+    rec['host_stepped_mix'] = mix
+
+    beta, lam = {}, {}
+    for w in where:
+        m = LDPredInf(dss[w], w).fit()
+        beta[w] = np.concatenate([m.post_mean_beta[ch]
+                                  for ch in m.chromosomes])
+        lam[w] = VIPRS(dss[w], w).infer_lambda_min()
+    d_beta = float(np.abs(beta['cuda'] - beta['cpu']).max()
+                   / np.abs(beta['cpu']).max())
+    d_lam = abs(lam['cuda'] - lam['cpu'])
+    phase(tag, f"LDPredInf: posterior means max |diff| {d_beta:.2e} of the "
+               f"largest (bound 1e-6); infer_lambda_min {lam['cuda']!r} "
+               f"(card) vs {lam['cpu']!r} (CPU), |diff| {d_lam:.2e} (bound "
+               f"1e-9)")
+    if not (d_beta <= 1e-6 and d_lam <= 1e-9):
+        fail(f"{tag}: LDPredInf or infer_lambda_min on the card disagrees "
+             f"with the CPU")
+    rec.update(ldpred_inf_rel_diff=d_beta, lambda_min=[lam['cuda'],
+                                                       lam['cpu']])
+    return rec
+
+
+def select_genome(ds, record_paths, chol_device=None):
+    """P2 (and P1 on int8 LD): viprs_fit's selection flow at full width
+    (viprs_tpu/cli/fit.py:337-400): np.random.seed(0), the bench grid(100),
+    VIPRSGrid(ds, grid, 'cuda'), the PUMAS split (0.8, seed 0), fit(max_iter
+    =500), pseudo_validate, select_best_model by pseudo-R^2,
+    restore_full_sumstats and fit(max_iter=1000) of the selected row. The
+    split's identity n b = n_t b_train + (n - n_t) b_test holds on every
+    variant within 1e-9 of its terms' size (P1); the grid fit launches K3,
+    the refit K1 and K2 (the hybrid), each only in the LD's tile type; the
+    selected row and the refit's h2 are held to the port's earlier runs
+    (PORT_PV_*, PORT_F32_PV_*)."""
+    import torch
+    from viprs_tpu_torch.gridsearch import (HyperparameterGrid,
+                                            select_best_model)
+    from viprs_tpu_torch.model import VIPRSGrid
+    from viprs_tpu_torch.ops import cavi_cuda
+    f32 = ds.ld.diag.dtype == torch.float32
+    sfx = '_f32' if f32 else ''
+    tag = 'P2 float32' if f32 else 'P2 int8'
+    held_idx, held_h2 = (PORT_F32_PV_INDEX, PORT_F32_PV_H2) if f32 else \
+        (PORT_PV_INDEX, PORT_PV_H2)
+    other = [k for k in cavi_cuda.LAUNCHES if k.endswith('_f32') != f32]
+    rec = {}
+    np.random.seed(0)
+    g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **GRID_SPEC), 'cuda')
+    t0 = time.perf_counter()
+    g.split_gwas_sumstats(prop_train=0.8, seed=0, chol_device=chol_device)
+    torch.cuda.synchronize()
+    rec['split_s'] = time.perf_counter() - t0
+    worst, finite = 0.0, True
+    for c in g.chromosomes:
+        n = np.asarray(ds.n_per_snp[c], np.float64)
+        tr, te = g.std_beta[c], g.validation_std_beta[c]
+        n_t = 0.8 * n
+        terms = np.abs(n_t * tr) + np.abs((n - n_t) * te)
+        err = np.abs(n * ds.std_beta[c] - (n_t * tr + (n - n_t) * te))
+        worst = max(worst, float(np.max(err / np.maximum(terms, 1e-300))))
+        finite &= bool(np.isfinite(tr).all() and np.isfinite(te).all())
+    rec.update(identity_rel_err=worst, finite=finite)
+    phase('P1' if not f32 else tag,
+          f"PUMAS split of the {'float32' if f32 else 'int8'} genome "
+          f"(prop_train 0.8, seed 0, factorized on "
+          f"{chol_device or 'the host'}): {rec['split_s']:.1f} s; "
+          f"n b = n_t b_train + (n - n_t) b_test on all {ds.m} variants "
+          f"within {worst:.2e} of the terms (bound 1e-9); train and test "
+          f"betas {'finite' if finite else 'NOT FINITE'}")
+    if not (worst <= 1e-9 and finite):
+        fail(f"{tag}: the PUMAS split breaks its identity or is not finite")
+    if not f32:
+        # the same split with the factorizations on the card
+        from viprs_tpu_torch.data.split import sumstats_train_test_split
+        t0 = time.perf_counter()
+        dev_split = sumstats_train_test_split(ds, 0.8, seed=0,
+                                              chol_device='cuda')
+        rec['split_card_s'] = time.perf_counter() - t0
+        rec['split_card_max_abs_diff'] = d = max(
+            float(np.abs(dev_split[c]['train_beta'] - g.std_beta[c]).max())
+            for c in g.chromosomes)
+        phase('P1', f"the same split factorized on the card: "
+                    f"{rec['split_card_s']:.1f} s, max |diff| of the train "
+                    f"betas {d:.2e} (bound 1e-9)")
+        if not d <= 1e-9:
+            fail("P1: the card's factorizations change the split")
+
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    g.fit(max_iter=500)
+    torch.cuda.synchronize()
+    rec['fit_s'] = time.perf_counter() - t0
+    rec['fit_launches'] = dict(cavi_cuda.LAUNCHES)
+    nit = g._last_result.nit
+    rec.update(valid=int(g.valid_terminated_models.sum()),
+               converged=int(g.converged_models.sum()),
+               nit_max=int(nit.max()), nit_median=float(np.median(nit)),
+               widths=[w for w, *_ in g._chunk_trace])
+    t0 = time.perf_counter()
+    pv = g.pseudo_validate()
+    rec['pseudo_validate_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    select_best_model(g, criterion='pseudo_validation')
+    torch.cuda.synchronize()
+    rec['select_s'] = time.perf_counter() - t0
+    idx = _pv_index(g.validation_result['Pseudo_Validation_R2'])
+    rec.update(index=idx, row={k: float(v) for k, v in g.fix_params.items()},
+               pseudo_r2=float(pv[idx]),
+               pseudo_r2_range=[float(np.nanmin(pv)), float(np.nanmax(pv))])
+    t0 = time.perf_counter()
+    g.restore_full_sumstats()
+    rec['restore_s'] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    g.fit(max_iter=1000)
+    torch.cuda.synchronize()
+    rec['refit_s'] = time.perf_counter() - t0
+    rec['refit_launches'] = dict(cavi_cuda.LAUNCHES)
+    rec.update(refit_nit=g.optim_result.nit, h2=g.get_heritability(),
+               refit_message=g.optim_results[0].message,
+               refit_success=bool(g.optim_result.success),
+               refit_skip_iterations=g._n_skip)
+    phase(tag, f"grid(100) on the split: fit {rec['fit_s']:.3f} s, valid "
+               f"{rec['valid']}/100, converged {rec['converged']}/100, nit "
+               f"max {rec['nit_max']} median {rec['nit_median']:g}, widths "
+               f"per chunk {_runs(rec['widths'])}; launches "
+               f"{_launched(rec['fit_launches'])}")
+    phase(tag, f"pseudo_validate {rec['pseudo_validate_s']:.3f} s "
+               f"(pseudo-R^2 {rec['pseudo_r2_range'][0]:.6f}.."
+               f"{rec['pseudo_r2_range'][1]:.6f}); select_best_model "
+               f"{rec['select_s']:.3f} s: row {idx} {rec['row']}, pseudo-R^2 "
+               f"{rec['pseudo_r2']:.6f}; restore {rec['restore_s']:.3f} s; "
+               f"refit {rec['refit_s']:.3f} s: nit {rec['refit_nit']} "
+               f"({rec['refit_skip_iterations']} on the skip branch), h2 "
+               f"{rec['h2']!r}, '{rec['refit_message']}'; launches "
+               f"{_launched(rec['refit_launches'])}")
+    if rec['valid'] < 2 or not rec['refit_success'] or \
+            not 0.0 < rec['h2'] < 1.0:
+        fail(f"{tag}: the selection flow did not end in a converged refit")
+    if rec['fit_launches']['cavi_block_sweep_s' + sfx] < 1 or \
+            min(rec['refit_launches'][k + sfx] for k in (
+                'cavi_block_sweep_s1', 'coupling_pass_s1')) < 1 or \
+            rec['refit_skip_iterations'] < 1:
+        fail(f"{tag}: the flow did not launch K3 in the grid fit and K1/K2 "
+             f"in the refit")
+    if any(rec['fit_launches'][k] or rec['refit_launches'][k]
+           for k in other):
+        fail(f"{tag}: another tile type's kernel was launched")
+    if idx != held_idx or abs(rec['h2'] - held_h2) > 1e-9:
+        fail(f"{tag}: the selected row {idx} or the refit's h2 "
+             f"{rec['h2']!r} moved from the port's earlier runs "
+             f"({held_idx}, {held_h2!r})")
+    record_paths['P2 grid fit' + (' f32' if f32 else '')] = \
+        rec['fit_launches']
+    record_paths['P2 refit' + (' f32' if f32 else '')] = \
+        rec['refit_launches']
+    return rec
+
+
+def pathwise_genome(ds, record_paths):
+    """P3: VIPRSGrid(ds, grid(100), 'cuda').fit(pathwise=True, max_iter=
+    500) on the int8 genome: S = 1 fits one after another, each from the
+    previous one's finished state, every iteration one K1 launch (the
+    all-active sweep and its coupling pass) and no initial one, so K1's
+    count is the summed nit."""
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSGrid
+    from viprs_tpu_torch.ops import cavi_cuda
+    np.random.seed(0)
+    g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **GRID_SPEC), 'cuda')
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    g.fit(pathwise=True, max_iter=500)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cavi_cuda.LAUNCHES)
+    nit, status = g._last_result.nit, g._last_result.status
+    elbo = np.asarray(g.validation_result['ELBO'])
+    best = int(np.argmax(np.where(g.valid_terminated_models, elbo, -np.inf)))
+    rec = dict(seconds=dt, nit=nit.tolist(), status=status.tolist(),
+               nit_sum=int(nit.sum()),
+               converged=int(g.converged_models.sum()),
+               valid=int(g.valid_terminated_models.sum()), best=best,
+               best_row=g.grid_row(best), launches=launches,
+               ms_per_it=1e3 * dt / max(int(nit.sum()), 1))
+    phase('P3', f"pathwise grid(100): {dt:.3f} s ({rec['ms_per_it']:.2f} "
+                f"ms/it over {rec['nit_sum']} iterations), nit min/median/max "
+                f"{int(nit.min())}/{float(np.median(nit)):g}/{int(nit.max())},"
+                f" converged {rec['converged']}/100, valid {rec['valid']}/100;"
+                f" best by ELBO row {best} {rec['best_row']}; K1 launches "
+                f"{launches['cavi_block_sweep_s1']} = the summed nit "
+                f"{rec['nit_sum']} (no initial call); launches "
+                f"{_launched(launches)}")
+    if rec['valid'] < 100 or launches['cavi_block_sweep_s1'] != \
+            rec['nit_sum'] or launches['coupling_pass_s1'] != rec['nit_sum']:
+        fail("P3: the pathwise grid did not terminate validly on every lane "
+             "or its K1 launches are not its iterations")
+    record_paths['P3 pathwise'] = launches
+    return rec
+
+
+def mix_select_genome(ds, record_paths, chol_device=None):
+    """P4: VIPRSMix(ds, 'cuda', K=3).fit(fused=False, max_iter=500), the
+    host-stepped loop (K5 every iteration), beside the fused fit in the
+    same run; then GridSearch over VIPRSMix with the pseudo-validation
+    criterion (one VIPRSMixGrid, K7) over bench.py's 20-point mixture grid,
+    its model split first (0.8, seed 0)."""
+    import torch
+    from viprs_tpu_torch.gridsearch import GridSearch, HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSMix, VIPRSMixGrid
+    from viprs_tpu_torch.ops import cavi_cuda
+    rec = {}
+    for name, kw in (('host-stepped', dict(fused=False)), ('fused', {})):
+        np.random.seed(0)
+        m = VIPRSMix(ds, 'cuda', K=MIX_K)
+        torch.cuda.synchronize()
+        cavi_cuda.reset_launches()
+        t0 = time.perf_counter()
+        m.fit(max_iter=500, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        r = m.optim_result
+        rec[name] = dict(seconds=dt, nit=r.nit, h2=m.get_heritability(),
+                         success=bool(r.success), message=r.message,
+                         launches=dict(cavi_cuda.LAUNCHES))
+        record_paths[f'P4 {name} VIPRSMix'] = rec[name]['launches']
+        phase('P4', f"VIPRSMix(K={MIX_K}) {name}: {dt:.3f} s, nit {r.nit}, "
+                    f"h2 {rec[name]['h2']!r} (JAX package: {REF_MIX_H2}), "
+                    f"'{r.message}'; launches "
+                    f"{_launched(rec[name]['launches'])}")
+    hs = rec['host-stepped']
+    if not (hs['success'] and abs(hs['h2'] - REF_MIX_H2) <= 0.005
+            and hs['launches']['cavi_sweep_mix_s1'] >= hs['nit']):
+        fail("P4: the host-stepped VIPRSMix fit did not converge within "
+             "0.005 of the JAX package's h2 on K5")
+
+    np.random.seed(0)
+    gs = GridSearch(ds, HyperparameterGrid(n_snps=ds.m, **MIX_GRID_SPEC),
+                    'cuda', criterion='pseudo_validation',
+                    model_class=VIPRSMix, K=MIX_K)
+    if not isinstance(gs.model, VIPRSMixGrid):
+        fail("P4: GridSearch over VIPRSMix did not build a VIPRSMixGrid")
+    t0 = time.perf_counter()
+    gs.model.split_gwas_sumstats(prop_train=0.8, seed=0,
+                                 chol_device=chol_device)
+    t_split = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    best = gs.fit(max_iter=500)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    scores = gs.validation_result['Pseudo_Validation_R2']
+    idx = _pv_index(scores)
+    rec['grid_search'] = dict(
+        split_s=t_split, seconds=dt, index=idx, row={k: float(v) for k, v in
+                                    best.fix_params.items()},
+        pseudo_r2=float(scores[idx]), h2=best.get_heritability(),
+        valid=int(np.isfinite(scores).sum()),
+        launches=dict(cavi_cuda.LAUNCHES))
+    gsr = rec['grid_search']
+    record_paths['P4 GridSearch(VIPRSMix)'] = gsr['launches']
+    phase('P4', f"GridSearch(VIPRSMix, K={MIX_K}, pseudo_validation) over "
+                f"20 rows: split {t_split:.1f} s, fit and selection "
+                f"{dt:.3f} s, row {idx} {gsr['row']}, "
+                f"pseudo-R^2 {gsr['pseudo_r2']:.6f}, h2 {gsr['h2']!r}; "
+                f"launches {_launched(gsr['launches'])}")
+    if gsr['launches']['cavi_sweep_mix_s'] < 1 or best.n_models != 1 or \
+            not np.isfinite(gsr['pseudo_r2']):
+        fail("P4: the mixture grid search did not launch K7 or select a row")
+    return rec
+
+
+def ldpred_lambda_genome(ds):
+    """P5 on one packing: LDPredInf(ds, 'cuda', h2=None).fit() (CG
+    iterations, final relative residual, seconds) and infer_lambda_min
+    (value, seconds)."""
+    import torch
+    from viprs_tpu_torch.model import LDPredInf, VIPRS
+    kind = str(ds.ld.diag.dtype).replace('torch.', '')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = LDPredInf(ds, 'cuda').fit()
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    beta = np.concatenate([m.post_mean_beta[c] for c in m.chromosomes])
+    t0 = time.perf_counter()
+    lam = VIPRS(ds, 'cuda').infer_lambda_min()
+    torch.cuda.synchronize()
+    t_lam = time.perf_counter() - t0
+    rec = dict(seconds=t_fit, cg_iterations=m.cg_iterations,
+               relative_residual=m.cg_relative_residual, h2=m.h2,
+               lambda_min=lam, lambda_min_s=t_lam)
+    phase('P5', f"{kind} LD: LDPredInf (h2 {m.h2:.6f} from LDSC) {t_fit:.3f} "
+                f"s, {m.cg_iterations} CG iterations, relative residual "
+                f"{m.cg_relative_residual:.3e}; infer_lambda_min {lam!r} in "
+                f"{t_lam:.3f} s")
+    if beta.shape != (ds.m,) or not np.isfinite(beta).all() or \
+            not m.cg_relative_residual <= 1e-6 or not np.isfinite(lam):
+        fail(f"P5: LDPredInf or infer_lambda_min on {kind} LD failed")
+    return rec
 
 
 if __name__ == '__main__':

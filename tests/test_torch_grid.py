@@ -336,10 +336,7 @@ def test_grid_search_and_unported_paths(datasets):
     assert np.argmax(gs.validation_result['ELBO']) is not None
     g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=2), 'cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        g.fit(pathwise=True)
-    for crit in ('validation', 'pseudo_validation'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            select_best_model(g, criterion=crit)
+        select_best_model(g, criterion='validation')
     with pytest.raises(ValueError, match='hybrid'):
         g.fit(sweep_impl='hybrid')
     with pytest.raises(ValueError, match='to_table'):

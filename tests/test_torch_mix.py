@@ -358,8 +358,6 @@ def test_mix_paths_not_ported_raise(datasets):
                      K=2)
     with pytest.raises(ValueError, match='hybrid'):
         g.fit(sweep_impl='hybrid')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        VIPRSMix(ds, 'cpu', K=2).fit(fused=False)
     with pytest.raises(ValueError, match='prior_multipliers'):
         VIPRSMix(ds, 'cpu', K=2, prior_multipliers=[1.0])
 

@@ -19,7 +19,8 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     """Lazy top-level exports (importing the package loads no model code)."""
-    if name in ('VIPRS', 'VIPRSGrid', 'BayesPRSModel'):
+    if name in ('VIPRS', 'VIPRSGrid', 'VIPRSMix', 'VIPRSMixGrid',
+                'LDPredInf', 'BayesPRSModel'):
         from . import model
         return getattr(model, name)
     if name == 'SummaryStatsDataset':

@@ -1,10 +1,12 @@
 """Post-fit model selection and combination over a fitted grid.
 
 Counterpart of viprs_tpu.gridsearch.search: ``select_best_model`` over the
-ELBO criterion, ELBO-softmax Bayesian model averaging (reference
-grid_utils.py:121-193), and ``GridSearch`` for VIPRSGrid. The validation and
-pseudo-validation criteria need the evaluation code and the loaders, which
-are not ported yet (ROADMAP.md, Queue 1).
+ELBO and pseudo-validation criteria, ELBO-softmax Bayesian model averaging
+(reference grid_utils.py:121-193), and ``GridSearch``, which fits VIPRS
+grids as one VIPRSGrid, VIPRSMix grids as one VIPRSMixGrid and any other
+model class one grid row at a time. The ``validation`` criterion scores
+PRS on individual-level validation data, which needs the scoring and
+evaluation code (ROADMAP.md, Queue 1, item 7).
 """
 
 import logging
@@ -16,29 +18,47 @@ logger = logging.getLogger(__name__)
 
 F64 = torch.float64
 
-_NOT_PORTED = ("the {} criterion needs the evaluation code and the loaders, "
-               "which are not ported yet; see ROADMAP.md, Queue 1")
+CRITERIA = ('ELBO', 'validation', 'pseudo_validation')
+_NEEDS_EVAL = ("the validation criterion scores PRS on individual-level "
+               "validation data, which needs the scoring and evaluation code "
+               "that is not ported yet; see ROADMAP.md, Queue 1, item 7")
 
 
 def _check_criterion(criterion):
-    if criterion in ('validation', 'pseudo_validation'):
-        raise NotImplementedError(_NOT_PORTED.format(criterion))
-    if criterion != 'ELBO':
-        raise ValueError(f"criterion must be 'ELBO', 'validation' or "
-                         f"'pseudo_validation'; got {criterion!r}")
+    if criterion not in CRITERIA:
+        raise ValueError(f"criterion must be one of {CRITERIA}; got "
+                         f"{criterion!r}")
+    if criterion == 'validation':
+        raise NotImplementedError(_NEEDS_EVAL)
 
 
 def select_best_model(viprs_grid_model, validation_gdl=None, criterion='ELBO'):
-    """Select the grid point with the highest ELBO among the validly
-    terminated ones and collapse the model to it."""
+    """Select the best grid point among the validly terminated ones and
+    collapse the model to it: the highest ELBO, or the highest pseudo-R^2
+    on the held-out statistics of a PUMAS split (written into
+    ``validation_result['Pseudo_Validation_R2']``; a NaN or infinite score
+    counts as 0 in the choice)."""
     _check_criterion(criterion)
+    if (criterion == 'pseudo_validation' and validation_gdl is None
+            and viprs_grid_model.validation_std_beta is None):
+        raise ValueError("A validation dataset or validation standardized "
+                         "betas are required for the pseudo_validation "
+                         "criterion.")
     valid = viprs_grid_model.valid_terminated_models
     if np.sum(valid) < 2:
         raise ValueError("Less than two models converged successfully. "
                          "Cannot perform model selection.")
-    scores = np.array(viprs_grid_model.elbo(), dtype=np.float64)
-    scores[~valid] = -np.inf
-    best_idx = int(np.argmax(scores))
+    if criterion == 'ELBO':
+        scores = np.array(viprs_grid_model.elbo(), dtype=np.float64)
+        scores[~valid] = -np.inf
+        best_idx = int(np.argmax(scores))
+    else:
+        scores = np.array(viprs_grid_model.pseudo_validate(validation_gdl),
+                          dtype=np.float64)
+        scores[~valid] = -np.inf
+        viprs_grid_model.validation_result['Pseudo_Validation_R2'] = scores
+        best_idx = int(np.argmax(np.nan_to_num(scores, nan=0., neginf=0.,
+                                               posinf=0.)))
     logger.info("> Based on the %s criterion, selected model: %d", criterion,
                 best_idx)
     viprs_grid_model.collapse_to_model(best_idx)
@@ -111,20 +131,80 @@ def bayesian_model_average(viprs_grid_model, normalization='softmax'):
 
 
 class GridSearch:
-    """Facade over the simultaneous grid fit: ``VIPRSGrid`` over the grid,
-    then ``select_best_model`` by the criterion (viprs_tpu.gridsearch.
-    GridSearch for VIPRSGrid; the other model classes are not ported yet)."""
+    """Fit a hyperparameter grid and select its best point by the criterion
+    (viprs_tpu.gridsearch.GridSearch; reference HyperparameterSearch.py:
+    197-351). VIPRS grids are fitted simultaneously as one VIPRSGrid,
+    VIPRSMix grids as one VIPRSMixGrid; any other model class falls back to
+    one fit per grid row with the row pinned through ``fix_params``, scored
+    under the same criterion.
+    """
 
     def __init__(self, dataset, grid, device, criterion='ELBO',
-                 **model_kwargs):
+                 validation_gdl=None, model_class=None, **model_kwargs):
         from ..model.grid import VIPRSGrid
+        from ..model.mix import VIPRSMix
+        from ..model.mix_grid import VIPRSMixGrid
         self.criterion = 'ELBO' if criterion == 'training_objective' \
             else criterion
         _check_criterion(self.criterion)
-        self.model = VIPRSGrid(dataset, grid, device, **model_kwargs)
+        self.validation_gdl = validation_gdl
+        cls = model_class or VIPRSGrid
+        if isinstance(cls, type) and issubclass(cls, VIPRSMix) \
+                and not issubclass(cls, VIPRSMixGrid):
+            cls = VIPRSMixGrid
+        self._simultaneous = isinstance(cls, type) and \
+            issubclass(cls, (VIPRSGrid, VIPRSMixGrid))
+        if self._simultaneous:
+            self.model = cls(dataset, grid, device, **model_kwargs)
+        else:
+            self.model = None
+            self._dataset, self._grid, self._device = dataset, grid, device
+            self._model_class = cls
+            self._model_kwargs = model_kwargs
         self.validation_result = None
 
+    def _score(self, model):
+        if self.criterion == 'ELBO':
+            return float(model.objective())
+        return float(model.pseudo_validate(self.validation_gdl))
+
+    def _fit_per_row(self, **fit_kwargs):
+        """One fit per grid row, the row pinned in ``fix_params``; a row
+        whose fit or score raises scores -inf (the reference worker's skip
+        on failure, HyperparameterSearch.py:50-53)."""
+        from ..model.grid import grid_columns
+        rows = self._grid.combine_grids() \
+            if hasattr(self._grid, 'combine_grids') else list(self._grid)
+        fitted, scores = [], []
+        for i, row in enumerate(rows):
+            m = self._model_class(self._dataset, self._device,
+                                  fix_params=dict(row), **self._model_kwargs)
+            try:
+                m.fit(**fit_kwargs)
+                score = self._score(m)
+            except Exception as e:
+                logger.warning("Grid row %d failed: %s", i, e)
+                m, score = None, -np.inf
+            fitted.append(m)
+            scores.append(score)
+        if not any(m is not None for m in fitted):
+            raise ValueError("No grid row produced a successfully fitted "
+                             "model.")
+        self.validation_result = dict(grid_columns(rows))
+        self.validation_result[
+            {'ELBO': 'ELBO', 'pseudo_validation': 'Pseudo_Validation_R2'}[
+                self.criterion]] = np.asarray(scores, np.float64)
+        best_idx = int(np.argmax(np.nan_to_num(scores, nan=-np.inf)))
+        logger.info("> Based on the %s criterion, selected model: %d",
+                    self.criterion, best_idx)
+        self.model = fitted[best_idx]
+        return self.model
+
     def fit(self, **fit_kwargs):
+        if not self._simultaneous:
+            return self._fit_per_row(**fit_kwargs)
         self.model.fit(**fit_kwargs)
+        best = select_best_model(self.model, validation_gdl=self.validation_gdl,
+                                 criterion=self.criterion)
         self.validation_result = self.model.validation_result
-        return select_best_model(self.model, criterion=self.criterion)
+        return best

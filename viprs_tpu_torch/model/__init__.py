@@ -1,9 +1,10 @@
-"""Models of the port: the VIPRS fit, the simultaneous grid and the mixture
-prior with its grid (lazy exports: importing the package loads no model
-code)."""
+"""Models of the port: the VIPRS fit, its grid, the mixture prior with its
+grid, and the LDPred-inf baseline (lazy exports: importing the package
+loads no model code)."""
 
 _EXPORTS = {'BayesPRSModel': 'base', 'VIPRS': 'viprs', 'VIPRSGrid': 'grid',
-            'VIPRSMix': 'mix', 'VIPRSMixGrid': 'mix_grid'}
+            'VIPRSMix': 'mix', 'VIPRSMixGrid': 'mix_grid',
+            'LDPredInf': 'ldpred_inf'}
 
 __all__ = list(_EXPORTS)
 

@@ -1,12 +1,14 @@
 """VIPRSGrid — fit a grid of VIPRS models over hyperparameter settings.
 
-Counterpart of viprs_tpu.model.grid.VIPRSGrid in its simultaneous mode: the
-grid points are the S lanes of one fit (the lane kernels K3/K4 on the card),
-finished lanes are masked out, and the survivors are compacted between
-chunks (model/viprs.py). The serial warm-started ``pathwise`` mode is not
-ported yet (ROADMAP.md, Queue 1). On the card the lane kernels take int8
-(``quantize=True``) or float32 (``quantize=False``) LD, each through its own
-instances.
+Counterpart of viprs_tpu.model.grid.VIPRSGrid. In the simultaneous mode (the
+default) the grid points are the S lanes of one fit (the lane kernels K3/K4
+on the card), finished lanes are masked out, and the survivors are
+compacted between chunks (model/viprs.py). With ``pathwise=True`` the grid
+points are fitted one after another at S = 1, each warm-started from the
+previous one's finished state, under the JAX call's sweep rule: every block
+every iteration (K1 on the card), neither the hybrid nor the skip sweep. On
+the card the kernels take int8 (``quantize=True``) or float32
+(``quantize=False``) LD, each through its own instances.
 
 The grid rows are held as numpy columns (no pandas at import time or in the
 fit); ``to_validation_table`` imports pandas inside the call.
@@ -15,6 +17,7 @@ fit); ``to_validation_table`` imports pandas inside the call.
 import numpy as np
 
 from .viprs import VIPRS
+from ..ops import em_loop
 from ..ops.cavi_torch import CaviState, Hyper
 from ..ops.updates import FixMask
 from ..utils.optimize import OptimizeResult, summarize_statuses
@@ -100,25 +103,82 @@ class VIPRSGrid(VIPRS):
 
     # -------------------------------------------------------------------- fit
     def fit(self, pathwise=False, **fit_kwargs):
-        """Fit all grid points simultaneously, finished lanes masked out
-        (``VIPRS.fit``'s arguments)."""
-        if pathwise:
-            raise NotImplementedError(
-                "pathwise=True (serial warm-started grid fits) is not ported "
-                "yet; see ROADMAP.md, Queue 1")
+        """Fit the grid: all grid points simultaneously, finished lanes
+        masked out (``VIPRS.fit``'s arguments), or with ``pathwise=True``
+        one after another (``_fit_pathwise``). A grid collapsed to one model
+        takes a plain VIPRS fit (reference VIPRSGrid.py:145-146)."""
         if self.n_models == 1:
             return VIPRS.fit(self, **fit_kwargs)
+        if pathwise:
+            return self._fit_pathwise(**fit_kwargs)
         super().fit(**fit_kwargs)
+        self._set_validation_result(self._last_result.final_elbo)
+        return self
+
+    def _set_validation_result(self, elbos):
         self.validation_result = {
             **{k: v.copy() for k, v in self.grid_columns.items()},
-            'ELBO': np.asarray(self._last_result.final_elbo).copy(),
+            'ELBO': np.asarray(elbos).copy(),
             'Converged': self.converged_models,
             'Optimization_message': [r.message for r in self.optim_results]}
+
+    def _fit_pathwise(self, max_iter=1000, theta_0=None, min_iter=3,
+                      f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10, rng=None):
+        """Serial warm-started schedule (viprs_tpu model/grid.py:153-231,
+        the reference's default, VIPRSGrid.py:194-226): grid point s is one
+        em_fit at S = 1 from grid point s - 1's finished state (logits, mu,
+        eta and its q as the fit left them), with its own initial
+        hyperparameters, fresh counters, an initial objective of 0 and no
+        restart. ``optim_result.nit`` is the sum over the grid points."""
+        rng = np.random if rng is None else rng
+        S = self._S
+        self._refresh_inputs()
+        self.initialize_theta(theta_0, rng)
+        self.initialize_variational_parameters()
+        hyper = {f: np.array(x, np.float64)
+                 for f, x in zip(Hyper._fields, self._hyper)}
+        fix = [np.asarray(x) for x in self._fix_mask]
+        sigma_g, elbos = np.zeros(S), np.zeros(S)
+        nits, statuses = np.zeros(S, np.int32), np.zeros(S, np.int32)
+        state = self._state
+        warm = None
+        for s in range(S):
+            res = em_loop.em_fit(
+                self.dataset.ld,
+                warm if warm is not None else CaviState(
+                    *(x[s:s + 1] for x in state)),
+                self._std_beta_flat, self._n_flat,
+                Hyper(*(hyper[f][s:s + 1] for f in Hyper._fields)),
+                FixMask(*(x[s:s + 1] for x in fix)), n_sample=float(self.n),
+                m_total=float(self.m), init_elbo=np.zeros(1),
+                active0=np.ones(1, bool), max_iter=max_iter,
+                min_iter=min_iter, f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol,
+                patience=patience)
+            warm = res.state
+            for full, part in zip(state, warm):
+                full[s:s + 1].copy_(part)
+            for f, x in zip(Hyper._fields, res.hyper):
+                hyper[f][s] = float(x[0])
+            sigma_g[s] = res.sigma_g[0]
+            elbos[s] = res.final_elbo[0]
+            nits[s], statuses[s] = res.nit[0], res.status[0]
+        self._hyper = Hyper(**hyper)
+        self._sigma_g = sigma_g
+        self._pip = self._post_mean_beta = self._post_var_beta = None
+        self._last_result = em_loop.EMResult(
+            state=None, hyper=None, sigma_g=None, status=statuses, nit=nits,
+            elbo_hist=None, n_iter_total=int(nits.sum()), final_elbo=elbos,
+            counters=None, max_eta_diff=None, restarts_used=None,
+            act_hist=None, n_skip=0)
+        self._populate_optim_result(self._last_result)
+        self.optim_result.nit = int(nits.sum())
+        self._set_validation_result(elbos)
         return self
 
     def _populate_optim_result(self, res):
-        if self.n_models == 1:
-            return super()._populate_optim_result(res)
+        # a collapsed grid's refit is summarized as a grid of one, as the
+        # JAX package does ('Grid fit complete.'; optim_results[0] is the
+        # fit's own record)
         self.optim_results = summarize_statuses(res.status, res.final_elbo,
                                                 res.nit)
         agg = OptimizeResult()

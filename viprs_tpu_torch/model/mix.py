@@ -8,7 +8,10 @@ The fit runs ops/mix_em_loop.mix_em_fit, whose sweep is the CUDA kernel K6
 (every iteration activity-gated, the default) or K5 (all blocks, with
 ``sweep_impl='xla'`` or ``'pallas'``) on the card and their plain PyTorch
 versions on the CPU; a negative MSE restarts the fit once with
-sigma_epsilon fixed at 0.95.
+sigma_epsilon fixed at 0.95. ``fit(fused=False)`` runs the JAX package's
+host-stepped loop instead (``_fit_host_stepped``): one all-active sweep (K5)
+an iteration, the M-step, ELBO and MSE from its statistics, and the
+reference's stopping ladder with its own counters and messages.
 
 Randomness is the JAX package's: ``initialize_theta`` draws the total pi
 (``uniform``), then its split over the components (``dirichlet``), then
@@ -25,10 +28,11 @@ from . import _dispatch
 from .base import BayesPRSModel
 from ..data.ldsc import simple_ldsc
 from ..ops import mix_em_loop
+from ..ops.cavi_cuda import cavi_sweep_mix_s1
 from ..ops.cavi_mix import MixHyper, MixState, mix_var_tau
 from ..ops.mix_em_loop import MixFix
 from ..utils import optimize as opt
-from ..utils.optimize import OptimizeResult
+from ..utils.optimize import IterationConditionCounter, OptimizeResult
 
 logger = logging.getLogger(__name__)
 
@@ -75,7 +79,8 @@ class VIPRSMix(BayesPRSModel):
         self._sigma_g = 0.0
         self.optim_result = OptimizeResult()
         self.history = {}
-        self._std_beta_flat, self._n_flat = dataset.device_inputs()
+        self._std_beta_flat = self._n_flat = None
+        self._refresh_inputs()
 
     # ------------------------------------------------------------ init
     def initialize(self, theta_0=None, rng=None):
@@ -167,19 +172,20 @@ class VIPRSMix(BayesPRSModel):
             (``set_state`` or an earlier fit) instead of initializing.
         :param max_restarts: restarts with sigma_epsilon fixed at 0.95 when
             the MSE goes negative (the whole fit is re-run).
-        :param fused: only the fused loop is ported; ``False`` (the JAX
-            package's host-stepped reference loop) raises.
+        :param fused: ``False`` runs the host-stepped reference loop
+            (``_fit_host_stepped``; its sweep is always the all-active K5).
         :param sweep_impl: None/'skip' (K6), 'xla'/'pallas' (K5); see
             model/_dispatch.py.
         :param rng: numpy ``RandomState`` (or the ``np.random`` module, the
             default) for the initial and restart draws.
         """
-        if not fused:
-            raise NotImplementedError(
-                "fused=False (the host-stepped reference loop) is not ported "
-                "yet; see ROADMAP.md, Queue 1")
         use_skip = _dispatch.select_mix_sweep_impl(sweep_impl)
         rng = np.random if rng is None else rng
+        self._refresh_inputs()
+        if not fused:
+            return self._fit_host_stepped(max_iter, theta_0, continued,
+                                          min_iter, f_abs_tol, x_abs_tol,
+                                          patience, max_restarts, rng)
         if not continued:
             self.initialize(theta_0, rng)
         self.history.setdefault('ELBO', [])
@@ -217,6 +223,124 @@ class VIPRSMix(BayesPRSModel):
         self._pip = self._post_mean_beta = self._post_var_beta = None
         return self
 
+    def _m_step(self, st):
+        """The closed-form M-step from one model's sweep statistics
+        (viprs_tpu model/mix.py:332-361, VIPRSMix.py:227-260)."""
+        h = self._hyper
+        m = float(self.m)
+        pi = np.asarray(h.pi).copy()
+        tau_beta = np.asarray(h.tau_beta).copy()
+        if 'pis' not in self.fix_params:
+            pi = st['sum_gamma_k'].copy()
+            if 'pi' in self.fix_params:
+                pi = self.fix_params['pi'] * pi / pi.sum()
+            else:
+                pi = pi / m
+        if 'tau_betas' not in self.fix_params:
+            tau_est = np.sum(pi) * m / np.dot(self.d, st['sum_zeta_k'])
+            tau_beta = np.clip(self.d * tau_est, 1.0, None)
+        sigma_g = float((1.0 + float(h.lambda_min)) * st['sum_zeta_k'].sum()
+                        + st['sum_q_eta'])
+        if 'sigma_epsilon' in self.fix_params:
+            sigma_eps = float(h.sigma_eps)
+        else:
+            sigma_eps = float(1.0 - 2.0 * st['sum_beta_eta'] + sigma_g)
+        self._hyper = MixHyper(sigma_eps=np.float64(sigma_eps),
+                               tau_beta=tau_beta, pi=pi,
+                               lambda_min=h.lambda_min)
+        self._sigma_g = sigma_g
+
+    def _fit_host_stepped(self, max_iter, theta_0, continued, min_iter,
+                          f_abs_tol, x_abs_tol, patience, max_restarts, rng):
+        """The JAX package's host-stepped loop (viprs_tpu model/mix.py:
+        392-479): each iteration one all-active sweep (K5, coupling tiles
+        included; the plain version on the CPU), its statistics and
+        max |d eta| over every variant in one device->host read, then
+        ``_m_step``, the ELBO and the MSE on the host. A negative MSE
+        re-initializes the model once with sigma_epsilon fixed at 0.95 and
+        goes on from the next iteration."""
+        if not continued:
+            self.initialize(theta_0, rng)
+        hist = self.history.setdefault('ELBO', [])
+        hist.append(self.elbo())
+        prev_elbo, prev_sigma_g = hist[-1], self._sigma_g
+        sig_icc, div_icc = IterationConditionCounter(), \
+            IterationConditionCounter()
+        res = self.optim_result
+        restarts = 0
+        for i in range(1, max_iter + 1):
+            hy = self._hyper_dev()
+            self._state, eta_diff = cavi_sweep_mix_s1(
+                self.dataset.ld, self._state, self._std_beta_flat,
+                self._n_flat, hy)
+            st, extra = mix_em_loop.read_stats(
+                self._state, hy, self._std_beta_flat, self._n_flat,
+                self.dataset.ld.mask, 1, self.K, eta_diff.abs().amax())
+            st = {k: v[0] for k, v in st.items()}
+            max_ed = float(extra[0])
+            self._m_step(st)
+            curr_elbo, curr_mse = self._elbo_from(st), self._mse_from(st)
+            hist.append(curr_elbo)
+            sig_icc.update((i > min_iter)
+                           and abs(self._sigma_g - prev_sigma_g) <= x_abs_tol
+                           and max_ed < 10 * x_abs_tol, i)
+            div_icc.update((curr_elbo < prev_elbo)
+                           and not np.isclose(curr_elbo, prev_elbo,
+                                              atol=1e3 * f_abs_tol,
+                                              rtol=1e-4), i)
+            h2 = self.get_heritability()
+            if curr_mse < 0:
+                if 'sigma_epsilon' not in self.fix_params \
+                        and restarts < max_restarts:
+                    restarts += 1
+                    logger.info("Iteration %d | MSE negative; restarting "
+                                "with fixed sigma_epsilon.", i)
+                    self.initialize_theta(theta_0, rng)
+                    self.fix_params['sigma_epsilon'] = 0.95
+                    self._hyper = self._hyper._replace(
+                        sigma_eps=np.float64(0.95))
+                    self.initialize_variational_parameters()
+                    continue
+                res.update(curr_elbo, stop_iteration=True, success=False,
+                           message=f'The MSE is negative ({curr_mse:.6f}).')
+            elif not np.isfinite(curr_elbo):
+                res.update(curr_elbo, stop_iteration=True, success=False,
+                           message=opt.STATUS_MESSAGES[opt.ELBO_NONFINITE])
+            elif self.sigma_epsilon < 0:
+                res.update(curr_elbo, stop_iteration=True, success=False,
+                           message=opt.STATUS_MESSAGES[
+                               opt.SIGMA_EPS_NEGATIVE])
+            elif h2 > 1 or h2 < 0:
+                res.update(curr_elbo, stop_iteration=True, success=False,
+                           message=opt.STATUS_MESSAGES[opt.H2_OUT_OF_BOUNDS])
+            elif i > min_iter and np.isclose(prev_elbo, curr_elbo,
+                                             atol=f_abs_tol, rtol=0.):
+                res.update(curr_elbo, stop_iteration=True, success=True,
+                           message=opt.STATUS_MESSAGES[opt.CONVERGED_F])
+            elif i > min_iter and max_ed < x_abs_tol:
+                res.update(curr_elbo, stop_iteration=True, success=True,
+                           message=opt.STATUS_MESSAGES[opt.CONVERGED_X])
+            elif sig_icc.counter > patience:
+                res.update(curr_elbo, stop_iteration=True, success=True,
+                           message=opt.STATUS_MESSAGES[
+                               opt.CONVERGED_SIGMA_G])
+            elif div_icc.counter > patience:
+                res.update(curr_elbo, stop_iteration=True, success=False,
+                           message=opt.STATUS_MESSAGES[opt.DIVERGED_ELBO])
+            else:
+                res.update(curr_elbo)
+            prev_elbo, prev_sigma_g = curr_elbo, self._sigma_g
+            if res.stop_iteration:
+                break
+        if not res.stop_iteration:
+            res.update(hist[-1], stop_iteration=True, success=False,
+                       message=opt.STATUS_MESSAGES[opt.MAX_ITER],
+                       increment=False)
+        if not res.success:
+            logger.warning("\t%s", res.message)
+        self._pip = self._post_mean_beta = self._post_var_beta = None
+        return self
+
     # ------------------------------------------------------------ objective
     def _hyper_dev(self):
         return MixHyper(*(torch.from_numpy(np.asarray(x, np.float32))
@@ -228,21 +352,33 @@ class VIPRSMix(BayesPRSModel):
             self._state, self._hyper_dev(), self._std_beta_flat,
             self._n_flat, self.dataset.ld.mask, 1, self.K)[0]
 
-    def elbo(self):
-        """The ELBO of the current state and hyperparameters."""
+    def _elbo_from(self, st):
+        """The ELBO of one model's statistics ({name: scalar or (K,)}) with
+        the current hyperparameters and sigma_g."""
         h = MixHyper(*(np.reshape(x, s) for x, s in zip(
             self._hyper, (1, (1, self.K), (1, self.K), 1))))
+        st = {k: np.reshape(v, (1, -1) if np.ndim(v) else 1)
+              for k, v in st.items()}
         return float(mix_em_loop._mix_elbo(
-            self._lane_stats(), h, 'sigma_epsilon' in self.fix_params,
+            st, h, 'sigma_epsilon' in self.fix_params,
             np.reshape(self._sigma_g, 1), float(self.n))[0])
+
+    def elbo(self):
+        """The ELBO of the current state and hyperparameters."""
+        return self._elbo_from({k: v[0] for k, v in
+                                self._lane_stats().items()})
 
     def objective(self):
         return self.elbo()
 
+    def _mse_from(self, st):
+        """The MSE of one model's statistics with the current sigma_g."""
+        return float(1.0 - 2.0 * st['sum_beta_eta'] + self._sigma_g
+                     - st['sum_zeta_k'].sum() + st['sum_eta_sq'])
+
     def mse(self):
-        st = self._lane_stats()
-        return float((1.0 - 2.0 * st['sum_beta_eta'] + self._sigma_g
-                      - st['sum_zeta_k'].sum(axis=1) + st['sum_eta_sq'])[0])
+        return self._mse_from({k: v[0] for k, v in
+                               self._lane_stats().items()})
 
     # ------------------------------------------------------------ posterior
     def _materialize_posterior_moments(self):
@@ -258,6 +394,13 @@ class VIPRSMix(BayesPRSModel):
 
     def update_posterior_moments(self):
         self._materialize_posterior_moments()
+
+    def q_dict(self):
+        """{chrom: q}, the cached (R - I) eta of the fitted state (float32;
+        (m_c, S) for S lanes), which ``pseudo_validate`` takes for
+        S.b = q + eta."""
+        q = self._state.q
+        return self._dict_view(q if q.dim() == 3 else q[None])
 
     # ------------------------------------------------------------ getters
     @property

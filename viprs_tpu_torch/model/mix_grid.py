@@ -12,9 +12,10 @@ it hit once, with sigma_epsilon fixed at 0.95.
 Per lane a gridded ``pi`` is the TOTAL proportion causal (renormalised in
 the M-step), a gridded ``tau_beta`` scales the multipliers ``d``, and
 ``sigma_epsilon``/``lambda_min`` pin the scalars. With one grid point the
-model is a VIPRSMix. The grid is held as numpy columns (no pandas);
-``pseudo_validate``, ``collapse_to_model`` and selection or averaging over
-a mixture grid are not ported yet (ROADMAP.md).
+model is a VIPRSMix. The grid is held as numpy columns (no pandas).
+``pseudo_validate`` scores every lane on the held-out half of a PUMAS split
+from the cached q, and ``collapse_to_model`` (what ``select_best_model``
+calls) leaves a fitted VIPRSMix of one grid point.
 """
 
 import logging
@@ -34,6 +35,7 @@ from ..utils.optimize import OptimizeResult, summarize_statuses
 logger = logging.getLogger(__name__)
 
 F32 = torch.float32
+_GRID_KEYS = ('sigma_epsilon', 'tau_beta', 'pi', 'lambda_min')
 
 
 class VIPRSMixGrid(VIPRSMix):
@@ -144,6 +146,7 @@ class VIPRSMixGrid(VIPRSMix):
             raise TypeError(f"unexpected arguments {sorted(kwargs)}")
         use_skip = _dispatch.select_mix_sweep_impl(sweep_impl, grid=True)
         rng = np.random if rng is None else rng
+        self._refresh_inputs()
         if not continued:
             self.initialize(theta_0, rng)
         hist = self.history.setdefault('ELBO', [])
@@ -303,6 +306,36 @@ class VIPRSMixGrid(VIPRSMix):
             mu=torch.where(m[:, None, None, None], zero, st.mu),
             eta=torch.where(m[:, None, None], zero, st.eta),
             q=torch.where(m[:, None, None], zero, st.q))
+
+    # ------------------------------------------------- validation, selection
+    def pseudo_validate(self, test_gdl=None):
+        """Per-lane pseudo-R^2 from the cached q (viprs_tpu model/
+        mix_grid.py:457-474; ``_lane_pseudo_r2``)."""
+        if self.n_models == 1 or test_gdl is not None \
+                or self.validation_std_beta is None or self._state is None:
+            return super().pseudo_validate(test_gdl)
+        return self._lane_pseudo_r2(self._state.eta, self._state.q)
+
+    def collapse_to_model(self, idx):
+        """Slice every per-lane quantity down to grid point ``idx`` and pin
+        its grid row (viprs_tpu model/mix_grid.py:477-494): the model is
+        then a fitted VIPRSMix (its objective, heritability, posterior
+        moments, and ``fit()`` as one model)."""
+        idx = int(idx)
+        self._state = MixState(*(x[idx].clone() for x in self._state))
+        h = self._hyper
+        self._hyper = MixHyper(
+            sigma_eps=np.float64(np.asarray(h.sigma_eps)[idx]),
+            tau_beta=np.asarray(h.tau_beta)[idx].copy(),
+            pi=np.asarray(h.pi)[idx].copy(),
+            lambda_min=np.float64(np.asarray(h.lambda_min)[idx]))
+        self._sigma_g = float(np.atleast_1d(self._sigma_g)[idx])
+        self.fix_params.update({k: float(v[idx])
+                                for k, v in self.grid_columns.items()
+                                if k in _GRID_KEYS})
+        self.optim_result = self.optim_results[idx]
+        self.n_models = self._S = 1
+        self._pip = self._post_mean_beta = self._post_var_beta = None
 
     # -------------------------------------------------------------- accessors
     def elbo(self):

@@ -66,7 +66,8 @@ class VIPRS(BayesPRSModel):
         self._chunk_trace = []
         self._n_skip = 0
         self._last_result = None
-        self._std_beta_flat, self._n_flat = dataset.device_inputs()
+        self._std_beta_flat = self._n_flat = None
+        self._refresh_inputs()
 
     # ------------------------------------------------------------ init
     def _resolve_theta0(self, theta_0, rng):
@@ -164,6 +165,7 @@ class VIPRS(BayesPRSModel):
         rng = np.random if rng is None else rng
         S = self._S
         use_skip, use_hybrid = _dispatch.select_sweep_impl(S, sweep_impl)
+        self._refresh_inputs()
         self.initialize_theta(theta_0, rng)
         self.initialize_variational_parameters()
         self.optim_result.reset()
@@ -366,6 +368,49 @@ class VIPRS(BayesPRSModel):
     def _populate_optim_result(self, res):
         self.optim_result = OptimizeResult.from_status(
             res.status[0], res.final_elbo[0], res.nit[0])
+
+    # ------------------------------------------------------- LD spectrum
+    def infer_lambda_min(self, chunk_tiles=16):
+        """Spectral regularizer: |min(0, smallest eigenvalue over the LD
+        blocks)| (the analog of LDMatrix.get_lambda_min, use-site
+        VIPRS.py:191), in float64 on the LD's device, ``chunk_tiles`` tiles
+        at a time: each diagonal tile's eigenvalues where the LD has no
+        coupling tiles, else a Gershgorin lower bound per row, the coupling
+        tiles' absolute row and column sums added to their rows."""
+        ld = self.dataset.ld
+        f64 = torch.float64
+
+        def tiles(x, i):
+            return x[i:i + chunk_tiles].to(f64) * ld.scale
+        if ld.n_off == 0:
+            low = torch.zeros((), dtype=f64, device=ld.device)
+            for i in range(0, ld.nb, chunk_tiles):
+                w = torch.linalg.eigvalsh(tiles(ld.diag, i))
+                low = torch.minimum(low, w[:, 0].min())
+            return abs(min(0.0, float(low)))
+        row_abs = torch.empty(ld.nb, ld.block_size, dtype=f64,
+                              device=ld.device)
+        for i in range(0, ld.nb, chunk_tiles):
+            d = tiles(ld.diag, i).abs()
+            row_abs[i:i + chunk_tiles] = d.sum(dim=2) \
+                - torch.diagonal(d, dim1=1, dim2=2)
+        for i in range(0, ld.n_off, chunk_tiles):
+            o = tiles(ld.off_data, i).abs()
+            row_abs.index_add_(0, ld.off_src[i:i + chunk_tiles].long(),
+                               o.sum(dim=2))
+            row_abs.index_add_(0, ld.off_dst[i:i + chunk_tiles].long(),
+                               o.sum(dim=1))
+        return abs(min(0.0, float((1.0 - row_abs).min())))
+
+    # ------------------------------------------------------ validation
+    def pseudo_validate(self, test_gdl=None):
+        """Pseudo-R^2 per lane on the held-out half of a PUMAS split, from
+        the cached q (``_lane_pseudo_r2``). A float at S = 1."""
+        if test_gdl is not None or self.validation_std_beta is None \
+                or self._state is None:
+            return super().pseudo_validate(test_gdl)
+        out = self._lane_pseudo_r2(self._state.eta, self._state.q)
+        return float(out[0]) if self._S == 1 else out
 
     # ------------------------------------------------------------ objective
     def _hyper_dev(self):

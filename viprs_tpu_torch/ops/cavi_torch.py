@@ -81,18 +81,19 @@ def _dequant_matmul(d, R, scale):
     return out
 
 
-def _off_contrib(ld: BlockLD, v, tiles=None):
+def _off_contrib(ld: BlockLD, v, tiles=None, out_dtype=F32):
     """Cross-tile contribution of the coupling tiles:
     out[src_o] += U_o @ v[dst_o]; out[dst_o] += U_o^T @ v[src_o].
 
-    :param v: (S, NB, B). :param tiles: optional (k,) long index of the
-        coupling tiles to apply (default: all).
+    :param v: (S, NB, B) float32. :param tiles: optional (k,) long index of
+        the coupling tiles to apply (default: all).
+    :param out_dtype: the dtype the float32 tile products are summed in.
     :returns: (S, NB, B). Streams OFF_CHUNK tiles at a time, so the float32
         view of the int8 tiles stays small.
     """
     if tiles is None:
         tiles = torch.arange(ld.n_off, device=v.device)
-    out = torch.zeros_like(v)
+    out = torch.zeros(v.shape, dtype=out_dtype, device=v.device)
     for i in range(0, tiles.numel(), OFF_CHUNK):
         sel = tiles[i:i + OFF_CHUNK]
         U = ld.off_data.index_select(0, sel).to(F32)         # (k, B, B)
@@ -100,8 +101,8 @@ def _off_contrib(ld: BlockLD, v, tiles=None):
         dst = ld.off_dst.index_select(0, sel).long()
         row = torch.einsum('oij,soj->soi', U, v.index_select(1, dst))
         col = torch.einsum('oji,soj->soi', U, v.index_select(1, src))
-        out.index_add_(1, src, row)
-        out.index_add_(1, dst, col)
+        out.index_add_(1, src, row.to(out_dtype))
+        out.index_add_(1, dst, col.to(out_dtype))
     if ld.scale != 1.0:
         out = out * float(np.float32(ld.scale))
     return out
@@ -109,17 +110,23 @@ def _off_contrib(ld: BlockLD, v, tiles=None):
 
 def compute_q(ld: BlockLD, eta):
     """q = (R - I) @ eta from scratch. eta: (S, NB, B) -> (S, NB, B).
-    DIAG_CHUNK blocks at a time bound the float32 view of the tiles."""
-    q = torch.empty_like(eta)
+    DIAG_CHUNK blocks at a time bound the float32 view of the tiles.
+
+    A float64 eta is taken as the JAX package takes it (cavi_jax.compute_q
+    under x64): the tile products in float32, of eta rounded to float32;
+    the unit diagonal and the sums of the coupling tiles' products in
+    float64, so q is float64."""
+    e32 = eta.to(F32)
+    q = torch.empty_like(e32)
     for i in range(0, ld.nb, DIAG_CHUNK):
         sl = slice(i, i + DIAG_CHUNK)
         q[:, sl] = torch.einsum('bij,sbj->sbi', ld.diag[sl].to(F32),
-                                eta[:, sl])
+                                e32[:, sl])
     if ld.scale != 1.0:
         q = q * float(np.float32(ld.scale))
-    q = q - eta
+    q = q.to(eta.dtype) - eta
     if ld.n_off > 0:
-        q = q + _off_contrib(ld, eta)
+        q = q + _off_contrib(ld, e32, out_dtype=eta.dtype)
     return q
 
 

@@ -4,7 +4,9 @@ The status codes, messages and ``OptimizeResult`` of viprs_tpu.utils.optimize
 (functional parity with the reference's ``viprs/utils/OptimizeResult.py``),
 copied so the port needs no JAX import. The EM loop (ops/em_loop.py) emits
 the codes; ``OptimizeResult.from_status`` summarizes one for the model and
-``summarize_statuses`` one per lane of a grid.
+``summarize_statuses`` one per lane of a grid. The host-stepped mixture loop
+(``VIPRSMix.fit(fused=False)``) keeps its record with ``OptimizeResult.update``
+and its patience counters with ``IterationConditionCounter``.
 """
 
 import numpy as np
@@ -50,12 +52,35 @@ def status_is_error(code) -> bool:
     return code not in _SUCCESS_CODES and code not in (RUNNING, MAX_ITER)
 
 
-class OptimizeResult:
-    """A scipy-like record of the outcome of an optimization run.
+class IterationConditionCounter:
+    """Counts the number of *consecutive* iterations a condition held.
 
-    Parity: viprs/utils/OptimizeResult.py:38-153. The reference's
-    oscillation counter lives in the EM loop here, where it escalates the
-    damping instead of reducing the thread count.
+    Parity: viprs/utils/OptimizeResult.py:2-35.
+    """
+
+    def __init__(self):
+        self._counter = 0
+        self._nit = 0
+
+    @property
+    def counter(self):
+        return self._counter
+
+    def update(self, condition, iteration):
+        if condition and (iteration == self._nit + 1):
+            self._counter += 1
+        else:
+            self._counter = 0
+        self._nit = iteration
+
+
+class OptimizeResult:
+    """A scipy-like record of the progress/outcome of an optimization run.
+
+    Parity: viprs/utils/OptimizeResult.py:38-153, including the oscillation
+    counter (consecutive objective drops) that ``update`` keeps; the fused
+    EM loops keep their own, where it escalates the damping instead of
+    reducing the thread count.
     """
 
     def __init__(self):
@@ -80,6 +105,10 @@ class OptimizeResult:
         """True if converged OR stopped without a hard error (e.g. max-iter)."""
         return bool(self.success or (self.stop_iteration and not self.error_on_termination))
 
+    @property
+    def oscillation_counter(self):
+        return self._oscillation_counter
+
     def reset(self):
         self.message = None
         self.stop_iteration = False
@@ -87,6 +116,31 @@ class OptimizeResult:
         self.fun = None
         self.nit = 0
         self.error_on_termination = False
+        self._last_drop_iter = None
+        self._oscillation_counter = 0
+
+    def update(self, fun, stop_iteration=False, success=False, message=None,
+               increment=True):
+        """Record one iteration's objective and outcome."""
+        # consecutive objective drops (oscillation detection):
+        if self.fun is not None and fun < self.fun:
+            if self._last_drop_iter is not None and \
+                    self.nit - self._last_drop_iter == 1:
+                self._oscillation_counter += 1
+            self._last_drop_iter = self.nit + 1
+        elif self._last_drop_iter is not None and \
+                self.nit > self._last_drop_iter:
+            self._oscillation_counter = 0
+
+        self.fun = fun
+        self.stop_iteration = stop_iteration
+        self.success = success
+        self.message = message
+        self.nit += int(increment)
+
+        if stop_iteration and not success and \
+                "Maximum iterations" not in (message or ""):
+            self.error_on_termination = True
 
     @classmethod
     def from_status(cls, code, fun, nit):
