@@ -161,18 +161,19 @@ F6. G4 and M5's timings of the lane kernels on the float32 genome's
    S = 8 and 20, K8 at its mask, every 20th block and every block), beside
    their plain versions and both bounds at 4 bytes an element.
 P0. model selection on the 8-block cut and its float32 twin, the kernels
-   on the card against the plain versions on the CPU: the PUMAS split
-   bit-equal (and factorized on the card within 1e-9 of the host's);
-   viprs_fit's selection flow on a 16-point grid (split, fit,
-   pseudo_validate, select_best_model by pseudo-R^2, restore, refit) with
-   the CPU's per-lane nit, selected row and refit nit, pseudo-R^2 within
-   1e-5 and h2 within 1e-6; the pathwise 16-point grid with the CPU's
-   per-lane nit and status; the host-stepped VIPRSMix(K=3) with the CPU's
-   nit; LDPredInf within 1e-6 and infer_lambda_min within 1e-9;
-P1. the PUMAS split of the int8 genome (0.8, seed 0) on the host, timed,
-   its identity n b = n_t b_train + (n - n_t) b_test on every variant and
-   finite halves, and the same split factorized on the card (timed, within
-   1e-9);
+   on the card against the plain versions on the CPU, every fit at its own
+   tolerances: the PUMAS split within 1e-9; viprs_fit's selection flow on
+   a 16-point grid (split, fit, pseudo_validate, select_best_model by
+   pseudo-R^2, restore, refit) with the CPU's selected row, pseudo-R^2
+   within 1e-5 and h2 within 1e-6; GridSearch(VIPRS), one fit (K1/K2) a
+   row of 4, with the CPU's selected row and ELBOs within 1e-6; the
+   pathwise 16-point grid; the host-stepped VIPRSMix(K=3); every lane of
+   these fits with the CPU's nit and status where its stop is clear of the
+   thresholds (a factor 2 either way), the waived lanes counted;
+   LDPredInf within 1e-6 and infer_lambda_min within 1e-9;
+P1. the PUMAS split of the int8 genome (0.8, seed 0), timed, its identity
+   n b = n_t b_train + (n - n_t) b_test on every variant and finite
+   halves;
 P2. viprs_fit's selection flow on the genome, int8 and float32 LD: the
    bench grid(100) fitted on the split (K3), pseudo_validate,
    select_best_model by pseudo-R^2, restore_full_sumstats and the hybrid
@@ -774,8 +775,9 @@ def main():
     # the pathwise grid, the host-stepped mixture loop, LDPredInf) ----
     paths = {}
     sub32 = cut_blocks(ld32, sel, dev)
-    record['select_cut'] = {'int8': select_cut_checks(sub, sb, nf),
-                            'float32': select_cut_checks(sub32, sb, nf)}
+    record['select_cut'] = {'int8': select_cut_checks(sub, sb, nf, paths),
+                            'float32': select_cut_checks(sub32, sb, nf,
+                                                         paths)}
     del sub32
     record['select'] = select_genome(ds, paths)
     record['select_f32'] = select_genome(ds32, paths)
@@ -870,7 +872,7 @@ def main():
         if dense is not None:
             e['bound_ms_dense'] = dense[0]
         kernels.append(e)
-    # the launches of each kernel on each selection path (P2-P4)
+    # the launches of each kernel on each selection path (P0, P2-P4)
     for e in kernels:
         e['paths'] = {p: paths[p][e['name']] for p in SELECT_PATHS
                       if paths.get(p, {}).get(e['name'])}
@@ -3325,7 +3327,8 @@ PORT_PV_INDEX, PORT_PV_H2 = 12, 0.24172945622183165
 PORT_F32_PV_INDEX, PORT_F32_PV_H2 = 12, 0.24172779422571386
 #: The kernels of each selection path, as LAUNCHES names them (float32
 #: instances with '_f32' appended).
-SELECT_PATHS = ('P2 grid fit', 'P2 refit', 'P2 grid fit f32', 'P2 refit f32',
+SELECT_PATHS = ('P0 GridSearch(VIPRS) int8', 'P0 GridSearch(VIPRS) float32',
+                'P2 grid fit', 'P2 refit', 'P2 grid fit f32', 'P2 refit f32',
                 'P3 pathwise', 'P4 host-stepped VIPRSMix', 'P4 fused VIPRSMix',
                 'P4 GridSearch(VIPRSMix)')
 
@@ -3340,124 +3343,181 @@ def _launched(launches):
     return {k: v for k, v in launches.items() if v}
 
 
-#: P0's ELBO tolerance (select_cut_checks).
-P0_F_ABS_TOL = 1e-9
+#: P0's guard: a lane's stop on the cut is clear of its thresholds when the
+#: CPU stops it at the same iteration, with the same status, with f_abs_tol
+#: or x_abs_tol scaled by STOP_MARGIN or by its inverse (the CPU tests'
+#: LADDER_MARGIN). At n = 350,000 the ELBO carries ~1e-4 of float32
+#: summation order, so a comparison near its threshold may go either way:
+#: in one H100 run the pathwise grid's lane 3 stopped on the ELBO on the CPU
+#: and on max |d eta| on the card, at the same iteration.
+STOP_MARGIN = 2.0
+#: The fits' own f_abs_tol and x_abs_tol, at which P0 runs them.
+TOLS = (1e-6, 1e-6)
 
 
-def select_cut_checks(sub, sb, nf):
+def guarded_stops(tag, what, run, card, cpu):
+    """Hold the card's per-lane stops (tuples such as (nit, status)) to the
+    CPU's on every lane whose stop is clear (STOP_MARGIN). Where the two
+    disagree, the CPU repeats ``run(device, f_abs_tol, x_abs_tol)`` with
+    each tolerance moved, and a lane whose stop moves with them is waived;
+    a lane where the two agree needs no such proof. Fails on a clear lane
+    that disagrees; returns the counts."""
+    f, x, m = *TOLS, STOP_MARGIN
+    off = [l for l, (a, b) in enumerate(zip(card, cpu)) if a != b]
+    waived = set()
+    if off:
+        for tol in ((f * m, x), (f / m, x), (f, x * m), (f, x / m)):
+            alt = run('cpu', *tol)
+            waived |= {l for l in off if alt[l] != cpu[l]}
+    clear_off = [l for l in off if l not in waived]
+    phase(tag, f"{what}: {len(cpu) - len(off)} of {len(cpu)} stops as on "
+               f"the CPU, {len(waived)} waived (within a factor {m:g} of a "
+               f"threshold on the CPU: {sorted(waived)}), {len(clear_off)} "
+               f"clear and different {clear_off}")
+    if clear_off:
+        fail(f"{tag}: {what} on the card stops clear lanes {clear_off} "
+             f"otherwise than the CPU")
+    return dict(stops=len(cpu), differ=len(off), waived=sorted(waived))
+
+
+def select_cut_checks(sub, sb, nf, record_paths):
     """P0 on one packing of the 8-block cut: the selection layer with the
-    kernels on the card against the plain versions on the CPU. The split is
-    the same host arithmetic on both (bit for bit), and its factorizations
-    on the card hold to the host's within 1e-9; viprs_fit's selection flow
-    on a 16-point grid (split, fit, pseudo_validate, select_best_model by
-    pseudo-R^2, restore, refit) gives the CPU's nit on every lane, the
-    CPU's selected row, pseudo-R^2 within 1e-5 (relative) and the refit's
-    nit and h2 within 1e-6; the pathwise 16-point grid the CPU's per-lane
-    nit and status; the host-stepped VIPRSMix(K=3) the CPU's nit; LDPredInf
-    the CPU's posterior means within 1e-6 of the largest; infer_lambda_min
-    the CPU's value within 1e-9. The fits take f_abs_tol = P0_F_ABS_TOL:
-    the ELBO at n = 350,000 carries ~1e-4 of float32 summation order, so
-    its test at the default 1e-6 lands on either side by rounding (the
-    pathwise grid's lane 3 stopped on the ELBO on the CPU and on max
-    |d eta| on the card at the same iteration, on an H100); below it only
-    an unchanged state stops a fit on the ELBO, and the fits stop on
-    max |d eta| instead."""
+    kernels on the card against the plain versions on the CPU, every fit at
+    its own tolerances (TOLS). The split, its factorizations on each
+    device, within 1e-9; viprs_fit's selection flow on a 16-point grid
+    (split, fit, pseudo_validate, select_best_model by pseudo-R^2, restore,
+    refit) with the CPU's selected row, pseudo-R^2 within 1e-5 (relative)
+    and the refit's h2 within 1e-6; GridSearch(VIPRS), one fit a row of a
+    4-point grid (K1/K2 on the card), with the CPU's selected row and every
+    row's ELBO within 1e-6 (relative); every lane of those fits, of the
+    pathwise 16-point grid and of the host-stepped VIPRSMix(K=3) stopping
+    at the CPU's iteration with the CPU's status where the stop is clear of
+    its thresholds (guarded_stops); LDPredInf the CPU's posterior means
+    within 1e-6 of the largest; infer_lambda_min the CPU's value within
+    1e-9."""
     import torch
     from viprs_tpu_torch.data.split import sumstats_train_test_split
-    from viprs_tpu_torch.gridsearch import (HyperparameterGrid,
+    from viprs_tpu_torch.gridsearch import (GridSearch, HyperparameterGrid,
                                             select_best_model)
     from viprs_tpu_torch.model import LDPredInf, VIPRS, VIPRSGrid, VIPRSMix
+    from viprs_tpu_torch.ops import cavi_cuda
     kind = str(sub.diag.dtype).replace('torch.', '')
+    sfx = '_f32' if sub.diag.dtype == torch.float32 else ''
     tag = f'P0 {kind}'
     where = ('cuda', 'cpu')
     dss = {w: _dataset_from_cut(sub, sb, nf, torch.device(w)) for w in where}
     rec = {}
 
-    sp = {w: sumstats_train_test_split(dss[w], 0.8, seed=0) for w in where}
-    t0 = time.perf_counter()
-    sp_dev = sumstats_train_test_split(dss['cuda'], 0.8, seed=0,
-                                       chol_device='cuda')
-    t_dev = time.perf_counter() - t0
-    keys = ('train_beta', 'test_beta')
-    same = all(np.array_equal(sp['cuda'][c][k], sp['cpu'][c][k])
-               for c in sp['cpu'] for k in keys)
-    d_dev = max(float(np.abs(sp_dev[c][k] - sp['cpu'][c][k]).max())
-                for c in sp['cpu'] for k in keys)
-    rec['split'] = dict(bit_equal=same, card_chol_max_abs_diff=d_dev,
-                        card_chol_s=t_dev)
-    phase(tag, f"PUMAS split of the cut: the card's dataset and the CPU's "
-               f"{'bit-equal' if same else 'DIFFER'}; factorized on the card "
-               f"({t_dev:.2f} s): max |diff| {d_dev:.2e} (bound 1e-9)")
-    if not same or not d_dev <= 1e-9:
+    sp, t_sp = {}, {}
+    for w in where:
+        t0 = time.perf_counter()
+        sp[w] = sumstats_train_test_split(dss[w], 0.8, seed=0)
+        t_sp[w] = time.perf_counter() - t0
+    d_sp = max(float(np.abs(sp['cuda'][c][k] - sp['cpu'][c][k]).max())
+               for c in sp['cpu'] for k in ('train_beta', 'test_beta'))
+    rec['split'] = dict(max_abs_diff=d_sp, seconds=t_sp)
+    phase(tag, f"PUMAS split of the cut: card {t_sp['cuda']:.3f} s, CPU "
+               f"{t_sp['cpu']:.3f} s, max |diff| {d_sp:.2e} (bound 1e-9)")
+    if not d_sp <= 1e-9:
         fail(f"{tag}: the split on the card differs from the CPU's")
 
-    flow = {}
-    for w in where:
+    def grid16(w):
         np.random.seed(0)
-        g = VIPRSGrid(dss[w], HyperparameterGrid(pi_steps=16,
-                                                 n_snps=dss[w].m), w)
+        return VIPRSGrid(dss[w], HyperparameterGrid(pi_steps=16,
+                                                    n_snps=dss[w].m), w)
+
+    def flow(w, f_abs_tol, x_abs_tol):
+        tol = dict(max_iter=300, f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol)
+        g = grid16(w)
         g.split_gwas_sumstats(prop_train=0.8, seed=0)
-        g.fit(max_iter=300, f_abs_tol=P0_F_ABS_TOL)
-        nit, st = g._last_result.nit.copy(), g._last_result.status.copy()
+        g.fit(**tol)
+        r = g._last_result
+        stops = list(zip(r.nit.tolist(), r.status.tolist()))
         pv = g.pseudo_validate()
         select_best_model(g, criterion='pseudo_validation')
         g.restore_full_sumstats()
-        g.fit(max_iter=300, f_abs_tol=P0_F_ABS_TOL)
-        flow[w] = dict(nit=nit.tolist(), status=st.tolist(), pv=pv.tolist(),
-                       index=_pv_index(g.validation_result[
-                           'Pseudo_Validation_R2']),
-                       refit_nit=g.optim_result.nit,
-                       refit_h2=g.get_heritability(),
-                       refit_message=g.optim_results[0].message)
-    c, p = flow['cuda'], flow['cpu']
+        g.fit(**tol)
+        stops.append((g.optim_result.nit, g.optim_results[0].message))
+        return dict(stops=stops, pv=pv.tolist(),
+                    index=_pv_index(g.validation_result[
+                        'Pseudo_Validation_R2']),
+                    refit_h2=g.get_heritability())
+    fl = {w: flow(w, *TOLS) for w in where}
+    c, p = fl['cuda'], fl['cpu']
     pv_c, pv_p = np.asarray(c['pv']), np.asarray(p['pv'])
     d_pv = float(np.max(np.abs(pv_c - pv_p) / np.abs(pv_p)))
     d_h2 = abs(c['refit_h2'] - p['refit_h2'])
-    phase(tag, f"selection flow, 16-point grid: nit per lane {c['nit']} "
-               f"(card) vs {p['nit']} (CPU); pseudo-R^2 max relative |diff| "
+    phase(tag, f"selection flow, 16-point grid: (nit, status) per lane and "
+               f"the refit's (nit, message) {c['stops']} (card) vs "
+               f"{p['stops']} (CPU); pseudo-R^2 max relative |diff| "
                f"{d_pv:.2e} (bound 1e-5); selected row {c['index']} vs "
-               f"{p['index']}; refit nit {c['refit_nit']} vs "
-               f"{p['refit_nit']}, h2 {c['refit_h2']:.8f} vs "
-               f"{p['refit_h2']:.8f} (|diff| {d_h2:.2e}, bound 1e-6), "
-               f"'{c['refit_message']}'")
-    if not (c['nit'] == p['nit'] and c['status'] == p['status']
-            and d_pv <= 1e-5 and c['index'] == p['index']
-            and c['refit_nit'] == p['refit_nit'] and d_h2 <= 1e-6):
+               f"{p['index']}; refit h2 {c['refit_h2']:.8f} vs "
+               f"{p['refit_h2']:.8f} (|diff| {d_h2:.2e}, bound 1e-6)")
+    if not (d_pv <= 1e-5 and c['index'] == p['index'] and d_h2 <= 1e-6):
         fail(f"{tag}: the selection flow on the card disagrees with the CPU")
-    rec['flow'] = flow
+    fl['guard'] = guarded_stops(tag, 'the selection flow',
+                                lambda *a: flow(*a)['stops'], c['stops'],
+                                p['stops'])
+    rec['flow'] = fl
 
-    path = {}
-    for w in where:
+    def per_row(w, f_abs_tol, x_abs_tol):
         np.random.seed(0)
-        g = VIPRSGrid(dss[w], HyperparameterGrid(pi_steps=16,
-                                                 n_snps=dss[w].m), w)
-        g.fit(pathwise=True, max_iter=300, f_abs_tol=P0_F_ABS_TOL)
-        path[w] = dict(nit=g._last_result.nit.tolist(),
-                       status=g._last_result.status.tolist(),
-                       elbo=g.validation_result['ELBO'].tolist())
-    phase(tag, f"pathwise 16-point grid: nit {path['cuda']['nit']} (card) "
-               f"vs {path['cpu']['nit']} (CPU); status "
-               f"{path['cuda']['status']} vs {path['cpu']['status']}")
-    if path['cuda']['nit'] != path['cpu']['nit'] or \
-            path['cuda']['status'] != path['cpu']['status']:
-        fail(f"{tag}: the pathwise grid on the card disagrees with the CPU")
+        gs = GridSearch(dss[w], HyperparameterGrid(pi_steps=4,
+                                                   n_snps=dss[w].m), w,
+                        model_class=VIPRS)
+        best = gs.fit(max_iter=300, f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol)
+        elbo = np.asarray(gs.validation_result['ELBO'], np.float64)
+        return dict(elbo=elbo.tolist(), index=int(np.argmax(elbo)),
+                    stops=[(best.optim_result.nit, best.optim_result.message)])
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    rows = {'cuda': per_row('cuda', *TOLS)}
+    torch.cuda.synchronize()
+    launches = dict(cavi_cuda.LAUNCHES)
+    record_paths[f'P0 GridSearch(VIPRS) {kind}'] = launches
+    rows['cpu'] = per_row('cpu', *TOLS)
+    e_c, e_p = np.asarray(rows['cuda']['elbo']), np.asarray(rows['cpu']['elbo'])
+    d_e = float(np.max(np.abs(e_c - e_p) / np.abs(e_p)))
+    phase(tag, f"GridSearch(VIPRS), one fit a row of 4: selected row "
+               f"{rows['cuda']['index']} vs {rows['cpu']['index']} (CPU), "
+               f"ELBO max relative |diff| {d_e:.2e} (bound 1e-6); launches "
+               f"{_launched(launches)}")
+    if not (rows['cuda']['index'] == rows['cpu']['index'] and d_e <= 1e-6):
+        fail(f"{tag}: GridSearch(VIPRS) on the card disagrees with the CPU")
+    if min(launches[k + sfx] for k in ('cavi_block_sweep_s1',
+                                       'coupling_pass_s1')) < 1:
+        fail(f"{tag}: GridSearch(VIPRS) did not launch K1/K2")
+    rows['guard'] = guarded_stops(tag, "GridSearch(VIPRS)'s selected row",
+                                  lambda *a: per_row(*a)['stops'],
+                                  rows['cuda']['stops'],
+                                  rows['cpu']['stops'])
+    rec['grid_search_rows'] = rows
+
+    def pathwise(w, f_abs_tol, x_abs_tol):
+        g = grid16(w)
+        g.fit(pathwise=True, max_iter=300, f_abs_tol=f_abs_tol,
+              x_abs_tol=x_abs_tol)
+        return list(zip(g._last_result.nit.tolist(),
+                        g._last_result.status.tolist()))
+    path = {w: pathwise(w, *TOLS) for w in where}
+    phase(tag, f"pathwise 16-point grid: (nit, status) {path['cuda']} "
+               f"(card) vs {path['cpu']} (CPU)")
+    path['guard'] = guarded_stops(tag, 'the pathwise grid', pathwise,
+                                  path['cuda'], path['cpu'])
     rec['pathwise'] = path
 
-    mix = {}
-    for w in where:
+    def mix(w, f_abs_tol, x_abs_tol):
         np.random.seed(0)
-        m = VIPRSMix(dss[w], w, K=MIX_K).fit(fused=False, max_iter=300,
-                                             f_abs_tol=P0_F_ABS_TOL)
-        mix[w] = dict(nit=m.optim_result.nit, h2=m.get_heritability(),
-                      message=m.optim_result.message)
-    phase(tag, f"host-stepped VIPRSMix(K={MIX_K}): nit {mix['cuda']['nit']} "
-               f"(card) vs {mix['cpu']['nit']} (CPU), h2 "
-               f"{mix['cuda']['h2']:.8f} vs {mix['cpu']['h2']:.8f}, "
-               f"'{mix['cuda']['message']}'")
-    if mix['cuda']['nit'] != mix['cpu']['nit']:
-        fail(f"{tag}: the host-stepped VIPRSMix on the card disagrees with "
-             f"the CPU")
-    rec['host_stepped_mix'] = mix
+        m = VIPRSMix(dss[w], w, K=MIX_K).fit(
+            fused=False, max_iter=300, f_abs_tol=f_abs_tol,
+            x_abs_tol=x_abs_tol)
+        return [(m.optim_result.nit, m.optim_result.message)]
+    mx = {w: mix(w, *TOLS) for w in where}
+    phase(tag, f"host-stepped VIPRSMix(K={MIX_K}): (nit, message) "
+               f"{mx['cuda']} (card) vs {mx['cpu']} (CPU)")
+    mx['guard'] = guarded_stops(tag, 'the host-stepped VIPRSMix', mix,
+                                mx['cuda'], mx['cpu'])
+    rec['host_stepped_mix'] = mx
 
     beta, lam = {}, {}
     for w in where:
@@ -3480,7 +3540,7 @@ def select_cut_checks(sub, sb, nf):
     return rec
 
 
-def select_genome(ds, record_paths, chol_device=None):
+def select_genome(ds, record_paths):
     """P2 (and P1 on int8 LD): viprs_fit's selection flow at full width
     (viprs_tpu/cli/fit.py:337-400): np.random.seed(0), the bench grid(100),
     VIPRSGrid(ds, grid, 'cuda'), the PUMAS split (0.8, seed 0), fit(max_iter
@@ -3506,7 +3566,7 @@ def select_genome(ds, record_paths, chol_device=None):
     np.random.seed(0)
     g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **GRID_SPEC), 'cuda')
     t0 = time.perf_counter()
-    g.split_gwas_sumstats(prop_train=0.8, seed=0, chol_device=chol_device)
+    g.split_gwas_sumstats(prop_train=0.8, seed=0)
     torch.cuda.synchronize()
     rec['split_s'] = time.perf_counter() - t0
     worst, finite = 0.0, True
@@ -3521,29 +3581,13 @@ def select_genome(ds, record_paths, chol_device=None):
     rec.update(identity_rel_err=worst, finite=finite)
     phase('P1' if not f32 else tag,
           f"PUMAS split of the {'float32' if f32 else 'int8'} genome "
-          f"(prop_train 0.8, seed 0, factorized on "
-          f"{chol_device or 'the host'}): {rec['split_s']:.1f} s; "
+          f"(prop_train 0.8, seed 0, factorized on the card): "
+          f"{rec['split_s']:.3f} s; "
           f"n b = n_t b_train + (n - n_t) b_test on all {ds.m} variants "
           f"within {worst:.2e} of the terms (bound 1e-9); train and test "
           f"betas {'finite' if finite else 'NOT FINITE'}")
     if not (worst <= 1e-9 and finite):
         fail(f"{tag}: the PUMAS split breaks its identity or is not finite")
-    if not f32:
-        # the same split with the factorizations on the card
-        from viprs_tpu_torch.data.split import sumstats_train_test_split
-        t0 = time.perf_counter()
-        dev_split = sumstats_train_test_split(ds, 0.8, seed=0,
-                                              chol_device='cuda')
-        rec['split_card_s'] = time.perf_counter() - t0
-        rec['split_card_max_abs_diff'] = d = max(
-            float(np.abs(dev_split[c]['train_beta'] - g.std_beta[c]).max())
-            for c in g.chromosomes)
-        phase('P1', f"the same split factorized on the card: "
-                    f"{rec['split_card_s']:.1f} s, max |diff| of the train "
-                    f"betas {d:.2e} (bound 1e-9)")
-        if not d <= 1e-9:
-            fail("P1: the card's factorizations change the split")
-
     torch.cuda.synchronize()
     cavi_cuda.reset_launches()
     t0 = time.perf_counter()
@@ -3662,7 +3706,7 @@ def pathwise_genome(ds, record_paths):
     return rec
 
 
-def mix_select_genome(ds, record_paths, chol_device=None):
+def mix_select_genome(ds, record_paths):
     """P4: VIPRSMix(ds, 'cuda', K=3).fit(fused=False, max_iter=500), the
     host-stepped loop (K5 every iteration), beside the fused fit in the
     same run; then GridSearch over VIPRSMix with the pseudo-validation
@@ -3704,8 +3748,7 @@ def mix_select_genome(ds, record_paths, chol_device=None):
     if not isinstance(gs.model, VIPRSMixGrid):
         fail("P4: GridSearch over VIPRSMix did not build a VIPRSMixGrid")
     t0 = time.perf_counter()
-    gs.model.split_gwas_sumstats(prop_train=0.8, seed=0,
-                                 chol_device=chol_device)
+    gs.model.split_gwas_sumstats(prop_train=0.8, seed=0)
     t_split = time.perf_counter() - t0
     torch.cuda.synchronize()
     cavi_cuda.reset_launches()
@@ -3724,7 +3767,7 @@ def mix_select_genome(ds, record_paths, chol_device=None):
     gsr = rec['grid_search']
     record_paths['P4 GridSearch(VIPRSMix)'] = gsr['launches']
     phase('P4', f"GridSearch(VIPRSMix, K={MIX_K}, pseudo_validation) over "
-                f"20 rows: split {t_split:.1f} s, fit and selection "
+                f"20 rows: split {t_split:.3f} s, fit and selection "
                 f"{dt:.3f} s, row {idx} {gsr['row']}, "
                 f"pseudo-R^2 {gsr['pseudo_r2']:.6f}, h2 {gsr['h2']!r}; "
                 f"launches {_launched(gsr['launches'])}")

@@ -15,7 +15,8 @@ all-active XLA sweep, so the port's S = 1 fits here take
 ``sweep_impl='xla'`` (the pathwise grid and the host-stepped mixture loop
 have that rule of their own).
 
-Tolerances: the split within 1e-12 (it is the same numpy arithmetic);
+Tolerances: the split within 1e-12 (the same float64 arithmetic, the
+factorizations by torch on the LD's device);
 iterations, statuses and messages equal, only on fits whose JAX run the
 guard of tests/test_torch_viprs.py finds clear of every stopping threshold
 (``host_stepped_trace`` replays the host-stepped mixture loop the same
@@ -35,6 +36,7 @@ import pytest
 import torch
 
 from viprs_tpu.data.simulate import simulate_sumstats_blocks
+from viprs_tpu.data.split import _block_chol as jax_block_chol
 from viprs_tpu.data.split import sumstats_train_test_split as jax_split
 from viprs_tpu.eval import pseudo as jax_pseudo
 from viprs_tpu.gridsearch import GridSearch as JaxGridSearch
@@ -47,13 +49,13 @@ from viprs_tpu.model.ldpred_inf import LDPredInf as JaxLDPredInf
 from viprs_tpu.model.mix_grid import VIPRSMixGrid as JaxVIPRSMixGrid
 from viprs_tpu.utils import optimize as jax_opt
 
-from viprs_tpu_torch.data import split as split_mod
 from viprs_tpu_torch.data.split import sumstats_train_test_split
 from viprs_tpu_torch.eval import pseudo
 from viprs_tpu_torch.gridsearch import (GridSearch, HyperparameterGrid,
                                         select_best_model)
 from viprs_tpu_torch.model import (LDPredInf, VIPRS, VIPRSGrid, VIPRSMix,
                                    VIPRSMixGrid)
+from viprs_tpu_torch.model import viprs as viprs_mod
 from viprs_tpu_torch.ops import cavi_cuda, cavi_torch
 from viprs_tpu_torch.utils import optimize as opt
 
@@ -115,11 +117,12 @@ def test_split_matches_jax(pair, seed, ld_aware):
 
 
 def test_split_on_a_device_matches_the_host(pair):
-    """The factorizations on a device (batched cholesky_ex, padding lanes
-    as the identity) against the host's, within 1e-12, with one tile that
-    no jitter makes positive definite (independent noise) and, on float32
-    tiles, one that the ladder's second step factorizes."""
-    _, ds = pair
+    """The factorizations on the LD's device (batched cholesky_ex, padding
+    lanes as the identity) against the JAX package's host numpy, within
+    1e-12, with one tile that no jitter makes positive definite
+    (independent noise) and, on float32 tiles, one that the ladder's second
+    step factorizes."""
+    jds, ds = pair
     diag = ds.ld.diag.clone()
     diag[1, 0, 1] = diag[1, 1, 0] = diag[1, 0, 0]
     diag[1, 0, 0] = 0
@@ -130,21 +133,22 @@ def test_split_on_a_device_matches_the_host(pair):
         idx = torch.nonzero(real)[:, 0]
         diag[2, idx, idx] -= np.float32(low + 5e-4)
     bent = dataclasses.replace(ds, ld=dataclasses.replace(ds.ld, diag=diag))
+    jbent = dataclasses.replace(jds, ld=dataclasses.replace(
+        jds.ld, diag=diag.numpy()))
 
     def real_block(b):
         real = (ds.ld.mask[b] > 0).numpy()
         return diag[b].double().numpy()[np.ix_(real, real)] * ds.ld.scale
-    assert not split_mod._block_chol(real_block(1))[1]
+    assert not jax_block_chol(real_block(1))[1]
     if diag.dtype == torch.float32:
         with pytest.raises(np.linalg.LinAlgError):
             np.linalg.cholesky(real_block(2))
-        assert split_mod._block_chol(real_block(2))[1]
-    host = sumstats_train_test_split(bent, prop_train=0.7, seed=5)
-    dev = sumstats_train_test_split(bent, prop_train=0.7, seed=5,
-                                    chol_device='cpu')
-    for c in host:
+        assert jax_block_chol(real_block(2))[1]
+    want = jax_split(jbent, prop_train=0.7, seed=5)
+    got = sumstats_train_test_split(bent, prop_train=0.7, seed=5)
+    for c in want:
         for k in ('train_beta', 'test_beta'):
-            np.testing.assert_allclose(dev[c][k], host[c][k], rtol=0,
+            np.testing.assert_allclose(got[c][k], want[c][k], rtol=0,
                                        atol=1e-12)
 
 
@@ -536,6 +540,47 @@ def test_grid_search_fits_other_classes_per_row(pair, ladder_trace):
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize('device,error,raised', [
+    ('cuda', RuntimeError('CUDA error: an illegal memory access'), True),
+    ('cuda', FloatingPointError('overflow in a row'), False),
+    ('cpu', RuntimeError('a row that failed'), False)],
+    ids=['card-runtime', 'card-other', 'cpu-runtime'])
+def test_grid_search_per_row_raises_device_errors(device, error, raised):
+    """A row whose fit raises scores -inf and the search goes on, except a
+    RuntimeError on the card (a CUDA error, or a kernel that could not be
+    built or launched), which the search raises. No model runs: the class
+    fails its first row and scores the others by -pi."""
+
+    class FirstRowFails:
+        made = 0
+
+        def __init__(self, dataset, dev, fix_params):
+            self.fix_params = fix_params
+            self.fails = FirstRowFails.made == 0
+            FirstRowFails.made += 1
+
+        def fit(self, **kw):
+            if self.fails:
+                raise error
+            return self
+
+        def objective(self):
+            return -float(self.fix_params['pi'])
+
+    gs = GridSearch(None, HyperparameterGrid(pi_steps=3, n_snps=1000),
+                    device, criterion='ELBO', model_class=FirstRowFails)
+    if raised:
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            gs.fit()
+        return
+    best = gs.fit()
+    scores = gs.validation_result['ELBO']
+    pis = gs.validation_result['pi']
+    assert scores[0] == -np.inf and np.isfinite(scores[1:]).all()
+    np.testing.assert_array_equal(scores[1:], -pis[1:])
+    assert best.fix_params['pi'] == pis[1:].min()
+
+
 # ---------------------------------------------------------------- LDPredInf
 @pytest.mark.parametrize('h2', [None, 0.2])
 def test_ldpred_inf_matches_jax(pair, h2):
@@ -581,14 +626,16 @@ def test_compute_q_of_float64_matches_jax(pair):
 @pytest.mark.parametrize('quantize', [True, False], ids=['int8', 'float32'])
 @pytest.mark.parametrize('block_size', [128, 256],
                          ids=['coupled', 'block-diagonal'])
-def test_infer_lambda_min_matches_jax(quantize, block_size):
+def test_infer_lambda_min_matches_jax(quantize, block_size, monkeypatch):
     """Gershgorin row bound with coupling tiles (B = 128), each tile's
-    eigenvalues without (B = 256: every LD block fits one tile)."""
+    eigenvalues without (B = 256: every LD block fits one tile); three tiles
+    at a time, so that the chunks cross tile boundaries."""
+    monkeypatch.setattr(viprs_mod, 'LAMBDA_CHUNK', 3)
     sim = simulate_sumstats_blocks(**SIM)
     jds, ds = both_datasets(sim, block_size=block_size, quantize=quantize)
     assert (ds.ld.n_off > 0) == (block_size == 128)
     want = JaxVIPRS(jds, mesh='off').infer_lambda_min()
-    got = VIPRS(ds, 'cpu').infer_lambda_min(chunk_tiles=3)
+    got = VIPRS(ds, 'cpu').infer_lambda_min()
     assert abs(got - want) <= 1e-9
     if block_size == 256:
         # an indefinite tile: its smallest eigenvalue sets lambda_min

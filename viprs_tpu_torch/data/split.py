@@ -1,5 +1,5 @@
 """PUMAS-style summary-statistics train/validation splitting (Zhao et al.
-2021), on the host in numpy.
+2021), its factorizations on the LD's device.
 
 Counterpart of viprs_tpu.data.split: subsample GWAS summary statistics
 without individual-level data,
@@ -9,15 +9,14 @@ without individual-level data,
 
 with LD-correlated noise from per-block Cholesky factors of the diagonal
 LD tiles (independent noise where a block is not positive definite even
-after jitter). The noise ``z`` of a chromosome is drawn once, before its
-tile loop, so a seed gives both packages the same split. By default the
-tiles come to the host one at a time and are dequantized there to float64
-(the JAX package converts a chromosome's tiles at once: 9.5 GB of float64
-for the 1.1M-variant genome's int8 LD). With ``chol_device`` the
-factorizations run on that device instead, ``CHOL_CHUNK`` tiles at a time
-in float64 (``torch.linalg.cholesky_ex``), each tile's padding lanes set to
-the identity so that its real variants' factor is that of their
-submatrix, and a tile that fails goes down the same jitter ladder alone.
+after jitter). The noise ``z`` of a chromosome is drawn with numpy once,
+before its tile loop, so a seed gives both packages the same split. The
+tiles are factorized where the LD lives, ``CHOL_CHUNK`` at a time in
+float64 (batched ``torch.linalg.cholesky_ex``; the JAX package converts a
+chromosome's tiles to float64 at once, 9.5 GB for the 1.1M-variant
+genome's int8 LD). Each tile's padding lanes are set to the identity, so
+that its real variants' factor is that of their submatrix, and a tile that
+fails goes down the jitter ladder alone.
 """
 
 import numpy as np
@@ -26,38 +25,26 @@ import torch
 #: The jitter ladder of a tile's factorization (the JAX package's
 #: ``_block_chol``): each step adds j * I, j relative to ``JITTER``.
 JITTER, LADDER = 1e-3, (0.0, 1.0, 10.0, 100.0)
-#: Diagonal tiles factorized at a time on a device (8 MB of float64 each at
-#: B = 1024).
+#: Diagonal tiles factorized at a time (8 MB of float64 each at B = 1024).
 CHOL_CHUNK = 32
 
 
-def _block_chol(R, jitter=JITTER):
-    m = R.shape[0]
-    for j in LADDER:
-        try:
-            return np.linalg.cholesky(R + j * jitter * np.eye(m)), True
-        except np.linalg.LinAlgError:
-            continue
-    return None, False
-
-
-def _correlate_on_device(ld, b0, b1, z_tiles, device):
-    """L_b z_b for tiles b0..b1 of the LD on ``device``: z_tiles (n, B)
-    float64 numpy, zero on padding lanes; returns (n, B) numpy, z itself
-    on a tile no step of the ladder factorizes."""
-    f64 = torch.float64
-    B = ld.block_size
-    eye = torch.eye(B, dtype=f64, device=device)
+def _correlate(ld, b0, b1, z_tiles):
+    """L_b z_b for tiles b0..b1: z_tiles (n, B) float64 numpy, zero on
+    padding lanes; returns (n, B) numpy, z itself on a tile no step of the
+    ladder factorizes."""
+    f64, dev = torch.float64, ld.diag.device
+    eye = torch.eye(ld.block_size, dtype=f64, device=dev)
     out = np.empty_like(z_tiles)
     for i in range(b0, b1, CHOL_CHUNK):
         j1 = min(i + CHOL_CHUNK, b1)
-        real = ld.mask[i:j1].to(device) > 0
+        real = ld.mask[i:j1] > 0
         pair = real[:, :, None] & real[:, None, :]
-        R = torch.where(pair, ld.diag[i:j1].to(device, f64) * ld.scale,
+        R = torch.where(pair, ld.diag[i:j1].to(f64) * ld.scale,
                         eye * (~real[:, :, None]))
-        z = torch.from_numpy(z_tiles[i - b0:j1 - b0]).to(device)
+        z = torch.from_numpy(z_tiles[i - b0:j1 - b0]).to(dev)
         y = z.clone()
-        todo = torch.arange(j1 - i, device=device)
+        todo = torch.arange(j1 - i, device=dev)
         for step in LADDER:
             if todo.numel() == 0:
                 break
@@ -71,15 +58,13 @@ def _correlate_on_device(ld, b0, b1, z_tiles, device):
 
 
 def sumstats_train_test_split(dataset, prop_train=0.8, seed=None,
-                              ld_aware=True, chol_device=None):
+                              ld_aware=True):
     """Split the dataset's standardized betas into train/test pseudo-replicates.
 
     :param dataset: a viprs_tpu_torch SummaryStatsDataset (its LD on any
         device).
     :param prop_train: fraction of the GWAS sample assigned to training.
     :param ld_aware: correlate the noise within each diagonal LD tile.
-    :param chol_device: None (numpy on the host, the JAX package's
-        arithmetic) or the device the tiles are factorized on.
     :returns: {chrom: {'train_beta': ..., 'test_beta': ...}}, float64.
     """
     rng = np.random.default_rng(seed)
@@ -99,25 +84,10 @@ def sumstats_train_test_split(dataset, prop_train=0.8, seed=None,
             b0, b1 = lay.chrom_block_range[ci]
             # chromosome-local indices -> positions within its first block
             idx = lay.flat_index[start:start + m_c] - b0 * B
-            if chol_device is not None:
-                z_tiles = np.zeros((b1 - b0) * B)
-                z_tiles[idx] = z
-                z = _correlate_on_device(
-                    ld, b0, b1, z_tiles.reshape(b1 - b0, B),
-                    torch.device(chol_device)).reshape(-1)[idx]
-            else:
-                corr = np.empty(m_c)
-                for b in range(b1 - b0):
-                    sel = (idx >= b * B) & (idx < (b + 1) * B)
-                    if not sel.any():
-                        continue
-                    loc = idx[sel] - b * B
-                    tile = ld.diag[b0 + b].cpu().numpy()
-                    Rb = (tile.astype(np.float64)
-                          * ld.scale)[np.ix_(loc, loc)]
-                    L, ok = _block_chol(Rb)
-                    corr[sel] = (L @ z[sel]) if ok else z[sel]
-                z = corr
+            z_tiles = np.zeros((b1 - b0) * B)
+            z_tiles[idx] = z
+            z = _correlate(ld, b0, b1, z_tiles.reshape(b1 - b0, B)
+                           ).reshape(-1)[idx]
         start += m_c
 
         noise = np.sqrt(var_scale) * z

@@ -171,10 +171,13 @@ class GridSearch:
     def _fit_per_row(self, **fit_kwargs):
         """One fit per grid row, the row pinned in ``fix_params``; a row
         whose fit or score raises scores -inf (the reference worker's skip
-        on failure, HyperparameterSearch.py:50-53)."""
+        on failure, HyperparameterSearch.py:50-53). On the card a
+        RuntimeError is not a row's failure but the device's (a CUDA error,
+        or a kernel that could not be built or launched) and is raised."""
         from ..model.grid import grid_columns
         rows = self._grid.combine_grids() \
             if hasattr(self._grid, 'combine_grids') else list(self._grid)
+        on_card = torch.device(self._device).type == 'cuda'
         fitted, scores = [], []
         for i, row in enumerate(rows):
             m = self._model_class(self._dataset, self._device,
@@ -183,6 +186,8 @@ class GridSearch:
                 m.fit(**fit_kwargs)
                 score = self._score(m)
             except Exception as e:
+                if on_card and isinstance(e, RuntimeError):
+                    raise
                 logger.warning("Grid row %d failed: %s", i, e)
                 m, score = None, -np.inf
             fitted.append(m)

@@ -34,6 +34,9 @@ from ..utils.optimize import OptimizeResult
 logger = logging.getLogger(__name__)
 
 F32 = torch.float32
+#: LD tiles infer_lambda_min converts to float64 at a time (8 MB each at
+#: B = 1024).
+LAMBDA_CHUNK = 16
 
 
 def _logit(p):
@@ -370,35 +373,35 @@ class VIPRS(BayesPRSModel):
             res.status[0], res.final_elbo[0], res.nit[0])
 
     # ------------------------------------------------------- LD spectrum
-    def infer_lambda_min(self, chunk_tiles=16):
+    def infer_lambda_min(self):
         """Spectral regularizer: |min(0, smallest eigenvalue over the LD
         blocks)| (the analog of LDMatrix.get_lambda_min, use-site
-        VIPRS.py:191), in float64 on the LD's device, ``chunk_tiles`` tiles
-        at a time: each diagonal tile's eigenvalues where the LD has no
+        VIPRS.py:191), in float64 on the LD's device, ``LAMBDA_CHUNK``
+        tiles at a time: each diagonal tile's eigenvalues where the LD has no
         coupling tiles, else a Gershgorin lower bound per row, the coupling
         tiles' absolute row and column sums added to their rows."""
         ld = self.dataset.ld
         f64 = torch.float64
 
         def tiles(x, i):
-            return x[i:i + chunk_tiles].to(f64) * ld.scale
+            return x[i:i + LAMBDA_CHUNK].to(f64) * ld.scale
         if ld.n_off == 0:
             low = torch.zeros((), dtype=f64, device=ld.device)
-            for i in range(0, ld.nb, chunk_tiles):
+            for i in range(0, ld.nb, LAMBDA_CHUNK):
                 w = torch.linalg.eigvalsh(tiles(ld.diag, i))
                 low = torch.minimum(low, w[:, 0].min())
             return abs(min(0.0, float(low)))
         row_abs = torch.empty(ld.nb, ld.block_size, dtype=f64,
                               device=ld.device)
-        for i in range(0, ld.nb, chunk_tiles):
+        for i in range(0, ld.nb, LAMBDA_CHUNK):
             d = tiles(ld.diag, i).abs()
-            row_abs[i:i + chunk_tiles] = d.sum(dim=2) \
+            row_abs[i:i + LAMBDA_CHUNK] = d.sum(dim=2) \
                 - torch.diagonal(d, dim1=1, dim2=2)
-        for i in range(0, ld.n_off, chunk_tiles):
+        for i in range(0, ld.n_off, LAMBDA_CHUNK):
             o = tiles(ld.off_data, i).abs()
-            row_abs.index_add_(0, ld.off_src[i:i + chunk_tiles].long(),
+            row_abs.index_add_(0, ld.off_src[i:i + LAMBDA_CHUNK].long(),
                                o.sum(dim=2))
-            row_abs.index_add_(0, ld.off_dst[i:i + chunk_tiles].long(),
+            row_abs.index_add_(0, ld.off_dst[i:i + LAMBDA_CHUNK].long(),
                                o.sum(dim=1))
         return abs(min(0.0, float((1.0 - row_abs).min())))
 
