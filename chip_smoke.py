@@ -188,6 +188,30 @@ P4. the host-stepped VIPRSMix(K=3) on the int8 genome (K5 every
    bench.py's 20-point mixture grid after its model's split;
 P5. LDPredInf (CG iterations, relative residual, seconds) and
    infer_lambda_min (value, seconds) on both packings.
+D0. viprs_fit from files on disk (python -m viprs_tpu_torch.cli.fit,
+   through ``cli.fit.run``): phase 3 writes the genome as 22 magenpy Zarr
+   stores (int8, upper-triangular rows) and its summary statistics (10% of
+   the variants' alleles swapped with Z negated, 10% strand-complemented),
+   and chromosomes 21-22 (~45k variants) as a native and a Zarr store with
+   statistics of which 2% are absent and 5 the LD lacks, into a temporary
+   directory deleted at the end. D0 runs the CLI on the cut on the card
+   and on the CPU in eight modes (VIPRS, VIPRSMix, GS by pseudo-validation
+   after the PUMAS split, BMA, --validation-sumstats, --extract, streamed
+   under a small --device-memory-gb, the Zarr store with int8 tiles): the
+   same rows, the CPU's stops (guarded_stops), ELBO and h2 within 1e-6,
+   pseudo-R^2 within 1e-5, BETA within 1e-4 of the largest, PIP within
+   1e-2;
+D1. viprs_fit --dequantize-on-the-fly on the genome's Zarr stores: the
+   loader's int8 tiles equal phase 3's bit for bit, its std_beta the
+   genome's within 1e-12 after the flips are undone, the .fit.gz rows in
+   the stores' order, h2 within 1e-4 of PORT_H2; the seconds of each stage
+   (tables, sumstats, harmonize, LD read, pack, upload, fit, write);
+D2. the same with the default packing (float32 tiles = int8 / 127): h2
+   within 0.005 of the JAX package's, nit and h2 held to PORT_DISK_F32_*;
+D3. D1 twice with the pack cache in the temporary directory: the miss
+   writes it, the hit reads no LD data; both write D1's files byte for
+   byte; the data-preparation seconds of each. No module of pandas, jax
+   or viprs_tpu is imported after D0-D3.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -202,7 +226,8 @@ tile products (``library_ms``; the sweeps have none). The S = 1 kernels'
 lines, and the lane sweeps', also carry their time in a CUDA graph
 (``graph_ms``). The float32 instances (F3, F6) have lines of their own,
 their names ending in ``_f32``. ``paths`` gives each kernel's launches
-on each selection path of P2-P4 that launched it.
+on each selection path of P0 and P2-P4 and each disk path of D0-D2 that
+launched it.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -515,6 +540,8 @@ def main():
         ld_blocks, std_beta, n_per_snp, block_size=1024, quantize=False,
         device=dev)
     t_pack32 = time.perf_counter() - t0
+    # D: the genome and a cut of it as files on disk, for viprs_fit
+    disk = disk_prepare(ld_blocks, std_beta, n_per_snp)
     del ld_blocks
     ld = ds.ld
     phase('data', f"synthesis {t_syn:.1f} s, packing+upload {t_pack:.1f} s: "
@@ -787,6 +814,9 @@ def main():
                                'float32': ldpred_lambda_genome(ds32)}
     record['select_paths'] = paths
 
+    # ---- D0-D3: viprs_fit from files on disk ----
+    record['disk'] = disk_phases(disk, ds, paths)
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(record, f, indent=1, default=str)
@@ -874,7 +904,8 @@ def main():
         kernels.append(e)
     # the launches of each kernel on each selection path (P0, P2-P4)
     for e in kernels:
-        e['paths'] = {p: paths[p][e['name']] for p in SELECT_PATHS
+        e['paths'] = {p: paths[p][e['name']]
+                      for p in (*SELECT_PATHS, *DISK_PATHS)
                       if paths.get(p, {}).get(e['name'])}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -3355,25 +3386,30 @@ STOP_MARGIN = 2.0
 TOLS = (1e-6, 1e-6)
 
 
-def guarded_stops(tag, what, run, card, cpu):
+def guarded_stops(tag, what, run, card, cpu, devices=('cpu',)):
     """Hold the card's per-lane stops (tuples such as (nit, status)) to the
     CPU's on every lane whose stop is clear (STOP_MARGIN). Where the two
-    disagree, the CPU repeats ``run(device, f_abs_tol, x_abs_tol)`` with
-    each tolerance moved, and a lane whose stop moves with them is waived;
-    a lane where the two agree needs no such proof. Fails on a clear lane
-    that disagrees; returns the counts."""
+    disagree, each of ``devices`` repeats ``run(device, f_abs_tol,
+    x_abs_tol)`` with each tolerance moved, and a lane whose stop moves
+    with them there is waived (P0 asks the CPU only; D0 the card too, whose
+    kernels can leave max |d eta| just above x_abs_tol for iterations where
+    the plain versions fall clear below it); a lane where the two agree
+    needs no such proof. Fails on a clear lane that disagrees; returns the
+    counts."""
     f, x, m = *TOLS, STOP_MARGIN
     off = [l for l, (a, b) in enumerate(zip(card, cpu)) if a != b]
     waived = set()
-    if off:
+    for dev in devices if off else ():
+        own = cpu if dev == 'cpu' else card
         for tol in ((f * m, x), (f / m, x), (f, x * m), (f, x / m)):
-            alt = run('cpu', *tol)
-            waived |= {l for l in off if alt[l] != cpu[l]}
+            alt = run(dev, *tol)
+            waived |= {l for l in off if alt[l] != own[l]}
     clear_off = [l for l in off if l not in waived]
+    where = ' or the card' if 'cuda' in devices else ''
     phase(tag, f"{what}: {len(cpu) - len(off)} of {len(cpu)} stops as on "
                f"the CPU, {len(waived)} waived (within a factor {m:g} of a "
-               f"threshold on the CPU: {sorted(waived)}), {len(clear_off)} "
-               f"clear and different {clear_off}")
+               f"threshold on the CPU{where}: {sorted(waived)}), "
+               f"{len(clear_off)} clear and different {clear_off}")
     if clear_off:
         fail(f"{tag}: {what} on the card stops clear lanes {clear_off} "
              f"otherwise than the CPU")
@@ -3804,6 +3840,415 @@ def ldpred_lambda_genome(ds):
     if beta.shape != (ds.m,) or not np.isfinite(beta).all() or \
             not m.cg_relative_residual <= 1e-6 or not np.isfinite(lam):
         fail(f"P5: LDPredInf or infer_lambda_min on {kind} LD failed")
+    return rec
+
+
+# ------------------------------------------- viprs_fit from disk (D0-D3)
+#: The port's own result of viprs_fit on the genome's magenpy Zarr store
+#: with the default packing (D2: float32 tiles = int8 / 127, which the
+#: genome's float64 blocks never give): nit and h2, held bit for bit.
+PORT_DISK_F32_NIT, PORT_DISK_F32_H2 = 111, 0.21560984128543248
+#: The kernels each disk path launched (as in SELECT_PATHS).
+DISK_PATHS = ('D0 VIPRS', 'D0 VIPRSMix', 'D0 GS-PUMAS', 'D0 BMA',
+              'D0 validation-sumstats', 'D0 extract', 'D0 streamed',
+              'D0 zarr-int8', 'D1 viprs_fit int8', 'D2 viprs_fit float32')
+#: The alleles the disk phases draw for a variant (palindromic and
+#: multi-letter ones among them) and the strand complement.
+ALLELES = (('A', 'G'), ('C', 'T'), ('G', 'A'), ('T', 'C'), ('A', 'C'),
+           ('G', 'T'), ('A', 'T'), ('C', 'G'), ('AT', 'A'), ('G', 'GCA'))
+COMPLEMENT = str.maketrans('ATCG', 'TAGC')
+#: D0's cut of the genome.
+D0_CHROMS = (21, 22)
+#: D0's viprs_fit modes (the arguments after the store and the sumstats).
+D0_MODES = {
+    'VIPRS': [],
+    'VIPRSMix': ['-m', 'VIPRSMix', '--n-components', '3'],
+    'GS-PUMAS': ['--hyp-search', 'GS', '--grid-metric', 'pseudo_validation',
+                 '--pi-steps', '4'],
+    'BMA': ['--hyp-search', 'BMA', '--pi-steps', '4'],
+    'validation-sumstats': ['--hyp-search', 'GS', '--grid-metric',
+                            'pseudo_validation', '--pi-steps', '4',
+                            '--validation-sumstats', '{root}/cut_val.txt'],
+    'extract': ['--extract', '{root}/cut_extract.txt'],
+    'streamed': ['--device-memory-gb', '{gb}'],
+    'zarr-int8': ['--dequantize-on-the-fly'],
+}
+
+
+def disk_tables(chroms, seed):
+    """{chrom: Table(CHR, SNP, POS, A1, A2)} of chromosomes {chrom: m}."""
+    from viprs_tpu_torch.utils.table import Table
+    rng = np.random.default_rng(seed)
+    out = {}
+    for c, m in chroms.items():
+        pick = rng.integers(0, len(ALLELES), m)
+        out[c] = Table({'CHR': c, 'SNP': np.char.add(f'rs{c}_', np.arange(
+                            m).astype(str)),
+                        'POS': 10_000 + 1_000 * np.arange(m, dtype=np.int64),
+                        'A1': np.asarray([a for a, _ in ALLELES])[pick],
+                        'A2': np.asarray([b for _, b in ALLELES])[pick]})
+    return out
+
+
+def write_zarr_stores(root, blocks, tables):
+    """One magenpy Zarr store a chromosome, int8, upper-triangular rows
+    (the published panels' layout), with the port's writer."""
+    from viprs_tpu_torch.data import ld_store
+    for c in sorted(blocks):
+        data, indptr, left = ld_store.dense_blocks_to_banded(blocks[c])
+        ld_store.save_magenpy_zarr(os.path.join(root, f'chr_{c}'), data,
+                                   indptr, left, snp_table=tables[c],
+                                   chrom=c, triangular=True)
+
+
+def write_disk_sumstats(path, tables, std_beta, n, seed, drop=0.0, extra=0):
+    """A magenpy-format summary statistics file of ``std_beta`` (Z written
+    exactly, N = ``n``): ~10% of the variants with A1/A2 swapped and Z
+    negated, ~10% of the others (not palindromic) strand-complemented,
+    ``drop`` of them absent and ``extra`` variants the LD lacks. Returns
+    the row count."""
+    from viprs_tpu_torch.utils.table import Table
+    rng = np.random.default_rng(seed)
+    t = Table.concat(tables[c] for c in sorted(tables))
+    b = np.concatenate([np.asarray(std_beta[c], np.float64)
+                        for c in sorted(tables)])
+    z = b * np.sqrt(n / (1.0 - b * b))
+    a1, a2 = t['A1'], t['A2']
+    m = len(t)
+    swap = rng.random(m) < 0.1
+    pal = np.char.translate(a1, COMPLEMENT) == a2
+    comp = (rng.random(m) < 0.1) & ~pal & ~swap
+    s1, s2 = np.where(swap, a2, a1), np.where(swap, a1, a2)
+    s1 = np.where(comp, np.char.translate(s1, COMPLEMENT), s1)
+    s2 = np.where(comp, np.char.translate(s2, COMPLEMENT), s2)
+    keep = rng.random(m) >= drop
+    ss = Table({'CHR': t['CHR'], 'SNP': t['SNP'], 'POS': t['POS'], 'A1': s1,
+                'A2': s2, 'N': np.full(m, float(n)),
+                'Z': np.where(swap, -z, z)}).take(keep)
+    if extra:
+        c = max(tables)
+        ss = Table.concat([ss, Table({
+            'CHR': c, 'SNP': [f'rsX{c}_{i}' for i in range(extra)],
+            'POS': np.arange(extra, dtype=np.int64), 'A1': 'A', 'A2': 'G',
+            'N': float(n), 'Z': rng.standard_normal(extra)})])
+    ss.write(path)
+    return len(ss)
+
+
+def disk_prepare(ld_blocks, std_beta, n_per_snp):
+    """Write the disk phases' files into a temporary directory: the genome
+    as 22 Zarr stores and its summary statistics with flips and complements
+    and no variant removed (D1-D3); D0's cut (chromosomes D0_CHROMS) as a
+    native int8 store and as Zarr stores, its summary statistics (2% of
+    the variants absent, 5 the LD lacks), validation statistics (the
+    betas again with fresh noise) and an --extract list."""
+    import atexit
+    import shutil
+    import tempfile
+    from viprs_tpu_torch.data import ld_store
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='viprs_fit_disk_')
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    n = float(np.max(n_per_snp[1]))
+    tables = disk_tables({c: len(v) for c, v in std_beta.items()}, seed=1)
+    write_zarr_stores(os.path.join(root, 'genome'), ld_blocks, tables)
+    t_store = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = write_disk_sumstats(os.path.join(root, 'genome_ss.txt'), tables,
+                               std_beta, n, seed=2)
+    t_ss = time.perf_counter() - t0
+    cut = {c: ld_blocks[c] for c in D0_CHROMS}
+    cut_tab = {c: tables[c] for c in D0_CHROMS}
+    ld_store.save_ld_store(os.path.join(root, 'cut_native'), cut, cut_tab,
+                           quantize=True)
+    write_zarr_stores(os.path.join(root, 'cut_zarr'), cut, cut_tab)
+    cut_sb = {c: std_beta[c] for c in D0_CHROMS}
+    write_disk_sumstats(os.path.join(root, 'cut_ss.txt'), cut_tab, cut_sb, n,
+                        seed=3, drop=0.02, extra=5)
+    rng = np.random.default_rng(4)
+    val_sb = {c: v + rng.standard_normal(len(v)) / np.sqrt(n)
+              for c, v in cut_sb.items()}
+    write_disk_sumstats(os.path.join(root, 'cut_val.txt'), cut_tab, val_sb,
+                        n, seed=5)
+    with open(os.path.join(root, 'cut_extract.txt'), 'w') as f:
+        for c in D0_CHROMS:
+            f.write('\n'.join(cut_tab[c]['SNP'][::4].tolist()) + '\n')
+    m_cut = sum(len(cut_tab[c]) for c in D0_CHROMS)
+    phase('D', f"files in {root}: the genome's 22 Zarr stores (int8, "
+               f"upper-triangular rows) {t_store:.1f} s, its summary "
+               f"statistics ({rows} rows) {t_ss:.1f} s; the cut, chromosomes "
+               f"{D0_CHROMS} ({m_cut} variants), as a native and a Zarr "
+               f"store")
+    return dict(root=root, tables=tables, m_cut=m_cut, store_s=t_store,
+                sumstats_s=t_ss)
+
+
+def _stages(sec):
+    """A run's stage seconds as printed on a phase line."""
+    names = (('tables', 'tables'), ('sumstats', 'sumstats'),
+             ('harmonize', 'harmonize'), ('ld_read', 'LD read'),
+             ('pack', 'pack'), ('cache', 'cache'), ('upload', 'upload'),
+             ('fit', 'fit'), ('write', 'write'), ('total', 'total'))
+    return ', '.join(f"{label} {sec[k]:.2f} s" for k, label in names
+                     if k in sec)
+
+
+def _cli(argv, device, cache='off'):
+    """One viprs_fit run through the port's CLI entry (its record), with
+    the pack cache at ``cache``; on the card the launch counters are reset
+    just before and read just after."""
+    import torch
+    from viprs_tpu_torch.cli import fit as cli_fit
+    from viprs_tpu_torch.ops import cavi_cuda
+    os.environ['VIPRS_TPU_TORCH_PACK_CACHE'] = cache
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    rec = cli_fit.run([*argv, '--device', device])
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    rec['launches'] = dict(cavi_cuda.LAUNCHES)
+    return rec
+
+
+def _outputs(prefix):
+    """The tables a run wrote: .fit.gz, .hyp and .validation (or None)."""
+    from viprs_tpu_torch.utils.table import read_table
+    out = {'fit': read_table(prefix + '.fit.gz', sep='\t'),
+           'hyp': read_table(prefix + '.hyp', sep='\t')}
+    v = prefix + '.validation'
+    out['validation'] = read_table(v, sep='\t') if os.path.exists(v) \
+        else None
+    return out
+
+
+def _hyp(out, name):
+    """The .hyp values of a parameter (one a chromosome group)."""
+    hyp = out['hyp']
+    return hyp['Value'][hyp['Parameter'] == name]
+
+
+def _stops(rec, out):
+    """The stops of a run: its iterations and last messages, then each grid
+    point's message and the row selected by pseudo-R^2 (a grid's
+    validation table)."""
+    v = out['validation']
+    stops = [(rec['nit'], *rec['messages'])]
+    if v is not None:
+        stops += v['Optimization_message'].tolist()
+        if 'Pseudo_Validation_R2' in v:
+            stops.append(_pv_index(v['Pseudo_Validation_R2']))
+    return stops
+
+
+def d0_cut(disk, record_paths):
+    """D0: viprs_fit on the cut in each mode of D0_MODES, on the card and
+    on the CPU. The card's .fit.gz has the CPU's variants in the CPU's
+    order; its stops are the CPU's or waived (guarded_stops, asking the
+    CPU and the card; a CLI run being one fit or one grid); where the
+    stops agree the .hyp ELBO is within 1e-6 (relative) and h2 within
+    1e-6, the .validation ELBOs within 1e-6 and pseudo-R^2 within 1e-5
+    (relative) with the CPU's selected row, BETA within 1e-4 of the
+    largest |BETA| and PIP within 1e-2 (at n = 350,000 a variant's logit
+    is large, and a PIP near 1/2 carries its float32 summation order: one
+    read 1.5e-3 on an H100). The CPU run launches no kernel."""
+    from viprs_tpu_torch.data.loader import GWADataLoader
+    root = disk['root']
+    store = {'native': os.path.join(root, 'cut_native'),
+             'zarr': os.path.join(root, 'cut_zarr', 'chr_*')}
+    per = GWADataLoader(ld_store_files=store['native'],
+                        sumstats_files=os.path.join(root, 'cut_ss.txt'),
+                        ).estimate_packed_bytes()
+    gb = 1.2 * max(per.values()) / 0.65 / 1e9
+    rec = {}
+    for mode, extra in D0_MODES.items():
+        st = store['zarr' if mode == 'zarr-int8' else 'native']
+        args = [a.format(root=root, gb=gb) for a in extra]
+
+        def run(where, f_abs_tol=TOLS[0], x_abs_tol=TOLS[1], tag=''):
+            out = os.path.join(root, 'd0', f'{mode}_{where}{tag}')
+            r = _cli(['-l', st, '-s', os.path.join(root, 'cut_ss.txt'),
+                      '--seed', '0', '--f-abs-tol', repr(f_abs_tol),
+                      '--x-abs-tol', repr(x_abs_tol), *args,
+                      '--output-file', out], where)
+            return r, _outputs(out)
+        (rc, oc), (rp, op) = run('cuda'), run('cpu')
+        record_paths[f'D0 {mode}'] = rc['launches']
+        if any(rp['launches'].values()):
+            fail(f"D0 {mode}: the CPU run launched a kernel")
+        if list(oc['fit']['SNP']) != list(op['fit']['SNP']) or \
+                oc['fit'].columns != op['fit'].columns:
+            fail(f"D0 {mode}: the card's .fit.gz rows differ from the CPU's")
+        e_c, e_p = _hyp(oc, 'ELBO'), _hyp(op, 'ELBO')
+        h_c, h_p = _hyp(oc, 'Heritability'), _hyp(op, 'Heritability')
+        bc, bp = oc['fit']['BETA'], op['fit']['BETA']
+        d = dict(elbo=float(np.max(np.abs(e_c - e_p) / np.abs(e_p))),
+                 h2=float(np.max(np.abs(h_c - h_p))),
+                 beta=float(np.abs(bc - bp).max() / np.abs(bp).max()),
+                 pip=float(np.abs(oc['fit']['PIP'] - op['fit']['PIP']).max()))
+        vc, vp = oc['validation'], op['validation']
+        if vp is not None:
+            d['val_elbo'] = float(np.max(np.abs(vc['ELBO'] - vp['ELBO'])
+                                         / np.abs(vp['ELBO'])))
+            if 'Pseudo_Validation_R2' in vp:
+                pc, pp = vc['Pseudo_Validation_R2'], vp['Pseudo_Validation_R2']
+                d['pv'] = float(np.max(np.abs(pc - pp) / np.abs(pp)))
+                d['row'] = [_pv_index(pc), _pv_index(pp)]
+        sc, sp = _stops(rc, oc), _stops(rp, op)
+        phase('D0', f"{mode}: card {_stages(rc['seconds'])}; CPU fit "
+                    f"{rp['seconds']['fit']:.2f} s; stops {sc} (card) vs "
+                    f"{sp} (CPU); h2 {h_c.tolist()} vs {h_p.tolist()}; |diff|: ELBO "
+                    f"{d['elbo']:.2e} (relative), h2 {d['h2']:.2e}, BETA "
+                    f"{d['beta']:.2e} of the largest, PIP {d['pip']:.2e}"
+                    + (f", grid ELBOs {d['val_elbo']:.2e}" if 'val_elbo' in d
+                       else '')
+                    + (f", pseudo-R^2 {d['pv']:.2e}, rows {d['row']}"
+                       if 'pv' in d else '')
+                    + f"; launches {_launched(rc['launches'])}")
+        guard = guarded_stops(
+            f'D0 {mode}', 'viprs_fit',
+            lambda w, f, x: _stops(*run(w, f, x, tag='_tol')), sc, sp,
+            devices=('cpu', 'cuda'))
+        held = not guard['differ']
+        if not held:
+            phase('D0', f"{mode}: the stops differ and are waived; the "
+                        f"outputs are not held")
+        row = d.get('row')
+        if held and not (d['elbo'] <= 1e-6 and d['h2'] <= 1e-6
+                         and d['beta'] <= 1e-4 and d['pip'] <= 1e-2
+                         and d.get('val_elbo', 0.0) <= 1e-6
+                         and d.get('pv', 0.0) <= 1e-5
+                         and (row is None or row[0] == row[1])):
+            fail(f"D0 {mode}: the card's outputs differ from the CPU's")
+        if not any(rc['launches'].values()):
+            fail(f"D0 {mode}: the card run launched no kernel")
+        if (mode == 'streamed') != (rc['groups'] is not None):
+            fail(f"D0 {mode}: streamed over {rc['groups']}")
+        rec[mode] = dict(card=rc['seconds'], cpu=rp['seconds'],
+                         stops=[sc, sp],
+                         h2=[h_c.tolist(), h_p.tolist()], diff=d,
+                         guard=guard, groups=rc['groups'],
+                         launches=_launched(rc['launches']))
+    return rec
+
+
+def _same_files(a, b):
+    return all(open(a + s, 'rb').read() == open(b + s, 'rb').read()
+               for s in ('.fit.gz', '.hyp'))
+
+
+def disk_genome(disk, ds, record_paths):
+    """D1-D3 on the genome's Zarr stores (1,099,965 variants), on the card.
+
+    D1: viprs_fit --dequantize-on-the-fly (int8 tiles, the hybrid VIPRS
+    fit, seed 0): the loader's tiles equal phase 3's bit for bit, its
+    std_beta the genome's within 1e-12 (relative) after the flips are
+    undone, the .fit.gz rows in the stores' variant order, h2 within 1e-4
+    of PORT_H2 (nit recorded, not held: std_beta passes through text).
+    D2: the default packing (float32 = int8 / 127): h2 within 0.005 of the
+    JAX package's, nit and h2 held to PORT_DISK_F32_*. D3: D1 twice with
+    the pack cache in a temporary directory: the first run writes it, the
+    second reads no LD data; both write D1's files byte for byte."""
+    import torch
+    root = disk['root']
+    base = ['-l', os.path.join(root, 'genome', 'chr_*'), '-s',
+            os.path.join(root, 'genome_ss.txt'), '--seed', '0']
+    out = {k: os.path.join(root, 'out', k) for k in ('d1', 'd2', 'd3a',
+                                                       'd3b')}
+    rec = {}
+
+    r1 = _cli([*base, '--dequantize-on-the-fly', '--output-file', out['d1']],
+              'cuda')
+    record_paths['D1 viprs_fit int8'] = r1['launches']
+    lds = r1['loader']._dataset
+    same = all(torch.equal(getattr(lds.ld, f), getattr(ds.ld, f))
+               for f in ('diag', 'off_data', 'off_src', 'off_dst', 'mask'))
+    same &= np.array_equal(lds.layout.flat_index, ds.layout.flat_index)
+    rel = max(float(np.max(np.abs(lds.std_beta[c] - ds.std_beta[c])
+                           / np.abs(ds.std_beta[c])))
+              for c in ds.std_beta)
+    o1 = _outputs(out['d1'])
+    order = list(o1['fit']['SNP']) == [
+        s for c in sorted(disk['tables']) for s in disk['tables'][c]['SNP']]
+    h1 = float(_hyp(o1, 'Heritability')[0])
+    del lds
+    r1.pop('loader')
+    phase('D1', f"viprs_fit --dequantize-on-the-fly on the genome's Zarr "
+                f"stores: {_stages(r1['seconds'])}; {len(o1['fit'])} rows in "
+                f"the stores' order: {order}; tiles equal to phase 3's: "
+                f"{same}; std_beta max relative |diff| {rel:.2e} (bound "
+                f"1e-12); nit {r1['nit']} (phase 5: {PORT_NIT}), h2 {h1!r} "
+                f"(PORT_H2 {PORT_H2}, bound 1e-4); launches "
+                f"{_launched(r1['launches'])}")
+    if not (same and order and rel <= 1e-12 and abs(h1 - PORT_H2) <= 1e-4
+            and len(o1['fit']) == ds.m):
+        fail("D1: viprs_fit from the Zarr stores disagrees with phase 3")
+    if min(r1['launches'][k] for k in ('cavi_block_sweep_s1',
+                                       'coupling_pass_s1')) < 1:
+        fail(f"D1: a kernel of the path was never launched: {r1['launches']}")
+    rec['d1'] = dict(seconds=r1['seconds'], nit=r1['nit'], h2=h1,
+                     std_beta_rel=rel, launches=_launched(r1['launches']))
+
+    r2 = _cli([*base, '--output-file', out['d2']], 'cuda')
+    record_paths['D2 viprs_fit float32'] = r2['launches']
+    r2.pop('loader')
+    h2 = float(_hyp(_outputs(out['d2']), 'Heritability')[0])
+    phase('D2', f"viprs_fit (float32 tiles) on the genome's Zarr stores: "
+                f"{_stages(r2['seconds'])}; nit {r2['nit']}, h2 {h2!r} "
+                f"(JAX package {REF_H2}, bound 0.005; PORT_DISK_F32_* "
+                f"{PORT_DISK_F32_NIT}, {PORT_DISK_F32_H2}); launches "
+                f"{_launched(r2['launches'])}")
+    if abs(h2 - REF_H2) > 0.005:
+        fail(f"D2: h2 {h2} is not within 0.005 of {REF_H2}")
+    if (r2['nit'], h2) != (PORT_DISK_F32_NIT, PORT_DISK_F32_H2):
+        fail(f"D2: nit {r2['nit']}, h2 {h2!r} moved from the port's earlier "
+             f"runs ({PORT_DISK_F32_NIT}, {PORT_DISK_F32_H2!r})")
+    if min(r2['launches'][k] for k in ('cavi_block_sweep_s1_f32',
+                                       'coupling_pass_s1_f32')) < 1:
+        fail(f"D2: a kernel of the path was never launched: {r2['launches']}")
+    rec['d2'] = dict(seconds=r2['seconds'], nit=r2['nit'], h2=h2,
+                     launches=_launched(r2['launches']))
+
+    cache = os.path.join(root, 'pack_cache')
+    r3 = {}
+    for k in ('d3a', 'd3b'):
+        r3[k] = _cli([*base, '--dequantize-on-the-fly', '--output-file',
+                      out[k]], 'cuda', cache=cache)
+        r3[k].pop('loader')
+    miss, hit = r3['d3a'], r3['d3b']
+    prep = {k: sum(v for s, v in r3[k]['seconds'].items()
+                   if s not in ('fit', 'write', 'total')) for k in r3}
+    ok = (miss['ld_data_reads'] == 22 and hit['ld_data_reads'] == 0
+          and _same_files(out['d3a'], out['d1'])
+          and _same_files(out['d3b'], out['d1']))
+    phase('D3', f"the pack cache: miss {_stages(miss['seconds'])} (data "
+                f"preparation {prep['d3a']:.2f} s, {miss['ld_data_reads']} "
+                f"stores read); hit {_stages(hit['seconds'])} (data "
+                f"preparation {prep['d3b']:.2f} s, {hit['ld_data_reads']} "
+                f"stores read); both runs' .fit.gz and .hyp byte for byte "
+                f"D1's: {ok}")
+    if not ok:
+        fail("D3: the pack cache missed, read LD data on a hit, or changed "
+             "the outputs")
+    rec['d3'] = dict(miss=miss['seconds'], hit=hit['seconds'],
+                     prep_s=prep)
+    return rec
+
+
+def disk_phases(disk, ds, record_paths):
+    """D0-D3 (viprs_fit from files on disk), the files deleted at the end.
+    The path runs without pandas and JAX: neither is imported after it."""
+    import shutil
+    try:
+        rec = {'prepare': {k: disk[k] for k in ('store_s', 'sumstats_s',
+                                                'm_cut')},
+               'd0': d0_cut(disk, record_paths)}
+        rec.update(disk_genome(disk, ds, record_paths))
+    finally:
+        shutil.rmtree(disk['root'], ignore_errors=True)
+    loaded = [m for m in ('pandas', 'jax', 'viprs_tpu') if m in sys.modules]
+    if loaded:
+        fail(f"the viprs_fit path imported {loaded}")
     return rec
 
 

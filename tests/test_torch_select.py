@@ -690,13 +690,14 @@ def test_copied_numpy_pieces_match_the_originals():
 
 # ----------------------------------------------------------------- refusals
 def test_refusals_that_remain(pair):
-    """What this port still refuses names where it is queued: the table
-    form of the validation statistics and a test dataset (the loaders,
-    ROADMAP.md Queue 1 item 6), the 'validation' criterion (scoring and
-    evaluation, item 7); and the arguments that are wrong."""
+    """What this port still refuses names where it is queued: the
+    'validation' criterion (scoring and evaluation, ROADMAP.md Queue 1
+    item 7); and the arguments that are wrong. The table form of the
+    validation statistics and a test dataset are ported: a test dataset
+    gives the JAX package's pseudo-R^2 of the same table."""
     _, ds = pair
     m = VIPRS(ds, 'cpu')
-    with pytest.raises(NotImplementedError, match='item 6'):
+    with pytest.raises(TypeError, match='SumstatsTable'):
         m.set_validation_sumstats(object())
     with pytest.raises(ValueError, match='wrong length'):
         m.set_validation_sumstats({c: np.zeros(3) for c in m.chromosomes})
@@ -706,11 +707,15 @@ def test_refusals_that_remain(pair):
     np.random.seed(0)
     m.fit(max_iter=3, sweep_impl='xla')
     assert np.isfinite(m.pseudo_validate())
-    with pytest.raises(NotImplementedError, match='item 6'):
-        m.pseudo_validate(test_gdl=ds)
-    for fn in (pseudo.pseudo_r2, pseudo.pseudo_pearson_r):
-        with pytest.raises(NotImplementedError, match='item 6'):
-            fn(ds, None)
+    jds, _ = pair
+    table = m.to_table()
+    want = jax_pseudo.pseudo_r2(jds, table.to_pandas())
+    np.testing.assert_allclose(m.pseudo_validate(test_gdl=ds), want,
+                               rtol=1e-6)
+    for fn, jfn in ((pseudo.pseudo_r2, jax_pseudo.pseudo_r2),
+                    (pseudo.pseudo_pearson_r, jax_pseudo.pseudo_pearson_r)):
+        np.testing.assert_allclose(fn(ds, table),
+                                   jfn(jds, table.to_pandas()), rtol=1e-6)
     g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=2), 'cpu')
     with pytest.raises(NotImplementedError, match='item 7'):
         select_best_model(g, criterion='validation')

@@ -483,7 +483,7 @@ def test_fixed_params_and_table_match_jax(fix_params, lambda_min,
         got = {'pi': tm.pi, 'tau_beta': tm.tau_beta,
                'sigma_epsilon': tm.sigma_epsilon}[name]
         assert got == pytest.approx(v, rel=1e-7)
-    jt, tt = jm.to_table(), tm.to_table()
+    jt, tt = jm.to_table(), tm.to_table().to_pandas()
     assert list(tt['SNP']) == list(jt['SNP'])
     for col in ('BETA', 'PIP', 'VAR_BETA'):
         np.testing.assert_allclose(tt[col].values, jt[col].values,

@@ -1,7 +1,8 @@
 """The device-facing dataset: harmonized summary statistics + blocked LD.
 
-Counterpart of viprs_tpu.data.dataset, built directly from arrays
-(simulations, tests, benchmarks). The LD lives on the dataset's ``device``,
+Counterpart of viprs_tpu.data.dataset, built from files by the loader
+(data/loader.py) or directly from arrays (simulations, tests, benchmarks).
+The LD lives on the dataset's ``device``,
 packed as float32 (the default, as in the JAX package) or as int8
 (``quantize=True``); every model fits either, on the CPU or a CUDA device.
 """
@@ -23,7 +24,8 @@ class SummaryStatsDataset:
     :ivar layout: host-side block layout (chromosome <-> flat index mapping).
     :ivar std_beta: {chrom: (m_c,)} standardized marginal betas.
     :ivar n_per_snp: {chrom: (m_c,)} per-variant GWAS sample sizes.
-    :ivar snp_table: optional {chrom: DataFrame} variant metadata.
+    :ivar snp_table: optional {chrom: Table} variant metadata (CHR, SNP,
+        POS, A1, A2, ...; ``utils/table.py``).
     :ivar ld_scores: optional {chrom: (m_c,)} LD scores (LDSC h2 init).
     """
     ld: BlockLD
@@ -74,6 +76,13 @@ class SummaryStatsDataset:
         """Build from per-chromosome lists of dense LD blocks."""
         packed, layout = pack_dense_blocks(ld_blocks, block_size=block_size,
                                            quantize=quantize)
+        return cls.from_packed(packed, layout, std_beta, n_per_snp,
+                               snp_table=snp_table, device=device)
+
+    @classmethod
+    def from_packed(cls, packed, layout, std_beta: Dict, n_per_snp: Dict,
+                    snp_table: Optional[Dict] = None, *, device):
+        """Upload a packer's (PackedLD, BlockLayout) to ``device``."""
         ds = cls(ld=packed.to(device), layout=layout, std_beta=std_beta,
                  n_per_snp=n_per_snp, snp_table=snp_table)
         ds._check_shapes()
@@ -85,6 +94,18 @@ class SummaryStatsDataset:
                 raise ValueError(
                     f"summary statistics for chromosome {c} do not match the "
                     f"LD's {sz} variants")
+
+    def default_snp_table(self):
+        """The variant tables, or minimal synthetic ones (SNP ids
+        ``rs_<chrom>_<i>``, alleles A/G) when the dataset has none."""
+        if self.snp_table is not None:
+            return self.snp_table
+        from ..utils.table import Table
+        return {c: Table({'CHR': c,
+                          'SNP': [f'rs_{c}_{i}' for i in range(sz)],
+                          'POS': np.arange(sz, dtype=np.int64),
+                          'A1': 'A', 'A2': 'G'})
+                for c, sz in self.shapes.items()}
 
     def compute_ld_scores(self, chunk_bytes=1.25e8):
         """LD scores l_j = sum_k r_jk^2 from the blocked LD (LDSC init).

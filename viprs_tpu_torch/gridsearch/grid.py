@@ -1,8 +1,8 @@
 """Hyperparameter grid construction for grid-search VIPRS models.
 
 A copy of viprs_tpu.gridsearch.grid (NumPy and SciPy only), so the port's
-grids are the JAX package's to the bit; ``to_table`` imports pandas inside
-the call.
+grids are the JAX package's to the bit; ``to_table`` gives the points as
+a Table (utils/table.py).
 
 Parity surface with the reference's gridsearch/HyperparameterGrid.py: the same
 grid *math* is mandated (h2-informed sigma_epsilon/tau_beta grids from normal
@@ -146,5 +146,7 @@ class HyperparameterGrid:
         return [dict(zip(names, row)) for row in zip(*flat)]
 
     def to_table(self):
-        import pandas as pd
-        return pd.DataFrame(self.combine_grids())
+        """The grid points as a Table, one column per hyperparameter."""
+        from ..model.grid import grid_columns
+        from ..utils.table import Table
+        return Table(grid_columns(self))

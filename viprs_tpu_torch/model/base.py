@@ -91,22 +91,43 @@ class BayesPRSModel:
 
     def set_validation_sumstats(self, sumstats):
         """Attach validation standardized betas for pseudo-validation: a
-        {chrom: array} dict aligned with this model's variants. (The table
-        form, harmonized by allele, needs the loaders: ROADMAP.md, Queue 1,
-        item 6.)"""
-        if not isinstance(sumstats, dict):
-            raise NotImplementedError(
-                "validation summary statistics as a table need allele "
-                "harmonization (merge_snp_tables) and pandas, which are not "
-                "ported yet; pass a {chrom: std_beta} dict aligned with the "
-                "model's variants, or see ROADMAP.md, Queue 1, item 6")
-        for c, sz in self.shapes.items():
-            if c not in sumstats or len(sumstats[c]) != sz:
-                raise ValueError(
-                    f"validation std_beta for chromosome {c} is missing or "
-                    f"has the wrong length")
-        self.validation_std_beta = {c: np.asarray(sumstats[c], np.float64)
-                                    for c in self.shapes}
+        {chrom: array} dict aligned with this model's variants, or a
+        SumstatsTable / Table with SNP, A1 and A2, harmonized by allele onto
+        the dataset's variants (a flip changes the sign; a variant missing
+        from the validation statistics contributes 0). A Table without a
+        STD_BETA column needs ``get_snp_pseudo_corr`` (a SumstatsTable)."""
+        if isinstance(sumstats, dict):
+            for c, sz in self.shapes.items():
+                if c not in sumstats or len(sumstats[c]) != sz:
+                    raise ValueError(
+                        f"validation std_beta for chromosome {c} is missing "
+                        f"or has the wrong length")
+            self.validation_std_beta = {c: np.asarray(sumstats[c], np.float64)
+                                        for c in self.shapes}
+            return self
+
+        from ..data.harmonize import merge_snp_tables
+        from ..utils.table import Table
+        table = getattr(sumstats, 'table', sumstats)
+        if not isinstance(table, Table):
+            raise TypeError("validation summary statistics must be a "
+                            "{chrom: std_beta} dict, a SumstatsTable or a "
+                            "Table")
+        table = table.copy()
+        if 'STD_BETA' not in table:
+            get_corr = getattr(sumstats, 'get_snp_pseudo_corr', None)
+            if get_corr is None:
+                raise ValueError("validation sumstats need a STD_BETA column "
+                                 "or a get_snp_pseudo_corr() method")
+            table['STD_BETA'] = get_corr()
+        out = {}
+        for c, tab in self.dataset.default_snp_table().items():
+            merged = merge_snp_tables(tab.select(['SNP', 'A1', 'A2']), table,
+                                      how='left',
+                                      signed_statistics=['STD_BETA'])
+            v = np.asarray(merged['STD_BETA'], np.float64)
+            out[c] = np.where(np.isnan(v), 0.0, v)
+        self.validation_std_beta = out
         return self
 
     def split_gwas_sumstats(self, prop_train=0.8, seed=None, **kwargs):
@@ -150,15 +171,19 @@ class BayesPRSModel:
         return rb ** 2 / bsb
 
     def pseudo_validate(self, test_gdl=None):
-        """Summary-statistics-only R^2 on the held-out half of a PUMAS split
-        (reference BayesPRSModel.py:375-410): r'b squared over b'Sb, with
-        S.b from the model's cached q where it has one (``q_dict``), else
-        from ``cavi_torch.compute_q`` of the posterior means on the LD's
-        device. ``test_gdl`` (a separate test dataset) needs the loaders:
-        ROADMAP.md, Queue 1, item 6."""
-        from ..eval.pseudo import NEEDS_LOADERS, _streamlined_pseudo_r2
+        """Summary-statistics-only R^2 (reference BayesPRSModel.py:375-410):
+        r'b squared over b'Sb. With ``test_gdl`` (a GWADataLoader or a
+        SummaryStatsDataset of independent statistics, which the loader
+        packs on this model's device), ``eval.pseudo.pseudo_r2`` of this
+        model's table on it; else on the held-out half of a PUMAS split (or
+        ``set_validation_sumstats``), with S.b from the model's cached q
+        where it has one (``q_dict``), else from ``cavi_torch.compute_q`` of
+        the posterior means on the LD's device."""
+        from ..eval.pseudo import _streamlined_pseudo_r2, pseudo_r2
         if test_gdl is not None:
-            raise NotImplementedError(NEEDS_LOADERS)
+            if hasattr(test_gdl, 'to_summary_dataset'):
+                test_gdl = test_gdl.to_summary_dataset(device=self.device)
+            return pseudo_r2(test_gdl, self.to_table())
         if self.validation_std_beta is None:
             raise ValueError("Provide validation statistics "
                              "(set_validation_sumstats) or run "
@@ -238,20 +263,56 @@ class BayesPRSModel:
     def get_posterior_variance_beta(self):
         return self.post_var_beta
 
-    def to_table(self):
-        """Posterior estimates of one model as one DataFrame (CHR, SNP, BETA,
-        PIP, VAR_BETA); pandas is imported here only."""
+    def _theta_table(self, rows):
+        """The (Parameter, Value) table of (name, value) pairs of one
+        model."""
+        if getattr(self, '_S', 1) != 1:
+            raise ValueError("the hyperparameter table needs one model; "
+                             "select or average the grid first (gridsearch)")
+        from ..utils.table import Table
+        return Table({'Parameter': [name for name, _ in rows],
+                      'Value': np.asarray([float(np.asarray(v).reshape(-1)[0])
+                                           for _, v in rows], np.float64)})
+
+    def to_validation_table(self):
+        """A grid's per-point fit outcomes (``validation_result``: the grid
+        columns, ELBO, Converged, Optimization_message and, after selection
+        by pseudo-validation, Pseudo_Validation_R2) as a Table."""
+        from ..utils.table import Table
+        result = getattr(self, 'validation_result', None)
+        if not result:
+            raise ValueError("Validation result is not set!")
+        return Table(result)
+
+    def write_validation_result(self, v_filename, sep="\t"):
+        """Write ``to_validation_table()`` as delimited text (the CLI's
+        .validation)."""
+        self.to_validation_table().write(v_filename, sep=sep)
+
+    def write_inferred_theta(self, f_name, sep="\t"):
+        """Write ``to_theta_table()`` as delimited text (the CLI's .hyp)."""
+        self.to_theta_table().write(f_name, sep=sep)
+
+    def to_table(self, col_subset=('CHR', 'SNP', 'POS', 'A1', 'A2'),
+                 per_chromosome=False):
+        """Posterior estimates of one model as a Table (the columns of
+        ``col_subset`` the variant tables have, then BETA, PIP, VAR_BETA),
+        or {chrom: Table} (reference BayesPRSModel.py:333-373)."""
         if getattr(self, '_S', 1) != 1:
             raise ValueError("to_table needs one model; select or average "
                              "the grid first (gridsearch)")
-        import pandas as pd
-        tabs = []
+        from ..utils.table import Table
+        snp_tables = self.dataset.default_snp_table()
+        tables = {}
         for c in self.chromosomes:
-            m_c = self.shapes[c]
-            snps = (self.dataset.snp_table[c]['SNP'].values
-                    if self.dataset.snp_table is not None
-                    else [f'rs_{c}_{i}' for i in range(m_c)])
-            tabs.append(pd.DataFrame({
-                'CHR': c, 'SNP': snps, 'BETA': self.post_mean_beta[c],
-                'PIP': self.pip[c], 'VAR_BETA': self.post_var_beta[c]}))
-        return pd.concat(tabs, ignore_index=True)
+            base = snp_tables[c]
+            tab = base.select([col for col in col_subset if col in base])
+            if 'CHR' not in tab:
+                tab.insert(0, 'CHR', c)
+            tab['BETA'] = self.post_mean_beta[c]
+            tab['PIP'] = self.pip[c]
+            tab['VAR_BETA'] = self.post_var_beta[c]
+            tables[c] = tab
+        if per_chromosome:
+            return tables
+        return Table.concat(tables[c] for c in self.chromosomes)

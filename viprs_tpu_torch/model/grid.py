@@ -10,8 +10,8 @@ every iteration (K1 on the card), neither the hybrid nor the skip sweep. On
 the card the kernels take int8 (``quantize=True``) or float32
 (``quantize=False``) LD, each through its own instances.
 
-The grid rows are held as numpy columns (no pandas at import time or in the
-fit); ``to_validation_table`` imports pandas inside the call.
+The grid rows are held as numpy columns; ``to_validation_table`` (in
+model/base.py) gives them with the fit outcomes as a Table.
 """
 
 import numpy as np
@@ -65,12 +65,6 @@ class VIPRSGrid(VIPRS):
     @property
     def valid_terminated_models(self):
         return np.array([r.valid_optim_result for r in self.optim_results])
-
-    def to_validation_table(self):
-        if not self.validation_result:
-            raise ValueError("Validation result is not set!")
-        import pandas as pd
-        return pd.DataFrame(self.validation_result)
 
     # ---------------------------------------------------------- initialization
     def initialize_theta(self, theta_0=None, rng=None):

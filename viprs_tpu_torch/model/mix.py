@@ -424,5 +424,20 @@ class VIPRSMix(BayesPRSModel):
     def get_average_effect_size_variance(self):
         return float(np.sum(self.pi / self.tau_beta))
 
+    def to_theta_table(self):
+        """The fitted hyperparameters as a (Parameter, Value) Table, the JAX
+        package's rows (viprs_tpu/model/mix.py:572-586)."""
+        rows = [('ELBO', self.elbo()),
+                ('Residual_variance', self.sigma_epsilon),
+                ('Heritability', self.get_heritability()),
+                ('Proportion_causal', self.get_proportion_causal()),
+                ('Average_effect_variance',
+                 self.get_average_effect_size_variance())]
+        rows += [(f'tau_beta_{i + 1}', t)
+                 for i, t in enumerate(np.atleast_1d(self.tau_beta))]
+        rows += [(f'pi_{i + 1}', p)
+                 for i, p in enumerate(np.atleast_1d(self.pi))]
+        return self._theta_table(rows)
+
     def get_heritability(self):
         return float(self._sigma_g / (self._sigma_g + self.sigma_epsilon))

@@ -51,13 +51,17 @@ class VIPRS(BayesPRSModel):
         :param device: the device the fit runs on; it must hold the
             dataset's LD ('cuda' runs the CUDA kernels, 'cpu' their plain
             versions).
-        :param lambda_min: None (0) or a number.
+        :param lambda_min: None (0), a number, or 'infer' (the spectral
+            regularizer of the LD, ``infer_lambda_min``).
         :param fix_params: dict pinning hyperparameters out of the M-step
             (keys 'pi', 'tau_beta', 'sigma_epsilon', 'lambda_min').
         """
         super().__init__(dataset, device)
         self.fix_params = dict(fix_params or {})
-        self.lambda_min = 0.0 if lambda_min is None else float(lambda_min)
+        if isinstance(lambda_min, str) and lambda_min == 'infer':
+            self.lambda_min = self.infer_lambda_min()
+        else:
+            self.lambda_min = 0.0 if lambda_min is None else float(lambda_min)
         self._S = 1
         self._state = None             # CaviState, (S, NB, B) float32
         self._hyper = None             # Hyper of (S,) float64 numpy
@@ -446,6 +450,20 @@ class VIPRS(BayesPRSModel):
         self._pip = self._dict_view(self._state.gamma)
         self._post_mean_beta = self._dict_view(eta)
         self._post_var_beta = self._dict_view(zeta - eta * eta)
+
+    # ------------------------------------------------------------ reporting
+    def to_theta_table(self):
+        """The fitted hyperparameters as a (Parameter, Value) Table, the JAX
+        package's rows (viprs_tpu/model/viprs.py:614-627)."""
+        return self._theta_table([
+            ('ELBO', self.elbo()),
+            ('Residual_variance', self.sigma_epsilon),
+            ('Heritability', self.get_heritability()),
+            ('Proportion_causal', self.get_proportion_causal()),
+            ('Average_effect_variance',
+             self.get_average_effect_size_variance()),
+            ('Lambda_min', self.lambda_min),
+            ('tau_beta', self.tau_beta)])
 
     # ------------------------------------------------------------ getters
     def _scalar(self, arr):

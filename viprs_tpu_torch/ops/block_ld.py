@@ -349,6 +349,22 @@ def plan_layout(chrom_block_sizes: dict, block_size: int = 1024):
     return layout, placements
 
 
+def estimate_packed_bytes(chrom_block_sizes: dict, block_size: int = 1024,
+                          quantize: bool = True):
+    """Bytes of the tiles ``pack_dense_blocks`` would make from LD-block
+    sizes alone: the diagonal tiles of the packing plan and the coupling
+    tiles of the blocks wider than B, at one byte an element (int8) or four
+    (float32). The streaming planner's input."""
+    B = block_size
+    layout, placements = plan_layout(chrom_block_sizes, block_size=B)
+    n_off = 0
+    for _, o, _, _, m_i in placements:
+        if o == 0 and m_i > B:
+            ntiles = _round_up(m_i, B) // B
+            n_off += ntiles * (ntiles - 1) // 2
+    return (layout.nb + n_off) * B * B * (1 if quantize else 4)
+
+
 def pack_dense_blocks(chrom_blocks: dict, block_size: int = 1024,
                       quantize: bool = False):
     """Pack per-chromosome lists of dense LD blocks (LDetect-style
@@ -358,7 +374,8 @@ def pack_dense_blocks(chrom_blocks: dict, block_size: int = 1024,
     Several small LD blocks share one B-tile when they fit; LD blocks larger
     than B span ``ceil(m_i/B)`` tiles plus their coupling tiles.
 
-    :param chrom_blocks: {chrom: [dense (m_i, m_i) float numpy arrays]}
+    :param chrom_blocks: {chrom: [dense (m_i, m_i) float numpy arrays, or
+        int8 at scale 1/127]}
     :returns: (PackedLD, BlockLayout)
     """
     B = block_size
@@ -378,7 +395,14 @@ def pack_dense_blocks(chrom_blocks: dict, block_size: int = 1024,
 
     for tile_start, o, c, bi, m_i in placements:
         blk = chrom_blocks[c][bi]
-        vals = quantize_int8(blk) if quantize else blk.astype(np.float32)
+        # int8 blocks (a quantized store, scale 1/127) pass through when
+        # quantizing and become int8 * float32(1/127) otherwise, as in the
+        # JAX package
+        if blk.dtype == np.int8:
+            vals = blk if quantize else \
+                blk.astype(np.float32) * np.float32(INT8_SCALE)
+        else:
+            vals = quantize_int8(blk) if quantize else blk.astype(np.float32)
         if o > 0 or m_i <= B - o:
             diag[tile_start, o:o + m_i, o:o + m_i] = vals
             continue
