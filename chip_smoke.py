@@ -208,10 +208,33 @@ D1. viprs_fit --dequantize-on-the-fly on the genome's Zarr stores: the
    (tables, sumstats, harmonize, LD read, pack, upload, fit, write);
 D2. the same with the default packing (float32 tiles = int8 / 127): h2
    within 0.005 of the JAX package's, nit and h2 held to PORT_DISK_F32_*;
-D3. D1 twice with the pack cache in the temporary directory: the miss
-   writes it, the hit reads no LD data; both write D1's files byte for
-   byte; the data-preparation seconds of each. No module of pandas, jax
-   or viprs_tpu is imported after D0-D3.
+D3. the pack cache in the temporary directory: D1 misses it and writes
+   it, a second run hits it, reads no LD data and writes D1's files byte
+   for byte; the data-preparation seconds of each;
+V0. individual-level data on a cut, card against CPU: plink filesets of
+   AR(1) genotypes (the port's simulate_dosages; 2,003 training samples,
+   not a multiple of 4, and 1,001 validation samples; chromosomes 21-22,
+   2,000 variants each; 1% missing), run once with --device cuda and once
+   with --device cpu: GWAS, compute_ld with each of the four estimators,
+   save_ld_store, viprs_fit (VIPRS, and --hyp-search GS --grid-metric
+   validation on the validation fileset), viprs_score and
+   viprs_evaluate. Held: dosages bit for bit, GWAS BETA/SE/Z within rtol
+   1e-9, LD within 1e-12, the fits' stops behind guarded_stops (then the
+   .hyp, the selected row and Validation_R2 within rtol 1e-6), the card's
+   fits scored on the card and the CPU within rtol 1e-9, the .eval within
+   1e-9;
+V1. genome-wide scoring at a cohort's size: the genome's 1,099,965
+   variants (D's tables, 10% of the alleles swapped) x 10,000 samples as
+   22 BED filesets (2.75 GB; rows drawn from a pool of HWE rows rotated by
+   a byte offset), viprs_score of D1's .fit.gz on the card, its stage
+   seconds (.bim/.fam read, .fit read, harmonize, BED read, upload,
+   decode+standardize, product, write); the card and the CPU score the same
+   --keep of 1,000 samples within rtol 1e-9;
+V2. GWAS (perform_gwas) on V1's filesets with a seeded phenotype, timed,
+   chromosome 22's BETA held card against CPU within rtol 1e-9; block LD
+   (compute_ld('block')) of a 5,000-sample AR(1) panel of chromosomes
+   21-22, timed, its three smallest blocks held card against CPU within
+   1e-12. No module of pandas, jax or viprs_tpu is imported after D0-V2.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -226,8 +249,8 @@ tile products (``library_ms``; the sweeps have none). The S = 1 kernels'
 lines, and the lane sweeps', also carry their time in a CUDA graph
 (``graph_ms``). The float32 instances (F3, F6) have lines of their own,
 their names ending in ``_f32``. ``paths`` gives each kernel's launches
-on each selection path of P0 and P2-P4 and each disk path of D0-D2 that
-launched it.
+on each selection path of P0 and P2-P4, each disk path of D0-D2 and
+each genotype path of V0 that launched it.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -814,8 +837,17 @@ def main():
                                'float32': ldpred_lambda_genome(ds32)}
     record['select_paths'] = paths
 
-    # ---- D0-D3: viprs_fit from files on disk ----
-    record['disk'] = disk_phases(disk, ds, paths)
+    # ---- D0-D3: viprs_fit from files on disk; V0-V2: genotypes ----
+    import shutil
+    try:
+        record['disk'] = disk_phases(disk, ds, paths)
+        record['geno'] = geno_phases(disk, card, paths)
+    finally:
+        shutil.rmtree(disk['root'], ignore_errors=True)
+    loaded = [m for m in ('pandas', 'jax', 'viprs_tpu') if m in sys.modules]
+    if loaded:
+        fail(f"the viprs_fit, viprs_score and viprs_evaluate paths imported "
+             f"{loaded}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
@@ -905,7 +937,7 @@ def main():
     # the launches of each kernel on each selection path (P0, P2-P4)
     for e in kernels:
         e['paths'] = {p: paths[p][e['name']]
-                      for p in (*SELECT_PATHS, *DISK_PATHS)
+                      for p in (*SELECT_PATHS, *DISK_PATHS, *GENO_PATHS)
                       if paths.get(p, {}).get(e['name'])}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -4038,6 +4070,8 @@ def _stops(rec, out):
         stops += v['Optimization_message'].tolist()
         if 'Pseudo_Validation_R2' in v:
             stops.append(_pv_index(v['Pseudo_Validation_R2']))
+        if 'Validation_R2' in v:
+            stops.append(int(np.argmax(v['Validation_R2'])))
     return stops
 
 
@@ -4146,19 +4180,20 @@ def disk_genome(disk, ds, record_paths):
     undone, the .fit.gz rows in the stores' variant order, h2 within 1e-4
     of PORT_H2 (nit recorded, not held: std_beta passes through text).
     D2: the default packing (float32 = int8 / 127): h2 within 0.005 of the
-    JAX package's, nit and h2 held to PORT_DISK_F32_*. D3: D1 twice with
-    the pack cache in a temporary directory: the first run writes it, the
-    second reads no LD data; both write D1's files byte for byte."""
+    JAX package's, nit and h2 held to PORT_DISK_F32_*. D3: the pack cache
+    in a temporary directory: D1 runs with it and misses (it writes the
+    cache); D1 again hits it, reads no LD data and writes D1's files byte
+    for byte."""
     import torch
     root = disk['root']
     base = ['-l', os.path.join(root, 'genome', 'chr_*'), '-s',
             os.path.join(root, 'genome_ss.txt'), '--seed', '0']
-    out = {k: os.path.join(root, 'out', k) for k in ('d1', 'd2', 'd3a',
-                                                       'd3b')}
+    out = {k: os.path.join(root, 'out', k) for k in ('d1', 'd2', 'd3b')}
     rec = {}
 
+    cache = os.path.join(root, 'pack_cache')
     r1 = _cli([*base, '--dequantize-on-the-fly', '--output-file', out['d1']],
-              'cuda')
+              'cuda', cache=cache)
     record_paths['D1 viprs_fit int8'] = r1['launches']
     lds = r1['loader']._dataset
     same = all(torch.equal(getattr(lds.ld, f), getattr(ds.ld, f))
@@ -4187,7 +4222,8 @@ def disk_genome(disk, ds, record_paths):
                                        'coupling_pass_s1')) < 1:
         fail(f"D1: a kernel of the path was never launched: {r1['launches']}")
     rec['d1'] = dict(seconds=r1['seconds'], nit=r1['nit'], h2=h1,
-                     std_beta_rel=rel, launches=_launched(r1['launches']))
+                     std_beta_rel=rel, launches=_launched(r1['launches']),
+                     fit=out['d1'] + '.fit.gz')
 
     r2 = _cli([*base, '--output-file', out['d2']], 'cuda')
     record_paths['D2 viprs_fit float32'] = r2['launches']
@@ -4209,23 +4245,20 @@ def disk_genome(disk, ds, record_paths):
     rec['d2'] = dict(seconds=r2['seconds'], nit=r2['nit'], h2=h2,
                      launches=_launched(r2['launches']))
 
-    cache = os.path.join(root, 'pack_cache')
-    r3 = {}
-    for k in ('d3a', 'd3b'):
-        r3[k] = _cli([*base, '--dequantize-on-the-fly', '--output-file',
-                      out[k]], 'cuda', cache=cache)
-        r3[k].pop('loader')
-    miss, hit = r3['d3a'], r3['d3b']
+    hit = _cli([*base, '--dequantize-on-the-fly', '--output-file',
+                out['d3b']], 'cuda', cache=cache)
+    hit.pop('loader')
+    r3 = {'d3a': r1, 'd3b': hit}
+    miss = r1
     prep = {k: sum(v for s, v in r3[k]['seconds'].items()
                    if s not in ('fit', 'write', 'total')) for k in r3}
     ok = (miss['ld_data_reads'] == 22 and hit['ld_data_reads'] == 0
-          and _same_files(out['d3a'], out['d1'])
           and _same_files(out['d3b'], out['d1']))
     phase('D3', f"the pack cache: miss {_stages(miss['seconds'])} (data "
                 f"preparation {prep['d3a']:.2f} s, {miss['ld_data_reads']} "
                 f"stores read); hit {_stages(hit['seconds'])} (data "
                 f"preparation {prep['d3b']:.2f} s, {hit['ld_data_reads']} "
-                f"stores read); both runs' .fit.gz and .hyp byte for byte "
+                f"stores read); the hit's .fit.gz and .hyp byte for byte "
                 f"D1's: {ok}")
     if not ok:
         fail("D3: the pack cache missed, read LD data on a hit, or changed "
@@ -4236,19 +4269,456 @@ def disk_genome(disk, ds, record_paths):
 
 
 def disk_phases(disk, ds, record_paths):
-    """D0-D3 (viprs_fit from files on disk), the files deleted at the end.
-    The path runs without pandas and JAX: neither is imported after it."""
-    import shutil
-    try:
-        rec = {'prepare': {k: disk[k] for k in ('store_s', 'sumstats_s',
-                                                'm_cut')},
-               'd0': d0_cut(disk, record_paths)}
-        rec.update(disk_genome(disk, ds, record_paths))
-    finally:
-        shutil.rmtree(disk['root'], ignore_errors=True)
-    loaded = [m for m in ('pandas', 'jax', 'viprs_tpu') if m in sys.modules]
-    if loaded:
-        fail(f"the viprs_fit path imported {loaded}")
+    """D0-D3 (viprs_fit from files on disk; the caller deletes the
+    files)."""
+    rec = {'prepare': {k: disk[k] for k in ('store_s', 'sumstats_s',
+                                            'm_cut')},
+           'd0': d0_cut(disk, record_paths)}
+    rec.update(disk_genome(disk, ds, record_paths))
+    return rec
+
+# ------------------------------------------------------------- genotypes
+#: The genotype paths whose kernel launches the kernels line reports.
+GENO_PATHS = ('V0 VIPRS', 'V0 GS-validation')
+#: V0's cut: training samples (2,003 is not a multiple of 4, so the last
+#: byte of each BED row holds padding codes), validation samples, and
+#: variants on each of V0_CHROMS.
+V0_N, V0_N_VAL, V0_M = 2003, 1001, 2000
+V0_CHROMS = (21, 22)
+#: compute_ld's estimators on V0 and their arguments; 'block' is fitted
+#: (blocks of 1,500 variants span two 1,024-variant tiles: the fits launch
+#: the coupling passes too).
+V0_ESTIMATORS = {'sample': {}, 'block': {'max_block_size': 1500},
+                 'windowed': {'window_kb': 200},
+                 'shrinkage': {'max_block_size': 500}}
+#: V0's viprs_fit modes (after the store and the sumstats). The grid's
+#: second point (pi 0.0108) converges in 628 iterations on this cut, a stop
+#: within a factor 2 of a threshold that guarded_stops then reruns 8 times
+#: (~170 s on a slow host), so the grid stops at 150 iterations: pi 0.0025
+#: converges (25 iterations), pi 0.0108 reaches the limit, and pi 0.046 and
+#: 0.2, whose negative MSE is restarted only when iterations remain after
+#: the chunk, end invalid and score -inf.
+V0_MODES = {
+    'VIPRS': [],
+    'GS-validation': ['--hyp-search', 'GS', '--grid-metric', 'validation',
+                      '--pi-steps', '4', '--max-iter', '150',
+                      '--validation-bed', '{root}/val', '--validation-pheno',
+                      '{root}/val_pheno.txt'],
+}
+#: V1: a cohort scored genome-wide; the samples the card and the CPU both
+#: score; the HWE rows the genotype bytes are drawn from.
+V1_N, V1_KEEP, V1_POOL = 10_000, 1_000, 4096
+#: V2: the LD panel's samples and chromosomes.
+V2_N, V2_CHROMS = 5_000, (21, 22)
+
+
+def bed_rows(dosages):
+    """The variant-major plink BED rows ((m, ceil(n / 4)) uint8) of (n, m)
+    dosages: 2 -> 00, 1 -> 10, 0 -> 11, NaN (missing) -> 01; a row's unused
+    last codes 00."""
+    n, m = dosages.shape
+    d = dosages.T
+    code = np.zeros((m, n + (-n) % 4), np.uint8)
+    code[:, :n] = np.where(np.isnan(d), 1, np.where(
+        d == 2, 0, np.where(d == 1, 2, 3)))
+    q = code.reshape(m, -1, 4)
+    return q[..., 0] | q[..., 1] << 2 | q[..., 2] << 4 | q[..., 3] << 6
+
+
+def write_plink(prefix, rows, bim, fam):
+    """A plink fileset: the BED magic and ``rows``, and the .bim and .fam
+    Tables as headerless tab-separated text (this script's own writer)."""
+    with open(prefix + '.bed', 'wb') as f:
+        f.write(b'\x6c\x1b\x01')
+        np.ascontiguousarray(rows, np.uint8).tofile(f)
+    for ext, t in (('.bim', bim), ('.fam', fam)):
+        cols = [np.asarray(v).astype(str).tolist() for _, v in t.items()]
+        with open(prefix + ext, 'w') as f:
+            f.write('\n'.join('\t'.join(r) for r in zip(*cols)) + '\n')
+    return prefix
+
+
+def plink_tables(tables, swap=None):
+    """The .bim Table of {chrom: Table(CHR SNP POS A1 A2)} (CM 0), A1 and
+    A2 exchanged where ``swap``."""
+    from viprs_tpu_torch.utils.table import Table
+    t = Table.concat(tables[c] for c in sorted(tables))
+    a1, a2 = t['A1'], t['A2']
+    if swap is not None:
+        a1, a2 = np.where(swap, a2, a1), np.where(swap, a1, a2)
+    return Table({'CHR': t['CHR'], 'SNP': t['SNP'], 'CM': 0, 'POS': t['POS'],
+                  'A1': a1, 'A2': a2})
+
+
+def fam_table(prefix, n, pheno=-9):
+    from viprs_tpu_torch.utils.table import Table
+    ids = np.char.add(prefix, np.arange(n).astype(str))
+    return Table({'FID': ids, 'IID': ids, 'father': 0, 'mother': 0,
+                  'sex': 1, 'PHENO': pheno})
+
+
+def write_pheno(path, fam, y):
+    with open(path, 'w') as f:
+        f.write(''.join(f'{a} {b} {v!r}\n' for a, b, v in
+                        zip(fam['FID'].tolist(), fam['IID'].tolist(),
+                            np.asarray(y, np.float64).tolist())))
+
+
+def ar1_dosages(n, m, rng, block=100, rho=0.8, missing=0.01):
+    """(n, m) AR(1) dosages from the port's simulate_dosages, LD blocks of
+    ``block`` variants, ``missing`` of the calls NaN."""
+    from viprs_tpu_torch.data.simulate import simulate_dosages
+    parts, left = [], m
+    while left:
+        parts.append(simulate_dosages(n, min(block, left), rho=rho, rng=rng))
+        left -= parts[-1].shape[1]
+    dos = np.concatenate(parts, axis=1)
+    dos[rng.random(dos.shape) < missing] = np.nan
+    return dos
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _close(got, want, rtol, atol=0.0):
+    """max |got - want| / (rtol |want| + atol) (<= 1 within tolerance)."""
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    if got.shape != want.shape:
+        return np.inf
+    return float(np.max(np.abs(got - want) / (rtol * np.abs(want) + atol
+                                              + 1e-300), initial=0.0))
+
+
+def v0_files(root):
+    """V0's filesets: training (PHENO in its .fam) and validation (with a
+    phenotype file), the same variants; h2 0.4 over 2% of them."""
+    rng = np.random.default_rng(14)
+    n = V0_N + V0_N_VAL
+    dos = ar1_dosages(n, len(V0_CHROMS) * V0_M, rng, missing=0.0)
+    sd = dos.std(0)
+    x = (dos - dos.mean(0)) / np.where(sd > 0, sd, 1.0)
+    beta = np.where(rng.random(dos.shape[1]) < 0.02,
+                    rng.standard_normal(dos.shape[1]), 0.0)
+    g = x @ beta
+    y = g / g.std() * np.sqrt(0.4) + rng.standard_normal(n) * np.sqrt(0.6)
+    dos[rng.random(dos.shape) < 0.01] = np.nan
+    bim = plink_tables(disk_tables({c: V0_M for c in V0_CHROMS}, seed=15))
+    write_plink(os.path.join(root, 'train'), bed_rows(dos[:V0_N]), bim,
+                fam_table('T', V0_N, y[:V0_N]))
+    vfam = fam_table('V', V0_N_VAL)
+    write_plink(os.path.join(root, 'val'), bed_rows(dos[V0_N:]), bim, vfam)
+    write_pheno(os.path.join(root, 'val_pheno.txt'), vfam, y[V0_N:])
+
+
+def v0_data(root, dev):
+    """GWAS and the four LD estimators on V0's training fileset on ``dev``;
+    the GWAS written as summary statistics and the block LD as an int8
+    store for viprs_fit. Returns the arrays held and the seconds."""
+    from viprs_tpu_torch.data import ld_store
+    from viprs_tpu_torch.data.genotype import GenotypeMatrix
+    from viprs_tpu_torch.data.loader import GWADataLoader
+    train = os.path.join(root, 'train')
+    out, sec = {}, {}
+    out['dosages'] = GenotypeMatrix(train, device=dev).dosages()
+    loader = GWADataLoader(bed_files=train, device=dev)
+    t0 = time.perf_counter()
+    gwas = loader.perform_gwas()
+    sec['gwas'] = time.perf_counter() - t0
+    gwas.table.write(os.path.join(root, f'ss_{dev}.txt'))
+    out['gwas'] = gwas.table
+    out['ld'] = {}
+    for est, kw in V0_ESTIMATORS.items():
+        t0 = time.perf_counter()
+        loader.compute_ld(est, **kw)
+        sec[est] = time.perf_counter() - t0
+        out['ld'][est] = loader.ld_blocks
+    ld_store.save_ld_store(os.path.join(root, f'ld_{dev}'), out['ld']['block'],
+                           loader.ld_snp_tables, quantize=True)
+    return out, sec
+
+
+def _score(argv, device):
+    from viprs_tpu_torch.cli import score as cli_score
+    if device == 'cuda':
+        _sync()
+    return cli_score.run([*argv, '--device', device])
+
+
+def _evaluate(prs, pheno, out):
+    from viprs_tpu_torch.cli import evaluate as cli_evaluate
+    from viprs_tpu_torch.utils.table import read_table
+    cli_evaluate.main(['--prs-file', prs, '--phenotype-file', pheno,
+                       '--output-file', out])
+    return read_table(out + '.eval', sep='\t')
+
+
+def v0_cut(root, card, record_paths):
+    """V0 (see the module docstring)."""
+    from viprs_tpu_torch.utils.table import read_table
+    t0 = time.perf_counter()
+    v0_files(root)
+    t_files = time.perf_counter() - t0
+    data, sec = {}, {}
+    for dev in ('cuda', 'cpu'):
+        data[dev], sec[dev] = v0_data(root, dev)
+    c, p = data['cuda'], data['cpu']
+    same_dos = c['dosages'].shape == (V0_N, len(V0_CHROMS) * V0_M) and \
+        np.array_equal(c['dosages'], p['dosages'], equal_nan=True)
+    gwas = {k: _close(c['gwas'][k], p['gwas'][k], 1e-9, 1e-15)
+            for k in ('BETA', 'SE', 'Z')}
+    ld = {est: max(float(np.abs(a - b).max()) for ch in p['ld'][est]
+                   for a, b in zip(c['ld'][est][ch], p['ld'][est][ch]))
+          for est in V0_ESTIMATORS}
+    same_blocks = all([x.shape for x in c['ld'][e][ch]]
+                      == [x.shape for x in p['ld'][e][ch]]
+                      for e in V0_ESTIMATORS for ch in p['ld'][e])
+    phase('V0', f"{card}: files {t_files:.2f} s; dosages ({V0_N} x "
+                f"{len(V0_CHROMS) * V0_M}) bit for bit: {same_dos}; GWAS "
+                f"|diff| / (1e-9 |CPU|): "
+                + ', '.join(f"{k} {v:.2e}" for k, v in gwas.items())
+                + "; LD max |diff| (bound 1e-12): "
+                + ', '.join(f"{k} {v:.2e}" for k, v in ld.items())
+                + f"; seconds card {sec['cuda']}, CPU {sec['cpu']}")
+    if not (same_dos and same_blocks and max(gwas.values()) <= 1
+            and max(ld.values()) <= 1e-12):
+        fail("V0: the card's dosages, GWAS or LD differ from the CPU's")
+
+    rec = dict(files_s=t_files, data_s=sec, gwas=gwas, ld=ld, fits={})
+    for mode, extra in V0_MODES.items():
+        args = [a.format(root=root) for a in extra]
+
+        def run(where, f_abs_tol=TOLS[0], x_abs_tol=TOLS[1], tag=''):
+            out = os.path.join(root, 'v0', f'{mode}_{where}{tag}')
+            r = _cli(['-l', os.path.join(root, f'ld_{where}'), '-s',
+                      os.path.join(root, f'ss_{where}.txt'), '--seed', '0',
+                      '--f-abs-tol', repr(f_abs_tol), '--x-abs-tol',
+                      repr(x_abs_tol), *args, '--output-file', out], where)
+            r.pop('loader')
+            return r, _outputs(out)
+        (rc, oc), (rp, op) = run('cuda'), run('cpu')
+        record_paths[f'V0 {mode}'] = rc['launches']
+        if any(rp['launches'].values()):
+            fail(f"V0 {mode}: the CPU run launched a kernel")
+        if not any(rc['launches'].values()):
+            fail(f"V0 {mode}: the card run launched no kernel")
+        if list(oc['fit']['SNP']) != list(op['fit']['SNP']):
+            fail(f"V0 {mode}: the card's .fit.gz rows differ from the CPU's")
+        e_c, e_p = _hyp(oc, 'ELBO'), _hyp(op, 'ELBO')
+        h_c, h_p = _hyp(oc, 'Heritability'), _hyp(op, 'Heritability')
+        d = dict(elbo=float(np.max(np.abs(e_c - e_p) / np.abs(e_p))),
+                 h2=float(np.max(np.abs(h_c - h_p))))
+        vc, vp = oc['validation'], op['validation']
+        if vp is not None:
+            # a lane that did not terminate validly scores -inf
+            r_c, r_p = vc['Validation_R2'], vp['Validation_R2']
+            fin = np.isfinite(r_p)
+            d['val_r2'] = float(np.max(np.abs(r_c[fin] - r_p[fin])
+                                       / np.abs(r_p[fin]), initial=0.0)) \
+                if np.array_equal(fin, np.isfinite(r_c)) else np.inf
+            d['row'] = [int(np.argmax(r_c)), int(np.argmax(r_p))]
+        sc, sp = _stops(rc, oc), _stops(rp, op)
+        phase('V0', f"{card}: viprs_fit {mode}: card fit "
+                    f"{rc['seconds']['fit']:.2f} s, CPU fit "
+                    f"{rp['seconds']['fit']:.2f} s; stops {sc} (card) vs "
+                    f"{sp} (CPU); h2 {h_c.tolist()} vs {h_p.tolist()}; ELBO "
+                    f"|diff| {d['elbo']:.2e} (relative)"
+                    + (f"; Validation_R2 {vc['Validation_R2'].tolist()} vs "
+                       f"{vp['Validation_R2'].tolist()}, rows {d['row']}"
+                       if vp is not None else '')
+                    + f"; launches {_launched(rc['launches'])}")
+        guard = guarded_stops(
+            f'V0 {mode}', 'viprs_fit',
+            lambda w, f, x: _stops(*run(w, f, x, tag='_tol')), sc, sp,
+            devices=('cpu', 'cuda'))
+        if not guard['differ'] and not (
+                d['elbo'] <= 1e-6 and d['h2'] <= 1e-6
+                and d.get('val_r2', 0.0) <= 1e-6
+                and d.get('row', [0, 0])[0] == d.get('row', [0, 0])[1]):
+            fail(f"V0 {mode}: the card's outputs differ from the CPU's")
+
+        # the card's fit scored on the card and on the CPU, then evaluated
+        fit_file = os.path.join(root, 'v0', f"{mode}_{'cuda'}.fit.gz")
+        prs, ev = {}, {}
+        for dev in ('cuda', 'cpu'):
+            out = os.path.join(root, 'v0', f'{mode}_score_{dev}')
+            s = _score(['-f', fit_file, '--bed-files',
+                        os.path.join(root, 'val'), '--output-file', out], dev)
+            prs[dev] = read_table(s['output'], sep='\t')
+            ev[dev] = _evaluate(s['output'],
+                                os.path.join(root, 'val_pheno.txt'), out)
+        d_prs = _close(prs['cuda']['PRS'], prs['cpu']['PRS'], 1e-9)
+        d_eval = float(np.max(np.abs(ev['cuda']['Value']
+                                     - ev['cpu']['Value'])))
+        r2 = float(ev['cuda']['Value'][ev['cuda']['Metric'] == 'R2'][0])
+        phase('V0', f"{card}: viprs_score of the card's {mode} fit on the "
+                    f"validation samples, card vs CPU: |diff| / (1e-9 |CPU|) "
+                    f"{d_prs:.2e}; viprs_evaluate |diff| {d_eval:.2e} (bound "
+                    f"1e-9), R2 {r2:.4f}")
+        if not (d_prs <= 1 and d_eval <= 1e-9 and len(prs['cuda']) == V0_N_VAL
+                and np.isfinite(prs['cuda']['PRS']).all()
+                and list(ev['cuda']['Metric']) == list(ev['cpu']['Metric'])):
+            fail(f"V0 {mode}: the card's scores or evaluation differ from "
+                 f"the CPU's")
+        rec['fits'][mode] = dict(card=rc['seconds'], cpu=rp['seconds'],
+                                 stops=[sc, sp], h2=[h_c.tolist(),
+                                                     h_p.tolist()],
+                                 diff=d, guard=guard, prs=d_prs, eval=d_eval,
+                                 r2=r2, launches=_launched(rc['launches']))
+    return rec
+
+
+def v1_files(root, tables):
+    """V1's 22 filesets: the genome's variants (10% of the alleles
+    swapped) x V1_N samples; each variant's row is a row of a pool of
+    V1_POOL HWE rows (MAF uniform in [0.05, 0.5], 1% missing) rotated by a
+    random number of bytes."""
+    rng = np.random.default_rng(21)
+    stride = (V1_N + 3) // 4
+    maf = rng.uniform(0.05, 0.5, V1_POOL)
+    pool = rng.binomial(2, maf, (V1_N, V1_POOL)).astype(np.float64)
+    pool[rng.random(pool.shape) < 0.01] = np.nan
+    pool = bed_rows(pool)
+    win = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([pool, pool], axis=1), stride, axis=1)
+    fam = fam_table('S', V1_N)
+    for c in sorted(tables):
+        m = len(tables[c])
+        bim = plink_tables({c: tables[c]}, swap=rng.random(m) < 0.1)
+        rows = win[rng.integers(0, V1_POOL, m), rng.integers(0, stride, m)]
+        write_plink(os.path.join(root, f'chr_{c}'), rows, bim, fam)
+    with open(os.path.join(root, 'keep.txt'), 'w') as f:
+        f.write(''.join(f'{i} {i}\n' for i in fam['IID'][:V1_KEEP].tolist()))
+    return fam
+
+
+def _stage_line(sec):
+    names = (('tables', '.bim/.fam read'), ('fit_read', '.fit read'),
+             ('harmonize', 'harmonize'), ('bed_read', 'BED read'),
+             ('upload', 'upload'), ('decode', 'decode+standardize'),
+             ('product', 'product'), ('write', 'write'), ('total', 'total'))
+    return ', '.join(f"{label} {sec[k]:.3f} s" for k, label in names
+                     if k in sec)
+
+
+def v1_genome_scoring(root, tables, fit_file, card):
+    """V1 (see the module docstring)."""
+    from viprs_tpu_torch.utils.table import read_table
+    t0 = time.perf_counter()
+    v1_files(root, tables)
+    t_files = time.perf_counter() - t0
+    m = sum(len(t) for t in tables.values())
+    beds = os.path.join(root, 'chr_*.bed')
+    r = _score(['-f', fit_file, '--bed-files', beds, '--output-file',
+                os.path.join(root, 'genome')], 'cuda')
+    prs = read_table(r['output'], sep='\t')
+    phase('V1', f"{card}: viprs_score of D1's fit, {r['m']} variants x "
+                f"{r['n']} samples (22 BED filesets written in {t_files:.1f} "
+                f"s), on the card: {_stage_line(r['seconds'])}; "
+                f"{r['matched']} variants matched")
+    if not (r['n'] == V1_N and r['m'] == m and r['matched'] == m
+            and len(prs) == V1_N and np.isfinite(prs['PRS']).all()
+            and np.std(prs['PRS']) > 0):
+        fail("V1: the genome-wide scores are not finite scores of every "
+             "sample over every variant")
+    keep = {}
+    for dev in ('cuda', 'cpu'):
+        k = _score(['-f', fit_file, '--bed-files', beds, '--keep',
+                    os.path.join(root, 'keep.txt'), '--output-file',
+                    os.path.join(root, f'keep_{dev}')], dev)
+        keep[dev] = (k, read_table(k['output'], sep='\t'))
+    d_keep = _close(keep['cuda'][1]['PRS'], keep['cpu'][1]['PRS'], 1e-9)
+    phase('V1', f"{card}: --keep {V1_KEEP} samples, card vs CPU: |diff| / "
+                f"(1e-9 |CPU|) {d_keep:.2e}; card "
+                f"{_stage_line(keep['cuda'][0]['seconds'])}; CPU "
+                f"{_stage_line(keep['cpu'][0]['seconds'])}")
+    if not (d_keep <= 1 and len(keep['cuda'][1]) == V1_KEEP):
+        fail("V1: the card's scores of the kept samples differ from the "
+             "CPU's")
+    return dict(files_s=t_files, seconds=r['seconds'], n=r['n'], m=r['m'],
+                keep=dict(diff=d_keep, card=keep['cuda'][0]['seconds'],
+                          cpu=keep['cpu'][0]['seconds']))
+
+
+def v2_gwas_ld(root, v1_root, tables, card):
+    """V2 (see the module docstring)."""
+    from viprs_tpu_torch.data import ld_estimators
+    from viprs_tpu_torch.data.genotype import GenotypeMatrix
+    from viprs_tpu_torch.data.loader import GWADataLoader
+    rng = np.random.default_rng(22)
+    y = rng.standard_normal(V1_N)
+    pheno = os.path.join(v1_root, 'pheno.txt')
+    write_pheno(pheno, fam_table('S', V1_N), y)
+    loader = GWADataLoader(bed_files=os.path.join(v1_root, 'chr_*.bed'),
+                           phenotype_file=pheno, device='cuda')
+    _sync()
+    t0 = time.perf_counter()
+    gwas = loader.perform_gwas()
+    _sync()
+    t_gwas = time.perf_counter() - t0
+    g22 = GenotypeMatrix(os.path.join(v1_root, 'chr_22'), device='cpu')
+    want = g22.perform_gwas(loader.phenotype).table
+    got = gwas.table.take(gwas.table['CHR'] == 22)
+    d_gwas = _close(got['BETA'], want['BETA'], 1e-9, 1e-15)
+    stages = loader.genotype.timings
+    phase('V2', f"{card}: GWAS of {loader.genotype.m} variants x "
+                f"{loader.n} samples on the card {t_gwas:.3f} s ("
+                f"{_stage_line(stages)}); chromosome 22's BETA card vs CPU "
+                f"|diff| / (1e-9 |CPU|) {d_gwas:.2e}")
+    if not (d_gwas <= 1 and len(gwas) == loader.genotype.m
+            and np.isfinite(gwas.table['BETA']).all()):
+        fail("V2: the card's GWAS differs from the CPU's")
+
+    t0 = time.perf_counter()
+    panel = {c: tables[c] for c in V2_CHROMS}
+    m = sum(len(t) for t in panel.values())
+    rows = np.concatenate([bed_rows(ar1_dosages(V2_N, 1000, rng)
+                                    [:, :min(1000, m - i)])
+                           for i in range(0, m, 1000)])
+    prefix = write_plink(os.path.join(root, 'panel'), rows,
+                         plink_tables(panel), fam_table('P', V2_N))
+    t_files = time.perf_counter() - t0
+    ld_loader = GWADataLoader(bed_files=prefix, device='cuda')
+    _sync()
+    t0 = time.perf_counter()
+    ld_loader.compute_ld('block')
+    _sync()
+    t_ld = time.perf_counter() - t0
+    g = ld_loader.genotype
+    blocks = [(c, i, b) for c in V2_CHROMS
+              for i, b in enumerate(ld_loader.ld_blocks[c])]
+    cpu = GenotypeMatrix(prefix, device='cpu')
+    held = sorted(blocks, key=lambda x: x[2].shape[0])[:3]
+    d_ld = 0.0
+    for c, i, b in held:
+        idx = np.where(g.bim['CHR'] == c)[0][i * 4096:(i + 1) * 4096]
+        d_ld = max(d_ld, float(np.abs(
+            b - ld_estimators._corr(cpu, idx)).max()))
+    phase('V2', f"{card}: block LD of {m} variants (chromosomes "
+                f"{V2_CHROMS}) x {V2_N} samples on the card {t_ld:.3f} s "
+                f"({_stage_line(g.timings)}; panel written in {t_files:.1f} "
+                f"s), {len(blocks)} blocks; blocks "
+                f"{[(c, i, b.shape[0]) for c, i, b in held]} card vs CPU max "
+                f"|diff| {d_ld:.2e} (bound 1e-12)")
+    if not (d_ld <= 1e-12 and all(np.isfinite(b).all()
+                                  for _, _, b in blocks)):
+        fail("V2: the card's LD differs from the CPU's")
+    return dict(gwas_s=t_gwas, gwas_stages=stages, gwas_diff=d_gwas,
+                ld_s=t_ld, ld_stages=g.timings, ld_diff=d_ld,
+                ld_blocks=len(blocks), panel_files_s=t_files)
+
+
+def geno_phases(disk, card, record_paths):
+    """V0-V2 in the disk phases' temporary directory (V1 scores D1's
+    .fit.gz)."""
+    root = os.path.join(disk['root'], 'geno')
+    v1_root = os.path.join(root, 'v1')
+    os.makedirs(v1_root)
+    rec = {'v0': v0_cut(root, card, record_paths)}
+    fit_file = os.path.join(disk['root'], 'out', 'd1.fit.gz')
+    rec['v1'] = v1_genome_scoring(v1_root, disk['tables'], fit_file, card)
+    rec['v2'] = v2_gwas_ld(root, v1_root, disk['tables'], card)
     return rec
 
 

@@ -131,13 +131,13 @@ def assert_outputs_match(jp, tp):
     if jv is not None:
         assert list(tv.columns) == list(jv.columns)
         for col in jv.columns:
-            if col in ('ELBO', 'Pseudo_Validation_R2'):
+            if col in ('ELBO', 'Pseudo_Validation_R2', 'Validation_R2'):
                 np.testing.assert_allclose(tv[col], jv[col], rtol=1e-6)
             elif col != 'Optimization_message':
                 assert list(tv[col]) == list(jv[col]), col
-        if 'Pseudo_Validation_R2' in jv:
-            assert np.argmax(tv['Pseudo_Validation_R2'].values) == \
-                np.argmax(jv['Pseudo_Validation_R2'].values)
+        for col in ('Pseudo_Validation_R2', 'Validation_R2'):
+            if col in jv:
+                assert np.argmax(tv[col].values) == np.argmax(jv[col].values)
     jf, tf = _read(jp, 'prof'), _read(tp, 'prof')
     assert list(tf.columns) == list(jf.columns)
     assert tf['Total_Iterations'][0] == jf['Total_Iterations'][0]
@@ -182,15 +182,28 @@ def test_cli_matches_jax(tmp_path, files, mode, ladder_trace):  # noqa: F811
 def test_cli_refusals(tmp_path, files):
     """What the port does not run raises before any data is read, naming
     its ROADMAP item; a CUDA device without CUDA is an error, never the
-    CPU."""
+    CPU. ``--grid-metric validation`` without validation genotypes fails
+    with the JAX package's message before any data is read, and a
+    ``--validation-bed`` fileset that does not exist as it does there."""
     base = _args(files, 'native', []) + ['--output-file',
                                          str(tmp_path / 'o')]
-    for extra, item in ((['--validation-bed', 'x'], 'item 6'),
-                        (['--grid-metric', 'validation'], 'item 6'),
-                        (['--mesh', '2x1'], 'item 10'),
+    for extra, item in ((['--mesh', '2x1'], 'item 10'),
                         (['--float-precision', 'float64'], 'item 4')):
         with pytest.raises(NotImplementedError, match=item):
             fit.main(base + extra + ['--device', 'cpu'])
+    need = 'requires --validation-bed and --validation-pheno'
+    for extra in (['--grid-metric', 'validation'],
+                  ['--grid-metric', 'validation', '--validation-bed', 'x']):
+        with pytest.raises(AssertionError, match=need):
+            jax_fit.main(base + extra)
+        with pytest.raises(ValueError, match=need):
+            fit.main(base + extra + ['--device', 'cpu'])
+    missing = ['--validation-bed', str(tmp_path / 'x'), '--validation-pheno',
+               str(tmp_path / 'p')]
+    with pytest.raises(FileNotFoundError, match='x.bim'):
+        jax_fit.main(base + missing + ['--mesh', 'off'])
+    with pytest.raises(FileNotFoundError, match='x.bim'):
+        fit.main(base + missing + ['--device', 'cpu'])
     import torch
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='--device cpu'):

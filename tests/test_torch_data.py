@@ -618,10 +618,22 @@ def test_loader_views_and_refusals(fixture_dir):
     assert_table_is_frame(
         pl.to_summary_statistics_table(col_subset=['SNP', 'Z', 'STD_BETA']),
         jl.to_summary_statistics_table(col_subset=['SNP', 'Z', 'STD_BETA']))
-    for fn in (lambda: loader.GWADataLoader(bed_files='x'),
-               pl.compute_ld, pl.perform_gwas, pl.score):
-        with pytest.raises(NotImplementedError, match='item 6'):
-            fn()
+    # the genotype surface without genotypes: the JAX package's assertions
+    # are the port's ValueErrors; a BED fileset that does not exist
+    for pfn, jfn, jmsg, pmsg in (
+            (pl.compute_ld, jl.compute_ld, 'No genotype', 'No genotype'),
+            (pl.perform_gwas, jl.perform_gwas, None, 'genotypes and a '),
+            (lambda: pl.score(np.zeros(3)), lambda: jl.score(np.zeros(3)),
+             'No genotype', 'No genotype')):
+        with pytest.raises(AssertionError, match=jmsg):
+            jfn()
+        with pytest.raises(ValueError, match=pmsg):
+            pfn()
+    missing = osp.join(root, 'x')
+    with pytest.raises(FileNotFoundError, match='x.bim'):
+        jax_loader.GWADataLoader(bed_files=missing)
+    with pytest.raises(FileNotFoundError, match='x.bim'):
+        loader.GWADataLoader(bed_files=missing, device='cpu')
     ds = pl.to_summary_dataset(device='cpu')
     ds_tab = SummaryStatsDataset(ld=ds.ld, layout=ds.layout,
                                  std_beta=ds.std_beta, n_per_snp=ds.n_per_snp)

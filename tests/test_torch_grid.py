@@ -335,7 +335,11 @@ def test_grid_search_and_unported_paths(datasets):
     assert best.n_models == 1 and len(gs.validation_result['ELBO']) == 12
     assert np.argmax(gs.validation_result['ELBO']) is not None
     g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=2), 'cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    need = 'validation dataset must be provided'
+    with pytest.raises(AssertionError, match=need):
+        jax_select(JaxVIPRSGrid(jds, JaxGrid(n_snps=jds.m, pi_steps=2),
+                                mesh='off'), criterion='validation')
+    with pytest.raises(ValueError, match=need):
         select_best_model(g, criterion='validation')
     with pytest.raises(ValueError, match='hybrid'):
         g.fit(sweep_impl='hybrid')

@@ -690,9 +690,9 @@ def test_copied_numpy_pieces_match_the_originals():
 
 # ----------------------------------------------------------------- refusals
 def test_refusals_that_remain(pair):
-    """What this port still refuses names where it is queued: the
-    'validation' criterion (scoring and evaluation, ROADMAP.md Queue 1
-    item 7); and the arguments that are wrong. The table form of the
+    """What this port refuses: the 'validation' criterion without
+    validation data (ported since scoring and evaluation are); and the
+    arguments that are wrong. The table form of the
     validation statistics and a test dataset are ported: a test dataset
     gives the JAX package's pseudo-R^2 of the same table."""
     _, ds = pair
@@ -717,11 +717,17 @@ def test_refusals_that_remain(pair):
         np.testing.assert_allclose(fn(ds, table),
                                    jfn(jds, table.to_pandas()), rtol=1e-6)
     g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=2), 'cpu')
-    with pytest.raises(NotImplementedError, match='item 7'):
+    with pytest.raises(ValueError, match='validation dataset must be'):
         select_best_model(g, criterion='validation')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        GridSearch(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=2), 'cpu',
-                   criterion='validation')
+    # the validation criterion is ported (tests/test_torch_score.py): a
+    # GridSearch takes it, and one without validation data fails at the
+    # selection, as the JAX package's does
+    gs = GridSearch(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=2), 'cpu',
+                    criterion='validation')
+    assert gs.criterion == 'validation'
+    np.random.seed(0)
+    with pytest.raises(ValueError, match='validation dataset must be'):
+        gs.fit(max_iter=3)
     with pytest.raises(ValueError, match='criterion'):
         select_best_model(g, criterion='R2')
     with pytest.raises(ValueError, match='pseudo_validation'):

@@ -11,9 +11,11 @@ the standard library and torch only: no pandas, no JAX.
 fails unless ``--device cpu`` was asked for (the plain PyTorch versions of
 the kernels). All chromosomes are fit jointly, or, when the packed LD
 exceeds the device budget (``--device-memory-gb``, else 65% of the card's
-memory), one group of chromosomes at a time. The port refuses what it has
-not ported: ``--validation-bed`` (genotypes), an explicit ``--mesh NBxNG``
-(several devices) and ``--float-precision float64``.
+memory), one group of chromosomes at a time. ``--grid-metric validation``
+scores the grid on ``--validation-bed`` genotypes (decoded on
+``--device``) against ``--validation-pheno``. The port refuses what it
+has not ported: an explicit ``--mesh NBxNG`` (several devices) and
+``--float-precision float64``.
 
     python -m viprs_tpu_torch.cli.fit -l <LD store> -s <sumstats> \\
         --output-file <prefix> [--device cpu]
@@ -30,8 +32,6 @@ import numpy as np
 
 logger = logging.getLogger("viprs_fit")
 
-NEEDS_GENOTYPES = ("--validation-bed needs genotype data, which is not "
-                   "ported yet; see ROADMAP.md, Queue 1, item 6")
 NEEDS_MESH = ("an explicit --mesh spreads the fit over several devices, "
               "which is not ported yet; see ROADMAP.md, Queue 1, item 10 "
               "(--mesh auto and off mean the one device)")
@@ -118,7 +118,7 @@ def build_parser():
     parser.add_argument('--validation-bed', '--validation-bfile',
                         dest='validation_bed', default=None,
                         help="BED fileset with individual-level validation "
-                             "data (not ported: ROADMAP.md, Queue 1, item 6).")
+                             "data (for --grid-metric validation).")
     parser.add_argument('--validation-pheno', dest='validation_pheno', default=None)
     parser.add_argument('--validation-keep', dest='validation_keep', default=None)
     parser.add_argument('--validation-sumstats', dest='validation_sumstats',
@@ -222,8 +222,6 @@ def check_args(args):
         if not args.output_dir:
             raise ValueError("Provide --output-file or --output-dir.")
         args.output_file = osp.join(args.output_dir, args.output_prefix)
-    if args.validation_bed:
-        raise NotImplementedError(NEEDS_GENOTYPES)
     if args.mesh not in ('auto', 'off'):
         raise NotImplementedError(NEEDS_MESH)
     if args.float_precision != 'float32':
@@ -240,9 +238,10 @@ def check_args(args):
                         args.tau_beta_steps, args.lambda_min_steps])
         if not has_grid:
             args.pi_steps = 10
-    if args.grid_metric == 'validation':
-        raise NotImplementedError(NEEDS_GENOTYPES.replace(
-            '--validation-bed', '--grid-metric validation'))
+    if args.grid_metric == 'validation' and not (args.validation_bed and
+                                                 args.validation_pheno):
+        raise ValueError("--grid-metric validation requires --validation-bed "
+                         "and --validation-pheno")
     return args
 
 
@@ -256,7 +255,7 @@ def resolve_device(name):
             raise RuntimeError(
                 "--device cuda (the default) needs a CUDA card, and "
                 "torch.cuda.is_available() is false; pass --device cpu to "
-                "fit on the CPU")
+                "run on the CPU")
         if dev.index is None:
             dev = torch.device('cuda', torch.cuda.current_device())
     elif dev.type != 'cpu':
@@ -270,7 +269,18 @@ def _read_ids(path):
         return [line.split()[0] for line in f if line.strip()]
 
 
-def init_data(args):
+def read_keep_ids(path):
+    """The sample IDs of a --keep file: the set of its last column, as
+    strings (headerless, whitespace-separated)."""
+    from ..utils.table import read_table
+    t = read_table(path, header=False)
+    return set(t[t.columns[-1]].astype(str).tolist())
+
+
+def init_data(args, device):
+    """The training loader, the validation loader of ``--validation-bed``
+    (genotypes on ``device``; None without it) and the validation
+    statistics of ``--validation-sumstats`` (or None)."""
     from ..data.loader import GWADataLoader
     from ..data.sumstats import read_sumstats
 
@@ -295,6 +305,16 @@ def init_data(args):
     if args.exclude_lrld:
         loader.filter_long_range_ld_regions()
 
+    validation_gdl = None
+    if args.validation_bed:
+        keep = None
+        if args.validation_keep:
+            keep = read_keep_ids(args.validation_keep)
+        validation_gdl = GWADataLoader(
+            bed_files=args.validation_bed,
+            phenotype_file=args.validation_pheno,
+            keep_samples=keep, device=device)
+
     validation_ss = None
     if args.validation_sumstats:
         vkwargs = {}
@@ -309,7 +329,7 @@ def init_data(args):
             n=args.validation_gwas_n or args.gwas_n,
             **vkwargs)
 
-    return loader, validation_ss
+    return loader, validation_gdl, validation_ss
 
 
 def prepare_model(args, dataset, device):
@@ -354,10 +374,10 @@ def prepare_model(args, dataset, device):
                      fix_params=fix_params)
 
 
-def fit_model(args, model, validation_ss):
+def fit_model(args, model, validation_gdl, validation_ss):
     """The fit of viprs_fit (viprs_tpu/cli/fit.py:337-400): the PUMAS split
     where the grid is selected by pseudo-validation without validation
-    statistics, the fit, one retry with the inferred lambda_min on the
+    data, the fit, one retry with the inferred lambda_min on the
     reference's divergence signature, then BMA or selection (and the refit
     of the selected model on the full statistics after a split). Returns
     (model, fit seconds)."""
@@ -366,7 +386,7 @@ def fit_model(args, model, validation_ss):
 
     pumas_split = (args.model == 'VIPRSGrid'
                    and args.grid_metric == 'pseudo_validation'
-                   and validation_ss is None)
+                   and validation_gdl is None and validation_ss is None)
     if pumas_split:
         logger.info("> No validation data provided; splitting the GWAS summary "
                     "statistics (PUMAS).")
@@ -406,12 +426,15 @@ def fit_model(args, model, validation_ss):
         if args.hyp_search == 'BMA':
             bayesian_model_average(model)
         else:
+            vgdl = validation_gdl
             if args.grid_metric == 'pseudo_validation' \
                     and validation_ss is not None:
                 # harmonize the validation statistics onto the model's
                 # variants
                 model.set_validation_sumstats(validation_ss)
-            select_best_model(model, criterion=args.grid_metric)
+                vgdl = None
+            select_best_model(model, validation_gdl=vgdl,
+                              criterion=args.grid_metric)
             if pumas_split:
                 logger.info("> Restoring full summary statistics and "
                             "refitting the selected model.")
@@ -511,7 +534,7 @@ def _run(args, device):
 
     t_start = time.time()
     logger.info("> Loading and harmonizing data...")
-    loader, validation_ss = init_data(args)
+    loader, validation_gdl, validation_ss = init_data(args, device)
     groups = _plan_streaming(args, loader, device)
     if groups is None:
         datasets = [(None, loader.to_summary_dataset(device=device))]
@@ -532,7 +555,7 @@ def _run(args, device):
         logger.info("> Preparing model (%s / %s)...", args.model,
                     args.hyp_search)
         model = prepare_model(args, dataset, device)
-        model, ft = fit_model(args, model, validation_ss)
+        model, ft = fit_model(args, model, validation_gdl, validation_ss)
         fit_time += ft
         total_iters += int(getattr(model.optim_result, 'nit', 0) or 0)
         # a selected grid point's refit reports its own status

@@ -1,39 +1,38 @@
 """GWADataLoader — from files on disk to the device-facing dataset.
 
-Counterpart of viprs_tpu.data.loader for the summary-statistics path: LD
-stores (native ``chr_<c>.npz`` stores and magenpy Zarr stores) and summary
-statistics files in, harmonized by allele, filtered, packed (through the
-packed-LD cache) and uploaded as a
+Counterpart of viprs_tpu.data.loader: LD stores (native ``chr_<c>.npz``
+stores and magenpy Zarr stores), summary statistics files and plink BED
+genotypes in; summary statistics harmonized by allele, filtered, packed
+(through the packed-LD cache) and uploaded as a
 :class:`~viprs_tpu_torch.data.dataset.SummaryStatsDataset`. numpy and the
-standard library only: the variant tables are
-:class:`~viprs_tpu_torch.utils.table.Table`.
+standard library on the host: the variant tables are
+:class:`~viprs_tpu_torch.utils.table.Table`. Genotypes (``bed_files``) are
+decoded on ``device`` (the card unless the caller asks for the CPU), where
+``compute_ld``, ``perform_gwas`` and ``score`` take their products.
 
 The LD data loads lazily: construction reads only the stores' variant
 tables; the LD itself is read when the dataset is packed, and never when
 the pack cache hits. Stores without variant tables are read at once (the
-eager path). Genotypes (``bed_files``, ``phenotype_file``), LD estimation,
-GWAS and scoring are not ported: ROADMAP.md, Queue 1, item 6.
+eager path).
 """
 
 import logging
 import os
 import os.path as osp
+import re
 import time
 
 import numpy as np
 
+from . import ld_estimators
 from . import ld_store as ld_store_mod
 from .dataset import SummaryStatsDataset
 from .harmonize import merge_snp_tables
 from .sumstats import SumstatsTable, read_sumstats
 from ..utils.system import get_filenames
-from ..utils.table import Table
+from ..utils.table import Table, read_table
 
 logger = logging.getLogger(__name__)
-
-NEEDS_GENOTYPES = ("genotype data (BED files, phenotypes, LD estimation, "
-                   "GWAS and scoring) is not ported yet; see ROADMAP.md, "
-                   "Queue 1, item 6")
 
 # Long-range LD regions (hg19/GRCh37; Price et al. 2008 AJHG) as
 # (chrom, start_mb, stop_mb):
@@ -49,6 +48,9 @@ LONG_RANGE_LD_REGIONS = [
 
 class GWADataLoader:
     """
+    :ivar genotype: GenotypeMatrix / MultiGenotypeMatrix or None.
+    :ivar phenotype: (n,) float64 phenotype of the genotype's samples, or
+        None; ``phenotype_likelihood`` 'gaussian' or 'binomial'.
     :ivar sumstats_table: {chrom: SumstatsTable} after harmonization.
     :ivar ld_blocks: {chrom: [dense LD blocks]} (host-side, before packing;
         int8 at scale 1/127 from a quantized store).
@@ -59,10 +61,17 @@ class GWADataLoader:
 
     def __init__(self, bed_files=None, ld_store_files=None,
                  sumstats_files=None, sumstats_format='magenpy',
-                 phenotype_file=None, n=None, block_size=1024,
-                 quantize_ld=False, **sumstats_kwargs):
-        if bed_files or phenotype_file:
-            raise NotImplementedError(NEEDS_GENOTYPES)
+                 keep_samples=None, extract_snps=None, phenotype_file=None,
+                 phenotype_likelihood='infer', n=None, block_size=1024,
+                 quantize_ld=False, device='cuda', **sumstats_kwargs):
+        self.genotype = None
+        if bed_files:
+            from .genotype import open_genotypes
+            beds = sorted({re.sub(r'\.(bed|bim|fam)$', '', f)
+                           for f in get_filenames(bed_files)})
+            self.genotype = open_genotypes(beds, keep_samples=keep_samples,
+                                           extract_snps=extract_snps,
+                                           device=device)
         self.block_size = block_size
         self.quantize_ld = quantize_ld
         self.timings = {}
@@ -88,10 +97,97 @@ class GWADataLoader:
                               **sumstats_kwargs).table for f in files))
             self.timings['sumstats'] = time.perf_counter() - t0
 
+        self.phenotype = None
+        self.phenotype_likelihood = None
+        if phenotype_file:
+            self.read_phenotype(phenotype_file,
+                                likelihood=phenotype_likelihood)
+        elif self.genotype is not None and \
+                _n_unique(self.genotype.fam['PHENO']) > 1:
+            self._set_phenotype(self.genotype.fam['PHENO'],
+                                phenotype_likelihood)
+
         self._dataset = None
         if self._raw_sumstats is not None and (
                 self._ld_blocks is not None or self._ld_sources):
             self.harmonize_data()
+
+    # -------------------------------------------------------------- phenotype
+    def read_phenotype(self, phenotype_file, likelihood='infer', pheno_col=2):
+        """Read a headerless whitespace-separated phenotype file (FID IID
+        value ...; column ``pheno_col`` holds the phenotype). With genotypes
+        attached, the values are those of the genotype's samples, matched
+        on (FID, IID) as strings (NaN where a sample has no row)."""
+        t = read_table(phenotype_file, header=False)
+        vals = t[str(pheno_col)]
+        if self.genotype is not None:
+            fam = self.genotype.fam
+            row = {}
+            for i, key in enumerate(zip(t['0'].astype(str).tolist(),
+                                        t['1'].astype(str).tolist())):
+                row.setdefault(key, i)
+            at = np.fromiter((row.get(k, -1) for k in zip(
+                fam['FID'].astype(str).tolist(),
+                fam['IID'].astype(str).tolist())), np.int64, len(fam))
+            vals = np.where(at >= 0, np.asarray(vals, np.float64)[at],
+                            np.nan)
+        self._set_phenotype(vals, likelihood)
+
+    def _set_phenotype(self, vals, likelihood='infer'):
+        """Set the phenotype and its likelihood (``eval.utils.
+        infer_likelihood``: 0/1 and 1/2 codings binomial, plink's 1/2 made
+        0/1)."""
+        from ..eval.utils import infer_likelihood
+        self.phenotype, self.phenotype_likelihood = infer_likelihood(
+            vals, likelihood)
+
+    @property
+    def sample_table(self):
+        """The genotype's samples (the .fam Table, PHENO replaced by the
+        phenotype when one is set; also as ``.phenotype``), or None."""
+        if self.genotype is None:
+            return None
+        tab = self.genotype.fam.copy()
+        if self.phenotype is not None:
+            tab['PHENO'] = self.phenotype
+        tab.phenotype = self.phenotype
+        return tab
+
+    # ----------------------------------------------------------- LD and GWAS
+    def compute_ld(self, estimator='block', ldetect_blocks=None,
+                   block_file=None, **kwargs):
+        """Estimate LD from the attached genotype (data/ld_estimators.py;
+        the products on the genotype's device): ``ld_blocks`` becomes the
+        estimator's host blocks and ``ld_snp_tables`` the .bim's variants
+        (CHR SNP POS A1 A2) per chromosome."""
+        if self.genotype is None:
+            raise ValueError("No genotype data attached.")
+        if block_file is not None and ldetect_blocks is None:
+            ldetect_blocks = ld_estimators.read_ldetect_blocks(block_file)
+        func = ld_estimators.ESTIMATORS[estimator]
+        if estimator in ('block', 'shrinkage'):
+            self.ld_blocks = func(self.genotype, ldetect_blocks, **kwargs)
+        else:
+            self.ld_blocks = func(self.genotype, **kwargs)
+        bim = self.genotype.bim
+        self.ld_snp_tables = {
+            c: bim.take(bim['CHR'] == c).select(['CHR', 'SNP', 'POS', 'A1',
+                                                 'A2'])
+            for c in self.genotype.chromosomes}
+        self._dataset = None
+        return self
+
+    def perform_gwas(self, **kwargs):
+        """Marginal GWAS of the phenotype on the genotype (the products on
+        its device); the statistics are harmonized with the LD when the
+        loader has LD. Returns the SumstatsTable."""
+        if self.genotype is None or self.phenotype is None:
+            raise ValueError("perform_gwas needs genotypes and a phenotype.")
+        self._raw_sumstats = self.genotype.perform_gwas(self.phenotype,
+                                                        **kwargs)
+        if self._ld_blocks is not None or self._ld_sources:
+            self.harmonize_data()
+        return self._raw_sumstats
 
     def _open_stores(self, stores):
         """Read the stores' variant tables (the lazy path); a store without
@@ -334,6 +430,8 @@ class GWADataLoader:
             return sorted(self.sumstats_table.keys())
         if self.ld_snp_tables is not None:
             return sorted(self.ld_snp_tables.keys())
+        if self.genotype is not None:
+            return self.genotype.chromosomes
         return []
 
     @property
@@ -342,6 +440,10 @@ class GWADataLoader:
             return {c: len(t) for c, t in self.sumstats_table.items()}
         if self.ld_snp_tables is not None:
             return {c: len(t) for c, t in self.ld_snp_tables.items()}
+        if self.genotype is not None:
+            chrom = self.genotype.bim['CHR']
+            return {c: int((chrom == c).sum())
+                    for c in self.genotype.chromosomes}
         return {}
 
     @property
@@ -354,6 +456,8 @@ class GWADataLoader:
 
     @property
     def n(self):
+        if self.genotype is not None:
+            return self.genotype.n
         if self.sumstats_table is not None:
             return float(max(t.n_per_snp.max()
                              for t in self.sumstats_table.values()))
@@ -369,8 +473,15 @@ class GWADataLoader:
         return self.to_snp_table(per_chromosome=True)
 
     def to_snp_table(self, col_subset=None, per_chromosome=False):
+        """Per-chromosome variant tables: the LD's when the loader has LD,
+        else the genotype's .bim."""
         tables = {}
-        for c, tab in (self.ld_snp_tables or {}).items():
+        source = self.ld_snp_tables
+        if source is None and self.genotype is not None:
+            bim = self.genotype.bim
+            source = {c: bim.take(bim['CHR'] == c)
+                      for c in self.genotype.chromosomes}
+        for c, tab in (source or {}).items():
             t = tab.copy()
             if 'CHR' not in t:
                 t.insert(0, 'CHR', c)
@@ -392,15 +503,24 @@ class GWADataLoader:
             return tables
         return Table.concat(tables[c] for c in sorted(tables))
 
-    # ------------------------------------------------- not ported (genotypes)
-    def compute_ld(self, *args, **kwargs):
-        raise NotImplementedError(NEEDS_GENOTYPES)
+    def to_individual_table(self):
+        if self.genotype is None:
+            raise ValueError("No genotype data attached.")
+        return self.genotype.fam.select(['FID', 'IID'])
 
-    def perform_gwas(self, *args, **kwargs):
-        raise NotImplementedError(NEEDS_GENOTYPES)
+    def to_phenotype_table(self):
+        tab = self.to_individual_table()
+        tab['phenotype'] = self.phenotype
+        return tab
 
-    def score(self, *args, **kwargs):
-        raise NotImplementedError(NEEDS_GENOTYPES)
+    # ---------------------------------------------------------------- scoring
+    def score(self, beta):
+        """PRS of the genotype's samples (numpy, (n,) or (n, S)): ``beta``
+        an array aligned with the .bim or a {chrom: array} dict taken in
+        sorted-chromosome order; the products on the genotype's device."""
+        if self.genotype is None:
+            raise ValueError("No genotype data for scoring.")
+        return self.genotype.score(beta)
 
     predict = score
 
@@ -557,6 +677,15 @@ class GWADataLoader:
     def cleanup(self):
         self._dataset = None
         self._ld_blocks = None if self._ld_sources else self._ld_blocks
+
+
+def _n_unique(values):
+    """The count of distinct values, NaN not counted (pandas'
+    ``nunique``)."""
+    values = np.asarray(values)
+    if values.dtype.kind == 'f':
+        values = values[~np.isnan(values)]
+    return len(np.unique(values))
 
 
 def _resolve(device):

@@ -1,12 +1,13 @@
 """Post-fit model selection and combination over a fitted grid.
 
 Counterpart of viprs_tpu.gridsearch.search: ``select_best_model`` over the
-ELBO and pseudo-validation criteria, ELBO-softmax Bayesian model averaging
-(reference grid_utils.py:121-193), and ``GridSearch``, which fits VIPRS
-grids as one VIPRSGrid, VIPRSMix grids as one VIPRSMixGrid and any other
-model class one grid row at a time. The ``validation`` criterion scores
-PRS on individual-level validation data, which needs the scoring and
-evaluation code (ROADMAP.md, Queue 1, item 7).
+ELBO, validation and pseudo-validation criteria, ELBO-softmax Bayesian
+model averaging (reference grid_utils.py:121-193), and ``GridSearch``,
+which fits VIPRS grids as one VIPRSGrid, VIPRSMix grids as one
+VIPRSMixGrid and any other model class one grid row at a time. The
+``validation`` criterion scores each model on individual-level validation
+data (a GWADataLoader with genotypes and a phenotype; the products on its
+genotype's device) and takes the R^2 of the PRS against the phenotype.
 """
 
 import logging
@@ -19,26 +20,26 @@ logger = logging.getLogger(__name__)
 F64 = torch.float64
 
 CRITERIA = ('ELBO', 'validation', 'pseudo_validation')
-_NEEDS_EVAL = ("the validation criterion scores PRS on individual-level "
-               "validation data, which needs the scoring and evaluation code "
-               "that is not ported yet; see ROADMAP.md, Queue 1, item 7")
 
 
 def _check_criterion(criterion):
     if criterion not in CRITERIA:
         raise ValueError(f"criterion must be one of {CRITERIA}; got "
                          f"{criterion!r}")
-    if criterion == 'validation':
-        raise NotImplementedError(_NEEDS_EVAL)
 
 
 def select_best_model(viprs_grid_model, validation_gdl=None, criterion='ELBO'):
     """Select the best grid point among the validly terminated ones and
-    collapse the model to it: the highest ELBO, or the highest pseudo-R^2
-    on the held-out statistics of a PUMAS split (written into
+    collapse the model to it: the highest ELBO; the highest R^2 of the
+    lanes' PRS on the samples of ``validation_gdl`` against its phenotype
+    (written into ``validation_result['Validation_R2']``); or the highest
+    pseudo-R^2 on the held-out statistics of a PUMAS split (written into
     ``validation_result['Pseudo_Validation_R2']``; a NaN or infinite score
     counts as 0 in the choice)."""
     _check_criterion(criterion)
+    if criterion == 'validation' and validation_gdl is None:
+        raise ValueError("A validation dataset must be provided for the "
+                         "validation criterion.")
     if (criterion == 'pseudo_validation' and validation_gdl is None
             and viprs_grid_model.validation_std_beta is None):
         raise ValueError("A validation dataset or validation standardized "
@@ -51,6 +52,17 @@ def select_best_model(viprs_grid_model, validation_gdl=None, criterion='ELBO'):
     if criterion == 'ELBO':
         scores = np.array(viprs_grid_model.elbo(), dtype=np.float64)
         scores[~valid] = -np.inf
+        best_idx = int(np.argmax(scores))
+    elif criterion == 'validation':
+        from ..eval.continuous import r2
+        prs = viprs_grid_model.predict(test_gdl=validation_gdl)
+        phenotype = validation_gdl.phenotype
+        # a lane that did not terminate validly scores -inf unscored (its
+        # PRS may be constant, where R^2 raises)
+        scores = np.full(viprs_grid_model.n_models, -np.inf)
+        for i in np.where(valid)[0]:
+            scores[i] = r2(phenotype, prs[:, i])
+        viprs_grid_model.validation_result['Validation_R2'] = scores
         best_idx = int(np.argmax(scores))
     else:
         scores = np.array(viprs_grid_model.pseudo_validate(validation_gdl),
@@ -166,6 +178,10 @@ class GridSearch:
     def _score(self, model):
         if self.criterion == 'ELBO':
             return float(model.objective())
+        if self.criterion == 'validation':
+            from ..eval.continuous import r2
+            prs = np.asarray(model.predict(test_gdl=self.validation_gdl))
+            return float(r2(self.validation_gdl.phenotype, prs.reshape(-1)))
         return float(model.pseudo_validate(self.validation_gdl))
 
     def _fit_per_row(self, **fit_kwargs):
@@ -196,9 +212,9 @@ class GridSearch:
             raise ValueError("No grid row produced a successfully fitted "
                              "model.")
         self.validation_result = dict(grid_columns(rows))
-        self.validation_result[
-            {'ELBO': 'ELBO', 'pseudo_validation': 'Pseudo_Validation_R2'}[
-                self.criterion]] = np.asarray(scores, np.float64)
+        column = {'ELBO': 'ELBO', 'validation': 'Validation_R2',
+                  'pseudo_validation': 'Pseudo_Validation_R2'}[self.criterion]
+        self.validation_result[column] = np.asarray(scores, np.float64)
         best_idx = int(np.argmax(np.nan_to_num(scores, nan=-np.inf)))
         logger.info("> Based on the %s criterion, selected model: %d",
                     self.criterion, best_idx)

@@ -1,8 +1,10 @@
 """BayesPRSModel — base class for summary-statistics Bayesian PRS models
 (counterpart of viprs_tpu.model.base: the fit path, the PUMAS split of the
-marginal statistics and pseudo-validation)."""
+marginal statistics, pseudo-validation, prediction on genotypes, allele-
+aware harmonization of effect tables and their I/O)."""
 
 import logging
+import os.path as osp
 
 import numpy as np
 import torch
@@ -226,17 +228,29 @@ class BayesPRSModel:
             self._materialize_posterior_moments()
         return self._pip
 
+    @pip.setter
+    def pip(self, value):
+        self._pip = value
+
     @property
     def post_mean_beta(self):
         if self._post_mean_beta is None:
             self._materialize_posterior_moments()
         return self._post_mean_beta
 
+    @post_mean_beta.setter
+    def post_mean_beta(self, value):
+        self._post_mean_beta = value
+
     @property
     def post_var_beta(self):
         if self._post_var_beta is None:
             self._materialize_posterior_moments()
         return self._post_var_beta
+
+    @post_var_beta.setter
+    def post_var_beta(self, value):
+        self._post_var_beta = value
 
     @property
     def chromosomes(self):
@@ -301,7 +315,17 @@ class BayesPRSModel:
         if getattr(self, '_S', 1) != 1:
             raise ValueError("to_table needs one model; select or average "
                              "the grid first (gridsearch)")
+        return self._posterior_tables(col_subset, per_chromosome)
+
+    def _posterior_tables(self, col_subset=('CHR', 'SNP', 'POS', 'A1', 'A2'),
+                          per_chromosome=False):
+        """``to_table`` for any number of lanes: S lanes give the columns
+        BETA_0 .. BETA_{S-1}, PIP_i and VAR_BETA_i (the JAX package's grid
+        tables)."""
         from ..utils.table import Table
+        if self.post_mean_beta is None:
+            raise ValueError("The posterior means for BETA are not set. "
+                             "Call `.fit()` first.")
         snp_tables = self.dataset.default_snp_table()
         tables = {}
         for c in self.chromosomes:
@@ -309,10 +333,119 @@ class BayesPRSModel:
             tab = base.select([col for col in col_subset if col in base])
             if 'CHR' not in tab:
                 tab.insert(0, 'CHR', c)
-            tab['BETA'] = self.post_mean_beta[c]
-            tab['PIP'] = self.pip[c]
-            tab['VAR_BETA'] = self.post_var_beta[c]
+            for name, d in (('BETA', self.post_mean_beta), ('PIP', self.pip),
+                            ('VAR_BETA', self.post_var_beta)):
+                if d is None:
+                    continue
+                v = np.asarray(d[c])
+                v = v.reshape(len(v), -1)
+                cols = [name] if v.shape[1] == 1 else \
+                    [f'{name}_{i}' for i in range(v.shape[1])]
+                for i, col in enumerate(cols):
+                    tab[col] = v[:, i]
             tables[c] = tab
         if per_chromosome:
             return tables
         return Table.concat(tables[c] for c in self.chromosomes)
+
+    # ------------------------------------------------------------ prediction
+    def predict(self, test_gdl=None):
+        """Linear scoring (genotype . beta) of the samples of ``test_gdl``
+        (a GWADataLoader with genotypes): the posterior means harmonized by
+        allele onto its variants, scored on its genotype's device. (n,) for
+        one model, (n, S) for S lanes."""
+        if self.post_mean_beta is None:
+            raise ValueError("The posterior means for BETA are not set. "
+                             "Call `.fit()` first.")
+        if test_gdl is None:
+            test_gdl = self.dataset
+            post_mean_beta = self.post_mean_beta
+        else:
+            _, post_mean_beta, _ = self.harmonize_data(gdl=test_gdl)
+        score = getattr(test_gdl, 'score', None) or \
+            getattr(test_gdl, 'predict', None)
+        if score is None:
+            raise ValueError("The provided data object does not support "
+                             "scoring (no genotype data attached).")
+        return score(post_mean_beta)
+
+    def harmonize_data(self, gdl=None, parameter_table=None):
+        """Align posterior effect sizes with another dataset's variants,
+        flipping the signs of the BETA columns where the alleles are
+        swapped (reference BayesPRSModel.py:252-331). ``parameter_table``
+        (a Table with CHR, SNP, A1, A2 and BETA/PIP/VAR_BETA columns)
+        defaults to this model's posterior; ``gdl`` to its dataset.
+        Returns (pip, post_mean_beta, post_var_beta) dicts over the
+        chromosomes both have (pip and post_var_beta None where the table
+        has no such column); a variant of ``gdl`` the table lacks gets 0."""
+        from ..data.harmonize import merge_snp_tables
+        if gdl is None and parameter_table is None:
+            return None
+        if gdl is None:
+            gdl = self.dataset
+        if parameter_table is None:
+            parameter_table = self._posterior_tables(per_chromosome=True)
+        else:
+            parameter_table = {c: parameter_table.take(rows) for c, rows in
+                               parameter_table.group_rows('CHR').items()}
+        snp_tables = gdl.snp_table \
+            if getattr(gdl, 'snp_table', None) is not None \
+            else gdl.default_snp_table()
+
+        pip, post_mean_beta, post_var_beta = {}, {}, {}
+        for c in sorted(set(snp_tables).intersection(parameter_table)):
+            ptab = parameter_table[c]
+            pip_cols = [col for col in ptab.columns if 'PIP' in col]
+            var_cols = [col for col in ptab.columns if 'VAR_BETA' in col]
+            mean_cols = [col for col in ptab.columns
+                         if 'BETA' in col and col not in var_cols]
+            merged = merge_snp_tables(
+                snp_tables[c].select(['SNP', 'A1', 'A2']), ptab, how='left',
+                signed_statistics=mean_cols)
+            if len(merged) < len(snp_tables[c]):
+                raise ValueError(
+                    "The parameter table could not be aligned with the "
+                    "reference SNP table; check reference vs. alternative "
+                    "allele assignments.")
+
+            def stack(cols):
+                v = np.column_stack([np.asarray(merged[k], np.float64)
+                                     for k in cols])
+                return np.where(np.isnan(v), 0.0, v).squeeze()
+            post_mean_beta[c] = stack(mean_cols)
+            if pip_cols:
+                pip[c] = stack(pip_cols)
+            if var_cols:
+                post_var_beta[c] = stack(var_cols)
+        return pip or None, post_mean_beta, post_var_beta or None
+
+    # --------------------------------------------------------- parameter I/O
+    def set_model_parameters(self, parameter_table):
+        """Set the posterior slots from a parameter Table (a .fit file's
+        columns), harmonized onto this model's variants."""
+        self.pip, self.post_mean_beta, self.post_var_beta = \
+            self.harmonize_data(parameter_table=parameter_table)
+
+    def read_inferred_parameters(self, f_names, sep=r"\s+"):
+        """Read .fit files (delimited text with a header line) into the
+        posterior slots (``set_model_parameters``)."""
+        from ..utils.table import Table, read_table
+        if isinstance(f_names, str):
+            f_names = [f_names]
+        tables = [read_table(f, sep=sep) for f in f_names]
+        if not tables:
+            raise FileNotFoundError("no parameter files given")
+        self.set_model_parameters(Table.concat(tables))
+
+    def write_inferred_parameters(self, f_name, per_chromosome=False,
+                                  sep="\t"):
+        """Write ``to_table()`` as ``f_name`` (+ '.fit' unless the name has
+        it), or one ``chr_<c>.fit`` a chromosome in the directory
+        ``f_name``."""
+        tables = self.to_table(per_chromosome=per_chromosome)
+        if per_chromosome:
+            for c, tab in tables.items():
+                tab.write(osp.join(f_name, f'chr_{c}.fit'), sep=sep)
+        else:
+            ext = '' if '.fit' in f_name else '.fit'
+            tables.write(f_name + ext, sep=sep)

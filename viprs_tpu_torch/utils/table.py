@@ -225,13 +225,15 @@ def _infer(values):
     return arr
 
 
-def read_table(path, sep=None):
-    """Read delimited text with a header line into a :class:`Table`
-    (compressed by suffix).
+def read_table(path, sep=None, header=True):
+    """Read delimited text into a :class:`Table` (compressed by suffix).
 
     :param sep: None (default) splits on runs of whitespace, as the JAX
         package's ``sep=r'\\s+'``; otherwise the literal separator (tab,
         comma, ...), with fields quoted as the ``csv`` module quotes them.
+    :param header: whether the first line names the columns; without one
+        (plink's .bim and .fam, phenotype and covariate files) the columns
+        are named '0', '1', ... as pandas' ``header=None`` numbers them.
     """
     with _open(path, 'rb') as f:
         text = f.read().decode()
@@ -239,7 +241,7 @@ def read_table(path, sep=None):
     if not whitespace and '"' in text:
         return _table_from_rows(
             path, [r for r in csv.reader(io.StringIO(text), delimiter=sep)
-                   if r])
+                   if r], header)
     lines = text.splitlines()
     if whitespace:
         widths = [len(line.split()) for line in lines]
@@ -252,7 +254,7 @@ def read_table(path, sep=None):
         # a ragged file: split it line by line to name the bad line
         return _table_from_rows(
             path, [line.split() if whitespace else line.split(sep)
-                   for line, w in zip(lines, widths) if w])
+                   for line, w in zip(lines, widths) if w], header)
     # every line has the same number of fields: split the text once
     if whitespace:
         tokens = text.split()
@@ -260,13 +262,18 @@ def read_table(path, sep=None):
         tokens = sep.join(line for line in lines if line).split(sep)
     k = rows[0]
     cols = [tokens[j::k] for j in range(k)]
+    if not header:
+        return _typed([str(j) for j in range(k)], cols)
     return _typed([c[0] for c in cols], [c[1:] for c in cols])
 
 
-def _table_from_rows(path, rows):
+def _table_from_rows(path, rows, header=True):
     if not rows:
         raise ValueError(f"{path} is empty")
-    names, body = list(rows[0]), rows[1:]
+    if header:
+        names, body = list(rows[0]), rows[1:]
+    else:
+        names, body = [str(j) for j in range(len(rows[0]))], rows
     bad = [i for i, r in enumerate(body) if len(r) != len(names)]
     if bad:
         raise ValueError(f"{path}: line {bad[0] + 2} has "
