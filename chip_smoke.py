@@ -27,10 +27,29 @@ Phases (one line each; any failure exits non-zero and prints no result):
    public coupling pass's input q untouched and the sweep's probe of 0
    inner steps leaving the state as it was; and a whole fit on the cut
    against the plain fit on the CPU;
+E0. the rest of the model surface on that cut, the kernels on the card
+   against the plain versions on the CPU: e_step from one carried start at
+   S = 1 (K1 with coupling_pass_s1) and on a 16-point grid (K3 with
+   coupling_pass_s) within phase 4's and G1's bounds, m_step; the ELBO's
+   terms (entropy, log_prior, loglikelihood, complete_loglikelihood, mse)
+   and the ELBO on one state within 1e-6; a fit tracking every quantity and
+   a fit continued after 5 iterations, their stops held by guarded_stops;
+   checkpoints written on the card and loaded on the CPU and the reverse,
+   bit for bit; VIPRSMix(K=3)'s diagnostics within 1e-6;
 5. fit the genome with VIPRS(ds, device='cuda').fit() as bench.py does
    (np.random.seed(0), max_iter=1000, tolerances 1e-6, patience 10), with the
    kernel launch counters reset just before and read just after; then the
    all-active configuration (sweep_impl='xla');
+E1. on the genome: VIPRS tracking every quantity with phase 5's seed and
+   arguments (one chunk an iteration), its nit, message, h2 and ELBO
+   history equal to phase 5's untracked fit, its seconds beside phase 5's;
+   initialize() then 5 x (e_step(); m_step()) timed by CUDA events;
+   save_checkpoint / load_checkpoint of the converged state (seconds,
+   bytes, bit for bit); fit(continued=True, sweep_impl='skip') from it
+   (K2), h2 within 1e-4 of the start; a fit with a progress_callback whose
+   last call is its nit; and (in D's temporary directory, before D0)
+   viprs_warmup_torch on the genome's Zarr stores in a fresh process: its
+   seconds, the stores' packed shapes, the library found and not rebuilt;
 6. check and time each S = 1 kernel against its plain version at the fit's
    shapes (all blocks active from the first iteration's state, and the skip
    branch at 5% of the blocks active), also in CUDA graphs: the block sweep
@@ -249,8 +268,8 @@ tile products (``library_ms``; the sweeps have none). The S = 1 kernels'
 lines, and the lane sweeps', also carry their time in a CUDA graph
 (``graph_ms``). The float32 instances (F3, F6) have lines of their own,
 their names ending in ``_f32``. ``paths`` gives each kernel's launches
-on each selection path of P0 and P2-P4, each disk path of D0-D2 and
-each genotype path of V0 that launched it.
+on each surface path of E0-E1, each selection path of P0 and P2-P4,
+each disk path of D0-D2 and each genotype path of V0 that launched it.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -637,6 +656,10 @@ def main():
                                         gp.optim_result.nit],
                         'cut_fit_h2': [gc.get_heritability(),
                                        gp.get_heritability()]}
+    # E0: the rest of the model surface on the cut; ``paths`` collects the
+    # launches of every path after the main one (E0-E1, P0-P4, D0-D2, V0)
+    paths = {}
+    record['surface_cut'] = surface_cut_checks(sub, sb, nf, paths)
 
     # ---- 5. the genome-scale fit (the main path) ----
     fit_kw = dict(max_iter=1000, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10)
@@ -701,6 +724,9 @@ def main():
     if warm['nit'] != PORT_NIT or abs(warm['h2'] - PORT_H2) > 5e-7:
         fail(f"the S = 1 fit moved: nit {warm['nit']}, h2 {warm['h2']:.6f} "
              f"(the port's earlier runs: {PORT_NIT}, {PORT_H2})")
+    # E1: the rest of the model surface on the genome
+    record['surface'] = surface_genome(ds, fit_kw, warm,
+                                       list(fitted.history['ELBO']), paths)
 
     # ---- 6. kernels against their plain versions at the fit's shapes:
     # results (from the first iteration's state) and times ----
@@ -823,7 +849,6 @@ def main():
 
     # ---- P0-P5: model selection (the PUMAS split, pseudo-validation,
     # the pathwise grid, the host-stepped mixture loop, LDPredInf) ----
-    paths = {}
     sub32 = cut_blocks(ld32, sel, dev)
     record['select_cut'] = {'int8': select_cut_checks(sub, sb, nf, paths),
                             'float32': select_cut_checks(sub32, sb, nf,
@@ -840,6 +865,7 @@ def main():
     # ---- D0-D3: viprs_fit from files on disk; V0-V2: genotypes ----
     import shutil
     try:
+        record['warmup'] = warmup_genome(disk, ds)
         record['disk'] = disk_phases(disk, ds, paths)
         record['geno'] = geno_phases(disk, card, paths)
     finally:
@@ -937,7 +963,8 @@ def main():
     # the launches of each kernel on each selection path (P0, P2-P4)
     for e in kernels:
         e['paths'] = {p: paths[p][e['name']]
-                      for p in (*SELECT_PATHS, *DISK_PATHS, *GENO_PATHS)
+                      for p in (*SURFACE_PATHS, *SELECT_PATHS, *DISK_PATHS,
+                                *GENO_PATHS)
                       if paths.get(p, {}).get(e['name'])}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -3872,6 +3899,392 @@ def ldpred_lambda_genome(ds):
     if beta.shape != (ds.m,) or not np.isfinite(beta).all() or \
             not m.cg_relative_residual <= 1e-6 or not np.isfinite(lam):
         fail(f"P5: LDPredInf or infer_lambda_min on {kind} LD failed")
+    return rec
+
+
+# ------------------------------ the rest of the model surface (E0-E1)
+#: The kernels each surface path launched (as in SELECT_PATHS).
+SURFACE_PATHS = ('E0 e_step S=1', 'E0 e_step S=16', 'E0 tracked fit',
+                 'E0 continued fit', 'E1 tracked fit', 'E1 e_step',
+                 'E1 continued fit', 'E1 progress fit')
+#: Every quantity a fit can track.
+TRACKED = ['pi', 'pis', 'heritability', 'sigma_epsilon', 'tau_beta',
+           'sigma_g', 'entropy', 'loglikelihood', 'log_prior', 'mse',
+           'max_eta_diff']
+#: The ELBO's terms and the ELBO, each a device reduction and a host read.
+DIAGNOSTICS = ('entropy', 'log_prior', 'loglikelihood',
+               'complete_loglikelihood', 'mse', 'elbo')
+
+
+def _launched_in(fn):
+    """(``fn()``, the kernels it launched): the launch counts set to 0 just
+    before and read just after."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _launched(cavi_cuda.LAUNCHES)
+
+
+def _carry(src, dst):
+    """``src``'s state, hyperparameters, sigma_g and fix mask into ``dst``
+    (on ``dst``'s device), on the same bytes."""
+    from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
+    dst._S = src._S
+    dst._state = CaviState(*(x.to(dst.device).clone() for x in src._state))
+    dst._hyper = Hyper(*(np.array(x, np.float64) for x in src._hyper))
+    dst._sigma_g = np.array(src._sigma_g, np.float64)
+    dst._fix_mask = src._fix_mask
+    dst._clear_posterior()
+
+
+def _same_npz(a, b):
+    """Two checkpoint files hold the same keys, shapes, dtypes and bytes."""
+    with np.load(a) as za, np.load(b) as zb:
+        return sorted(za.files) == sorted(zb.files) and all(
+            za[k].dtype == zb[k].dtype and za[k].shape == zb[k].shape
+            and za[k].tobytes() == zb[k].tobytes() for k in za.files)
+
+
+def _diagnostics_close(tag, got, want, bound=1e-6):
+    """The ELBO's terms of two models within ``bound`` relative."""
+    rec = {}
+    for name in DIAGNOSTICS:
+        g = np.asarray(getattr(got, name)(), np.float64)
+        w = np.asarray(getattr(want, name)(), np.float64)
+        rec[name] = float(np.max(np.abs(g - w) / np.abs(w)))
+    worst = max(rec, key=rec.get)
+    phase(tag, "diagnostics, card against CPU on one state: " + ', '.join(
+        f"{k} {v:.1e}" for k, v in rec.items()) + f" (bound {bound:.0e})")
+    if not rec[worst] <= bound:
+        fail(f"{tag}: {worst} differs from the CPU's by {rec[worst]:.2e} "
+             f"relative")
+    return rec
+
+
+def surface_cut_checks(sub, sb, nf, record_paths):
+    """E0 on phase 4's 8-block cut, the kernels on the card against the
+    plain versions on the CPU: e_step from one carried start at S = 1 (K1
+    with coupling_pass_s1) and on a 16-point grid (K3 with coupling_pass_s)
+    within phase 4's and G1's bounds, then m_step (hyperparameters within
+    1e-5); the five diagnostics and the ELBO on one state within 1e-6
+    relative; a fit tracking every quantity and a fit continued after 5
+    iterations (continued=True), their stops held by guarded_stops and h2
+    within 1e-4; checkpoints written on the card and loaded on the CPU, and
+    the reverse, bit for bit; VIPRSMix(K=3)'s diagnostics on one carried
+    state within 1e-6."""
+    import tempfile
+    import torch
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRS, VIPRSGrid, VIPRSMix
+    from viprs_tpu_torch.ops.cavi_torch import CaviState
+    t_e0 = time.perf_counter()
+    dev = torch.device('cuda', 0)
+    where = ('cuda', 'cpu')
+    dss = {w: _dataset_from_cut(sub, sb, nf, torch.device(w)) for w in where}
+    rec = {}
+    sfx = '_f32' if sub.diag.dtype == torch.float32 else ''
+
+    for S, tol, path, kernels in (
+            (1, TOL, 'E0 e_step S=1', ('cavi_block_sweep_s1',
+                                        'coupling_pass_s1')),
+            (16, TOL_S, 'E0 e_step S=16', ('cavi_block_sweep_s',
+                                            'coupling_pass_s'))):
+        if S == 1:
+            ms = {w: VIPRS(dss[w], w) for w in where}
+        else:
+            ms = {w: VIPRSGrid(dss[w], HyperparameterGrid(
+                pi_steps=S, n_snps=dss[w].m), w) for w in where}
+        np.random.seed(0)
+        ms['cpu'].initialize()
+        _carry(ms['cpu'], ms['cuda'])
+        _, launched = _launched_in(ms['cuda'].e_step)
+        record_paths[path] = launched
+        ms['cpu'].e_step()
+        errs = []
+        check_state(f'E0 e_step S={S}',
+                    (ms['cuda']._state, ms['cuda']._last_eta_diff),
+                    (CaviState(*(x.to(dev) for x in ms['cpu']._state)),
+                     ms['cpu']._last_eta_diff.to(dev)), errs, tol)
+        if launched != {k + sfx: 1 for k in kernels}:
+            fail(f"E0: e_step at S = {S} launched {launched}")
+        for m in ms.values():
+            m.m_step()
+        d_h = max(float(np.max(np.abs(np.asarray(getattr(ms['cuda']._hyper,
+                                                         f))
+                                      / np.asarray(getattr(ms['cpu']._hyper,
+                                                           f)) - 1.0)))
+                  for f in ('sigma_eps', 'tau_beta', 'pi'))
+        phase('E0', f"e_step at S = {S}: launches {launched}, max abs err "
+                    f"{max(errs):.3e}; m_step hyperparameters max relative "
+                    f"|diff| {d_h:.2e} (bound 1e-5)")
+        if not d_h <= 1e-5:
+            fail(f"E0: m_step at S = {S} disagrees with the CPU's")
+        rec[f'e_step_S{S}'] = dict(max_abs_err=max(errs), launches=launched,
+                                   hyper_rel=d_h)
+        if S == 1:
+            # the ELBO's terms on the card's state, card against CPU
+            _carry(ms['cuda'], ms['cpu'])
+            rec['diagnostics'] = _diagnostics_close('E0', ms['cuda'],
+                                                    ms['cpu'])
+
+    def tracked(w, f_abs_tol, x_abs_tol):
+        np.random.seed(0)
+        return VIPRS(dss[w], w, tracked_params=TRACKED).fit(
+            max_iter=300, f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol)
+
+    def stop(m):
+        return [(m.optim_result.nit, m.optim_result.message)]
+    tc, launched = _launched_in(lambda: tracked('cuda', *TOLS))
+    record_paths['E0 tracked fit'] = launched
+    tp = tracked('cpu', *TOLS)
+    nit = tc.optim_result.nit
+    lens_ok = all(len(tc.history[k]) == (nit if k == 'max_eta_diff'
+                                         else nit + 1) for k in TRACKED)
+    dh2 = abs(tc.get_heritability() - tp.get_heritability())
+    phase('E0', f"tracked fit on the cut: (nit, message) {stop(tc)} (card) "
+                f"vs {stop(tp)} (CPU), h2 |diff| {dh2:.2e} (bound 1e-4), "
+                f"{len(tc.history)} histories of {nit + 1} entries, launches "
+                f"{launched}")
+    if not (lens_ok and set(tc.history) == set(tp.history) and dh2 <= 1e-4):
+        fail("E0: the tracked fit on the card disagrees with the CPU's")
+    rec['tracked'] = dict(card=stop(tc), cpu=stop(tp), h2_diff=dh2,
+                          guard=guarded_stops('E0', 'the tracked fit',
+                                              lambda *a: stop(tracked(*a)),
+                                              stop(tc), stop(tp)))
+
+    def continued(w, f_abs_tol, x_abs_tol, first=None):
+        """The fit of 5 iterations, then continued; returns the model and
+        its ELBO history's length after the 5 (and with ``first``, what
+        ``first`` returns of the continued fit)."""
+        np.random.seed(0)
+        m = VIPRS(dss[w], w).fit(max_iter=5)
+        n0 = len(m.history['ELBO'])
+        run = lambda: m.fit(continued=True, max_iter=300,  # noqa: E731
+                            f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol)
+        return (run() if first is None else first(run)), n0
+    (cc, launched), n0 = continued('cuda', *TOLS, first=_launched_in)
+    record_paths['E0 continued fit'] = launched
+    cp, _ = continued('cpu', *TOLS)
+    dh2 = abs(cc.get_heritability() - cp.get_heritability())
+    phase('E0', f"fit continued after 5 iterations: (nit, message) "
+                f"{stop(cc)} (card) vs {stop(cp)} (CPU), h2 |diff| "
+                f"{dh2:.2e} (bound 1e-4), {len(cc.history['ELBO'])} ELBO "
+                f"entries ({n0} before), launches {launched}")
+    if not (dh2 <= 1e-4
+            and len(cc.history['ELBO']) == n0 + cc.optim_result.nit):
+        fail("E0: the continued fit on the card disagrees with the CPU's")
+    rec['continued'] = dict(card=stop(cc), cpu=stop(cp), h2_diff=dh2,
+                            guard=guarded_stops(
+                                'E0', 'the continued fit',
+                                lambda *a: stop(continued(*a)[0]),
+                                stop(cc), stop(cp)))
+
+    with tempfile.TemporaryDirectory() as d:
+        same = []
+        for src, dst in ((tc, VIPRS(dss['cpu'], 'cpu')),
+                         (tp, VIPRS(dss['cuda'], 'cuda'))):
+            a, b = os.path.join(d, 'a.npz'), os.path.join(d, 'b.npz')
+            src.save_checkpoint(a)
+            dst.load_checkpoint(a).save_checkpoint(b)
+            same.append(_same_npz(a, b) and all(
+                torch.equal(x.cpu(), y.cpu())
+                for x, y in zip(src._state, dst._state)))
+    phase('E0', f"checkpoints: card -> CPU {'bit for bit' if same[0] else 'DIFFER'}"
+                f", CPU -> card {'bit for bit' if same[1] else 'DIFFER'}")
+    if not all(same):
+        fail("E0: a checkpoint did not round-trip bit for bit")
+
+    np.random.seed(0)
+    mc = VIPRSMix(dss['cpu'], 'cpu', K=MIX_K).fit(max_iter=5,
+                                                  sweep_impl='xla')
+    mg = VIPRSMix(dss['cuda'], 'cuda', K=MIX_K)
+    mg.set_state([x.numpy() for x in mc._state],
+                 [np.asarray(x) for x in mc._hyper], mc._sigma_g)
+    rec['mix_diagnostics'] = _diagnostics_close(f'E0 VIPRSMix(K={MIX_K})',
+                                                mg, mc)
+    rec['seconds'] = time.perf_counter() - t_e0
+    phase('E0', f"{rec['seconds']:.1f} s")
+    return rec
+
+
+def surface_genome(ds, fit_kw, warm, ref_hist, record_paths):
+    """E1 on the int8 genome: VIPRS tracking every quantity (one chunk an
+    iteration) with phase 5's seed and arguments, its nit, message, h2 and
+    ELBO history equal to phase 5's untracked fit (``warm``, ``ref_hist``)
+    and its seconds; initialize() then 5 x (e_step(); m_step()), each timed
+    by CUDA events; save_checkpoint / load_checkpoint of the converged
+    state (seconds, bytes; the state bit for bit); fit(continued=True,
+    sweep_impl='skip') from it (K2) in a model made with the fit's
+    fix_params, h2 within 1e-4 of the start and the ELBO not lower; a fit
+    with a progress_callback, whose last call is its nit (phase 5's)."""
+    import tempfile
+    import torch
+    from viprs_tpu_torch.model import VIPRS
+    t_e1 = time.perf_counter()
+    rec = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    np.random.seed(0)
+    (tm, dt), launched = _launched_in(lambda: timed(
+        lambda: VIPRS(ds, 'cuda', tracked_params=TRACKED).fit(**fit_kw)))
+    record_paths['E1 tracked fit'] = launched
+    # the ELBO history holds NaN where the fit restarts (a negative MSE:
+    # inside the one-chunk fit, between chunks here), on both sides
+    same = (tm.optim_result.nit == warm['nit']
+            and tm.optim_result.message == warm['message']
+            and tm.get_heritability() == warm['h2']
+            and np.array_equal(tm.history['ELBO'], ref_hist, equal_nan=True))
+    restart = [i for i, e in enumerate(tm.history['ELBO']) if np.isnan(e)]
+    rec['tracked'] = dict(seconds=dt, nit=tm.optim_result.nit,
+                          h2=tm.get_heritability(), same_as_phase5=same,
+                          launches=launched, nan_elbo_at=restart,
+                          fix_params=dict(tm.fix_params))
+    phase('E1', f"VIPRS tracking {len(TRACKED)} quantities: {dt:.3f} s "
+                f"({1e3 * dt / max(tm.optim_result.nit, 1):.2f} ms/it; phase "
+                f"5's untracked warm fit {warm['seconds']:.3f} s), nit "
+                f"{tm.optim_result.nit}, h2 {tm.get_heritability()!r}, "
+                f"'{tm.optim_result.message}'; nit, message, h2 and the ELBO "
+                f"history {'equal' if same else 'DIFFER from'} phase 5's "
+                f"(the ELBO NaN at iterations {restart}, fix_params "
+                f"{tm.fix_params}); launches {launched}")
+    if not same:
+        hist = tm.history['ELBO']
+        diff = [i for i, (a, b) in enumerate(zip(hist, ref_hist))
+                if a != b and not (np.isnan(a) and np.isnan(b))]
+        first = diff[0] if diff else None
+        fail(f"E1: the tracked fit differs from phase 5's untracked fit: "
+             f"{len(hist)} and {len(ref_hist)} ELBO entries, {len(diff)} "
+             f"differ, the first at {first}: "
+             f"{None if first is None else (hist[first], ref_hist[first])}")
+
+    m = VIPRS(ds, 'cuda')
+    np.random.seed(0)
+    m.initialize()
+
+    def steps():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(15)]
+        for i in range(5):
+            ev[3 * i].record()
+            m.e_step()
+            ev[3 * i + 1].record()
+            m.m_step()
+            ev[3 * i + 2].record()
+        torch.cuda.synchronize()
+        return ([ev[3 * i].elapsed_time(ev[3 * i + 1]) for i in range(5)],
+                [ev[3 * i + 1].elapsed_time(ev[3 * i + 2]) for i in range(5)])
+    (e_ms, m_ms), launched = _launched_in(steps)
+    record_paths['E1 e_step'] = launched
+    rec['steps'] = dict(e_step_ms=e_ms, m_step_ms=m_ms, launches=launched)
+    phase('E1', f"initialize() then 5 x (e_step(); m_step()), CUDA events: "
+                f"e_step {', '.join(f'{x:.3f}' for x in e_ms)} ms, m_step "
+                f"{', '.join(f'{x:.3f}' for x in m_ms)} ms; launches "
+                f"{launched}; h2 after them {m.get_heritability():.6f}")
+    if launched != {'cavi_block_sweep_s1': 5, 'coupling_pass_s1': 5}:
+        fail(f"E1: the manual steps launched {launched}")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'fit.npz')
+        _, t_save = timed(lambda: tm.save_checkpoint(path))
+        nbytes = os.path.getsize(path)
+        # a checkpoint holds no fix_params (as in the JAX package): the
+        # model that loads it is made with the fit's (its restart fixed
+        # sigma_epsilon at 0.95)
+        loaded, t_load = timed(lambda: VIPRS(
+            ds, 'cuda', fix_params=dict(tm.fix_params)).load_checkpoint(path))
+    bits = all(torch.equal(x, y) for x, y in zip(tm._state, loaded._state))
+    state_mb = sum(x.numel() * 4 for x in tm._state) / 1e6
+    rec['checkpoint'] = dict(save_s=t_save, load_s=t_load, bytes=nbytes,
+                             state_mb=state_mb, bit_for_bit=bits)
+    phase('E1', f"checkpoint of the converged state ({state_mb:.1f} MB "
+                f"float32): save_checkpoint {t_save:.3f} s, {nbytes} bytes "
+                f"compressed; load_checkpoint {t_load:.3f} s, the state "
+                f"{'bit for bit' if bits else 'DIFFERS'}")
+    if not bits:
+        fail("E1: the checkpoint did not load bit for bit")
+    # the fit stopped on the LD-weighted criterion (|d sigma_g| small for
+    # `patience` iterations, max |d eta| below 10 x_abs_tol); continued
+    # with fresh counters it runs on to max |d eta| < x_abs_tol, which
+    # moves h2 by some 1e-5: held to 1e-4 (phase 4's card-CPU bound), the
+    # ELBO not lower than the start's beyond its float32 rounding (1e-3)
+    h2_0, elbo_0 = loaded.get_heritability(), loaded.elbo()
+    (cm, dt), launched = _launched_in(lambda: timed(lambda: loaded.fit(
+        continued=True, sweep_impl='skip', **fit_kw)))
+    record_paths['E1 continued fit'] = launched
+    dh2 = abs(cm.get_heritability() - h2_0)
+    d_elbo = cm.history['ELBO'][-1] - elbo_0
+    act = cm._act_trace
+    rec['continued'] = dict(seconds=dt, nit=cm.optim_result.nit,
+                            message=cm.optim_result.message, h2_diff=dh2,
+                            elbo_gain=d_elbo, active_blocks=act,
+                            launches=launched)
+    phase('E1', f"fit(continued=True, sweep_impl='skip') from the checkpoint:"
+                f" {dt:.3f} s, nit {cm.optim_result.nit}, "
+                f"'{cm.optim_result.message}', h2 moved {dh2:.2e} (bound "
+                f"1e-4), ELBO {d_elbo:+.3e} from the start's; K2's blocks "
+                f"an iteration, of {ds.ld.nb}: min {min(act)}, median "
+                f"{int(np.median(act))}, max {max(act)}; launches {launched}")
+    if not (cm.optim_result.success and dh2 <= 1e-4 and d_elbo >= -1e-3
+            and launched.get('cavi_block_sweep_s1')):
+        fail("E1: the continued fit moved or did not converge")
+
+    calls = []
+    np.random.seed(0)
+    (pm, dt), launched = _launched_in(lambda: timed(lambda: VIPRS(
+        ds, 'cuda').fit(progress_callback=lambda mod, it, st: calls.append(
+            it), **fit_kw)))
+    record_paths['E1 progress fit'] = launched
+    rec['progress'] = dict(seconds=dt, calls=calls, nit=pm.optim_result.nit)
+    phase('E1', f"fit with a progress_callback (chunks of 25): {dt:.3f} s, "
+                f"calls at {calls}, nit {pm.optim_result.nit}, h2 "
+                f"{pm.get_heritability()!r}")
+    if not (calls and calls[-1] == pm.optim_result.nit == warm['nit']
+            and pm.get_heritability() == warm['h2']):
+        fail("E1: the progress fit's last call is not its nit, or the fit "
+             "differs from phase 5's")
+    rec['seconds'] = time.perf_counter() - t_e1
+    phase('E1', f"{rec['seconds']:.1f} s")
+    return rec
+
+
+def warmup_genome(disk, ds):
+    """E1's warmup: ``python -m viprs_tpu_torch.cli.warmup`` on the
+    genome's 22 Zarr stores as D writes them (int8 tiles, S = 1 and the
+    grid width 100) in a fresh process: its seconds, the packed shapes it
+    read from the stores' block boundaries (phase 3's M and NB), and the
+    kernel library found, not rebuilt."""
+    import re
+    from viprs_tpu_torch.ops import _build
+    lib = _build.build()[1]['path']
+    argv = [sys.executable, '-m', 'viprs_tpu_torch.cli.warmup', '-l',
+            os.path.join(disk['root'], 'genome', 'chr_*'), '--block-size',
+            '1024', '--dequantize-on-the-fly', '--grid-widths', '100']
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    log = out.stdout + out.stderr
+    shapes = re.search(r'M=(\d+) NB=(\d+) B=(\d+) \(([\d.]+) s', log)
+    built = re.search(r'kernel library (\S+) \(built in ([\d.]+) s', log)
+    rec = dict(seconds=dt, returncode=out.returncode,
+               shapes=shapes.groups() if shapes else None,
+               library=built.groups() if built else None)
+    phase('E1', f"viprs_warmup_torch on the genome's 22 Zarr stores: "
+                f"{dt:.1f} s in a fresh process (exit {out.returncode}); "
+                f"M, NB, B, metadata seconds {rec['shapes']}; library "
+                f"{rec['library']}")
+    if out.returncode != 0 or shapes is None or built is None:
+        fail(f"E1: viprs_warmup_torch failed: {log[-2000:]}")
+    if (int(shapes.group(1)), int(shapes.group(2))) != (ds.m, ds.ld.nb) \
+            or built.group(1) != lib or float(built.group(2)) != 0.0:
+        fail("E1: viprs_warmup_torch read other shapes or rebuilt the "
+             "library")
     return rec
 
 

@@ -184,11 +184,11 @@ def test_cli_refusals(tmp_path, files):
     its ROADMAP item; a CUDA device without CUDA is an error, never the
     CPU. ``--grid-metric validation`` without validation genotypes fails
     with the JAX package's message before any data is read, and a
-    ``--validation-bed`` fileset that does not exist as it does there."""
+    ``--validation-bed`` fileset that does not exist as it does there.
+    (``--float-precision float64`` runs: test_cli_float64_matches_jax.)"""
     base = _args(files, 'native', []) + ['--output-file',
                                          str(tmp_path / 'o')]
-    for extra, item in ((['--mesh', '2x1'], 'item 10'),
-                        (['--float-precision', 'float64'], 'item 4')):
+    for extra, item in ((['--mesh', '2x1'], 'item 10'),):
         with pytest.raises(NotImplementedError, match=item):
             fit.main(base + extra + ['--device', 'cpu'])
     need = 'requires --validation-bed and --validation-pheno'
@@ -211,6 +211,90 @@ def test_cli_refusals(tmp_path, files):
     with pytest.raises(ValueError, match='cuda or cpu'):
         fit.main(base + ['--device', 'meta'])
     assert not osp.exists(str(tmp_path / 'o.fit.gz'))
+
+
+def test_cli_float64_matches_jax(tmp_path, files, ladder_trace):  # noqa: F811
+    """``--float-precision float64`` as in the JAX CLI: it reaches the
+    models (their float_eps) and the state stays float32; the outputs match
+    the JAX CLI's at the file's iteration limit (MAX_ITER)."""
+    extra = ['--float-precision', 'float64']
+    jp, tp = str(tmp_path / 'jax' / 'out'), str(tmp_path / 'port' / 'out')
+    assert jax_fit.main(_args(files, 'native', extra)
+                        + ['--output-file', jp, '--mesh', 'off']) == 0
+    assert_each_fit_clear(ladder_trace)
+    rec = fit.run(_args(files, 'native', extra)
+                  + ['--output-file', tp, '--device', 'cpu'])
+    assert rec['nit'] == MAX_ITER
+    assert_outputs_match(jp, tp)
+
+
+def _gut_native(path):
+    """Cut every array of a native store's .npz files down to its header:
+    block sizes stay readable, LD data does not."""
+    import glob
+    import zipfile
+    from numpy.lib import format as npf
+    for f in glob.glob(osp.join(path, 'chr_*.npz')):
+        heads = {}
+        with zipfile.ZipFile(f) as zf:
+            for name in zf.namelist():
+                with zf.open(name) as member:
+                    read = npf.read_array_header_1_0 \
+                        if npf.read_magic(member) == (1, 0) \
+                        else npf.read_array_header_2_0
+                    read(member)
+                    n = member.tell()
+                with zf.open(name) as member:
+                    heads[name] = member.read(n)
+        with zipfile.ZipFile(f, 'w') as zf:
+            for name, head in heads.items():
+                zf.writestr(name, head)
+        with np.load(f) as z, pytest.raises(ValueError):
+            z[next(iter(heads))[:-4]]
+
+
+def _gut_zarr(path):
+    """Delete a magenpy Zarr store's LD chunk files (matrix/data)."""
+    data = osp.join(path, 'matrix', 'data')
+    chunks = [c for c in os.listdir(data) if not c.startswith('.')]
+    assert chunks
+    for c in chunks:
+        os.remove(osp.join(data, c))
+
+
+@pytest.mark.parametrize('store', ['native', 'zarr'])
+def test_warmup_reads_only_block_boundaries(tmp_path, files, store):
+    """``viprs_warmup_torch --device cpu`` on a store whose LD data is gone
+    (a native store's arrays cut to their headers, a Zarr store's chunk
+    files deleted) exits 0 with the JAX package's packed shapes
+    (``_shape_dataset``'s M, NB, B), warms S = 1 and the grid widths, and
+    leaves np.random as it was; without CUDA the default device is an
+    error."""
+    import shutil
+    from viprs_tpu.cli.warmup import _shape_dataset
+    from viprs_tpu_torch.cli import warmup
+    src = osp.join(files, 'native') if store == 'native' else \
+        osp.join(files, 'zarr', 'chr_20')
+    path = str(tmp_path / store)
+    shutil.copytree(src, path)
+    want = _shape_dataset(path, 128)
+    (_gut_native if store == 'native' else _gut_zarr)(path)
+    argv = ['-l', path, '--block-size', '128', '--grid-widths', '4', '12',
+            '--device', 'cpu']
+    np.random.seed(1)
+    before = np.random.get_state()[1].copy()
+    assert warmup.main(argv) == 0
+    rec = warmup.run(argv)
+    assert np.array_equal(np.random.get_state()[1], before)
+    assert (rec['m'], rec['nb'], rec['block_size']) == \
+        (want.m, want.layout.nb, want.layout.block_size)
+    assert rec['widths'] == [1, 4, 12] and rec['library'] is None
+    got = _shape_dataset(path, 128)      # the JAX warmup reads no data either
+    assert (got.m, got.layout.nb) == (want.m, want.layout.nb)
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='--device cpu'):
+            warmup.main(argv[:-2])
 
 
 def test_cli_runs_without_pandas_or_jax(tmp_path, files):

@@ -571,13 +571,15 @@ def _hybrid_fit_matches_jax(hybrid_eps, ladder_trace, quantize):
 
 
 def test_import_without_jax_and_cpu_never_launches(tmp_path):
-    """In a fresh interpreter: importing the port (model, kernels) loads
-    neither jax nor triton, and a CPU fit launches no kernel."""
+    """In a fresh interpreter: importing the port (model, kernels,
+    ``plot``, ``cli.warmup``) loads neither jax nor triton (nor seaborn or
+    pandas), and a CPU fit launches no kernel."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import viprs_tpu_torch
         import viprs_tpu_torch.model.viprs
+        import viprs_tpu_torch.plot, viprs_tpu_torch.cli.warmup
         from viprs_tpu_torch.ops import cavi_cuda
         from viprs_tpu_torch.data.dataset import SummaryStatsDataset
         from viprs_tpu_torch.model import VIPRS
@@ -604,6 +606,7 @@ def test_import_without_jax_and_cpu_never_launches(tmp_path):
             }, cavi_cuda.LAUNCHES
         assert not any(cavi_cuda.LAUNCHES.values()), cavi_cuda.LAUNCHES
         assert 'jax' not in sys.modules and 'triton' not in sys.modules
+        assert 'seaborn' not in sys.modules and 'pandas' not in sys.modules
         print('ok')
     """)
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}

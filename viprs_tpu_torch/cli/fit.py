@@ -14,8 +14,9 @@ exceeds the device budget (``--device-memory-gb``, else 65% of the card's
 memory), one group of chromosomes at a time. ``--grid-metric validation``
 scores the grid on ``--validation-bed`` genotypes (decoded on
 ``--device``) against ``--validation-pheno``. The port refuses what it
-has not ported: an explicit ``--mesh NBxNG`` (several devices) and
-``--float-precision float64``.
+has not ported: an explicit ``--mesh NBxNG`` (several devices).
+``--float-precision`` goes to the models, which keep float32 state either
+way (it sets their ``float_eps``, as in the JAX package).
 
     python -m viprs_tpu_torch.cli.fit -l <LD store> -s <sumstats> \\
         --output-file <prefix> [--device cpu]
@@ -35,8 +36,6 @@ logger = logging.getLogger("viprs_fit")
 NEEDS_MESH = ("an explicit --mesh spreads the fit over several devices, "
               "which is not ported yet; see ROADMAP.md, Queue 1, item 10 "
               "(--mesh auto and off mean the one device)")
-NEEDS_FLOAT64 = ("--float-precision float64 is not ported (the port keeps "
-                 "float32 state); see ROADMAP.md, Queue 1, item 4")
 
 
 def build_parser():
@@ -224,8 +223,6 @@ def check_args(args):
         args.output_file = osp.join(args.output_dir, args.output_prefix)
     if args.mesh not in ('auto', 'off'):
         raise NotImplementedError(NEEDS_MESH)
-    if args.float_precision != 'float32':
-        raise NotImplementedError(NEEDS_FLOAT64)
     if args.grid_search_mode == 'pathwise':
         args.pathwise = True
     if args.hyp_search in ('GS', 'BMA') and args.model != 'VIPRSGrid':
@@ -349,8 +346,10 @@ def prepare_model(args, dataset, device):
         lam = float(lam)
 
     if args.model == 'VIPRS':
-        return VIPRS(dataset, device, lambda_min=lam, fix_params=fix_params)
+        return VIPRS(dataset, device, lambda_min=lam, fix_params=fix_params,
+                     float_precision=args.float_precision)
     if args.model == 'VIPRSMix':
+        # the JAX CLI passes the mixture no float_precision
         return VIPRSMix(dataset, device, K=args.n_components,
                         fix_params=fix_params,
                         lambda_min=None if lam == 'infer' else lam)
@@ -371,7 +370,8 @@ def prepare_model(args, dataset, device):
         h2_est=h2_est, h2_se=args.h2_se,
         n_snps=dataset.m)
     return VIPRSGrid(dataset, grid, device, lambda_min=lam,
-                     fix_params=fix_params)
+                     fix_params=fix_params,
+                     float_precision=args.float_precision)
 
 
 def fit_model(args, model, validation_gdl, validation_ss):
@@ -396,6 +396,10 @@ def fit_model(args, model, validation_gdl, validation_ss):
                       f_abs_tol=args.f_abs_tol,
                       x_abs_tol=args.x_abs_tol, patience=args.patience)
     pathwise = args.model == 'VIPRSGrid' and args.pathwise
+    if args.model != 'VIPRSMix' and not pathwise:
+        # live ELBO progress on interactive runs, quiet in pipelines (the
+        # JAX CLI passes it to every model; only these fits read it)
+        fit_kwargs['disable_pbar'] = not sys.stderr.isatty()
     if args.sweep_impl != 'auto' and not pathwise:
         fit_kwargs['sweep_impl'] = args.sweep_impl
     if args.hybrid_eps is not None and args.model == 'VIPRS':

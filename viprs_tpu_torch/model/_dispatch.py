@@ -67,3 +67,27 @@ def select_mix_sweep_impl(sweep_impl=None, grid=False):
             "fits use the all-active sweep ('xla'/'pallas') or the "
             "activity-gated skip sweep ('skip').")
     return sweep_impl == 'skip' or (sweep_impl is None and not grid)
+
+
+#: What an explicit mesh raises: the port runs on one device.
+NEEDS_MESH = ("an explicit mesh spreads the fit over several devices, which "
+              "is not ported yet; see ROADMAP.md, Queue 1, item 10 ('auto', "
+              "'off' and None mean the one device)")
+
+
+def resolve_mesh(mesh):
+    """The models' ``mesh`` argument: ``'auto'``, ``'off'`` and None mean
+    the one device (None is returned); an explicit mesh raises."""
+    if mesh is None or (isinstance(mesh, str) and mesh in ('auto', 'off')):
+        return None
+    raise NotImplementedError(NEEDS_MESH)
+
+
+def check_tile(tile):
+    """The models' ``tile`` argument: the port's sweeps (the kernels and
+    their plain versions) take tiles of T = 128 variants."""
+    from ..ops.cavi_torch import TILE
+    if tile != TILE:
+        raise ValueError(f"the port's sweeps use tiles of T = {TILE} "
+                         f"variants; got tile={tile}")
+    return tile

@@ -15,6 +15,24 @@ from ..utils.compute import dict_concat, dict_max
 logger = logging.getLogger(__name__)
 
 
+def history_table(history):
+    """A model's ``history`` as a Table, a column per quantity and a row
+    per entry; a quantity recorded per lane (S > 1) gives a column per
+    lane, ``<name>_<lane>`` (the JAX package's DataFrame holds the (S,)
+    rows in one object column). Quantities of unequal lengths raise, as
+    pandas does."""
+    from ..utils.table import Table
+    cols = {}
+    for name, vals in history.items():
+        arr = np.asarray(vals)
+        if arr.ndim <= 1:
+            cols[name] = arr
+        else:
+            for s in range(arr.shape[1]):
+                cols[f'{name}_{s}'] = arr[:, s]
+    return Table(cols)
+
+
 class BayesPRSModel:
     """Holds the dataset, the marginal statistics and the posterior slots.
 
@@ -30,7 +48,13 @@ class BayesPRSModel:
     these dicts at every fit (``_refresh_inputs``).
     """
 
-    def __init__(self, dataset, device):
+    def __init__(self, dataset, device, float_precision='float32'):
+        """
+        :param dataset: a viprs_tpu_torch SummaryStatsDataset.
+        :param device: the device of the fit; it must hold the dataset's LD.
+        :param float_precision: sets ``float_eps`` only, as in the JAX
+            package: the state stays float32 whatever is passed.
+        """
         if not isinstance(dataset, SummaryStatsDataset):
             raise TypeError("dataset must be a viprs_tpu_torch "
                             "SummaryStatsDataset")
@@ -41,18 +65,33 @@ class BayesPRSModel:
         if self.device != dataset.device:
             raise ValueError(f"the dataset's LD is on {dataset.device}, the "
                              f"model was asked for {self.device}")
+        self.float_precision = float_precision
+        self.float_eps = np.finfo(float_precision).eps
         self.shapes = dict(dataset.shapes)
-        self.n_per_snp = {c: np.asarray(v, dtype=np.float64)
-                          for c, v in dataset.n_per_snp.items()}
-        self.std_beta = {c: np.asarray(v, dtype=np.float64)
-                         for c, v in dataset.std_beta.items()}
-        self._sample_size = dict_max(self.n_per_snp)
+        self.initialize_input_data_arrays()
         self.validation_std_beta = None
         self._pip = None
         self._post_mean_beta = None
         self._post_var_beta = None
 
+    @property
+    def gdl(self):
+        """The dataset (the reference API's name for it)."""
+        return self.dataset
+
     # --------------------------------------------------------------- inputs
+    def initialize_input_data_arrays(self):
+        """(Re)set the marginal statistics ``std_beta`` and ``n_per_snp``
+        from the dataset (reference BayesPRSModel.py:118-142); models with
+        device inputs rebuild those too."""
+        self.n_per_snp = {c: np.asarray(v, dtype=np.float64)
+                          for c, v in self.dataset.n_per_snp.items()}
+        self.std_beta = {c: np.asarray(v, dtype=np.float64)
+                         for c, v in self.dataset.std_beta.items()}
+        self._sample_size = dict_max(self.n_per_snp)
+        if getattr(self, '_std_beta_flat', None) is not None:
+            self._refresh_inputs()
+
     def _refresh_inputs(self):
         """(Re)build the flat device inputs ``_std_beta_flat`` and
         ``_n_flat`` ((NB, B) float32) from the current ``std_beta`` /
@@ -213,12 +252,18 @@ class BayesPRSModel:
     def _dict_view(self, flat):
         """(S, NB, B) tensor -> {chrom: (m_c,) numpy at S = 1, (m_c, S) at
         S > 1}."""
+        return self._lead_view(flat[0] if flat.shape[0] == 1 else flat)
+
+    def _lead_view(self, x):
+        """(..., NB, B) tensor -> {chrom: (m_c, ...) numpy}, the leading
+        axes (lanes, components) after the variant axis."""
         lay = self.dataset.layout
-        arr = flat.cpu().numpy().reshape(flat.shape[0], -1)[:, lay.flat_index]
+        lead = tuple(x.shape[:-2])
+        arr = x.reshape(-1, lay.nb * lay.block_size).cpu().numpy()[
+            :, lay.flat_index]
         out, start = {}, 0
         for c, sz in zip(lay.chromosomes, lay.chrom_sizes):
-            part = arr[:, start:start + sz]
-            out[c] = part[0] if arr.shape[0] == 1 else part.T
+            out[c] = arr[:, start:start + sz].T.reshape((sz,) + lead)
             start += sz
         return out
 

@@ -59,6 +59,15 @@ class VIPRSGrid(VIPRS):
 
     # ------------------------------------------------------------- grid status
     @property
+    def models_to_keep(self):
+        """Lanes still running or converged (not stopped on an error)."""
+        return np.logical_or(~self.terminated_models, self.converged_models)
+
+    @property
+    def terminated_models(self):
+        return np.array([r.stop_iteration for r in self.optim_results])
+
+    @property
     def converged_models(self):
         return np.array([r.success for r in self.optim_results])
 
@@ -101,7 +110,7 @@ class VIPRSGrid(VIPRS):
         masked out (``VIPRS.fit``'s arguments), or with ``pathwise=True``
         one after another (``_fit_pathwise``). A grid collapsed to one model
         takes a plain VIPRS fit (reference VIPRSGrid.py:145-146)."""
-        if self.n_models == 1:
+        if self.n_models == 1 or fit_kwargs.get('compile_only'):
             return VIPRS.fit(self, **fit_kwargs)
         if pathwise:
             return self._fit_pathwise(**fit_kwargs)
@@ -116,19 +125,20 @@ class VIPRSGrid(VIPRS):
             'Converged': self.converged_models,
             'Optimization_message': [r.message for r in self.optim_results]}
 
-    def _fit_pathwise(self, max_iter=1000, theta_0=None, min_iter=3,
-                      f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10, rng=None):
+    def _fit_pathwise(self, max_iter=1000, theta_0=None, param_0=None,
+                      min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10,
+                      rng=None):
         """Serial warm-started schedule (viprs_tpu model/grid.py:153-231,
         the reference's default, VIPRSGrid.py:194-226): grid point s is one
         em_fit at S = 1 from grid point s - 1's finished state (logits, mu,
         eta and its q as the fit left them), with its own initial
         hyperparameters, fresh counters, an initial objective of 0 and no
-        restart. ``optim_result.nit`` is the sum over the grid points."""
+        restart; the first starts from ``param_0``'s warm start where given.
+        ``optim_result.nit`` is the sum over the grid points."""
         rng = np.random if rng is None else rng
         S = self._S
         self._refresh_inputs()
-        self.initialize_theta(theta_0, rng)
-        self.initialize_variational_parameters()
+        self.initialize(theta_0, param_0, rng)
         hyper = {f: np.array(x, np.float64)
                  for f, x in zip(Hyper._fields, self._hyper)}
         fix = [np.asarray(x) for x in self._fix_mask]

@@ -28,15 +28,17 @@ class LDPredInf(BayesPRSModel):
         CG recurrence's residual.
     """
 
-    def __init__(self, dataset, device, h2=None):
+    def __init__(self, dataset, device, h2=None, float_precision='float32'):
         """
         :param dataset: a viprs_tpu_torch SummaryStatsDataset.
         :param device: the device the solve runs on; it must hold the
             dataset's LD.
         :param h2: heritability; the dataset's simple LDSC estimate, clipped
             to [1e-3, 1 - 1e-3], if omitted.
+        :param float_precision: sets ``float_eps`` only, as in the JAX
+            package (the solve is float64).
         """
-        super().__init__(dataset, device)
+        super().__init__(dataset, device, float_precision=float_precision)
         if h2 is None:
             from ..data.ldsc import simple_ldsc
             h2 = float(np.clip(simple_ldsc(dataset), 1e-3, 1 - 1e-3))

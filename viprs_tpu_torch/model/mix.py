@@ -25,11 +25,13 @@ import numpy as np
 import torch
 
 from . import _dispatch
-from .base import BayesPRSModel
+from .base import BayesPRSModel, history_table
 from ..data.ldsc import simple_ldsc
 from ..ops import mix_em_loop
+from ..ops import cavi_cuda
 from ..ops.cavi_cuda import cavi_sweep_mix_s1
 from ..ops.cavi_mix import MixHyper, MixState, mix_var_tau
+from ..ops.cavi_torch import INNER_STEPS, TILE
 from ..ops.mix_em_loop import MixFix
 from ..utils import optimize as opt
 from ..utils.optimize import IterationConditionCounter, OptimizeResult
@@ -46,7 +48,8 @@ class VIPRSMix(BayesPRSModel):
     """
 
     def __init__(self, dataset, device, K=1, prior_multipliers=None,
-                 fix_params=None, lambda_min=None):
+                 fix_params=None, lambda_min=None, float_precision='float32',
+                 tile=TILE, mesh='auto', **kwargs):
         """
         :param dataset: a viprs_tpu_torch SummaryStatsDataset.
         :param device: the device the fit runs on; it must hold the
@@ -60,8 +63,18 @@ class VIPRSMix(BayesPRSModel):
             total, renormalised in the M-step), 'tau_beta' and 'lambda_min'
             (initial values only).
         :param lambda_min: None (0) or a number.
+        :param float_precision: sets ``float_eps`` only (the state is
+            float32), as in the JAX package.
+        :param tile: the sweeps' tile width; the port's is T = 128 and
+            another value raises.
+        :param mesh: 'auto', 'off' or None: the one device; an explicit
+            mesh raises (not ported).
+        :param kwargs: other arguments of the reference's constructor,
+            accepted and not used, as in the JAX package.
         """
-        super().__init__(dataset, device)
+        super().__init__(dataset, device, float_precision=float_precision)
+        self.tile = _dispatch.check_tile(tile)
+        self.mesh = _dispatch.resolve_mesh(mesh)
         if K < 1:
             raise ValueError(f"K must be positive; got {K}")
         self.K = int(K)
@@ -83,9 +96,11 @@ class VIPRSMix(BayesPRSModel):
         self._refresh_inputs()
 
     # ------------------------------------------------------------ init
-    def initialize(self, theta_0=None, rng=None):
+    def initialize(self, theta_0=None, param_0=None, rng=None):
+        """Initial hyperparameters and state and an empty history;
+        ``param_0`` is accepted and not read, as in the JAX package."""
         self.initialize_theta(theta_0, rng)
-        self.initialize_variational_parameters()
+        self.initialize_variational_parameters(param_0)
         self.history = {'ELBO': []}
         self.optim_result.reset()
 
@@ -132,7 +147,9 @@ class VIPRSMix(BayesPRSModel):
                                                       self.lambda_min)))
         self._sigma_g = 0.0
 
-    def initialize_variational_parameters(self):
+    def initialize_variational_parameters(self, param_0=None):
+        """gamma = pi per component, mu, eta and q zero (``param_0`` is not
+        read: the JAX package's mixture takes no warm start)."""
         lay = self.dataset.layout
         shape = (self.K, lay.nb, lay.block_size)
         pi = torch.from_numpy(np.asarray(self._hyper.pi, np.float32))
@@ -163,11 +180,14 @@ class VIPRSMix(BayesPRSModel):
                       'pis' in self.fix_params,
                       float(self.fix_params.get('pi', 0.0)))
 
-    def fit(self, max_iter=1000, theta_0=None, continued=False, min_iter=3,
-            f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10, max_restarts=1,
-            fused=True, sweep_impl=None, rng=None):
+    def fit(self, max_iter=1000, theta_0=None, param_0=None, continued=False,
+            min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10,
+            max_restarts=1, fused=True, sweep_impl=None,
+            inner_steps=INNER_STEPS, compile_only=False, rng=None):
         """Mixture EM fit to convergence (the reference's VIPRSMix.fit).
 
+        :param param_0: accepted and ignored, as the JAX package ignores it
+            (its mixture initializes no warm start).
         :param continued: start from the current state and hyperparameters
             (``set_state`` or an earlier fit) instead of initializing.
         :param max_restarts: restarts with sigma_epsilon fixed at 0.95 when
@@ -176,18 +196,28 @@ class VIPRSMix(BayesPRSModel):
             (``_fit_host_stepped``; its sweep is always the all-active K5).
         :param sweep_impl: None/'skip' (K6), 'xla'/'pallas' (K5); see
             model/_dispatch.py.
+        :param inner_steps: the sweeps' inner steps per tile (the plain
+            versions take INNER_STEPS only and refuse another up front).
+        :param compile_only: build (or find) the kernel library the fit
+            would launch and return, the state and the numpy stream as they
+            were (nothing to build on the CPU).
         :param rng: numpy ``RandomState`` (or the ``np.random`` module, the
             default) for the initial and restart draws.
         """
         use_skip = _dispatch.select_mix_sweep_impl(sweep_impl)
+        cavi_cuda.check_inner_steps(self.device, inner_steps)
+        if compile_only:
+            cavi_cuda.build_for(self.dataset.ld)
+            return self
         rng = np.random if rng is None else rng
         self._refresh_inputs()
         if not fused:
             return self._fit_host_stepped(max_iter, theta_0, continued,
                                           min_iter, f_abs_tol, x_abs_tol,
-                                          patience, max_restarts, rng)
+                                          patience, max_restarts, rng,
+                                          inner_steps)
         if not continued:
-            self.initialize(theta_0, rng)
+            self.initialize(theta_0, rng=rng)
         self.history.setdefault('ELBO', [])
         restarts = 0
         while True:
@@ -197,7 +227,7 @@ class VIPRSMix(BayesPRSModel):
                 n_sample=float(self.n), m_total=float(self.m),
                 max_iter=max_iter, min_iter=min_iter, f_abs_tol=f_abs_tol,
                 x_abs_tol=x_abs_tol, patience=patience, use_skip=use_skip,
-                sigma_g0=float(self._sigma_g))
+                sigma_g0=float(self._sigma_g), inner_steps=inner_steps)
             self._state, self._hyper = res.state, res.hyper
             self._sigma_g = float(res.sigma_g)
             code = int(res.status)
@@ -251,7 +281,8 @@ class VIPRSMix(BayesPRSModel):
         self._sigma_g = sigma_g
 
     def _fit_host_stepped(self, max_iter, theta_0, continued, min_iter,
-                          f_abs_tol, x_abs_tol, patience, max_restarts, rng):
+                          f_abs_tol, x_abs_tol, patience, max_restarts, rng,
+                          inner_steps=INNER_STEPS):
         """The JAX package's host-stepped loop (viprs_tpu model/mix.py:
         392-479): each iteration one all-active sweep (K5, coupling tiles
         included; the plain version on the CPU), its statistics and
@@ -260,7 +291,7 @@ class VIPRSMix(BayesPRSModel):
         re-initializes the model once with sigma_epsilon fixed at 0.95 and
         goes on from the next iteration."""
         if not continued:
-            self.initialize(theta_0, rng)
+            self.initialize(theta_0, rng=rng)
         hist = self.history.setdefault('ELBO', [])
         hist.append(self.elbo())
         prev_elbo, prev_sigma_g = hist[-1], self._sigma_g
@@ -272,7 +303,7 @@ class VIPRSMix(BayesPRSModel):
             hy = self._hyper_dev()
             self._state, eta_diff = cavi_sweep_mix_s1(
                 self.dataset.ld, self._state, self._std_beta_flat,
-                self._n_flat, hy)
+                self._n_flat, hy, inner_steps)
             st, extra = mix_em_loop.read_stats(
                 self._state, hy, self._std_beta_flat, self._n_flat,
                 self.dataset.ld.mask, 1, self.K, eta_diff.abs().amax())
@@ -376,9 +407,68 @@ class VIPRSMix(BayesPRSModel):
         return float(1.0 - 2.0 * st['sum_beta_eta'] + self._sigma_g
                      - st['sum_zeta_k'].sum() + st['sum_eta_sq'])
 
+    # The ELBO's terms on the mixture posterior (the reference inherits them
+    # from VIPRS, VIPRS.py:583-678), from one read of the statistics each
+    # (viprs_tpu model/mix.py:255-330), per lane for a grid's S lanes.
+    def _lanes(self):
+        """Lane count of the state: 1 for one model."""
+        return self._state.eta.shape[0] if self._state.eta.dim() == 3 else 1
+
+    def _terms(self):
+        """(statistics, float64 hyperparameters, sigma_g), lane-shaped
+        ((S,) / (S, K); S = 1 for one model)."""
+        S, K = self._lanes(), self.K
+        st = mix_em_loop.read_stats(
+            self._state, self._hyper_dev(), self._std_beta_flat,
+            self._n_flat, self.dataset.ld.mask, S, K)[0]
+        h = MixHyper(*(np.reshape(np.asarray(x, np.float64), s) for x, s in
+                       zip(self._hyper, (S, (S, K), (S, K), S))))
+        return st, h, np.reshape(np.asarray(self._sigma_g, np.float64), S)
+
+    def _per_model(self, x):
+        """A float for one model, the (S,) lanes of a grid."""
+        return float(x[0]) if self._state.eta.dim() == 2 else x
+
     def mse(self):
-        return self._mse_from({k: v[0] for k, v in
-                               self._lane_stats().items()})
+        st, _, sg = self._terms()
+        return self._per_model(1.0 - 2.0 * st['sum_beta_eta'] + sg
+                               - st['sum_zeta_k'].sum(-1) + st['sum_eta_sq'])
+
+    def loglikelihood(self):
+        """E_q[log p(data | beta)] (reference VIPRS.py:615-628)."""
+        st, h, sg = self._terms()
+        sig_e = h.sigma_eps
+        return self._per_model(-0.5 * self.n * (
+            np.log(2.0 * np.pi * sig_e)
+            + (1.0 / sig_e) * (1.0 - 2.0 * st['sum_beta_eta'] + sg)))
+
+    def log_prior(self):
+        """E_q[log p(beta | theta)] (reference VIPRS.py:630-678, the K
+        components and the null)."""
+        st, h, _ = self._terms()
+        null_pi = np.maximum(1.0 - h.pi.sum(-1),
+                             np.finfo(np.float64).resolution)
+        lp = 0.5 * (st['sum_gamma_k'] * np.log(h.tau_beta)).sum(-1)
+        lp = lp + (st['sum_gamma_k'] * np.log(h.pi)).sum(-1)
+        lp = lp + st['sum_null_g'] * np.log(null_pi)
+        lp = lp - 0.5 * (h.tau_beta * st['sum_zeta_k']).sum(-1)
+        return self._per_model(lp - 0.5 * self.n_snps * np.log(2.0 * np.pi))
+
+    def entropy(self):
+        """Entropy of the variational distribution (reference
+        VIPRS.py:583-613)."""
+        st = self._terms()[0]
+        ent = -st['sum_g_logg'] - st['sum_ng_logng']
+        ent = ent - 0.5 * st['sum_g_logvt'].sum(-1)
+        return self._per_model(
+            ent + 0.5 * self.n_snps * (np.log(2.0 * np.pi) + 1.0))
+
+    def complete_loglikelihood(self):
+        return self.loglikelihood() + self.log_prior()
+
+    def to_history_table(self):
+        """``history`` as a Table (see ``base.history_table``)."""
+        return history_table(self.history)
 
     # ------------------------------------------------------------ posterior
     def _materialize_posterior_moments(self):
@@ -395,12 +485,32 @@ class VIPRSMix(BayesPRSModel):
     def update_posterior_moments(self):
         self._materialize_posterior_moments()
 
+    @property
+    def var_gamma(self):
+        """{chrom: (m_c, K)} responsibilities ((m_c, S, K) for S lanes)."""
+        return self._lead_view(self._state.gamma)
+
+    @property
+    def var_mu(self):
+        return self._lead_view(self._state.mu)
+
+    @property
+    def eta(self):
+        return self._lead_view(self._state.eta)
+
+    @property
+    def q(self):
+        return self._lead_view(self._state.q)
+
     def q_dict(self):
         """{chrom: q}, the cached (R - I) eta of the fitted state (float32;
         (m_c, S) for S lanes), which ``pseudo_validate`` takes for
         S.b = q + eta."""
-        q = self._state.q
-        return self._dict_view(q if q.dim() == 3 else q[None])
+        return self.q
+
+    def compute_pip(self):
+        """{chrom: PIP}, the responsibilities summed over the components."""
+        return self._lead_view(self._state.gamma.sum(dim=-3))
 
     # ------------------------------------------------------------ getters
     @property
@@ -415,7 +525,7 @@ class VIPRSMix(BayesPRSModel):
     def sigma_epsilon(self):
         return float(self._hyper.sigma_eps)
 
-    def get_null_pi(self):
+    def get_null_pi(self, chrom=None):
         return 1.0 - float(np.sum(self._hyper.pi))
 
     def get_proportion_causal(self):

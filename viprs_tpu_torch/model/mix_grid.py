@@ -27,8 +27,9 @@ from . import _dispatch
 from .grid import grid_columns
 from .mix import VIPRSMix
 from ..data.ldsc import simple_ldsc
-from ..ops import mix_em_loop as mel
+from ..ops import cavi_cuda, mix_em_loop as mel
 from ..ops.cavi_mix import MixHyper, MixState
+from ..ops.cavi_torch import INNER_STEPS
 from ..utils import optimize as opt
 from ..utils.optimize import OptimizeResult, summarize_statuses
 
@@ -57,6 +58,15 @@ class VIPRSMixGrid(VIPRSMix):
         self._chunk_trace = []
 
     # --------------------------------------------------------------- statuses
+    @property
+    def models_to_keep(self):
+        """Lanes still running or converged (not stopped on an error)."""
+        return np.logical_or(~self.terminated_models, self.converged_models)
+
+    @property
+    def terminated_models(self):
+        return np.array([r.stop_iteration for r in self.optim_results])
+
     @property
     def converged_models(self):
         return np.array([r.success for r in self.optim_results])
@@ -106,9 +116,9 @@ class VIPRSMixGrid(VIPRSMix):
         self._hyper = MixHyper(sigma_eps, tau_beta, pi, lam)
         self._sigma_g = np.zeros(S)
 
-    def initialize_variational_parameters(self):
+    def initialize_variational_parameters(self, param_0=None):
         if self.n_models == 1:
-            return super().initialize_variational_parameters()
+            return super().initialize_variational_parameters(param_0)
         lay = self.dataset.layout
         shape = (self.n_models, self.K, lay.nb, lay.block_size)
         pi = torch.from_numpy(np.asarray(self._hyper.pi, np.float32))
@@ -130,25 +140,33 @@ class VIPRSMixGrid(VIPRSMix):
             np.full(S, 'pis' in self.fix_params), total_pi)
 
     # --------------------------------------------------------------------- fit
-    def fit(self, max_iter=1000, theta_0=None, continued=False, min_iter=3,
-            f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10, max_restarts=1,
-            chunk_iters=None, sweep_impl=None, rng=None, **kwargs):
+    def fit(self, max_iter=1000, theta_0=None, param_0=None, continued=False,
+            min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10,
+            max_restarts=1, chunk_iters=None, sweep_impl=None,
+            inner_steps=INNER_STEPS, compile_only=False, rng=None, **kwargs):
         """Fit every grid point as a lane of one mixture fit (VIPRSMix.fit's
-        arguments, and ``chunk_iters``: iterations per loop call, default
+        arguments, ``param_0`` accepted and ignored as there, and
+        ``chunk_iters``: iterations per loop call, default
         ``min(100, max_iter)`` at S >= 8, all at S < 8)."""
         if self.n_models == 1:
             return super().fit(max_iter=max_iter, theta_0=theta_0,
+                               param_0=param_0,
                                continued=continued, min_iter=min_iter,
                                f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol,
                                patience=patience, max_restarts=max_restarts,
-                               sweep_impl=sweep_impl, rng=rng, **kwargs)
+                               sweep_impl=sweep_impl, inner_steps=inner_steps,
+                               compile_only=compile_only, rng=rng, **kwargs)
         if kwargs:
             raise TypeError(f"unexpected arguments {sorted(kwargs)}")
         use_skip = _dispatch.select_mix_sweep_impl(sweep_impl, grid=True)
+        cavi_cuda.check_inner_steps(self.device, inner_steps)
+        if compile_only:
+            cavi_cuda.build_for(self.dataset.ld)
+            return self
         rng = np.random if rng is None else rng
         self._refresh_inputs()
         if not continued:
-            self.initialize(theta_0, rng)
+            self.initialize(theta_0, param_0, rng)
         hist = self.history.setdefault('ELBO', [])
         S = self.n_models
         if chunk_iters is None:
@@ -206,7 +224,8 @@ class VIPRSMixGrid(VIPRSMix):
                 max_iter=this_chunk, min_iter=min_iter, f_abs_tol=f_abs_tol,
                 x_abs_tol=x_abs_tol, patience=patience, active0=active_in,
                 sigma_g0=sigma_g_in, i0=it_done, counters0=counters_in,
-                init_elbo=init_elbo_in, use_skip=use_skip)
+                init_elbo=init_elbo_in, use_skip=use_skip,
+                inner_steps=inner_steps)
             n_in_chunk = res.n_iter_total
             it_done += n_in_chunk
 

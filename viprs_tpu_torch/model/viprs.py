@@ -1,16 +1,21 @@
 """VIPRS — the spike-and-slab variational PRS model, with S model lanes.
 
-Counterpart of viprs_tpu.model.viprs.VIPRS: initialization from LDSC, the
-CAVI e-step (CUDA kernels on the card, plain PyTorch on the CPU), the
-closed-form M-step, the ELBO, the convergence ladder and the restart on
-negative MSE, all through ops/em_loop.em_fit. ``_S`` is 1 here; the grid
+Counterpart of viprs_tpu.model.viprs.VIPRS: initialization from LDSC (or a
+warm start from given posterior parameters), the CAVI e-step (CUDA kernels
+on the card, plain PyTorch on the CPU), the closed-form M-step, the ELBO and
+its terms, the convergence ladder and the restart on negative MSE, all
+through ops/em_loop.em_fit; the reference's manual EM API (``e_step``,
+``m_step``, ``update_*``), tracked per-iteration history, progress
+reporting, continued fits and checkpoints. ``_S`` is 1 here; the grid
 subclass (model/grid.py) sets it to the number of grid points.
 
-The fit runs in chunks of ``chunk_iters`` iterations (one chunk at S < 8,
-50 at S >= 8): between chunks the ladder's counters carry over, and once the
-live lanes have shrunk four-fold they are compacted to the next power-of-2
-width (padded with frozen duplicates of a live lane) and the sweep rule is
-decided again for that width, as in the JAX package.
+The fit runs in chunks of ``chunk_iters`` iterations: one chunk by default
+at S < 8 and 50 at S >= 8, chunks of 25 with a progress bar or callback and
+of 1 with tracked parameters. Between chunks the ladder's counters carry
+over, so chunking changes no number; once the live lanes have shrunk
+four-fold they are compacted to the next power-of-2 width (padded with
+frozen duplicates of a live lane) and the sweep rule is decided again for
+that width, as in the JAX package.
 
 Randomness is the JAX package's: the initial pi draw and the restart draws
 are numpy draws from ``rng`` (default: numpy's global stream), so
@@ -23,10 +28,10 @@ import numpy as np
 import torch
 
 from . import _dispatch
-from .base import BayesPRSModel
+from .base import BayesPRSModel, history_table
 from ..data.ldsc import simple_ldsc
-from ..ops import em_loop, updates
-from ..ops.cavi_torch import CaviState, Hyper
+from ..ops import cavi_cuda, em_loop, updates
+from ..ops.cavi_torch import INNER_STEPS, TILE, CaviState, Hyper, compute_q
 from ..ops.updates import FixMask
 from ..utils import optimize as opt
 from ..utils.optimize import OptimizeResult
@@ -37,6 +42,10 @@ F32 = torch.float32
 #: LD tiles infer_lambda_min converts to float64 at a time (8 MB each at
 #: B = 1024).
 LAMBDA_CHUNK = 16
+#: Chunk widths of a fit with a progress bar or callback (live ELBO between
+#: chunks) and with tracked parameters (history every iteration).
+PROGRESS_CHUNK = 25
+TRACKED_CHUNK = 1
 
 
 def _logit(p):
@@ -45,7 +54,10 @@ def _logit(p):
 
 class VIPRS(BayesPRSModel):
 
-    def __init__(self, dataset, device, lambda_min=None, fix_params=None):
+    def __init__(self, dataset, device, lambda_min=None, fix_params=None,
+                 tracked_params=None, float_precision='float32', order='F',
+                 low_memory=True, dequantize_on_the_fly=False, threads=1,
+                 tile=TILE, mesh='auto'):
         """
         :param dataset: a viprs_tpu_torch SummaryStatsDataset.
         :param device: the device the fit runs on; it must hold the
@@ -55,9 +67,28 @@ class VIPRS(BayesPRSModel):
             regularizer of the LD, ``infer_lambda_min``).
         :param fix_params: dict pinning hyperparameters out of the M-step
             (keys 'pi', 'tau_beta', 'sigma_epsilon', 'lambda_min').
+        :param tracked_params: quantities recorded in ``history`` at every
+            iteration: 'pi', 'pis', 'heritability', 'sigma_epsilon',
+            'tau_beta', 'sigma_g', 'entropy', 'loglikelihood', 'log_prior',
+            'mse', 'max_eta_diff', or callables taking the model (recorded
+            under their ``__name__``).
+        :param float_precision: sets ``float_eps`` only; the state is
+            float32 whatever is passed, as in the JAX package.
+        :param order, low_memory, dequantize_on_the_fly, threads: accepted
+            for reference-API compatibility: the sweep is the blocked update
+            schedule itself, and the LD's storage is the dataset's choice
+            (pack it with ``quantize=True`` for int8).
+        :param tile: the sweeps' tile width; the port's is T = 128 and
+            another value raises.
+        :param mesh: 'auto', 'off' or None: the one device; an explicit
+            mesh raises (not ported).
         """
-        super().__init__(dataset, device)
+        super().__init__(dataset, device, float_precision=float_precision)
         self.fix_params = dict(fix_params or {})
+        self.tracked_params = list(tracked_params or [])
+        self.tile = _dispatch.check_tile(tile)
+        self.threads = threads
+        self.mesh = _dispatch.resolve_mesh(mesh)
         if isinstance(lambda_min, str) and lambda_min == 'infer':
             self.lambda_min = self.infer_lambda_min()
         else:
@@ -67,6 +98,7 @@ class VIPRS(BayesPRSModel):
         self._hyper = None             # Hyper of (S,) float64 numpy
         self._sigma_g = np.zeros(1)
         self._fix_mask = None          # FixMask of (S,) bool numpy
+        self._last_eta_diff = None
         self.optim_result = OptimizeResult()
         self.history = {}
         self._act_trace = []
@@ -104,6 +136,22 @@ class VIPRS(BayesPRSModel):
                 tau_beta = (pi * m) / max(0.01, 1.0 - sigma_eps)
         return pi, sigma_eps, tau_beta
 
+    def initialize(self, theta_0=None, param_0=None, rng=None):
+        """Initial hyperparameters (``initialize_theta``), variational
+        parameters (``initialize_variational_parameters``) and an empty
+        history (``init_optim_meta``)."""
+        self.initialize_theta(theta_0, rng)
+        self.initialize_variational_parameters(param_0)
+        self.init_optim_meta()
+
+    def init_optim_meta(self):
+        """An empty history (ELBO and each tracked quantity) and a reset
+        optimization record."""
+        self.history = {'ELBO': []}
+        for tt in self.tracked_params:
+            self.history[tt if isinstance(tt, str) else tt.__name__] = []
+        self.optim_result.reset()
+
     def initialize_theta(self, theta_0=None, rng=None):
         rng = np.random if rng is None else rng
         pi, sigma_eps, tau_beta = self._resolve_theta0(theta_0, rng)
@@ -137,33 +185,162 @@ class VIPRS(BayesPRSModel):
                                    for k in ('sigma_epsilon', 'tau_beta',
                                              'pi')))
 
-    def initialize_variational_parameters(self):
+    def initialize_variational_parameters(self, param_0=None):
+        """The initial state: gamma = pi and mu = 0, or a warm start from
+        ``param_0`` ({'gamma': {chrom: array}, 'mu': {chrom: array}}, either
+        or both; gamma clipped to [1e-8, 1 - 1e-8]; every lane starts from
+        the same values), whose q = (R - I) eta is computed on the LD's
+        device (``compute_q``)."""
+        param_0 = param_0 or {}
         lay = self.dataset.layout
         shape = (self._S, lay.nb, lay.block_size)
-        logits = torch.from_numpy(
-            _logit(np.asarray(self._hyper.pi, np.float64)).astype(np.float32))
-        self._state = CaviState(
-            logits=logits.to(self.device)[:, None, None].expand(shape)
-            .contiguous(),
-            mu=torch.zeros(shape, dtype=F32, device=self.device),
-            eta=torch.zeros(shape, dtype=F32, device=self.device),
-            q=torch.zeros(shape, dtype=F32, device=self.device))
+        dev = self.device
+
+        def lanes(flat):
+            return torch.from_numpy(np.asarray(flat, np.float32)).to(dev) \
+                .reshape(1, lay.nb, lay.block_size).expand(shape).contiguous()
+        if 'gamma' in param_0:
+            g = np.clip(lay.to_flat(param_0['gamma']), 1e-8, 1 - 1e-8)
+            logits = lanes(_logit(g))
+        else:
+            pi = torch.from_numpy(
+                _logit(np.asarray(self._hyper.pi, np.float64))
+                .astype(np.float32)).to(dev)
+            logits = pi[:, None, None].expand(shape).contiguous()
+        if 'mu' in param_0:
+            mu = lanes(lay.to_flat(param_0['mu']))
+        else:
+            mu = torch.zeros(shape, dtype=F32, device=dev)
+        if 'mu' in param_0 or 'gamma' in param_0:
+            eta = torch.sigmoid(logits) * mu * self.dataset.ld.mask[None]
+            q = compute_q(self.dataset.ld, eta)
+        else:
+            eta = torch.zeros(shape, dtype=F32, device=dev)
+            q = torch.zeros(shape, dtype=F32, device=dev)
+        self._state = CaviState(logits=logits, mu=mu, eta=eta, q=q)
+        self._clear_posterior()
+
+    def _clear_posterior(self):
+        self._pip = self._post_mean_beta = self._post_var_beta = None
+
+    # ------------------------------------------------- manual EM stepping
+    # (the reference API: VIPRS.e_step / m_step / update_* drive EM by
+    # hand, VIPRS.py:381-495; fit() runs ops/em_loop instead, with the
+    # same arithmetic)
+    def e_step(self):
+        """One CAVI sweep over every variant of every lane, at full step
+        (K1 with ``coupling_pass_s1`` at S = 1, K3 with ``coupling_pass_s``
+        at S > 1 on the card; their plain versions on the CPU). Keeps the
+        sweep's eta change as ``_last_eta_diff``."""
+        act = torch.ones(self._S, dtype=F32, device=self.device)
+        sweep = cavi_cuda.cavi_sweep_s1 if self._S == 1 \
+            else cavi_cuda.cavi_sweep_s
+        self._state, self._last_eta_diff = sweep(
+            self.dataset.ld, self._state, self._std_beta_flat, self._n_flat,
+            self._hyper_dev(), act)
+        self._clear_posterior()
+        return self
+
+    def m_step(self):
+        """The closed-form hyperparameter updates (VIPRS.py:473-484), fixed
+        parameters kept."""
+        stats = self._host_stats()
+        hyper = Hyper(*(torch.from_numpy(np.array(x, np.float64).reshape(-1))
+                        for x in self._hyper))
+        new, sigma_g = updates.m_step(stats, hyper,
+                                      FixMask.from_numpy(*self._fix_mask),
+                                      float(self.m),
+                                      torch.ones(self._S, dtype=torch.bool))
+        self._hyper = Hyper(*(x.numpy() for x in new))
+        self._sigma_g = sigma_g.numpy()
+        self._clear_posterior()
+        return self
+
+    def _set_unfixed(self, name, value):
+        if name not in self.fix_params:
+            h = {f: np.array(x, np.float64).reshape(-1)
+                 for f, x in zip(Hyper._fields, self._hyper)}
+            h[{'pi': 'pi', 'tau_beta': 'tau_beta',
+               'sigma_epsilon': 'sigma_eps'}[name]][:] = np.asarray(value)
+            self._hyper = Hyper(**h)
+            self._clear_posterior()
+
+    def update_pi(self):
+        """pi = mean(gamma) (VIPRS.py:426-434)."""
+        stats = self._host_stats()
+        self._set_unfixed('pi', stats.sum_gamma.numpy() / float(self.m))
+        return self
+
+    def update_tau_beta(self):
+        """tau_beta = pi * M / sum(zeta) (VIPRS.py:436-444)."""
+        stats = self._host_stats()
+        pi = np.array(self._hyper.pi, np.float64).reshape(-1)
+        self._set_unfixed('tau_beta',
+                          pi * float(self.m) / stats.sum_zeta.numpy())
+        return self
+
+    def _sigma_g_of(self, stats):
+        lam = np.array(self._hyper.lambda_min, np.float64).reshape(-1)
+        return (1.0 + lam) * stats.sum_zeta.numpy() + stats.sum_q_eta.numpy()
+
+    def _update_sigma_g(self):
+        """sigma_g = sum((1 + lambda_min) zeta + q eta) (VIPRS.py:446-457)."""
+        self._sigma_g = self._sigma_g_of(self._host_stats())
+        return self._sigma_g
+
+    def update_sigma_epsilon(self):
+        """sigma_eps = 1 - 2 beta'eta + sigma_g (VIPRS.py:459-471); sets
+        sigma_g too."""
+        stats = self._host_stats()
+        self._sigma_g = self._sigma_g_of(stats)
+        self._set_unfixed('sigma_epsilon',
+                          1.0 - 2.0 * stats.sum_beta_eta.numpy()
+                          + self._sigma_g)
+        return self
+
+    def update_theta_history(self):
+        """Record the tracked quantities of the current state
+        (VIPRS.py:839-873)."""
+        self._track_iteration()
+        return self
 
     # ------------------------------------------------------------ fit
-    def fit(self, max_iter=1000, theta_0=None, min_iter=3, f_abs_tol=1e-6,
-            x_abs_tol=1e-6, patience=10, max_restarts=1, chunk_iters=None,
-            sweep_impl=None, hybrid_eps=None, rng=None):
+    def fit(self, max_iter=1000, theta_0=None, param_0=None, continued=False,
+            disable_pbar=True, min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6,
+            patience=10, max_restarts=1, chunk_iters=None,
+            progress_callback=None, sweep_impl=None, hybrid_eps=None,
+            inner_steps=INNER_STEPS, compile_only=False, rng=None):
         """Variational EM fit to convergence (the reference's VIPRS.fit).
 
+        :param param_0: a warm start ({'gamma': ..., 'mu': ...}, see
+            ``initialize_variational_parameters``).
+        :param continued: go on from the current state, hyperparameters and
+            history (an earlier fit, ``initialize`` or
+            ``load_checkpoint``), without initializing; the history's first
+            entry is written only when it is empty.
+        :param disable_pbar: False shows a progress bar (tqdm, else a log
+            line a chunk) and runs chunks of 25 iterations.
         :param max_restarts: 0 or 1 — restart once, with sigma_epsilon fixed
             at 0.95, when the MSE goes negative (inside the loop for a
-            one-chunk S = 1 fit, between chunks otherwise).
-        :param chunk_iters: iterations per em_fit call (default: all at
+            one-chunk S = 1 fit that does not continue, between chunks
+            otherwise; the same trajectory and numpy stream either way).
+        :param chunk_iters: iterations per em_fit call (default: 1 with
+            tracked parameters, 25 with a progress bar or callback, all at
             S < 8, 50 at S >= 8, where lanes are compacted between chunks).
+        :param progress_callback: called as ``callback(model, iterations
+            done, per-lane statuses)`` after every chunk (of 25 unless
+            tracking).
         :param sweep_impl: None, 'hybrid' (S = 1), 'xla'/'pallas' or 'skip';
             see model/_dispatch.py.
         :param hybrid_eps: gate epsilon of the hybrid's proposal mask
             (default ``x_abs_tol``).
+        :param inner_steps: the sweeps' inner steps per tile (the kernels
+            take any count; the plain versions only INNER_STEPS, and refuse
+            another before anything runs).
+        :param compile_only: build (or find) the kernel library the fit
+            would launch, and return without changing the state, the
+            history or the numpy stream (``viprs_warmup_torch``); on the
+            CPU there is nothing to build.
         :param rng: numpy ``RandomState`` (or the ``np.random`` module, the
             default) for the pi draws.
         """
@@ -172,21 +349,40 @@ class VIPRS(BayesPRSModel):
         rng = np.random if rng is None else rng
         S = self._S
         use_skip, use_hybrid = _dispatch.select_sweep_impl(S, sweep_impl)
+        cavi_cuda.check_inner_steps(self.device, inner_steps)
+        if compile_only:
+            cavi_cuda.build_for(self.dataset.ld)
+            return self
+        if continued and self._state is None:
+            raise ValueError("continued=True needs a state: fit, initialize "
+                             "or load_checkpoint first")
         self._refresh_inputs()
-        self.initialize_theta(theta_0, rng)
-        self.initialize_variational_parameters()
-        self.optim_result.reset()
+        if not continued:
+            self.initialize(theta_0, param_0, rng)
         if chunk_iters is None:
-            chunk_iters = 50 if S >= 8 else max_iter
+            if self.tracked_params:
+                chunk_iters = TRACKED_CHUNK
+            elif not disable_pbar or progress_callback is not None:
+                chunk_iters = PROGRESS_CHUNK
+            else:
+                chunk_iters = 50 if S >= 8 else max_iter
         chunk_iters = max(1, min(chunk_iters, max_iter))
+
+        # history slot 0 (the initial objective) is written only when the
+        # history is empty: a continued fit appends to the one it has
+        hist0_needed = not continued or not self.history.get('ELBO')
+        if hist0_needed:
+            self.history['ELBO'] = []
+        hist = self.history['ELBO']
+        self._track_iteration()
 
         # A one-chunk S = 1 fit restarts inside the loop: the restart theta
         # is drawn now (the one rng.uniform the reference makes at restart
         # time) without advancing the stream, and consumed after the fit
-        # only if the restart fired. Chunked and grid fits restart on the
-        # host between chunks (_restart_models).
+        # only if the restart fired. Chunked, continued and grid fits
+        # restart on the host between chunks (_restart_models).
         ingraph_restart = (S == 1 and chunk_iters >= max_iter
-                           and max_restarts == 1
+                           and max_restarts == 1 and not continued
                            and 'sigma_epsilon' not in self.fix_params)
         r_hyper = r_logit = rng_after = None
         restarts = 0
@@ -199,10 +395,10 @@ class VIPRS(BayesPRSModel):
             r_hyper = (r_se, r_tau, r_pi)
             r_logit = np.float32(_logit(r_pi))
             restarts = max_restarts    # the host restart must not re-fire
+        pbar = None if disable_pbar else self._make_pbar(max_iter)
 
         ld, dev = self.dataset.ld, self.device
         init_elbo = last_elbo = None
-        elbo_hist = []
         counters = em_loop.init_counters(S)
         active = np.ones(S, bool)
         statuses = np.full(S, opt.MAX_ITER, np.int32)
@@ -262,7 +458,8 @@ class VIPRS(BayesPRSModel):
                 use_hybrid=run_hybrid, hybrid_eps=hybrid_eps, i0=it_done,
                 counters0=counters_in, sigma_g0=sigma_g_in,
                 max_restarts=1 if ingraph_restart else 0,
-                restart_hyper=r_hyper, restart_logit=r_logit)
+                restart_hyper=r_hyper, restart_logit=r_logit,
+                inner_steps=inner_steps)
             n_in_chunk = res.n_iter_total
             it_done += n_in_chunk
             n_skip += res.n_skip
@@ -290,7 +487,7 @@ class VIPRS(BayesPRSModel):
                 for row in res.elbo_hist[1:]:
                     full_row = fill.copy()
                     full_row[sel] = row[:n_act]
-                    elbo_hist.append(full_row)
+                    hist.append(full_row)
                 init_elbo = fill.copy()
                 init_elbo[sel] = res.final_elbo[:n_act]
             else:
@@ -308,7 +505,12 @@ class VIPRS(BayesPRSModel):
                 statuses[active] = res.status[active]
                 nit_acc[active] = res.nit[active]
                 med_acc[active] = res.max_eta_diff[active]
-                elbo_hist.extend(res.elbo_hist[0 if not elbo_hist else 1:])
+                rows = res.elbo_hist[1:]
+                if hist0_needed:
+                    rows = res.elbo_hist
+                    hist0_needed = False
+                hist.extend(float(r[0]) if S == 1 else r.copy()
+                            for r in rows)
                 init_elbo = res.final_elbo
             last_elbo = init_elbo
             self._last_result = em_loop.EMResult(
@@ -317,6 +519,13 @@ class VIPRS(BayesPRSModel):
                 final_elbo=init_elbo.copy(), counters=None,
                 max_eta_diff=med_acc.copy(), restarts_used=None,
                 act_hist=None, n_skip=n_skip)
+            if self.tracked_params:
+                self._track_iteration(max_eta_diff=float(np.max(med_acc)))
+            if pbar is not None:
+                pbar.update(n_in_chunk)
+                pbar.set_postfix({'ELBO': float(np.max(init_elbo))})
+            if progress_callback is not None:
+                progress_callback(self, it_done, statuses.copy())
 
             # restart on negative MSE (VIPRS.py:1025-1038), between chunks
             restart_mask = ((statuses == opt.MSE_NEGATIVE)
@@ -339,14 +548,39 @@ class VIPRS(BayesPRSModel):
             if not active.any():
                 break
 
-        self.history = {'ELBO': [float(r[0]) for r in elbo_hist] if S == 1
-                        else elbo_hist}
+        if pbar is not None:
+            pbar.close()
         self._n_skip = n_skip
-        self._pip = self._post_mean_beta = self._post_var_beta = None
+        self._clear_posterior()
         self._populate_optim_result(self._last_result)
         if not self.optim_result.success:
             logger.warning("\t%s", self.optim_result.message)
         return self
+
+    @staticmethod
+    def _make_pbar(total):
+        """A tqdm progress bar, or where tqdm is not installed a stand-in
+        that logs the iteration and the ELBO after every chunk."""
+        try:
+            from tqdm import tqdm
+            return tqdm(total=total, desc='EM iterations', unit='it')
+        except ImportError:
+            class _LogBar:
+                def __init__(self, total):
+                    self.n, self.total, self._postfix = 0, total, {}
+
+                def update(self, k):
+                    self.n += k
+
+                def set_postfix(self, d):
+                    self._postfix = d
+                    logger.info("iteration %d/%d | %s", self.n, self.total,
+                                ', '.join(f'{k}={v:.4f}'
+                                          for k, v in d.items()))
+
+                def close(self):
+                    pass
+            return _LogBar(total)
 
     def _restart_models(self, restart_mask, theta_0, rng):
         """Re-initialize the masked lanes with sigma_epsilon fixed at 0.95;
@@ -375,6 +609,31 @@ class VIPRS(BayesPRSModel):
     def _populate_optim_result(self, res):
         self.optim_result = OptimizeResult.from_status(
             res.status[0], res.final_elbo[0], res.nit[0])
+
+    def _track_iteration(self, max_eta_diff=None):
+        """Append the tracked quantities of the current state to
+        ``history`` (each a device reduction and one host read where it
+        needs the state)."""
+        for tt in self.tracked_params:
+            if callable(tt):
+                self.history.setdefault(tt.__name__, []).append(tt(self))
+                continue
+            if tt == 'max_eta_diff':
+                if max_eta_diff is not None:
+                    self.history.setdefault(tt, []).append(max_eta_diff)
+                continue
+            get = {'pi': self.get_proportion_causal,
+                   'pis': lambda: self.pi,
+                   'heritability': self.get_heritability,
+                   'sigma_epsilon': lambda: self.sigma_epsilon,
+                   'tau_beta': lambda: self.tau_beta,
+                   'sigma_g': lambda: self.sigma_g,
+                   'entropy': self.entropy,
+                   'loglikelihood': self.loglikelihood,
+                   'log_prior': self.log_prior,
+                   'mse': self.mse}.get(tt)
+            if get is not None:
+                self.history.setdefault(tt, []).append(get())
 
     # ------------------------------------------------------- LD spectrum
     def infer_lambda_min(self):
@@ -424,32 +683,113 @@ class VIPRS(BayesPRSModel):
         return Hyper(*(torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
                        for x in self._hyper))
 
-    def elbo(self):
+    def _hyper32(self):
+        """The hyperparameters rounded through float32 (the values the
+        device computes with), as (S,) float64 CPU tensors."""
+        return Hyper(*(torch.from_numpy(np.asarray(x, np.float32).astype(
+            np.float64).reshape(-1)) for x in self._hyper))
+
+    def _host_stats(self):
+        """The sweep statistics of the current state ((S,) float64 CPU
+        tensors): one device reduction, one host read."""
+        return em_loop.read_stats(self._state, self._n_flat,
+                                  self._std_beta_flat, self.dataset.ld.mask,
+                                  self._hyper_dev())[0]
+
+    def _sigma_g_t(self):
+        return torch.from_numpy(np.array(self._sigma_g, np.float64)
+                                .reshape(-1))
+
+    def elbo(self, sum_axis=None):
         """The ELBO of the current state, per lane (a float at S = 1)."""
-        h = self._hyper_dev()
-        var_tau = updates.compute_var_tau(self._n_flat, h)
-        st = updates.collect_stats(self._state, var_tau, self._std_beta_flat,
-                                   self.dataset.ld.mask)
-        st = updates.SweepStats(*(x.cpu() for x in st))
-        e = updates.elbo(st, Hyper(*(x.cpu() for x in h)),
+        e = updates.elbo(self._host_stats(), self._hyper32(),
                          torch.from_numpy(np.array(self._fix_mask.sigma_eps)),
-                         torch.from_numpy(np.array(self._sigma_g, np.float64)),
-                         float(self.n), float(self.m))
+                         self._sigma_g_t(), float(self.n), float(self.m))
         return self._scalar(e.numpy())
 
     def objective(self):
         return self.elbo()
 
+    def entropy(self, sum_axis=None):
+        """Entropy of the variational distribution (VIPRS.py:583-612)."""
+        return self._scalar(updates.entropy(self._host_stats(),
+                                            float(self.m)).numpy())
+
+    def log_prior(self, sum_axis=None):
+        """Expected log prior (VIPRS.py:630-677)."""
+        return self._scalar(updates.log_prior(
+            self._host_stats(), self._hyper32(), float(self.m)).numpy())
+
+    def loglikelihood(self):
+        """Expected log-likelihood of the data (VIPRS.py:614-628)."""
+        return self._scalar(updates.loglikelihood(
+            self._host_stats(), self._hyper32(), self._sigma_g_t(),
+            float(self.n)).numpy())
+
+    def complete_loglikelihood(self):
+        return self.loglikelihood() + self.log_prior()
+
+    def mse(self, sum_axis=None):
+        """The summary-statistics training MSE (VIPRS.py:689-704)."""
+        return self._scalar(updates.mse(self._host_stats(),
+                                        self._sigma_g_t()).numpy())
+
     # ------------------------------------------------------------ posterior
-    def _materialize_posterior_moments(self):
-        if self._state is None:
-            return
-        var_tau = updates.compute_var_tau(self._n_flat, self._hyper_dev())
-        zeta = updates.compute_zeta(self._state, var_tau)
+    @property
+    def var_gamma(self):
+        return self._dict_view(self._state.gamma)
+
+    @property
+    def var_mu(self):
+        return self._dict_view(self._state.mu)
+
+    def _var_tau_dev(self):
+        return updates.compute_var_tau(self._n_flat, self._hyper_dev())
+
+    @property
+    def var_tau(self):
+        return self._dict_view(self._var_tau_dev())
+
+    @property
+    def eta(self):
+        return self._dict_view(self._state.eta)
+
+    @property
+    def zeta(self):
+        return self._dict_view(updates.compute_zeta(self._state,
+                                                    self._var_tau_dev()))
+
+    @property
+    def q(self):
+        return self._dict_view(self._state.q)
+
+    def q_dict(self):
+        """{chrom: q}, the cached (R - I) eta of the state."""
+        return self.q
+
+    def compute_pip(self):
+        return self.var_gamma
+
+    def compute_eta(self):
+        return self.eta
+
+    def compute_zeta(self):
+        return self.zeta
+
+    def update_posterior_moments(self):
+        """PIP, posterior mean and posterior variance (VIPRS.py:899-907),
+        computed on the device and read to the host in one transfer."""
+        zeta = updates.compute_zeta(self._state, self._var_tau_dev())
         eta = self._state.eta
-        self._pip = self._dict_view(self._state.gamma)
-        self._post_mean_beta = self._dict_view(eta)
-        self._post_var_beta = self._dict_view(zeta - eta * eta)
+        g, mean, var = torch.stack([self._state.gamma, eta,
+                                    zeta - eta * eta]).cpu()
+        self.pip = self._dict_view(g)
+        self.post_mean_beta = self._dict_view(mean)
+        self.post_var_beta = self._dict_view(var)
+
+    def _materialize_posterior_moments(self):
+        if self._state is not None:
+            self.update_posterior_moments()
 
     # ------------------------------------------------------------ reporting
     def to_theta_table(self):
@@ -464,6 +804,49 @@ class VIPRS(BayesPRSModel):
              self.get_average_effect_size_variance()),
             ('Lambda_min', self.lambda_min),
             ('tau_beta', self.tau_beta)])
+
+    def to_history_table(self):
+        """``history`` as a Table (see ``base.history_table``)."""
+        return history_table(self.history)
+
+    # ------------------------------------------------------------ checkpoints
+    def save_checkpoint(self, f_name):
+        """Write the variational state, the hyperparameters, sigma_g and the
+        ELBO history to an .npz file with the JAX package's keys, shapes and
+        dtypes (state (S, NB, B) float32, hyperparameters and sigma_g (S,)
+        float64), so either package loads the other's file; resume with
+        ``load_checkpoint`` and ``fit(continued=True)``."""
+        st = torch.stack(list(self._state)).cpu().numpy()
+        np.savez_compressed(
+            f_name, logits=st[0], mu=st[1], eta=st[2], q=st[3],
+            sigma_eps=np.atleast_1d(np.asarray(self._hyper.sigma_eps)),
+            tau_beta=np.atleast_1d(np.asarray(self._hyper.tau_beta)),
+            pi=np.atleast_1d(np.asarray(self._hyper.pi)),
+            lambda_min=np.atleast_1d(np.asarray(self._hyper.lambda_min)),
+            sigma_g=np.atleast_1d(self._sigma_g),
+            elbo_history=np.asarray(self.history.get('ELBO', [])))
+
+    def load_checkpoint(self, f_name):
+        """Restore a checkpoint written by ``save_checkpoint`` of either
+        package (the lane count ``_S`` is the file's): the state goes to
+        this model's device. It is how a JAX ``VIPRS`` or ``VIPRSGrid`` fit
+        is carried over to the port (as ``VIPRSMix.set_state`` carries a
+        mixture's)."""
+        path = f_name if str(f_name).endswith('.npz') else f_name + '.npz'
+        with np.load(path) as f:
+            z = {k: f[k] for k in f.files}
+        self._state = CaviState.from_numpy(z['logits'], z['mu'], z['eta'],
+                                           z['q'], device=self.device)
+        self._S = int(z['logits'].shape[0])
+        self._hyper = Hyper(sigma_eps=z['sigma_eps'], tau_beta=z['tau_beta'],
+                            pi=z['pi'], lambda_min=z['lambda_min'])
+        self._sigma_g = z['sigma_g']
+        hist = z['elbo_history']
+        self.history['ELBO'] = [float(v) for v in hist] if hist.ndim == 1 \
+            else list(hist)
+        self._update_fix_mask()
+        self._clear_posterior()
+        return self
 
     # ------------------------------------------------------------ getters
     def _scalar(self, arr):
@@ -489,11 +872,14 @@ class VIPRS(BayesPRSModel):
     def get_sigma_epsilon(self):
         return self.sigma_epsilon
 
-    def get_tau_beta(self):
+    def get_tau_beta(self, chrom=None):
         return self.tau_beta
 
-    def get_pi(self):
+    def get_pi(self, chrom=None):
         return self.pi
+
+    def get_null_pi(self, chrom=None):
+        return 1.0 - self.get_pi(chrom)
 
     def get_proportion_causal(self):
         return self.pi

@@ -83,6 +83,28 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+def check_inner_steps(device, inner_steps):
+    """Raise where the sweeps on ``device`` refuse ``inner_steps`` (the
+    plain versions, on the CPU, take INNER_STEPS only; the kernels any
+    count), so a fit refuses before anything runs."""
+    if torch.device(device).type == 'cpu' and inner_steps != INNER_STEPS:
+        raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
+                         f"steps, not {inner_steps}")
+
+
+def build_for(ld: BlockLD):
+    """Build (or find) the kernel library the wrappers launch on ``ld``'s
+    tiles, without launching anything: the library holds every kernel's
+    int8 and float32 instances, so the tiles' device and dtype are all
+    that decide it. Returns ``_build.build()``'s info, or None on the CPU
+    (the plain versions need no build); other tile dtypes raise."""
+    if ld.device.type == 'cpu':
+        return None
+    _tiles(ld)
+    from ._build import build
+    return build()[1]
+
+
 def _check(name, x, dtype, shape, device):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -155,9 +177,7 @@ def block_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
         32 x 32 blocks).
     """
     if state.eta.device.type == 'cpu':
-        if inner_steps != INNER_STEPS:
-            raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
-                             f"steps, not {inner_steps}")
+        check_inner_steps('cpu', inner_steps)
         return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                       active, blk_mask=blk_mask)
     kernel = 'cavi_block_sweep_s1' + _tiles(ld)
@@ -255,15 +275,16 @@ def _couple_s1(ld: BlockLD, q, eta_diff, blk_mask):
 
 
 def cavi_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                  hyper: Hyper, active):
+                  hyper: Hyper, active, inner_steps=INNER_STEPS):
     """The all-active S = 1 sweep (replaces cavi_pallas.cavi_sweep_pallas_s1;
     same contract as cavi_torch.cavi_sweep at S = 1)."""
     return cavi_sweep_s1_skip(ld, state, std_beta, n_per_snp, hyper, active,
-                              _all_blocks(ld))
+                              _all_blocks(ld), inner_steps)
 
 
 def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                       hyper: Hyper, active, blk_mask):
+                       hyper: Hyper, active, blk_mask,
+                       inner_steps=INNER_STEPS):
     """The S = 1 sweep over the blocks flagged in ``blk_mask`` ((NB,) bool or
     int; replaces cavi_pallas.cavi_sweep_pallas_s1_skip): unflagged blocks
     pass through bit-exactly, and the coupling tiles touching a flagged
@@ -272,7 +293,7 @@ def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     the mask alone."""
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_s1(ld, state, std_beta, n_per_snp, hyper,
-                                   active, blk_mask)
+                                   active, blk_mask, inner_steps)
     q = _couple_s1(ld, new.q, eta_diff, blk_mask)
     return new._replace(q=q), eta_diff
 
@@ -300,9 +321,7 @@ def block_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     :returns: (new_state, eta_diff), coupling tiles not applied.
     """
     if state.eta.device.type == 'cpu':
-        if inner_steps != INNER_STEPS:
-            raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
-                             f"steps, not {inner_steps}")
+        check_inner_steps('cpu', inner_steps)
         return cavi_torch.block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                       active, blk_mask=blk_mask)
     kernel = 'cavi_block_sweep_s' + _tiles(ld)
@@ -417,16 +436,17 @@ def _couple_s(ld: BlockLD, q, eta_diff, blk_mask):
 
 
 def cavi_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                 hyper: Hyper, active):
+                 hyper: Hyper, active, inner_steps=INNER_STEPS):
     """The all-active S-lane sweep, coupling included (replaces
     cavi_pallas.cavi_sweep_pallas at S > 1 and its refresh_q; same contract
     as cavi_torch.cavi_sweep)."""
     return cavi_sweep_s_skip(ld, state, std_beta, n_per_snp, hyper, active,
-                             _all_blocks(ld))
+                             _all_blocks(ld), inner_steps)
 
 
 def cavi_sweep_s_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                      hyper: Hyper, active, blk_mask):
+                      hyper: Hyper, active, blk_mask,
+                      inner_steps=INNER_STEPS):
     """The S-lane sweep over the blocks flagged in ``blk_mask`` ((NB,) bool
     or int, e.g. ``cavi_torch.union_block_mask`` of the proposal masks;
     replaces cavi_pallas.cavi_sweep_pallas_skip_s): unflagged blocks pass
@@ -434,7 +454,7 @@ def cavi_sweep_s_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     applied."""
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_s(ld, state, std_beta, n_per_snp, hyper,
-                                  active, blk_mask)
+                                  active, blk_mask, inner_steps)
     q = _couple_s(ld, new.q, eta_diff, blk_mask)
     return new._replace(q=q), eta_diff
 
@@ -506,9 +526,7 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     :returns: (new_state, eta_diff), coupling tiles not applied.
     """
     if state.eta.device.type == 'cpu':
-        if inner_steps != INNER_STEPS:
-            raise ValueError(f"the plain sweep takes {INNER_STEPS} inner "
-                             f"steps, not {inner_steps}")
+        check_inner_steps('cpu', inner_steps)
         return cavi_mix.mix_block_sweep(ld, state, std_beta, n_per_snp, hyper,
                                         active, blk_mask=blk_mask,
                                         unit_diag=unit_diag)
@@ -566,28 +584,30 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
 
 
 def _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask, unit_diag,
-                  count):
+                  count, inner_steps):
     blk_mask = blk_mask.to(torch.int32)
     lanes = MixState(*(x[None] for x in state))
     new, eta_diff = block_sweep_mix(ld, lanes, std_beta, n_per_snp,
                                     hyper.lanes(), None, blk_mask, unit_diag,
-                                    count)
+                                    count, inner_steps)
     q = _couple_s1(ld, new.q, eta_diff, blk_mask)
     return MixState(new.gamma[0], new.mu[0], new.eta[0], q[0]), eta_diff[0]
 
 
 def cavi_sweep_mix_s1(ld: BlockLD, state: MixState, std_beta, n_per_snp,
-                      hyper: MixHyper):
+                      hyper: MixHyper, inner_steps=INNER_STEPS):
     """The single-model all-active mixture sweep, coupling included
     (replaces cavi_pallas.cavi_sweep_mixture_pallas, K5): state gamma/mu
     (K, NB, B), eta/q (NB, B); hyper scalars and (K,). Returns (new_state,
     eta_diff)."""
     return _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper,
-                         _all_blocks(ld), False, 'cavi_sweep_mix_s1')
+                         _all_blocks(ld), False, 'cavi_sweep_mix_s1',
+                         inner_steps)
 
 
 def cavi_sweep_mix_s1_skip(ld: BlockLD, state: MixState, std_beta,
-                           n_per_snp, hyper: MixHyper, blk_mask):
+                           n_per_snp, hyper: MixHyper, blk_mask,
+                           inner_steps=INNER_STEPS):
     """The single-model mixture sweep over the blocks flagged in
     ``blk_mask`` ((NB,) bool or int, e.g. cavi_mix.mix_block_proposal_mask;
     replaces cavi_pallas.cavi_sweep_mixture_pallas_skip, K6): unflagged
@@ -595,11 +615,11 @@ def cavi_sweep_mix_s1_skip(ld: BlockLD, state: MixState, std_beta,
     block are applied, and the relaxation takes the variant mask as the unit
     diagonal."""
     return _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask,
-                         True, 'cavi_sweep_mix_s1_skip')
+                         True, 'cavi_sweep_mix_s1_skip', inner_steps)
 
 
 def cavi_sweep_mix_s(ld: BlockLD, state: MixState, std_beta, n_per_snp,
-                     hyper: MixHyper, active):
+                     hyper: MixHyper, active, inner_steps=INNER_STEPS):
     """The all-active S-lane mixture sweep, coupling included (replaces
     cavi_pallas.cavi_sweep_mixture_pallas_batch, K7): state gamma/mu
     (S, K, NB, B), eta/q (S, NB, B); hyper (S,) / (S, K); active (S,)
@@ -607,13 +627,14 @@ def cavi_sweep_mix_s(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     blk_mask = _all_blocks(ld)
     new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
                                     active.to(F32), blk_mask, False,
-                                    'cavi_sweep_mix_s')
+                                    'cavi_sweep_mix_s', inner_steps)
     return new._replace(q=_couple_s(ld, new.q, eta_diff, blk_mask)), \
         eta_diff
 
 
 def cavi_sweep_mix_s_skip(ld: BlockLD, state: MixState, std_beta, n_per_snp,
-                          hyper: MixHyper, active, blk_mask):
+                          hyper: MixHyper, active, blk_mask,
+                          inner_steps=INNER_STEPS):
     """The S-lane mixture sweep over the blocks flagged in ``blk_mask``
     ((NB,) bool or int: the union over the live lanes of
     cavi_mix.mix_block_proposal_mask_batch; replaces
@@ -622,6 +643,6 @@ def cavi_sweep_mix_s_skip(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
                                     active.to(F32), blk_mask, True,
-                                    'cavi_sweep_mix_s_skip')
+                                    'cavi_sweep_mix_s_skip', inner_steps)
     return new._replace(q=_couple_s(ld, new.q, eta_diff, blk_mask)), \
         eta_diff

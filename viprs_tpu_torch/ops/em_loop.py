@@ -34,7 +34,8 @@ from . import updates
 from .block_ld import BlockLD
 from .cavi_cuda import (block_proposal_mask, cavi_sweep_s, cavi_sweep_s1_skip,
                         cavi_sweep_s_skip)
-from .cavi_torch import CaviState, ETA_DIFF_EPS, Hyper, union_block_mask
+from .cavi_torch import (CaviState, ETA_DIFF_EPS, INNER_STEPS, Hyper,
+                         union_block_mask)
 from ..utils import optimize as opt
 
 F32 = torch.float32
@@ -93,7 +94,7 @@ class EMResult(NamedTuple):
     n_skip: int                  # iterations that took the hybrid's skip branch
 
 
-def _stats_host(state, n_per_snp, std_beta, mask, h_dev, *extra):
+def read_stats(state, n_per_snp, std_beta, mask, h_dev, *extra):
     """(S,) sweep statistics (+ extra tensors) read to the host in one
     transfer; returns (SweepStats of CPU float64 tensors, extra as one flat
     float64 tensor)."""
@@ -120,7 +121,7 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
            use_skip: bool = False, use_hybrid: bool = False,
            hybrid_eps: float = None, i0: int = 0, counters0=None,
            sigma_g0=None, max_restarts: int = 0, restart_hyper=None,
-           restart_logit=None) -> EMResult:
+           restart_logit=None, inner_steps: int = INNER_STEPS) -> EMResult:
     """Run EM until every lane terminates or ``max_iter`` iterations.
 
     :param state0: CaviState of (S, NB, B) float32 on ``ld.device``.
@@ -142,6 +143,8 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
         restart pi), its hyperparameters from ``restart_hyper`` (three
         values or (S,) arrays: sigma_eps, tau_beta, pi; rounded through
         float32), sigma_eps is fixed from then on and its counters reset.
+    :param inner_steps: the sweeps' inner steps per tile (the plain
+        versions take INNER_STEPS only).
     :returns: EMResult (``status == MAX_ITER`` means the lane ran out of
         THIS call's budget: a chunked driver continues it).
     """
@@ -169,7 +172,7 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
 
     def objective(state, hyper, fix_se, sigma_g):
         h32 = Hyper(*(x.to(F32) for x in hyper))
-        st, _ = _stats_host(state, n_per_snp, std_beta, mask,
+        st, _ = read_stats(state, n_per_snp, std_beta, mask,
                             Hyper(*(x.to(dev) for x in h32)))
         return updates.elbo(st, h32, torch.from_numpy(fix_se),
                             torch.from_numpy(sigma_g), n_sample,
@@ -208,26 +211,27 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
                 blk_mask = torch.where(n_act_blk <= thresh, blk_mask, ones_blk)
             state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
                                                  n_per_snp, h_dev, act_dev,
-                                                 blk_mask)
+                                                 blk_mask, inner_steps)
         elif S == 1:
             state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
                                                  n_per_snp, h_dev, act_dev,
-                                                 ones_blk)
+                                                 ones_blk, inner_steps)
         elif use_skip:
             blk = union_block_mask(
                 block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev),
                 act_dev)
             n_act_blk = blk.sum()
             state, eta_diff = cavi_sweep_s_skip(ld, state, std_beta,
-                                                n_per_snp, h_dev, act_dev, blk)
+                                                n_per_snp, h_dev, act_dev, blk,
+                                                inner_steps)
         else:
             state, eta_diff = cavi_sweep_s(ld, state, std_beta, n_per_snp,
-                                           h_dev, act_dev)
+                                           h_dev, act_dev, inner_steps)
 
         # ---- reductions with the e-step hyperparameters (one read) ----
         med_dev = (eta_diff.abs() * mask[None]).amax(dim=(1, 2))
         extra_dev = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
-        stats, extra = _stats_host(state, n_per_snp, std_beta, mask, h_dev,
+        stats, extra = read_stats(state, n_per_snp, std_beta, mask, h_dev,
                                    *extra_dev)
         max_ed = extra[:S].numpy().astype(f32)
         n_act = -1 if n_act_blk is None else int(extra[S])

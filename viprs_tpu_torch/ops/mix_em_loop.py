@@ -34,6 +34,7 @@ from .block_ld import BlockLD
 from .cavi_cuda import (cavi_sweep_mix_s, cavi_sweep_mix_s1,
                         cavi_sweep_mix_s1_skip, cavi_sweep_mix_s_skip)
 from .cavi_mix import MixHyper, MixState
+from .cavi_torch import INNER_STEPS
 from ..utils import optimize as opt
 
 F32 = torch.float32
@@ -166,7 +167,7 @@ def _f32(x):
 def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
          n_sample, m_total, init_elbo, max_iter, min_iter, f_abs_tol,
          x_abs_tol, patience, use_skip, sigma_g0, batch, active0=None, i0=0,
-         counters0=None):
+         counters0=None, inner_steps=INNER_STEPS):
     """The loop shared by both entry points; ``batch`` switches on the lane
     masking and the damping ladder (and the lane sweeps K7/K8)."""
     dev = ld.device
@@ -230,10 +231,11 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
                                                    n_per_snp, hy)
             n_act_blk = blk.sum()
             state, eta_diff = cavi_sweep_mix_s1_skip(ld, state, std_beta,
-                                                     n_per_snp, hy, blk)
+                                                     n_per_snp, hy, blk,
+                                                     inner_steps)
         elif not batch:
             state, eta_diff = cavi_sweep_mix_s1(ld, state, std_beta,
-                                                n_per_snp, hy)
+                                                n_per_snp, hy, inner_steps)
         elif use_skip:
             pm = cavi_mix.mix_block_proposal_mask_batch(ld, state, std_beta,
                                                         n_per_snp, hy)
@@ -241,10 +243,11 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
             n_act_blk = blk.sum()
             state, eta_diff = cavi_sweep_mix_s_skip(ld, state, std_beta,
                                                     n_per_snp, hy, act_dev,
-                                                    blk)
+                                                    blk, inner_steps)
         else:
             state, eta_diff = cavi_sweep_mix_s(ld, state, std_beta,
-                                               n_per_snp, hy, act_dev)
+                                               n_per_snp, hy, act_dev,
+                                               inner_steps)
 
         # ---- reductions with the e-step hyperparameters (one read) ----
         med_dev = (eta_diff.abs() * mask).reshape(S, -1).amax(dim=1)
@@ -337,7 +340,7 @@ def mix_em_fit(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
                init_elbo=None, max_iter: int = 1000, min_iter: int = 3,
                f_abs_tol: float = 1e-6, x_abs_tol: float = 1e-6,
                patience: int = 10, use_skip: bool = False,
-               sigma_g0=None) -> MixEMResult:
+               sigma_g0=None, inner_steps: int = INNER_STEPS) -> MixEMResult:
     """Mixture EM for one model until it terminates or ``max_iter``.
 
     :param state0: MixState, gamma/mu (K, NB, B), eta/q (NB, B) float32 on
@@ -348,12 +351,15 @@ def mix_em_fit(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
     :param use_skip: the activity-gated sweep (K6) every iteration; else
         the all-active sweep (K5).
     :param sigma_g0: sigma_g carry of a continued fit (None = 0).
+    :param inner_steps: the sweeps' inner steps per tile (the plain
+        versions take INNER_STEPS only).
     :returns: MixEMResult with scalar hyperparameters, sigma_g, status, nit
         and objectives.
     """
     res = _run(ld, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
                n_sample, m_total, init_elbo, max_iter, min_iter, f_abs_tol,
-               x_abs_tol, patience, use_skip, sigma_g0, batch=False)
+               x_abs_tol, patience, use_skip, sigma_g0, batch=False,
+               inner_steps=inner_steps)
     h = res.hyper
     return res._replace(
         hyper=MixHyper(h.sigma_eps[0], h.tau_beta[0], h.pi[0],
@@ -368,7 +374,8 @@ def mix_em_fit_batch(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
                      f_abs_tol: float = 1e-6, x_abs_tol: float = 1e-6,
                      patience: int = 10, active0=None, sigma_g0=None, i0=0,
                      counters0: MixCounters = None, init_elbo=None,
-                     use_skip: bool = False) -> MixEMResult:
+                     use_skip: bool = False,
+                     inner_steps: int = INNER_STEPS) -> MixEMResult:
     """Mixture EM for S lanes with finished-lane masking and the damping
     ladder, until every lane terminates or ``max_iter`` iterations.
 
@@ -381,10 +388,13 @@ def mix_em_fit_batch(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
         global iteration offset, ladder counters, objective of ``state0``;
         None: zeros, fresh, computed here).
     :param use_skip: the union-gated sweep (K8); else all blocks (K7).
+    :param inner_steps: the sweeps' inner steps per tile (the plain
+        versions take INNER_STEPS only).
     :returns: MixEMResult of (S,) arrays (``status == MAX_ITER``: the lane
         ran out of THIS call's budget).
     """
     return _run(ld, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
                 n_sample, m_total, init_elbo, max_iter, min_iter, f_abs_tol,
                 x_abs_tol, patience, use_skip, sigma_g0, batch=True,
-                active0=active0, i0=i0, counters0=counters0)
+                active0=active0, i0=i0, counters0=counters0,
+                inner_steps=inner_steps)

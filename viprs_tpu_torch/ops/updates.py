@@ -1,4 +1,5 @@
-"""Closed-form M-step updates and variational objectives (ELBO, MSE, h2).
+"""Closed-form M-step updates and variational objectives (the ELBO and its
+terms: entropy, log prior, log-likelihood; MSE, h2).
 
 Counterpart of viprs_tpu.ops.updates, vectorized over the model axis S.
 Precision: elementwise math in float32 on the state's device; per-block
@@ -137,3 +138,37 @@ def mse(stats: SweepStats, sigma_g):
 
 def heritability(sigma_g, sigma_eps):
     return sigma_g / (sigma_g + sigma_eps.to(F64))
+
+
+def entropy(stats: SweepStats, m_total):
+    """Entropy of the variational distribution, (S,) float64."""
+    m_total = float(m_total)
+    e = -stats.sum_g_logg - stats.sum_ng_logng - 0.5 * stats.sum_g_logvt
+    return 0.5 * m_total * (math.log(2.0 * math.pi) + 1.0) + e
+
+
+def log_prior(stats: SweepStats, hyper: Hyper, m_total):
+    """Expected log prior under the variational density, (S,) float64."""
+    m_total = float(m_total)
+    tau_b = hyper.tau_beta.to(F64)
+    pi = hyper.pi.to(F64)
+    lp = 0.5 * stats.sum_gamma * torch.log(tau_b)
+    lp = lp + stats.sum_gamma * torch.log(pi)
+    lp = lp + (m_total - stats.sum_gamma) * torch.log1p(-pi)
+    lp = lp - 0.5 * tau_b * stats.sum_zeta
+    return lp - 0.5 * m_total * math.log(2.0 * math.pi)
+
+
+def loglikelihood(stats: SweepStats, hyper: Hyper, sigma_g, n):
+    """Expected log-likelihood of the data, (S,) float64."""
+    sig_e = hyper.sigma_eps.to(F64)
+    return -0.5 * float(n) * (torch.log(2.0 * math.pi * sig_e)
+                              + (1.0 / sig_e) * (1.0 - 2.0 * stats.sum_beta_eta
+                                                 + sigma_g))
+
+
+def stats_bundle(state: CaviState, n_per_snp, std_beta, mask, hyper: Hyper):
+    """var_tau and the sweep statistics of a state in one call (on the
+    state's device)."""
+    return collect_stats(state, compute_var_tau(n_per_snp, hyper), std_beta,
+                         mask)
