@@ -253,7 +253,24 @@ V2. GWAS (perform_gwas) on V1's filesets with a seeded phenotype, timed,
    chromosome 22's BETA held card against CPU within rtol 1e-9; block LD
    (compute_ld('block')) of a 5,000-sample AR(1) panel of chromosomes
    21-22, timed, its three smallest blocks held card against CPU within
-   1e-12. No module of pandas, jax or viprs_tpu is imported after D0-V2.
+   1e-12.
+MC0. the posterior-check samplers (model/sampler.py, plain torch: no
+   kernel) on phase 4's 8-block cut, the card against the CPU with the
+   same draws made once on the host: one Gibbs sweep from a nonzero state
+   (gamma equal, beta and q within MC0_REL of their largest, on the chains
+   and tiles clear of a near tie by a float64 replay) and an HMC run of 6
+   samples (energies and acceptance probabilities step by step within
+   MC0_ENERGY_REL and MC0_ALPHA, to the first near tie);
+MC1. benchmarks/benchmark_sampler.py's workload on the first tiles of the
+   int8 genome holding >= 150,000 variants: a VIPRS fit, Gibbs (4 chains,
+   MC1_GIBBS), SMC over 8 pi particles (tau = pi m / 0.25, sigma_eps 0.75,
+   MC1_SMC), HMC on VI's PIP > 0.5 variants (MC1_HMC, seeds 3 and 4: cold
+   and steady); seconds, ms per sweep and its device launches (one sweep
+   under torch.profiler), ms per HMC step, accept rates, step size and the
+   PIP and posterior-mean correlations with VI; held: finite outputs, SMC
+   weights summing to 1, HMC accept rates in (0.2, 1], the selected
+   variants' correlation > 0.5. No module of pandas, jax or viprs_tpu is
+   imported after D0-MC1.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -870,10 +887,14 @@ def main():
         record['geno'] = geno_phases(disk, card, paths)
     finally:
         shutil.rmtree(disk['root'], ignore_errors=True)
+
+    # ---- MC0-MC1: the posterior-check samplers ----
+    record['samplers_cut'] = sampler_cut_checks(sub, sb, nf)
+    record['samplers'] = sampler_genome(ds)
     loaded = [m for m in ('pandas', 'jax', 'viprs_tpu') if m in sys.modules]
     if loaded:
-        fail(f"the viprs_fit, viprs_score and viprs_evaluate paths imported "
-             f"{loaded}")
+        fail(f"the viprs_fit, viprs_score, viprs_evaluate and sampler paths "
+             f"imported {loaded}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
@@ -5132,6 +5153,377 @@ def geno_phases(disk, card, record_paths):
     fit_file = os.path.join(disk['root'], 'out', 'd1.fit.gz')
     rec['v1'] = v1_genome_scoring(v1_root, disk['tables'], fit_file, card)
     rec['v2'] = v2_gwas_ld(root, v1_root, disk['tables'], card)
+    return rec
+
+
+
+# ------------------------------------------------- the samplers (MC0-MC1)
+#: MC1: benchmarks/benchmark_sampler.py's workload on a cut of the genome
+#: of at least this many variants (its widths: 4 Gibbs chains, 8 SMC
+#: particles, 4 HMC chains).
+MC1_M = 150_000
+#: Its depths. A Gibbs sweep is host-bound, ~0.25 s (15 launches a
+#: coordinate at ~16 us each on the card's host), so the full depths took
+#: 104 s (Gibbs, 400 sweeps) and 77 s (SMC, 290 one-chain sweeps): cut to
+#: 80 sweeps with the same share of burn-in (30), and to one sweep a stage
+#: over the 6 stages (98 sweeps with the final 50), to keep MC0 + MC1 near
+#: 60 s. HMC keeps its depth (1.6 s a run).
+MC1_GIBBS = dict(n_iter=80, burn_in=30)
+MC1_SMC = dict(n_stages=6, sweeps_per_stage=1)
+MC1_HMC = dict(n_samples=120, n_leapfrog=10)
+#: MC0's near-tie guard: a Gibbs decision is clear when logit(u) lies at
+#: least this far, times 1 + |log-odds|, from the coordinate's float64
+#: log-odds (float32 log-odds are within 8e-7 of it, tests/
+#: test_torch_sampler.py); an HMC acceptance when |log u - log alpha| is
+#: at least MC0_HMC_CLEAR.
+MC0_GIBBS_CLEAR = 4e-6
+MC0_HMC_CLEAR = 1e-3
+#: MC0's bounds, card against CPU, each about 10x the deviation measured on
+#: an H100 (PERF.md section 6): beta and q within this share of their
+#: largest magnitude (measured: equal bit for bit; 1e-6 is ~10 float32
+#: ulps of the largest); the HMC energies within this relative error
+#: (measured 4.9e-8) and the acceptance probabilities within MC0_ALPHA
+#: absolute (measured 1.0e-5).
+MC0_REL = 1e-6
+MC0_ENERGY_REL = 5e-7
+MC0_ALPHA = 1e-4
+
+
+class FixedDraws:
+    """A sampler draw source handing out draws made beforehand (copied to
+    ``device``), in order."""
+
+    def __init__(self, device, gibbs=(), hmc=()):
+        self.device = device
+        self._gibbs, self._hmc = list(gibbs), list(hmc)
+
+    def gibbs(self, shape):
+        u, z = self._gibbs.pop(0)
+        assert u.shape == shape
+        return u.to(self.device), z.to(self.device)
+
+    def hmc(self, shape, n_lo, n_hi):
+        z, L, u = self._hmc.pop(0)
+        assert z.shape == shape and n_lo <= L <= n_hi
+        return z.to(self.device), L, u.to(self.device)
+
+    def clone(self):
+        return FixedDraws(self.device, self._gibbs, self._hmc)
+
+
+def gibbs_margins(ds, state, u, z, g):
+    """(C, NB) smallest |logit(u) - u_j| / (1 + |u_j|) of each chain and
+    tile over one Gibbs sweep of sampler ``g`` from ``state``, replayed in
+    float64 on the host with the sweep's draws (padding lanes left out)."""
+    ld = ds.ld
+    D = ld.diag.cpu().numpy().astype(np.float64) * ld.scale
+    beta, q = (x.cpu().numpy().astype(np.float64) for x in (state.beta,
+                                                             state.q))
+    u, z = (x.cpu().numpy().astype(np.float64) for x in (u, z))
+    sb, nf = (x.cpu().numpy().astype(np.float64)
+              for x in ds.device_inputs())
+    keep = ld.mask.cpu().numpy() != 0
+    v = nf * (1.0 + g.lambda_min) / g.sigma_eps + g.tau_beta
+    a = np.log(g.pi) - np.log1p(-g.pi) + 0.5 * (np.log(g.tau_beta)
+                                                - np.log(v))
+    with np.errstate(divide='ignore'):
+        logit_u = np.log(u) - np.log1p(-u)
+    worst = np.full(beta.shape[:2], np.inf)
+    for j in range(beta.shape[2]):
+        m = nf[:, j] / (v[:, j] * g.sigma_eps) * (sb[:, j] - q[:, :, j])
+        uj = a[:, j] + 0.5 * v[:, j] * m * m
+        gap = np.abs(logit_u[:, :, j] - uj) / (1.0 + np.abs(uj))
+        worst = np.minimum(worst, np.where(keep[:, j], gap, np.inf))
+        take = (u[:, :, j] < 1.0 / (1.0 + np.exp(-uj))) & keep[:, j]
+        b = take * (m + z[:, :, j] / np.sqrt(v[:, j]))
+        d = b - beta[:, :, j]
+        q = q + d[:, :, None] * D[None, :, j]
+        q[:, :, j] -= d
+        beta[:, :, j] = b
+    return worst
+
+
+def sampler_cut_checks(sub, sb, nf):
+    """MC0: on phase 4's 8-block cut, one Gibbs sweep from a nonzero state
+    and a short HMC run (6 samples, 4 leapfrog steps), on the card and on
+    the CPU with the same draws (made once on the host): gamma equal and
+    beta, q within MC0_REL of their largest magnitude on the chains and
+    tiles whose every decision is clear (MC0_GIBBS_CLEAR); the HMC
+    energies and acceptance probabilities step by step within
+    MC0_ENERGY_REL and MC0_ALPHA, up to the first step with an acceptance
+    within MC0_HMC_CLEAR of its draw (after it the chains may part)."""
+    import torch
+    from viprs_tpu_torch.model import sampler
+    t_all = time.perf_counter()
+    dss = {w: _dataset_from_cut(sub, sb, nf, torch.device(w))
+           for w in ('cuda', 'cpu')}
+    cpu = dss['cpu']
+    shape = (4, sub.nb, sub.block_size)
+    gen = torch.Generator().manual_seed(11)
+
+    def draw():
+        return (torch.rand(shape, generator=gen),
+                torch.randn(shape, generator=gen))
+    first, second = draw(), draw()
+    samplers = {w: sampler.GibbsSampler(d, pi=0.01, sigma_eps=0.9,
+                                        n_chains=4, seed=0)
+                for w, d in dss.items()}
+    g = samplers['cpu']
+    st0 = g.init_state()._replace(key=FixedDraws('cpu', [first]))
+    st1 = sampler._gibbs_sweep(cpu.ld, st0, *g._args(1.0))
+    out = {}
+    t0 = time.perf_counter()
+    for w, d in dss.items():
+        st = sampler.GibbsState(*(x.to(w) for x in st1[:3]),
+                                key=FixedDraws(torch.device(w), [second]))
+        out[w] = sampler._gibbs_sweep(d.ld, st, *samplers[w]._args(1.0))
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    clear = gibbs_margins(cpu, st1, *second, g) >= MC0_GIBBS_CLEAR
+    c, cp = out['cuda'], out['cpu']
+    if not clear.any():
+        fail("MC0: every chain and tile of the Gibbs sweep has a near tie")
+    sel = torch.from_numpy(clear)
+    n_gamma = int((c.gamma.cpu() != cp.gamma)[sel].sum())
+    errs = {k: float((getattr(c, k).cpu() - getattr(cp, k))[sel].abs().max())
+            for k in ('beta', 'q')}
+    scale = {k: float(getattr(cp, k).abs().max()) for k in ('beta', 'q')}
+    phase('MC0', f"Gibbs sweep on the cut ({shape[0]} chains x {sub.nb} "
+                 f"tiles x {sub.block_size}), card vs CPU from one state "
+                 f"with one set of draws: {int(clear.sum())} of "
+                 f"{clear.size} chain-tiles clear of a near tie; gamma "
+                 f"differs at {n_gamma} of {int(c.gamma.cpu()[sel].numel())} "
+                 f"(included: {int(cp.gamma[sel].sum())}); max |diff| beta "
+                 f"{errs['beta']:.3e} (max|beta| {scale['beta']:.3e}), q "
+                 f"{errs['q']:.3e} (max|q| {scale['q']:.3e}); bound "
+                 f"{MC0_REL:.0e} of the largest")
+    if n_gamma or not all(errs[k] <= MC0_REL * scale[k] for k in errs):
+        fail("MC0: the Gibbs sweep on the card differs from the CPU's")
+
+    # HMC: the same draws on both devices, every step recorded
+    top = np.abs(cpu.std_beta[1]) > np.quantile(np.abs(cpu.std_beta[1]), 0.98)
+    gmask = {1: top.astype(np.float64)}
+    n_samples, n_leapfrog = 6, 4
+    steps = [(torch.randn(shape, generator=gen),
+              int(torch.randint(2, n_leapfrog + 1, (), generator=gen)),
+              torch.rand(shape[0], generator=gen, dtype=torch.float64))
+             for _ in range(n_samples)]
+    rec, hmc = {}, {}
+    step, source = sampler._hmc_step, sampler._draw_source
+    try:
+        for w, d in dss.items():
+            rec[w] = []
+
+            def spy(*a, _w=w):
+                res = step(*a)
+                rec[_w].append((res[1].cpu().numpy(), res[2].cpu().numpy()))
+                return res
+            sampler._hmc_step = spy
+            sampler._draw_source = lambda key, device: FixedDraws(device,
+                                                                  hmc=steps)
+            hmc[w] = sampler.hmc_refine(d, gmask, sigma_eps=0.9,
+                                        n_samples=n_samples,
+                                        n_leapfrog=n_leapfrog, seed=0)
+    finally:
+        sampler._hmc_step, sampler._draw_source = step, source
+    n_cmp, e_diff, e_scale, a_err = 0, 0.0, 0.0, 0.0
+    for k, ((ec, ac), (ep, ap)) in enumerate(zip(rec['cuda'], rec['cpu'])):
+        n_cmp = k + 1
+        e_diff = max(e_diff, float(np.max(np.abs(ec - ep))))
+        e_scale = max(e_scale, float(np.max(np.abs(ep))))
+        a_err = max(a_err, float(np.max(np.abs(ac - ap))))
+        with np.errstate(divide='ignore'):
+            gap = np.abs(np.log(steps[k][2].numpy()) - np.log(ap))
+        if gap.min() < MC0_HMC_CLEAR:
+            break
+    # the energies' error relative to the largest energy compared (the
+    # state at zero has energy 0)
+    e_err = e_diff / e_scale if e_scale > 0 else e_diff
+    phase('MC0', f"HMC on the cut ({int(top.sum())} variants, {n_samples} "
+                 f"samples, L <= {n_leapfrog}), card vs CPU with one set of "
+                 f"draws: {n_cmp} of {n_samples} steps compared (to the "
+                 f"first near tie); energies max |diff| {e_diff:.3e} of "
+                 f"max|energy| {e_scale:.3e} (relative bound "
+                 f"{MC0_ENERGY_REL:.0e}), acceptance "
+                 f"probabilities max |diff| {a_err:.3e} (bound "
+                 f"{MC0_ALPHA:.0e}); accept rate {hmc['cuda']['accept_rate']:.4f}"
+                 f" vs {hmc['cpu']['accept_rate']:.4f}, step size "
+                 f"{hmc['cuda']['step_size']:.4g} vs "
+                 f"{hmc['cpu']['step_size']:.4g}")
+    if not (e_err <= MC0_ENERGY_REL and a_err <= MC0_ALPHA):
+        fail("MC0: the HMC run on the card differs from the CPU's")
+    secs = time.perf_counter() - t_all
+    phase('MC0', f"{secs:.1f} s")
+    return dict(seconds=secs, sweep_s=t_sweep, clear=int(clear.sum()),
+                chain_tiles=int(clear.size), beta_err=errs['beta'],
+                q_err=errs['q'], scale=scale, hmc_steps_compared=n_cmp,
+                energy_rel_err=e_err, alpha_err=a_err,
+                accept=[hmc[w]['accept_rate'] for w in ('cuda', 'cpu')])
+
+
+def _corr(a, b):
+    return float(np.corrcoef(a, b)[0, 1])
+
+
+def sampler_launches(ld_ds, g):
+    """The device events (kernel launches, copies, fills) of one Gibbs
+    sweep of sampler ``g`` under torch.profiler (None: the profiler saw no
+    device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from viprs_tpu_torch.model import sampler
+    st = g.init_state(5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sampler._gibbs_sweep(ld_ds.ld, st, *g._args(1.0))
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def sampler_genome(ds):
+    """MC1: benchmarks/benchmark_sampler.py's workload on the card, on the
+    first tiles of the int8 genome holding at least MC1_M variants: a VIPRS
+    fit (the reference), blocked Gibbs at its hyperparameters, tempered SMC
+    over a pi grid of 8 particles and HMC on its PIP > 0.5 variants (cold,
+    then steady); seconds, ms per sweep and per step, launches per sweep,
+    accept rates, step size, agreement with VI."""
+    import torch
+    from viprs_tpu_torch.model import VIPRS, sampler
+    t_all = time.perf_counter()
+    ld = ds.ld
+    dev = ld.device
+    per_tile = ld.mask.sum(dim=1).cpu().numpy()
+    k = int(np.searchsorted(np.cumsum(per_tile), MC1_M)) + 1
+    sel = np.arange(min(k, ld.nb))
+    sub = cut_blocks(ld, sel, dev)
+    sb, nf = (x.index_select(0, torch.as_tensor(sel, device=dev))
+              for x in ds.device_inputs())
+    dsm = _dataset_from_cut(sub, sb, nf, dev)
+    ch = dsm.chromosomes
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vi = VIPRS(dsm, 'cuda').fit(max_iter=1000)
+    torch.cuda.synchronize()
+    t_vi = time.perf_counter() - t0
+    vi_pip = np.concatenate([vi.pip[c] for c in ch])
+    vi_eta = np.concatenate([vi.post_mean_beta[c] for c in ch])
+    hyper = dict(pi=float(vi.pi), tau_beta=float(vi.tau_beta),
+                 sigma_eps=float(vi.sigma_epsilon))
+    phase('MC1', f"the cut: {dsm.m} variants in {sub.nb} tiles of "
+                 f"{sub.block_size}, {sub.n_off} coupling tiles; VI fit "
+                 f"{t_vi:.2f} s ({vi.optim_result.nit} iterations, h2 "
+                 f"{vi.get_heritability():.4f}, pi {hyper['pi']:.5f}, "
+                 f"{int((vi_pip > 0.5).sum())} variants with PIP > 0.5)")
+    rec = dict(m=dsm.m, tiles=sub.nb, vi_s=t_vi, vi_nit=vi.optim_result.nit,
+               hyper=hyper)
+
+    def agree(out, name, secs):
+        pip = np.concatenate([out['pip'][c] for c in ch])
+        eta = np.concatenate([out['post_mean_beta'][c] for c in ch])
+        var = np.concatenate([out['post_var_beta'][c] for c in ch])
+        if not (np.isfinite(pip).all() and np.isfinite(eta).all()
+                and np.isfinite(var).all()):
+            fail(f"MC1: {name}'s posterior is not finite")
+        top = vi_pip > 0.5
+        r = dict(seconds=secs, pip_corr=_corr(vi_pip, pip),
+                 eta_corr=_corr(vi_eta, eta),
+                 top_agreement=float(np.mean(pip[top] > 0.5))
+                 if top.any() else None)
+        return r
+
+    g = sampler.GibbsSampler(dsm, n_chains=4, seed=1, **hyper)
+    launches = sampler_launches(dsm, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = g.run(**MC1_GIBBS)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    rec['gibbs'] = agree(out, 'Gibbs', t_g)
+    rec['gibbs'].update(ms_per_sweep=1e3 * t_g / MC1_GIBBS['n_iter'],
+                        launches_per_sweep=launches, **MC1_GIBBS)
+    r = rec['gibbs']
+    phase('MC1', f"Gibbs (4 chains, {MC1_GIBBS['n_iter']} sweeps, "
+                 f"{MC1_GIBBS['burn_in']} burn-in): {t_g:.2f} s, "
+                 f"{r['ms_per_sweep']:.2f} ms per sweep, {launches} device "
+                 f"launches per sweep; PIP corr {r['pip_corr']:.4f}, eta "
+                 f"corr {r['eta_corr']:.4f}, P(PIP > .5 | VI PIP > .5) "
+                 f"{r['top_agreement']}")
+
+    pis = np.geomspace(2e-4, 2e-2, 8)
+    grid = {'pi': pis, 'tau_beta': pis * dsm.m / 0.25,
+            'sigma_epsilon': np.full(8, 0.75)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smc = sampler.smc_over_grid(dsm, grid, seed=2, **MC1_SMC)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    w = smc['weights']
+    if not (w.shape == (8,) and np.isfinite(w).all()
+            and abs(w.sum() - 1.0) <= 1e-8):
+        fail(f"MC1: the SMC weights {w} are not 8 finite weights summing "
+             f"to 1")
+    n_sweeps = 8 * MC1_SMC['n_stages'] * MC1_SMC['sweeps_per_stage'] + 50
+    rec['smc'] = agree(smc['posterior'], 'SMC', t_s)
+    rec['smc'].update(weights=w.tolist(), best_hyper=smc['best_hyper'],
+                      sweeps=n_sweeps, ms_per_sweep=1e3 * t_s / n_sweeps,
+                      **MC1_SMC)
+    r = rec['smc']
+    phase('MC1', f"SMC (8 particles, {MC1_SMC['n_stages']} stages x "
+                 f"{MC1_SMC['sweeps_per_stage']} sweeps, then 50): {t_s:.2f}"
+                 f" s ({r['ms_per_sweep']:.2f} ms per 1-chain sweep); best pi "
+                 f"{smc['best_hyper']['pi']:.5f} (VI {hyper['pi']:.5f}), "
+                 f"weights {np.round(w, 3).tolist()}; PIP corr "
+                 f"{r['pip_corr']:.4f}, eta corr {r['eta_corr']:.4f}")
+
+    gmask = {c: (vi.pip[c] > 0.5).astype(np.float64) for c in ch}
+    selected = np.concatenate([gmask[c] for c in ch]) > 0
+    if not selected.any():
+        fail("MC1: VI selected no variant for HMC")
+    runs = {}
+    for name, seed in (('cold', 3), ('steady', 4)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = sampler.hmc_refine(dsm, gmask, seed=seed, **hyper, **MC1_HMC)
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, h)
+    t_h, h = runs['steady']
+    eta = np.concatenate([h['post_mean_beta'][c] for c in ch])
+    var = np.concatenate([h['post_var_beta'][c] for c in ch])
+    r_sel = _corr(vi_eta[selected], eta[selected])
+    rec['hmc'] = dict(seconds_cold=runs['cold'][0], seconds=t_h,
+                      ms_per_step=1e3 * t_h / MC1_HMC['n_samples'],
+                      accept=h['accept_rate'],
+                      warmup_accept=h['warmup_accept_rate'],
+                      step_size=h['step_size'], eta_corr_selected=r_sel,
+                      selected=int(selected.sum()),
+                      accept_cold=runs['cold'][1]['accept_rate'], **MC1_HMC)
+    r = rec['hmc']
+    phase('MC1', f"HMC ({int(selected.sum())} variants, 4 chains, "
+                 f"{MC1_HMC['n_samples']} samples, L <= "
+                 f"{MC1_HMC['n_leapfrog']}): cold {r['seconds_cold']:.2f} s, "
+                 f"steady {t_h:.2f} s ({r['ms_per_step']:.2f} ms per step); "
+                 f"accept {h['accept_rate']:.4f} (warm-up "
+                 f"{h['warmup_accept_rate']:.4f}; cold run "
+                 f"{r['accept_cold']:.4f}), step size {h['step_size']:.4g}; "
+                 f"eta corr with VI on the selected {r_sel:.4f}")
+    if not (np.isfinite(eta).all() and np.isfinite(var).all()
+            and np.all(eta[~selected] == 0)):
+        fail("MC1: the HMC posterior is not finite, or moved an unselected "
+             "variant")
+    for name, (_, hr) in runs.items():
+        if not 0.2 < hr['accept_rate'] <= 1.0:
+            fail(f"MC1: HMC ({name}) accept rate {hr['accept_rate']} is "
+                 f"not in (0.2, 1]")
+    if not r_sel > 0.5:
+        fail(f"MC1: HMC's posterior mean correlates {r_sel:.4f} with VI's "
+             f"on the selected variants")
+    secs = time.perf_counter() - t_all
+    rec['seconds'] = secs
+    phase('MC1', f"{secs:.1f} s")
     return rec
 
 

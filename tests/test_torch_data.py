@@ -461,6 +461,35 @@ def test_read_sumstats_matches_jax(tmp_path, fmt):
                           want.filter_snps(keep).table)
 
 
+def test_set_sample_size_matches_jax(tmp_path):
+    """A summary-statistics file without N: n_per_snp raises until
+    set_sample_size gives it, a scalar or one size a variant, as in the
+    JAX package; the variant views follow the table."""
+    f = tmp_path / 'ss.txt'
+    _sumstats_file(f, 'magenpy')
+    raw = read_table(str(f))
+    got = sumstats.SumstatsTable(raw.drop(['N']))
+    want = jax_sumstats.SumstatsTable(
+        pd.read_csv(f, sep=r'\s+', engine='python').drop(columns=['N']))
+    for t in (got, want):
+        with pytest.raises(ValueError, match='set_sample_size'):
+            t.n_per_snp
+    for n in (7000, np.asarray(raw['N'])):
+        got.set_sample_size(n)
+        want.set_sample_size(n)
+        assert same_bits(got.n_per_snp, want.n_per_snp)
+        assert same_bits(got.get_snp_pseudo_corr(),
+                         want.get_snp_pseudo_corr())
+    for attr in ('snps', 'a1', 'a2'):
+        assert as_str(getattr(got, attr)) == as_str(getattr(want, attr)), \
+            attr
+    assert got.chromosomes == want.chromosomes == [1, 2, 22]
+    bare = sumstats.SumstatsTable(raw.drop(['CHR', 'A2']))
+    jbare = jax_sumstats.SumstatsTable(want.table.drop(columns=['CHR', 'A2']))
+    assert bare.chromosomes == jbare.chromosomes == [0]
+    assert bare.a2 is None and jbare.a2 is None
+
+
 def test_read_sumstats_refusals(tmp_path):
     f = tmp_path / 'ss.txt'
     _sumstats_file(f, 'gwas-ssf')
@@ -583,6 +612,33 @@ def test_loader_matches_jax(fixture_dir, store, filt):
             idx = np.isin(fx['tables'][c]['SNP'], pl.ld_snp_tables[c]['SNP'])
             np.testing.assert_allclose(ds.std_beta[c],
                                        fx['std_beta'][c][idx], rtol=1e-10)
+
+
+def test_read_summary_statistics_and_split_match_jax(fixture_dir):
+    """Summary statistics read after the LD (``read_summary_statistics``
+    harmonizes them with it) and the per-chromosome views of
+    ``split_by_chromosome``, against the JAX package's."""
+    root, _ = fixture_dir
+    args = dict(ld_store_files=osp.join(root, 'native'), block_size=128)
+    pl, jl = loader.GWADataLoader(**args), jax_loader.GWADataLoader(**args)
+    f = osp.join(root, 'sumstats.txt')
+    got, want = pl.read_summary_statistics(f), jl.read_summary_statistics(f)
+    assert_table_is_frame(got.table, want.table)
+    assert_loaders_match(pl, jl)
+    parts, jparts = pl.split_by_chromosome(), jl.split_by_chromosome()
+    assert sorted(parts) == sorted(jparts) == sorted(CHROMS)
+    full = pl.to_summary_dataset(device='cpu')
+    for c, sub in parts.items():
+        assert sub.chromosomes == jparts[c].chromosomes == [c]
+        assert sub.shapes == jparts[c].shapes
+        ds = sub.to_summary_dataset(device='cpu')
+        assert ds.chromosomes == [c]
+        assert same_bits(ds.std_beta[c], full.std_beta[c])
+        np.testing.assert_array_equal(
+            block_ld.blockld_to_dense(ds.ld)[:ds.m, :ds.m],
+            block_ld.blockld_to_dense(
+                block_ld.pack_dense_blocks({c: pl.ld_blocks[c]},
+                                           block_size=128)[0])[:ds.m, :ds.m])
 
 
 def test_loader_eager_path_matches_jax(tmp_path, fixture_dir):

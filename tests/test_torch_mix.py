@@ -283,6 +283,40 @@ def assert_mix_grids_match(jm, tm, lanes=slice(None)):
         list(jm.validation_result['Converged'])
 
 
+def capture(monkeypatch, mod, name):
+    """The results of every call the port makes to ``mod.name``."""
+    calls = []
+    orig = getattr(mod, name)
+
+    def record(*a, **kw):
+        calls.append(orig(*a, **kw))
+        return calls[-1]
+    monkeypatch.setattr(mod, name, record)
+    return calls
+
+
+@pytest.mark.parametrize('grid', [False, True])
+def test_mix_final_mse_matches_jax(datasets, ladder_trace, monkeypatch,
+                                   grid):
+    """MixEMResult.final_mse (the MSE of the last call's final state with
+    its final hyperparameters) against the JAX package's single and batch
+    loops, on test_mix_fit_matches_jax's and test_mix_grid_matches_jax's
+    fits, within the ELBO's rtol 1e-6."""
+    got = capture(monkeypatch, mix_em_loop,
+                  'mix_em_fit_batch' if grid else 'mix_em_fit')
+    if grid:
+        fit_grid_both(*datasets, dict(pi_steps=8), 3, max_iter=60,
+                      min_iter=5, f_abs_tol=0.2)
+    else:
+        fit_mix_both(*datasets, model_kw=dict(K=3), max_iter=100, min_iter=6,
+                     f_abs_tol=4e-3)
+    assert_clear_of_thresholds(ladder_trace)
+    want = np.asarray(ladder_trace.calls[-1]['res'].final_mse)
+    assert np.shape(got[-1].final_mse) == want.shape == ((8,) if grid else ())
+    assert np.all(want > 0)
+    np.testing.assert_allclose(got[-1].final_mse, want, rtol=1e-6)
+
+
 @pytest.mark.parametrize('K,S,chunk_iters', [(3, 8, None), (1, 10, 4)])
 def test_mix_grid_matches_jax(datasets, ladder_trace, K, S, chunk_iters):
     """A pi grid of S >= 8 points (the grid's pi is each lane's total). In

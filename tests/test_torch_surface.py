@@ -160,6 +160,182 @@ def test_public_surface_matches_jax(name):
         assert 'device' in inspect.signature(tcls.__init__).parameters
 
 
+# ----------------------------------------------------- every shared module
+#: JAX modules the port has no counterpart of, with the reason.
+MODULE_EXCEPTIONS = {
+    'data.native': "the ctypes bridge to the host C++ BED decoder, LD "
+                   "accumulator and quantizer: the port decodes and "
+                   "accumulates on the card (data/genotype.py, "
+                   "ld_estimators.py) and quantizes to the same bytes in "
+                   "ops/block_ld.quantize_int8",
+    'ops.cavi_jax': "the XLA sweeps: the port's plain versions are "
+                    "ops/cavi_torch.py",
+    'ops.cavi_pallas': "the Pallas kernels: the port's are ops/cavi_cuda.py "
+                       "(csrc/*.cu)",
+    'parallel': "multi-device sharding: ROADMAP.md, Queue 1, item 10",
+    'parallel.distributed': "multi-device sharding: item 10",
+    'parallel.mesh': "multi-device sharding: item 10",
+}
+_TPU = "a TPU workaround (ROADMAP.md's ground rules): not ported"
+#: (module, name) or (module, class, name) the port does not have, with
+#: the reason.
+NAME_EXCEPTIONS = {
+    ('ops.block_ld', 'LD_LAYOUT_THRESHOLD_BYTES'): _TPU,
+    ('ops.block_ld', 'XLA_DIAG_LAYOUT'): _TPU,
+    ('data.dataset', 'SummaryStatsDataset', 'ld_skip_view'): _TPU,
+    ('data.dataset', 'SummaryStatsDataset', 'ld_for_mesh'):
+        "multi-device sharding: item 10",
+    ('model._dispatch', 'HYBRID_MAX_LD_BYTES'): _TPU,
+    ('model._dispatch', 'hybrid_ld_fits'): _TPU,
+    ('model._dispatch', 'pallas_allowed'): _TPU,
+    ('model._dispatch', 'TPU_BACKENDS'):
+        "the backends pallas_allowed admits: " + _TPU,
+    ('model._dispatch', 'MIN_PALLAS_LANES'):
+        "the lane count below which pallas_allowed's policy keeps the XLA "
+        "loop (a TPU measurement); on the card every S >= 2 takes the lane "
+        "kernels: " + _TPU,
+    ('model._dispatch', 'S1_HYBRID_DEFAULT'):
+        "whether pallas_allowed's policy takes the hybrid at S = 1 (a TPU "
+        "measurement); on the card S = 1 always does: " + _TPU,
+    ('ops.cavi_mix', 'cavi_sweep_mixture'):
+        "the XLA/Pallas dispatch of a single-model mixture sweep; the "
+        "port's are cavi_cuda.cavi_sweep_mix_s1 (K5) and, plain, "
+        "cavi_mix.mix_block_sweep + cavi_torch.refresh_q",
+    ('ops.cavi_mix', 'cavi_sweep_mixture_batch'):
+        "the XLA/Pallas dispatch of a lane mixture sweep; the port's are "
+        "cavi_cuda.cavi_sweep_mix_s (K7) and, plain, "
+        "cavi_mix.mix_block_sweep + cavi_torch.refresh_q",
+    ('ops.updates', 'collect_stats_jit'):
+        "the jitted (one XLA launch) form of collect_stats; the port's "
+        "collect_stats is the same function, eager",
+    ('ops.em_loop', 'EMCarry'): "the JAX while_loop's carry; the port's "
+                                "loop is a host loop",
+    ('ops.mix_em_loop', 'MixEMBatchResult'):
+        "the port's batch and single mixture loops share MixEMResult",
+}
+_CONSTANT = (bool, int, float, str, bytes, tuple, list, dict, frozenset)
+
+
+def _modules(pkg_name):
+    """The modules of a package, as names relative to it ('' for the
+    package itself)."""
+    import importlib
+    import pkgutil
+    pkg = importlib.import_module(pkg_name)
+    return {''} | {m.name[len(pkg_name) + 1:] for m in
+                   pkgutil.walk_packages(pkg.__path__, pkg_name + '.')}
+
+
+def test_modules_only_in_jax_are_listed():
+    only = _modules('viprs_tpu') - _modules('viprs_tpu_torch')
+    assert only == set(MODULE_EXCEPTIONS), sorted(only)
+
+
+def _public(mod):
+    """The names a module offers: the classes and functions it defines (a
+    package: those it exports) and its constants; not what it imports
+    from outside the package (typing, functools, numpy dtypes, loggers)."""
+    import inspect
+    is_pkg = hasattr(mod, '__path__')
+    out = set()
+    for n in dir(mod):
+        if n.startswith('_'):
+            continue
+        v = getattr(mod, n)
+        if inspect.ismodule(v):
+            continue
+        if inspect.isclass(v) or callable(v):
+            home = getattr(v, '__module__', '') or ''
+            if home == mod.__name__ or (is_pkg and home.startswith(
+                    'viprs_tpu.')):
+                out.add(n)
+        elif isinstance(v, _CONSTANT):
+            out.add(n)
+    return out
+
+
+@pytest.mark.parametrize('name', sorted(_modules('viprs_tpu')
+                                         & _modules('viprs_tpu_torch')))
+def test_module_surface_matches_jax(name):
+    """Every public name of every module both packages have exists in the
+    port's module, and every public attribute of each class the JAX
+    module defines exists on the port's class of that name (exceptions in
+    MODULE_EXCEPTIONS and NAME_EXCEPTIONS)."""
+    import importlib
+    import inspect
+    jmod = importlib.import_module('viprs_tpu' + ('.' + name if name else ''))
+    tmod = importlib.import_module(
+        'viprs_tpu_torch' + ('.' + name if name else ''))
+    missing = []
+    for n in sorted(_public(jmod)):
+        if (name, n) in NAME_EXCEPTIONS:
+            assert not hasattr(tmod, n), (name, n)
+            continue
+        if not hasattr(tmod, n):
+            missing.append(n)
+            continue
+        jv, tv = getattr(jmod, n), getattr(tmod, n)
+        if not (inspect.isclass(jv) and jv.__module__ == jmod.__name__):
+            continue
+        assert inspect.isclass(tv), (name, n)
+        for a in sorted(x for x in dir(jv) if not x.startswith('_')):
+            if (name, n, a) in NAME_EXCEPTIONS:
+                assert not hasattr(tv, a), (name, n, a)
+            elif not hasattr(tv, a):
+                missing.append(f'{n}.{a}')
+    assert not missing, (name, missing)
+
+
+def test_sampler_parameters_match_jax():
+    from viprs_tpu.model import sampler as jsm
+    from viprs_tpu_torch.model import sampler as tsm
+    for fn in ('smc_over_grid', 'hmc_refine'):
+        assert inspect.signature(getattr(tsm, fn)) == \
+            inspect.signature(getattr(jsm, fn)), fn
+    for meth in ('__init__', 'init_state', 'run'):
+        jp = inspect.signature(getattr(jsm.GibbsSampler, meth)).parameters
+        tp = inspect.signature(getattr(tsm.GibbsSampler, meth)).parameters
+        assert list(tp) == list(jp), meth
+        assert [p.default for p in tp.values()] == \
+            [p.default for p in jp.values()], meth
+    assert tsm.GibbsState._fields == jsm.GibbsState._fields
+
+
+@pytest.mark.parametrize('grid', [False, True])
+def test_em_result_final_mse_matches_jax(grid, nominal, coupled,
+                                         ladder_trace, monkeypatch):
+    """EMResult.final_mse (the MSE of the last loop call's final state with
+    its final hyperparameters) against the JAX package's em_fit, on the
+    tracked-fit tests' problems and settings, within the ELBO's rtol
+    1e-6."""
+    from viprs_tpu_torch.ops import em_loop
+    got = []
+    orig = em_loop.em_fit
+    monkeypatch.setattr(em_loop, 'em_fit',
+                        lambda *a, **kw: got.append(orig(*a, **kw))
+                        or got[-1])
+    if grid:
+        jds, ds = coupled
+        spec = dict(pi_steps=4, h2_est=0.3, h2_se=0.05)
+        kw = dict(max_iter=40, min_iter=8, f_abs_tol=2e-3)
+        np.random.seed(9)
+        JaxVIPRSGrid(jds, JaxGrid(n_snps=jds.m, **spec), mesh='off').fit(**kw)
+        np.random.seed(9)
+        VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, **spec), 'cpu').fit(
+            **kw)
+    else:
+        jds, ds = nominal
+        np.random.seed(7)
+        JaxVIPRS(jds, mesh='off').fit(**FIT_KW)
+        np.random.seed(7)
+        VIPRS(ds, 'cpu').fit(sweep_impl='xla', **FIT_KW)
+    assert_clear_of_thresholds(ladder_trace)
+    want = np.asarray(ladder_trace.calls[-1]['res'].final_mse)
+    assert got[-1].final_mse.shape == want.shape
+    assert np.all(want > 0)
+    np.testing.assert_allclose(got[-1].final_mse, want, rtol=1e-6)
+
+
 def test_float_precision_sets_float_eps_only(nominal):
     """float_precision sets float_eps as in the JAX package; the state
     stays float32."""
@@ -324,6 +500,140 @@ def test_mixture_diagnostics_and_views_on_carried_state(coupled):
                                                np.ones(6, int))
     for v in ('models_to_keep', 'terminated_models'):
         np.testing.assert_array_equal(getattr(tg, v), getattr(jg, v), v)
+
+
+def test_mixture_sweeps_match_jax(coupled):
+    """ops.cavi_mix's plain full sweeps (mix_block_sweep, then refresh_q
+    for the coupling tiles), single model and S lanes (with a frozen and a
+    damped lane), against the JAX package's cavi_sweep_mixture and
+    cavi_sweep_mixture_batch from the same state, at the sweep tests'
+    bounds."""
+    import jax.numpy as jnp
+    from viprs_tpu.ops import cavi_mix as jmix
+    from viprs_tpu_torch.ops import cavi_mix
+    from viprs_tpu_torch.ops.cavi_torch import refresh_q
+
+    def sweep(state, hyper, active=None):
+        new, d = cavi_mix.mix_block_sweep(ds.ld, state, sb, nf, hyper,
+                                          active=active)
+        return new._replace(q=refresh_q(ds.ld, new.q, d)), d
+    jds, ds = coupled
+    sb, nf = ds.device_inputs()
+    jsb, jnf = jnp.asarray(sb.numpy()), jnp.asarray(nf.numpy())
+    jm = _jax_fit5(lambda: JaxVIPRSMix(jds, K=3, mesh='off'))
+    h = [np.asarray(x, np.float32) for x in jm._hyper_f32()]
+    want, wd = jmix.cavi_sweep_mixture(jds.ld, jm._state, jsb, jnf,
+                                       jmix.MixHyper(*map(jnp.asarray, h)))
+    got, gd = sweep(
+        cavi_mix.MixState(*(x[None] for x in cavi_mix.MixState.from_numpy(
+            *(np.asarray(x) for x in jm._state), device='cpu'))),
+        cavi_mix.MixHyper.from_numpy(*h, device='cpu').lanes())
+    got, gd = cavi_mix.MixState(*(x[0] for x in got)), gd[0]
+    atol = dict(ATOL, mu=1e-4)
+    for k, v in zip(('gamma', 'mu', 'eta', 'q'), got):
+        np.testing.assert_allclose(v.numpy(), np.asarray(getattr(want, k)),
+                                   atol=atol[k], rtol=0, err_msg=k)
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), atol=1e-5, rtol=0)
+
+    spec = dict(pi_steps=3, h2_est=0.3, h2_se=0.05)
+    np.random.seed(4)
+    jg = JaxVIPRSMixGrid(jds, JaxGrid(n_snps=jds.m, **spec), K=2, mesh='off')
+    jg.initialize()
+    h = [np.asarray(x, np.float32) for x in jg._hyper]
+    active = np.array([1.0, 0.0, 0.5], np.float32)
+    want, _ = jmix.cavi_sweep_mixture_batch(
+        jds.ld, jg._state, jsb, jnf, jmix.MixHyper(*map(jnp.asarray, h)),
+        jnp.asarray(active))
+    got, _ = sweep(
+        cavi_mix.MixState.from_numpy(*(np.asarray(x) for x in jg._state),
+                                     device='cpu'),
+        cavi_mix.MixHyper.from_numpy(*h, device='cpu'),
+        torch.from_numpy(active))
+    for k, v in zip(('gamma', 'mu', 'eta', 'q'), got):
+        np.testing.assert_allclose(v.numpy(), np.asarray(getattr(want, k)),
+                                   atol=atol[k], rtol=0, err_msg=k)
+    np.testing.assert_array_equal(got.eta[1].numpy(),
+                                  np.asarray(jg._state.eta)[1])
+
+
+def test_ported_helpers_match_jax(nominal, tmp_path):
+    """utils.compute's dict algebra and coefficient tables, utils.system's
+    checks and memory profiler, updates.collect_stats (against the JAX
+    package's collect_stats_jit), the hybrid's threshold and the abstract
+    model methods, against the JAX package's."""
+    import pandas as pd
+    from viprs_tpu.model.base import BayesPRSModel as JaxBase
+    from viprs_tpu.model import _dispatch as jdispatch
+    from viprs_tpu.ops import updates as jup
+    from viprs_tpu.utils import compute as jcompute, system as jsystem
+    from viprs_tpu_torch.model import _dispatch
+    from viprs_tpu_torch.model.base import BayesPRSModel
+    from viprs_tpu_torch.ops import em_loop, updates
+    from viprs_tpu_torch.utils import compute, system
+    from viprs_tpu_torch.utils.table import Table
+    rng = np.random.default_rng(0)
+    d1 = {1: rng.standard_normal(5), 2: rng.standard_normal(3)}
+    d2 = {1: rng.standard_normal(5), 2: rng.standard_normal(3)}
+    for fn in ('dict_mean', 'dict_sum', 'dict_max', 'dict_concat'):
+        assert getattr(compute, fn)(d1) == pytest.approx(
+            getattr(jcompute, fn)(d1), rel=1e-15), fn
+    assert compute.dict_sum(d1, transform=np.abs) == \
+        jcompute.dict_sum(d1, transform=np.abs)
+    assert compute.dict_dot(d1, d2) == jcompute.dict_dot(d1, d2)
+    for fn, args in (('dict_elementwise_dot', (d1, d2)),
+                     ('dict_elementwise_transform', (d1, np.tanh)),
+                     ('dict_repeat', (0.5, {1: (5,), 2: (3, 2)})),
+                     ('dict_set', ({c: v.copy() for c, v in d1.items()},
+                                   2.0))):
+        got, want = getattr(compute, fn)(*args), getattr(jcompute, fn)(*args)
+        assert sorted(got) == sorted(want), fn
+        for c in got:
+            np.testing.assert_array_equal(got[c], want[c], err_msg=fn)
+    for shape in ((4,), (4, 1), (4, 3)):
+        assert compute.expand_column_names('BETA', shape) == \
+            jcompute.expand_column_names('BETA', shape)
+    assert compute.fits_in_memory(1.0) and not compute.fits_in_memory(1e12)
+    cols = [dict(SNP=['a', 'b'], A1=['A', 'C'], BETA=rng.standard_normal(2))
+            for _ in range(3)]
+    got = compute.combine_coefficient_tables([Table(c) for c in cols])
+    want = jcompute.combine_coefficient_tables([pd.DataFrame(c)
+                                                for c in cols])
+    assert isinstance(got, Table) and got.columns == list(want.columns)
+    for k in got.columns[2:]:
+        np.testing.assert_array_equal(got[k], want[k].to_numpy())
+    with pytest.raises(ValueError, match='same number of rows'):
+        compute.combine_coefficient_tables([Table(cols[0]),
+                                            Table(cols[1]).take([0])])
+    for x in (3, '2.5', 'x', None, '1e3'):
+        assert system.is_numeric(x) == jsystem.is_numeric(x)
+    for path in (str(tmp_path / 'a' / 'b.txt'), str(tmp_path)):
+        assert system.is_path_writable(path) == \
+            jsystem.is_path_writable(path) is True
+    with system.PeakMemoryProfiler(interval=0.01) as prof:
+        block = np.ones(1 << 22)
+    assert prof.get_peak_memory() > block.nbytes / 2 ** 20
+    assert prof.get_peak_memory('GB') == prof.get_peak_memory() / 1024
+    _, ds = nominal
+    st = tuple(torch.from_numpy(rng.standard_normal(
+        (2, ds.ld.nb, ds.ld.block_size)).astype(np.float32))
+        for _ in range(4))
+    vt = torch.full((2, ds.ld.nb, ds.ld.block_size), 700.0)
+    sb = ds.device_inputs()[0]
+    got = updates.collect_stats(CaviState(*st), vt, sb, ds.ld.mask)
+    from viprs_tpu.ops.cavi_jax import CaviState as JaxState
+    want = jup.collect_stats_jit(JaxState(*(np.asarray(x) for x in st)),
+                                 np.asarray(vt), np.asarray(sb),
+                                 np.asarray(ds.ld.mask))
+    # float32 sums of signed random terms in another order: 6e-8 apart
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+    assert _dispatch.HYBRID_FRAC == jdispatch.HYBRID_FRAC \
+        == em_loop.HYBRID_FRAC
+    for cls in (BayesPRSModel, JaxBase):
+        for meth in ('fit', 'get_heritability', 'get_proportion_causal'):
+            with pytest.raises(NotImplementedError):
+                getattr(cls, meth)(None)
 
 
 # ------------------------------------------------------ manual EM steps

@@ -13,7 +13,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.block_ld import BlockLD, BlockLayout, pack_dense_blocks
+from ..ops.block_ld import BlockLD, BlockLayout, pack_banded, \
+    pack_dense_blocks
 
 
 @dataclasses.dataclass
@@ -27,6 +28,7 @@ class SummaryStatsDataset:
     :ivar snp_table: optional {chrom: Table} variant metadata (CHR, SNP,
         POS, A1, A2, ...; ``utils/table.py``).
     :ivar ld_scores: optional {chrom: (m_c,)} LD scores (LDSC h2 init).
+    :ivar phenotype_likelihood: 'gaussian' or 'binomial'.
     """
     ld: BlockLD
     layout: BlockLayout
@@ -34,12 +36,17 @@ class SummaryStatsDataset:
     n_per_snp: Dict
     snp_table: Optional[Dict] = None
     ld_scores: Optional[Dict] = None
+    phenotype_likelihood: str = 'gaussian'
     _cache: Dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.ld.device
+
+    @property
+    def chromosomes(self):
+        return list(self.layout.chromosomes)
 
     @property
     def shapes(self):
@@ -51,6 +58,10 @@ class SummaryStatsDataset:
         return self.layout.m
 
     @property
+    def n_snps(self) -> int:
+        return self.m
+
+    @property
     def n(self) -> float:
         return float(max(np.max(v) for v in self.n_per_snp.values()))
 
@@ -60,31 +71,56 @@ class SummaryStatsDataset:
             lay.to_flat(per_chrom).reshape(lay.nb, lay.block_size)
         ).to(self.device)
 
+    def std_beta_flat(self):
+        """The standardized marginal betas as an (NB, B) float32 tensor on
+        the dataset's device (zero on padding lanes)."""
+        return self._flat(self.std_beta)
+
+    def n_per_snp_flat(self):
+        """The per-variant sample sizes as an (NB, B) float32 tensor on the
+        dataset's device (zero on padding lanes)."""
+        return self._flat(self.n_per_snp)
+
     def device_inputs(self):
-        """Cached (std_beta, n_per_snp) as (NB, B) float32 tensors on the
-        dataset's device, shared by every model over this dataset."""
+        """Cached (std_beta_flat, n_per_snp_flat), shared by every model
+        over this dataset."""
         if 'inputs' not in self._cache:
-            self._cache['inputs'] = (self._flat(self.std_beta),
-                                     self._flat(self.n_per_snp))
+            self._cache['inputs'] = (self.std_beta_flat(),
+                                     self.n_per_snp_flat())
         return self._cache['inputs']
 
     @classmethod
     def from_dense_blocks(cls, ld_blocks: Dict, std_beta: Dict,
                           n_per_snp: Dict, snp_table: Optional[Dict] = None,
                           block_size: int = 1024, quantize: bool = False, *,
-                          device):
+                          device, **kwargs):
         """Build from per-chromosome lists of dense LD blocks."""
         packed, layout = pack_dense_blocks(ld_blocks, block_size=block_size,
                                            quantize=quantize)
         return cls.from_packed(packed, layout, std_beta, n_per_snp,
-                               snp_table=snp_table, device=device)
+                               snp_table=snp_table, device=device, **kwargs)
+
+    @classmethod
+    def from_banded(cls, banded: Dict, std_beta: Dict, n_per_snp: Dict,
+                    snp_table: Optional[Dict] = None,
+                    block_size: int = 1024, quantize: bool = False, *,
+                    device, **kwargs):
+        """Build from per-chromosome banded LD arrays (the reference's
+        on-disk layout: {chrom: (data, indptr, left_bound)}), packed by
+        :func:`~viprs_tpu_torch.ops.block_ld.pack_banded`: the windowed
+        stores whose band never pinches off into blocks."""
+        packed, layout = pack_banded(banded, block_size=block_size,
+                                     quantize=quantize)
+        return cls.from_packed(packed, layout, std_beta, n_per_snp,
+                               snp_table=snp_table, device=device, **kwargs)
 
     @classmethod
     def from_packed(cls, packed, layout, std_beta: Dict, n_per_snp: Dict,
-                    snp_table: Optional[Dict] = None, *, device):
-        """Upload a packer's (PackedLD, BlockLayout) to ``device``."""
+                    snp_table: Optional[Dict] = None, *, device, **kwargs):
+        """Upload a packer's (PackedLD, BlockLayout) to ``device``; the
+        other fields (``ld_scores``, ``phenotype_likelihood``) by keyword."""
         ds = cls(ld=packed.to(device), layout=layout, std_beta=std_beta,
-                 n_per_snp=n_per_snp, snp_table=snp_table)
+                 n_per_snp=n_per_snp, snp_table=snp_table, **kwargs)
         ds._check_shapes()
         return ds
 

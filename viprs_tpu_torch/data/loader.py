@@ -90,12 +90,8 @@ class GWADataLoader:
         self.sumstats_table = None
         self._raw_sumstats = None
         if sumstats_files:
-            t0 = time.perf_counter()
-            files = get_filenames(sumstats_files)
-            self._raw_sumstats = SumstatsTable(Table.concat(
-                read_sumstats(f, sumstats_format=sumstats_format, n=n,
-                              **sumstats_kwargs).table for f in files))
-            self.timings['sumstats'] = time.perf_counter() - t0
+            self._read_sumstats(sumstats_files, sumstats_format, n=n,
+                                **sumstats_kwargs)
 
         self.phenotype = None
         self.phenotype_likelihood = None
@@ -185,6 +181,26 @@ class GWADataLoader:
             raise ValueError("perform_gwas needs genotypes and a phenotype.")
         self._raw_sumstats = self.genotype.perform_gwas(self.phenotype,
                                                         **kwargs)
+        if self._ld_blocks is not None or self._ld_sources:
+            self.harmonize_data()
+        return self._raw_sumstats
+
+    def _read_sumstats(self, sumstats_files, sumstats_format, **kwargs):
+        t0 = time.perf_counter()
+        files = get_filenames(sumstats_files)
+        self._raw_sumstats = SumstatsTable(Table.concat(
+            read_sumstats(f, sumstats_format=sumstats_format, **kwargs).table
+            for f in files))
+        self.timings['sumstats'] = time.perf_counter() - t0
+
+    def read_summary_statistics(self, sumstats_files,
+                                sumstats_format='magenpy', **kwargs):
+        """Read (and concatenate) summary-statistics files into the
+        loader's raw table (``read_sumstats``'s keywords: ``sep``,
+        ``column_map``, ``n``); harmonized with the LD when the loader has
+        LD. Returns the SumstatsTable."""
+        self._read_sumstats(sumstats_files, sumstats_format, **kwargs)
+        self._dataset = None
         if self._ld_blocks is not None or self._ld_sources:
             self.harmonize_data()
         return self._raw_sumstats
@@ -583,7 +599,8 @@ class GWADataLoader:
         t0 = time.perf_counter()
         self._dataset = SummaryStatsDataset.from_packed(
             packed, layout, std_beta, n_per_snp, snp_table=snp_tables,
-            device=device)
+            device=device,
+            phenotype_likelihood=self.phenotype_likelihood or 'gaussian')
         if self._dataset.device.type == 'cuda':
             torch.cuda.synchronize(self._dataset.device)
         self.timings['upload'] = time.perf_counter() - t0
@@ -658,6 +675,11 @@ class GWADataLoader:
                                if c in chroms}
         sub._dataset = None
         return sub
+
+    def split_by_chromosome(self):
+        """{chrom: a view of this loader restricted to that chromosome}
+        (``subset_loader``; the models fit all chromosomes jointly)."""
+        return {c: self.subset_loader([c]) for c in self.chromosomes}
 
     def iter_group_datasets(self, groups, block_size=None, quantize=None,
                             device='cuda'):

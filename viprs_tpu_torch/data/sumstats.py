@@ -96,6 +96,24 @@ class SumstatsTable:
         return len(self.table)
 
     @property
+    def chromosomes(self):
+        if 'CHR' in self.table:
+            return sorted(np.unique(self.table['CHR']))
+        return [0]
+
+    @property
+    def snps(self):
+        return self.table['SNP']
+
+    @property
+    def a1(self):
+        return self.table['A1']
+
+    @property
+    def a2(self):
+        return self.table['A2'] if 'A2' in self.table else None
+
+    @property
     def z_score(self):
         return np.asarray(self.table['Z'], dtype=np.float64)
 
@@ -111,6 +129,10 @@ class SumstatsTable:
             return np.asarray(self.table['N'], dtype=np.float64)
         raise ValueError("Per-SNP sample size (N) not available; "
                          "call set_sample_size() first.")
+
+    def set_sample_size(self, n):
+        """Set a scalar (or per-variant) GWAS sample size."""
+        self.table['N'] = n
 
     def get_snp_pseudo_corr(self):
         """Standardized marginal beta: r = z / sqrt(n + z^2)."""

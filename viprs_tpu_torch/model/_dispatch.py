@@ -32,6 +32,10 @@ package's policy on its TPU backend:
 - ``'hybrid'`` is the single-model VIPRS dispatch and raises for both.
 """
 
+# the JAX package defines the hybrid's threshold here; the loop that reads
+# it is the port's ops/em_loop.py
+from ..ops.em_loop import HYBRID_FRAC  # noqa: F401
+
 SWEEP_IMPLS = (None, 'xla', 'skip', 'pallas', 'hybrid')
 
 

@@ -313,6 +313,16 @@ class BayesPRSModel:
     def n_snps(self) -> int:
         return self.m
 
+    # ---------------------------------------------------- what models define
+    def fit(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def get_proportion_causal(self):
+        raise NotImplementedError
+
+    def get_heritability(self):
+        raise NotImplementedError
+
     def get_pip(self):
         return self.pip
 

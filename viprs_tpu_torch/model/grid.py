@@ -172,8 +172,8 @@ class VIPRSGrid(VIPRS):
         self._last_result = em_loop.EMResult(
             state=None, hyper=None, sigma_g=None, status=statuses, nit=nits,
             elbo_hist=None, n_iter_total=int(nits.sum()), final_elbo=elbos,
-            counters=None, max_eta_diff=None, restarts_used=None,
-            act_hist=None, n_skip=0)
+            mse_of=None, counters=None, max_eta_diff=None,
+            restarts_used=None, act_hist=None, n_skip=0)
         self._populate_optim_result(self._last_result)
         self.optim_result.nit = int(nits.sum())
         self._set_validation_result(elbos)

@@ -516,7 +516,7 @@ class VIPRS(BayesPRSModel):
             self._last_result = em_loop.EMResult(
                 state=None, hyper=None, sigma_g=None, status=statuses.copy(),
                 nit=nit_acc.copy(), elbo_hist=None, n_iter_total=it_done,
-                final_elbo=init_elbo.copy(), counters=None,
+                final_elbo=init_elbo.copy(), mse_of=None, counters=None,
                 max_eta_diff=med_acc.copy(), restarts_used=None,
                 act_hist=None, n_skip=n_skip)
             if self.tracked_params:

@@ -140,8 +140,36 @@ class BlockLD:
         return self.off_data.shape[0]
 
     @property
+    def m_padded(self) -> int:
+        return self.nb * self.block_size
+
+    @property
     def device(self) -> torch.device:
         return self.diag.device
+
+    def astype_storage(self, dtype):
+        """The same LD stored as ``dtype`` (a float dtype, torch's or
+        numpy's) with scale 1: each tile becomes ``(tile.to(dtype) * scale)
+        .to(dtype)``. Its nonzero blocks are the same, so the flags carry
+        over.
+
+        :raises ValueError: for an integer dtype (re-quantization is the
+            packers' work), and for a dtype other than float32 on a CUDA
+            device (the kernels take int8 or float32 tiles).
+        """
+        dtype = _torch_dtype(dtype)
+        if dtype == self.diag.dtype:
+            return self
+        if not dtype.is_floating_point:
+            raise ValueError("Re-quantization not supported here; build "
+                             "from source data.")
+        if self.device.type == 'cuda' and dtype != torch.float32:
+            raise ValueError(f"the CUDA kernels take int8 or float32 LD "
+                             f"tiles, not {dtype}")
+        return dataclasses.replace(
+            self, diag=(self.diag.to(dtype) * self.scale).to(dtype),
+            off_data=(self.off_data.to(dtype) * self.scale).to(dtype),
+            scale=1.0)
 
     @classmethod
     def from_numpy(cls, diag, off_data, off_src, off_dst, mask, scale, *,
@@ -188,6 +216,13 @@ class BlockLD:
                    scale=float(scale))
 
 
+def _torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
 class PackedLD(NamedTuple):
     """Host (NumPy) result of a packer; ``to(device)`` uploads it."""
     diag: np.ndarray
@@ -215,6 +250,12 @@ def make_packed(diag, off_tiles, mask, scale) -> PackedLD:
         off_dst = np.zeros(0, np.int32)
     return PackedLD(diag=diag, off_data=off_data, off_src=off_src,
                     off_dst=off_dst, mask=mask, scale=scale)
+
+
+def make_block_ld(diag, off_tiles, mask, scale, *, device) -> BlockLD:
+    """Assemble a BlockLD on ``device`` from host tiles and a {(src, dst):
+    (B, B) array} coupling dict."""
+    return make_packed(diag, off_tiles, mask, scale).to(device)
 
 
 @dataclasses.dataclass
@@ -419,3 +460,119 @@ def pack_dense_blocks(chrom_blocks: dict, block_size: int = 1024,
 
     scale = INT8_SCALE if quantize else 1.0
     return make_packed(diag, off_tiles, layout.mask(), scale), layout
+
+
+def _banded_values(vals, quantize):
+    """The stored values of banded entries: int8 passes through when
+    quantizing and becomes int8 * float32(1/127) otherwise; floats are
+    quantized from float64, or cast to float32."""
+    if vals.dtype == np.int8:
+        return vals if quantize else \
+            vals.astype(np.float32) * np.float32(INT8_SCALE)
+    return quantize_int8(vals.astype(np.float64)) if quantize else \
+        vals.astype(np.float32)
+
+
+#: Entries of banded rows ``pack_banded`` places at a time (bounds its
+#: index arrays).
+BANDED_CHUNK = 1 << 22
+
+
+def pack_banded(chrom_banded: dict, block_size: int = 1024,
+                quantize: bool = False):
+    """Pack per-chromosome *banded* LD (the reference's on-disk layout,
+    ``{data, indptr, left_bound}`` with symmetric rows) into diagonal tiles
+    and compact coupling tiles, exact for any bandwidth: the windowed
+    stores whose band never pinches off into blocks. Each chromosome
+    starts a fresh tile; its variants fill tiles in order.
+
+    Only the upper triangle of each row (its diagonal included) is read:
+    an entry (j, k), k >= j, goes to (j, k) and (k, j) when both lie in one
+    tile, else to the coupling tile of (j's tile, k's tile). Every cell has
+    one writer, so the entries are placed about BANDED_CHUNK at a time:
+    the same bytes as the JAX package's row-by-row packer.
+
+    :param chrom_banded: {chrom: (data, indptr, left_bound)} where row j of
+        R holds ``data[indptr[j]:indptr[j+1]]`` starting at column
+        ``left_bound[j]``; ``data`` int8 (scale 1/127) or float.
+    :returns: (PackedLD, BlockLayout), int8 with scale 1/127 when
+        ``quantize``, float32 otherwise.
+    """
+    B = block_size
+    chroms = sorted(chrom_banded.keys())
+
+    chrom_sizes, chrom_block_range, flat_idx_parts = [], [], []
+    tile_cursor = 0
+    for c in chroms:
+        m_c = len(chrom_banded[c][1]) - 1
+        ntiles = _round_up(max(m_c, 1), B) // B
+        base = tile_cursor * B
+        flat_idx_parts.append(np.arange(base, base + m_c, dtype=np.int64))
+        chrom_sizes.append(m_c)
+        chrom_block_range.append((tile_cursor, tile_cursor + ntiles))
+        tile_cursor += ntiles
+
+    nb = tile_cursor
+    layout = BlockLayout(chromosomes=chroms, chrom_sizes=chrom_sizes,
+                         chrom_block_range=chrom_block_range,
+                         flat_index=np.concatenate(flat_idx_parts)
+                         if flat_idx_parts else np.zeros(0, np.int64),
+                         block_size=B, nb=nb)
+
+    store_dtype = np.int8 if quantize else np.float32
+    diag = np.zeros((nb, B, B), dtype=store_dtype)
+    off_tiles = {}
+
+    for c, (t0, _) in zip(chroms, chrom_block_range):
+        data, indptr, left = chrom_banded[c]
+        data = np.asarray(data)
+        indptr = np.asarray(indptr, np.int64)
+        left = np.asarray(left, np.int64)
+        m_c = len(indptr) - 1
+        j0 = 0
+        while j0 < m_c:
+            # rows [j0, j1): about BANDED_CHUNK entries, at least one row
+            j1 = int(np.searchsorted(indptr, indptr[j0] + BANDED_CHUNK,
+                                     side='right')) - 1
+            j1 = min(max(j1, j0 + 1), m_c)
+            e0, e1 = int(indptr[j0]), int(indptr[j1])
+            rows = np.repeat(np.arange(j0, j1, dtype=np.int64),
+                             np.diff(indptr[j0:j1 + 1]))
+            cols = left[rows] + (np.arange(e0, e1, dtype=np.int64)
+                                 - indptr[rows])
+            sel = cols >= rows
+            rows, cols = rows[sel], cols[sel]
+            vals = _banded_values(data[e0:e1][sel], quantize)
+            bj, oj = np.divmod(t0 * B + rows, B)
+            bc, oc = np.divmod(t0 * B + cols, B)
+            same = bc == bj
+            diag[bj[same], oj[same], oc[same]] = vals[same]
+            diag[bj[same], oc[same], oj[same]] = vals[same]
+            for a, b2 in np.unique(np.stack([bj, bc])[:, ~same], axis=1).T:
+                sel = (bj == a) & (bc == b2)
+                tileblk = off_tiles.setdefault(
+                    (int(a), int(b2)), np.zeros((B, B), dtype=store_dtype))
+                tileblk[oj[sel], oc[sel]] = vals[sel]
+            j0 = j1
+
+    scale = INT8_SCALE if quantize else 1.0
+    return make_packed(diag, off_tiles, layout.mask(), scale), layout
+
+
+def blockld_to_dense(ld) -> np.ndarray:
+    """The full dense (padded, (NB B, NB B) float64) LD matrix of a
+    BlockLD or PackedLD, on the host: for tests and small problems."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+    diag = host(ld.diag).astype(np.float64) * ld.scale
+    off = host(ld.off_data).astype(np.float64) * ld.scale
+    nb, B = diag.shape[0], diag.shape[1]
+    R = np.zeros((nb * B, nb * B), dtype=np.float64)
+    for b in range(nb):
+        R[b * B:(b + 1) * B, b * B:(b + 1) * B] = diag[b]
+    for o, (b, b2) in enumerate(zip(host(ld.off_src), host(ld.off_dst))):
+        b, b2 = int(b), int(b2)
+        R[b * B:(b + 1) * B, b2 * B:(b2 + 1) * B] = off[o]
+        R[b2 * B:(b2 + 1) * B, b * B:(b + 1) * B] = off[o].T
+    return R

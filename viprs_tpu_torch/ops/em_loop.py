@@ -25,7 +25,7 @@ objective (``init_elbo``), the active lanes, the global iteration offset
 so a chunked run takes the single call's path.
 """
 
-from typing import List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -87,11 +87,19 @@ class EMResult(NamedTuple):
     elbo_hist: List[np.ndarray]  # [initial, iteration 1, ...], (S,) each
     n_iter_total: int            # iterations this call ran
     final_elbo: np.ndarray       # (S,) float64
+    mse_of: Optional[Callable[[], np.ndarray]]  # computes final_mse
     counters: EMCounters
     max_eta_diff: np.ndarray     # (S,) float32
     restarts_used: np.ndarray    # (S,) int32
     act_hist: List[int]          # active blocks per iteration (-1: not measured)
     n_skip: int                  # iterations that took the hybrid's skip branch
+
+    @property
+    def final_mse(self):
+        """(S,) float64: the MSE of the final state with the final
+        hyperparameters, computed when read (one statistics pass and one
+        device read; a fit never reads it). None without a state."""
+        return None if self.mse_of is None else self.mse_of()
 
 
 def read_stats(state, n_per_snp, std_beta, mask, h_dev, *extra):
@@ -330,10 +338,16 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
         act_hist.append(n_act)
 
     status = np.where(active, opt.MAX_ITER, status).astype(np.int32)
+
+    def mse_of(state=state, hyper=hyper, sigma_g=sigma_g.copy()):
+        h32 = Hyper(*(x.to(F32).to(dev) for x in hyper))
+        st, _ = read_stats(state, n_per_snp, std_beta, mask, h32)
+        return updates.mse(st, torch.from_numpy(sigma_g)).numpy()
+
     return EMResult(
         state=state, hyper=Hyper(*(x.numpy() for x in hyper)),
         sigma_g=sigma_g, status=status, nit=nit, elbo_hist=elbo_hist,
-        n_iter_total=i, final_elbo=prev_elbo,
+        n_iter_total=i, final_elbo=prev_elbo, mse_of=mse_of,
         counters=EMCounters.from_numpy(prev_dropped, osc, best, stall, sgc,
                                        divc, damping),
         max_eta_diff=max_ed_c,

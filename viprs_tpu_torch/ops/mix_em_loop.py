@@ -24,7 +24,7 @@ The two loops differ on purpose, as in the JAX package:
 A fit through the batch loop at S = 1 is therefore not a VIPRSMix fit.
 """
 
-from typing import List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -121,8 +121,16 @@ class MixEMResult(NamedTuple):
     elbo_hist: List[np.ndarray]  # [initial, iteration 1, ...]
     n_iter_total: int            # iterations this call ran
     final_elbo: np.ndarray
+    mse_of: Optional[Callable[[], np.ndarray]]  # computes final_mse
     counters: MixCounters        # None for the single model
     act_hist: List[int]          # active blocks per iteration (-1: all)
+
+    @property
+    def final_mse(self):
+        """The MSE of the final state with the final hyperparameters
+        (float64; (S,) for the batch), computed when read (one statistics
+        pass and one device read; a fit never reads it)."""
+        return None if self.mse_of is None else self.mse_of()
 
 
 def _mix_elbo(st, hyper, se_fixed, sigma_g, n_sample):
@@ -329,10 +337,17 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
     status = np.where(active, opt.MAX_ITER, status).astype(np.int32)
     counters = MixCounters.from_numpy(prev_dropped, osc, best, stall, sgc,
                                       divc, damping) if batch else None
+
+    def mse_of(state=state, h=h, sigma_g=sigma_g.copy()):
+        st, _ = read_stats(state, dev_hyper(h, np.ones(S, f32))[0], std_beta,
+                           n_per_snp, mask, S, K)
+        return (1.0 - 2.0 * st['sum_beta_eta'] + sigma_g
+                - st['sum_zeta_k'].sum(axis=1) + st['sum_eta_sq'])
+
     return MixEMResult(state=state, hyper=h, sigma_g=sigma_g, status=status,
                        nit=nit, elbo_hist=elbo_hist, n_iter_total=i,
-                       final_elbo=prev_elbo, counters=counters,
-                       act_hist=act_hist)
+                       final_elbo=prev_elbo, mse_of=mse_of,
+                       counters=counters, act_hist=act_hist)
 
 
 def mix_em_fit(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
@@ -365,7 +380,8 @@ def mix_em_fit(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
         hyper=MixHyper(h.sigma_eps[0], h.tau_beta[0], h.pi[0],
                        h.lambda_min[0]),
         sigma_g=res.sigma_g[0], status=res.status[0], nit=res.nit[0],
-        elbo_hist=[e[0] for e in res.elbo_hist], final_elbo=res.final_elbo[0])
+        elbo_hist=[e[0] for e in res.elbo_hist], final_elbo=res.final_elbo[0],
+        mse_of=lambda: res.final_mse[0])
 
 
 def mix_em_fit_batch(ld: BlockLD, state0: MixState, std_beta, n_per_snp,

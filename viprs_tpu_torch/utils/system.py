@@ -1,10 +1,21 @@
 """System utilities of the port (counterpart of viprs_tpu.utils.system and
-the loader's ``get_filenames``): file-name expansion, directories, and the
-stdlib logging set-up of the CLI. Standard library only."""
+the loader's ``get_filenames``): file-name expansion, directories, the
+stdlib logging set-up of the CLI and a peak-memory sampler. Standard
+library only (psutil is imported inside the calls that need it)."""
 
 import glob as _glob
 import logging
 import os
+import threading
+import time
+
+
+def is_numeric(x):
+    try:
+        float(x)
+        return True
+    except (TypeError, ValueError):
+        return False
 
 
 def makedir(dirs):
@@ -12,6 +23,14 @@ def makedir(dirs):
         dirs = [dirs]
     for d in dirs:
         os.makedirs(d, exist_ok=True)
+
+
+def is_path_writable(path):
+    """True if the (existing or to-be-created) path is writable."""
+    target = path
+    while target and not os.path.exists(target):
+        target = os.path.dirname(target) or '.'
+    return os.access(target or '.', os.W_OK)
 
 
 def _expand_hf_path(path):
@@ -81,3 +100,50 @@ def setup_logger(loggers=None, modules=None, log_file=None, log_format=None,
             h.setFormatter(fmt)
             lg.addHandler(h)
     return targets
+
+
+class PeakMemoryProfiler:
+    """Context manager sampling the peak resident memory of the current
+    process (MB) every ``interval`` seconds on a daemon thread."""
+
+    def __init__(self, interval=0.2):
+        self.interval = interval
+        self.peak_mb = 0.0
+        self._stop = None
+        self._thread = None
+
+    def _sample(self):
+        import psutil
+        proc = psutil.Process()
+        while not self._stop.is_set():
+            try:
+                self.peak_mb = max(self.peak_mb,
+                                   proc.memory_info().rss / 1024 ** 2)
+            except Exception:
+                pass
+            time.sleep(self.interval)
+
+    def _sample_once(self):
+        try:
+            import psutil
+            self.peak_mb = max(self.peak_mb,
+                               psutil.Process().memory_info().rss / 1024 ** 2)
+        except Exception:
+            pass
+
+    def __enter__(self):
+        self._stop = threading.Event()
+        self._sample_once()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._sample_once()
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        return False
+
+    def get_peak_memory(self, unit='MB'):
+        scale = {'MB': 1.0, 'GB': 1.0 / 1024}[unit]
+        return self.peak_mb * scale
