@@ -271,6 +271,21 @@ MC1. benchmarks/benchmark_sampler.py's workload on the first tiles of the
    weights summing to 1, HMC accept rates in (0.2, 1], the selected
    variants' correlation > 0.5. No module of pandas, jax or viprs_tpu is
    imported after D0-MC1.
+X0. the fits over processes (parallel/): two ranks spawned on the one
+   card, joined over gloo on localhost, reading the genome from files this
+   phase writes (each copies only its shard of the LD to the card); 3
+   sweeps at fixed hyperparameters on 8 blocks of the genome with a
+   coupling tile across the two ranks' boundary, K1 + the halo +
+   coupling_pass_s1 at S = 1 and K3 + the halo + coupling_pass_s at
+   S = 16: each rank's blocks bit for bit the whole cut's sweep;
+X1. on the int8 genome, VIPRS over '2x1' (the blocks split) held to phase
+   5's fit (nit and status through guarded_stops, h2 and the final ELBO
+   within X1_REL, PIP within X1_PIP) and grid(100) + BMA over '1x2' (the
+   lanes split) held to PORT_GRID_BMA_H2 within X1_GRID_REL, every point
+   converged; each rank's LD bytes on the card, its launches and the
+   seconds beside phase 5's and G3's. The ranks import no module of jax
+   or viprs_tpu. Two ranks on one card measure the protocol's cost, not a
+   speed-up.
 
 Every kernel's line in the kernels JSON object carries its time, its
 plain version's, the least time the card could take for the same work
@@ -286,7 +301,8 @@ lines, and the lane sweeps', also carry their time in a CUDA graph
 (``graph_ms``). The float32 instances (F3, F6) have lines of their own,
 their names ending in ``_f32``. ``paths`` gives each kernel's launches
 on each surface path of E0-E1, each selection path of P0 and P2-P4,
-each disk path of D0-D2 and each genotype path of V0 that launched it.
+each disk path of D0-D2, each genotype path of V0 and each rank's
+sharded fits of X1 that launched it.
 
 The full record goes to chiprun_out/chip_smoke.json, the profiler's trace
 to chiprun_out/fit_trace.json.
@@ -741,6 +757,13 @@ def main():
     if warm['nit'] != PORT_NIT or abs(warm['h2'] - PORT_H2) > 5e-7:
         fail(f"the S = 1 fit moved: nit {warm['nit']}, h2 {warm['h2']:.6f} "
              f"(the port's earlier runs: {PORT_NIT}, {PORT_H2})")
+    # X1 holds the fit over 2 ranks to this one
+    x_ref = dict(nit=int(fitted.optim_result.nit),
+                 status=int(fitted._last_result.status[0]),
+                 h2=float(fitted.get_heritability()),
+                 elbo=float(fitted.history['ELBO'][-1]), pip=pip,
+                 cold_s=cold['seconds'], warm_s=record['warm_median_s'],
+                 ld_gb=(ld.diag.numel() + ld.off_data.numel()) / 1e9)
     # E1: the rest of the model surface on the genome
     record['surface'] = surface_genome(ds, fit_kw, warm,
                                        list(fitted.history['ELBO']), paths)
@@ -891,6 +914,9 @@ def main():
     # ---- MC0-MC1: the posterior-check samplers ----
     record['samplers_cut'] = sampler_cut_checks(sub, sb, nf)
     record['samplers'] = sampler_genome(ds)
+
+    # ---- X0-X1: the fits over two processes (parallel/) ----
+    record['sharded'] = x_phases(ds, x_ref, record['grid']['cold'], paths)
     loaded = [m for m in ('pandas', 'jax', 'viprs_tpu') if m in sys.modules]
     if loaded:
         fail(f"the viprs_fit, viprs_score, viprs_evaluate and sampler paths "
@@ -985,7 +1011,7 @@ def main():
     for e in kernels:
         e['paths'] = {p: paths[p][e['name']]
                       for p in (*SURFACE_PATHS, *SELECT_PATHS, *DISK_PATHS,
-                                *GENO_PATHS)
+                                *GENO_PATHS, *X_PATHS)
                       if paths.get(p, {}).get(e['name'])}
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -5525,6 +5551,348 @@ def sampler_genome(ds):
     rec['seconds'] = secs
     phase('MC1', f"{secs:.1f} s")
     return rec
+
+
+# --------------------------------------- multi-process fits (X0-X1)
+#: X1's bounds against phase 5's fit: h2 and the final ELBO (relative),
+#: PIP (absolute); the grid's BMA h2 against PORT_GRID_BMA_H2 (relative).
+X1_REL, X1_PIP, X1_GRID_REL = 1e-7, 1e-5, 1e-6
+#: Seconds the two ranks may take together (X0 and X1).
+X_TIMEOUT = 420
+#: The launch paths X1 adds to each kernel's ``paths``.
+X_PATHS = tuple(f'X1 {what} rank {r}' for what in ('VIPRS 2x1',
+                                                  'grid(100) 1x2')
+                for r in (0, 1))
+#: The genome's packed LD fields the ranks read from disk.
+X_FIELDS = ('diag', 'off_data', 'off_src', 'off_dst', 'mask', 'off_nz',
+            'diag_nz')
+
+
+def x_cut(ld):
+    """X0's 8 blocks of the genome: from 3 blocks before the first coupling
+    tile (s, s + 1) with s >= 3, so that tile crosses the boundary of two
+    ranks of 4 blocks each."""
+    src, dst = ld.off_src.cpu().numpy(), ld.off_dst.cpu().numpy()
+    s = next(int(a) for a, b in zip(src, dst)
+             if b == a + 1 and 3 <= a and a + 5 <= ld.nb)
+    return np.arange(s - 3, s + 5)
+
+
+def x_prepare(ds, root, ref):
+    """Write what the ranks read into ``root``: the genome's packed LD as
+    .npy files (each rank maps them and copies only its shard to the card),
+    its layout, statistics and LD scores (those phase 5 computed on the
+    card, so every fit starts where phase 5's did), and phase 5's PIP."""
+    import pickle
+    for k in X_FIELDS:
+        np.save(os.path.join(root, k + '.npy'),
+                getattr(ds.ld, k).cpu().numpy())
+    ds.compute_ld_scores()
+    with open(os.path.join(root, 'meta.pkl'), 'wb') as f:
+        pickle.dump(dict(scale=ds.ld.scale, layout=ds.layout,
+                         std_beta=ds.std_beta, n_per_snp=ds.n_per_snp,
+                         ld_scores=ds.ld_scores), f)
+    np.save(os.path.join(root, 'pip.npy'), ref['pip'])
+
+
+def x_genome(root):
+    """The genome's dataset with its LD on the host, from x_prepare's
+    files, memory-mapped (a rank reads the pages of its shard)."""
+    import pickle
+    import torch
+    from viprs_tpu_torch.data.dataset import SummaryStatsDataset
+    from viprs_tpu_torch.ops.block_ld import (BlockLD, coupling_slabs,
+                                              incident_tiles)
+    a = {k: torch.from_numpy(np.load(os.path.join(root, k + '.npy'),
+                                     mmap_mode='c')) for k in X_FIELDS}
+    with open(os.path.join(root, 'meta.pkl'), 'rb') as f:
+        meta = pickle.load(f)
+    src, dst = a['off_src'].numpy(), a['off_dst'].numpy()
+    nb = a['diag'].shape[0]
+    inc_ptr, inc_tile = incident_tiles(src, dst, nb)
+    ld = BlockLD(**a, inc_ptr=torch.from_numpy(inc_ptr),
+                 inc_tile=torch.from_numpy(inc_tile),
+                 cpl_slabs=torch.from_numpy(coupling_slabs(
+                     a['off_nz'].numpy(), src, dst, nb)),
+                 scale=meta['scale'])
+    return SummaryStatsDataset(ld=ld, layout=meta['layout'],
+                               std_beta=meta['std_beta'],
+                               n_per_snp=meta['n_per_snp'],
+                               ld_scores=meta['ld_scores'])
+
+
+def x0_sweeps(ds, dev):
+    """X0 on this rank: 3 sweeps at fixed hyperparameters on an 8-block cut
+    (x_cut) over a 2 x 1 mesh, K1 + halo + coupling_pass_s1 at S = 1 and K3
+    + halo + coupling_pass_s at S = 16, against the whole cut's sweeps on
+    the same card: the rank's blocks of every field after every sweep must
+    be the same bits."""
+    import torch
+    from viprs_tpu_torch.ops import cavi_cuda
+    from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
+    from viprs_tpu_torch.parallel.mesh import make_mesh, shard_ld
+    sel = x_cut(ds.ld)
+    host = cut_blocks(ds.ld, sel, 'cpu')
+    whole = cut_blocks(ds.ld, sel, dev)
+    mesh = make_mesh(2, 1)
+    sld = shard_ld(mesh, host, dev)
+    if sld.halo_rows < 1:
+        raise AssertionError("X0: no coupling tile crosses the boundary")
+    lo, hi = sld.lo, sld.hi
+    lay = ds.layout
+    idx = torch.as_tensor(sel)
+    sb, nf = (torch.from_numpy(lay.to_flat(d).reshape(lay.nb, -1))[idx]
+              .to(dev) for d in (ds.std_beta, ds.n_per_snp))
+    out = {'blocks': [int(sel[0]), int(sel[-1])], 'shard': [lo, hi],
+           'halo_rows': sld.halo_rows, 'ghosts': sld.view.ghosts.tolist()}
+    for S, sweep in ((1, cavi_cuda.cavi_sweep_s1),
+                     (16, cavi_cuda.cavi_sweep_s)):
+        pis = np.geomspace(0.005, 0.2, S)
+        h = Hyper(*(torch.tensor(v, dtype=torch.float32, device=dev)
+                    for v in (np.full(S, 0.7), pis * ds.m / 0.3, pis,
+                              np.zeros(S))))
+        act = torch.ones(S, device=dev)
+        shape = (S, len(sel), whole.block_size)
+        lg = torch.from_numpy(np.log(pis) - np.log1p(-pis)).float().to(dev)
+        z = torch.zeros(shape, device=dev)
+        full = CaviState(lg[:, None, None].expand(shape).contiguous(),
+                         z, z.clone(), z.clone())
+        part = CaviState(*(x[:, lo:hi].contiguous() for x in full))
+        same = []
+        for _ in range(3):
+            full, d_full = sweep(whole, full, sb, nf, h, act)
+            part, d_part = sweep(sld.ld, part, sb[lo:hi], nf[lo:hi], h, act,
+                                 halo=sld.couple)
+            same.append(all(same_bits(a, b[:, lo:hi]) for a, b in
+                            zip((*part, d_part), (*full, d_full))))
+        torch.cuda.synchronize()
+        out[f'S={S}'] = same
+        if not all(same):
+            raise AssertionError(f"X0: S = {S}, the rank's blocks differ "
+                                 f"from the whole cut's sweep: {same}")
+    return out
+
+
+def x1_fits(ds, root, rank, dev):
+    """X1 on this rank: VIPRS over '2x1' (the blocks split) and grid(100)
+    + BMA over '1x2' (the lanes split), as phase 5 and G3 run them."""
+    import torch
+    from viprs_tpu_torch.gridsearch import (HyperparameterGrid,
+                                            bayesian_model_average)
+    from viprs_tpu_torch.model import VIPRS, VIPRSGrid
+    from viprs_tpu_torch.ops import cavi_cuda
+    from viprs_tpu_torch.parallel.mesh import resolve_mesh
+    out = {}
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    m = VIPRS(ds, 'cuda', mesh='2x1').fit(
+        max_iter=1000, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in cavi_cuda.LAUNCHES.items() if v}
+    pip = np.concatenate([m.pip[c] for c in m.chromosomes])
+    if rank == 0:
+        np.save(os.path.join(root, 'x1_pip.npy'), pip)
+    nit = int(m.optim_result.nit)
+    out['viprs'] = dict(
+        seconds=dt, nit=nit, status=int(m._last_result.status[0]),
+        ms_per_it=1e3 * dt / max(nit, 1), h2=float(m.get_heritability()),
+        elbo=float(m.history['ELBO'][-1]), n_skip=int(m._n_skip),
+        launches=launches, ld_bytes=m._ld.nbytes(),
+        shard=[m._ld.lo, m._ld.hi], halo_rows=m._ld.halo_rows,
+        finite=bool(np.isfinite(pip).all()), m=int(pip.shape[0]))
+    del m
+    np.random.seed(0)
+    grid = HyperparameterGrid(n_snps=ds.m, **GRID_SPEC)
+    g = VIPRSGrid(ds, grid, 'cuda', mesh=resolve_mesh('1x2'))
+    torch.cuda.synchronize()
+    cavi_cuda.reset_launches()
+    t0 = time.perf_counter()
+    g.fit(max_iter=500)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nit = g._last_result.nit
+    rec = dict(seconds=dt, converged=int(g.converged_models.sum()),
+               valid=int(g.valid_terminated_models.sum()),
+               nit_max=int(nit.max()),
+               ms_per_it=1e3 * dt / max(int(nit.max()), 1),
+               widths=[w for w, *_ in g._chunk_trace],
+               lanes=list(g._lane_range()),
+               launches={k: v for k, v in cavi_cuda.LAUNCHES.items() if v},
+               ld_bytes=g._ld.nbytes())
+    t0 = time.perf_counter()
+    bayesian_model_average(g)
+    torch.cuda.synchronize()
+    rec.update(bma_s=time.perf_counter() - t0,
+               h2=float(g.get_heritability()))
+    out['grid'] = rec
+    return out
+
+
+def x_rank(rank, world, port, root, out):
+    """One rank of X0-X1 (a process spawned by x_phases): joins the gloo
+    group, runs X0 and X1 on its share of the card and writes its record
+    as JSON to ``out``. A failure raises (the process exits non-zero)."""
+    import torch
+    from viprs_tpu_torch.parallel import init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f'127.0.0.1:{port}', world, rank)
+    dev = torch.device('cuda', torch.cuda.current_device())
+    from viprs_tpu_torch.ops import _build
+    _build.build()
+    ds = x_genome(root)
+    rec = {'rank': rank}
+    t0 = time.perf_counter()
+    rec['x0'] = x0_sweeps(ds, dev)
+    rec['x0']['seconds'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec['x1'] = x1_fits(ds, root, rank, dev)
+    rec['x1']['seconds'] = time.perf_counter() - t0
+    rec['modules'] = [m for m in ('pandas', 'jax', 'viprs_tpu')
+                      if m in sys.modules]
+    with open(out, 'w') as f:
+        json.dump(rec, f)
+
+
+def x_phases(ds, ref, grid_ref, paths):
+    """X0-X1: two ranks spawned on the one card, joined over gloo, run
+    x_rank; held here: X0 bit for bit, X1's VIPRS to phase 5's fit (nit
+    and status through guarded_stops, h2 and the final ELBO within X1_REL,
+    PIP within X1_PIP), its grid's BMA h2 to PORT_GRID_BMA_H2 within
+    X1_GRID_REL with every point converged, each rank's LD bytes on the
+    card and its launches (added to ``paths``)."""
+    import shutil
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    t_all = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='viprs_x_')
+    try:
+        x_prepare(ds, root, ref)
+        t_prep = time.perf_counter() - t_all
+        with socket.socket() as sk:
+            sk.bind(('127.0.0.1', 0))
+            port = sk.getsockname()[1]
+        outs = [os.path.join(root, f'rank{r}.json') for r in (0, 1)]
+        ctx = mp.get_context('spawn')
+        procs = [ctx.Process(target=x_rank, args=(r, 2, port, root, outs[r]))
+                 for r in (0, 1)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + X_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung or any(p.exitcode != 0 for p in procs):
+            fail(f"X0-X1: the ranks exited with {[p.exitcode for p in procs]}"
+                 f"{' (killed at the time limit)' if hung else ''}")
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+        pip = np.load(os.path.join(root, 'x1_pip.npy'))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t_all = time.perf_counter() - t_all
+    rec = {'seconds': t_all, 'prepare_s': t_prep, 'ranks': ranks}
+    for r in ranks:
+        if r['modules']:
+            fail(f"X0-X1: rank {r['rank']} imported {r['modules']}")
+    x0 = ranks[0]['x0']
+    phase('X0', f"blocks {x0['blocks'][0]}-{x0['blocks'][1]} of the genome "
+                f"over 2 ranks ({[r['x0']['shard'] for r in ranks]}; ghost "
+                f"blocks {[r['x0']['ghosts'] for r in ranks]}): 3 sweeps, "
+                f"each rank's blocks bit for bit the whole cut's at S = 1 "
+                f"(K1 + halo + coupling_pass_s1) and S = 16 (K3 + halo + "
+                f"coupling_pass_s); "
+                f"{max(r['x0']['seconds'] for r in ranks):.1f} s")
+
+    v = [r['x1']['viprs'] for r in ranks]
+    for key in ('nit', 'status', 'h2', 'elbo'):
+        if v[0][key] != v[1][key]:
+            fail(f"X1: the ranks' VIPRS fits differ in {key}: "
+                 f"{v[0][key]} vs {v[1][key]}")
+    rel_h2 = abs(v[0]['h2'] - ref['h2']) / abs(ref['h2'])
+    rel_elbo = abs(v[0]['elbo'] - ref['elbo']) / abs(ref['elbo'])
+    d_pip = float(np.abs(pip - ref['pip']).max())
+    gb = [x['ld_bytes'] / 1e9 for x in v]
+    phase('X1', f"VIPRS over '2x1': nit {v[0]['nit']} (phase 5: "
+                f"{ref['nit']}), h2 {v[0]['h2']!r} (phase 5: {ref['h2']!r}; "
+                f"relative {rel_h2:.2e}, bound {X1_REL:g}), final ELBO "
+                f"relative {rel_elbo:.2e}, max |dPIP| {d_pip:.2e} (bound "
+                f"{X1_PIP:g}); {v[0]['seconds']:.3f} s, "
+                f"{v[0]['ms_per_it']:.2f} ms/it (phase 5: cold "
+                f"{ref['cold_s']:.3f} s, warm median {ref['warm_s']:.3f} s, "
+                f"{1e3 * ref['warm_s'] / max(ref['nit'], 1):.2f} ms/it); LD "
+                f"on each rank's card {gb[0]:.3f} + {gb[1]:.3f} GB (the whole "
+                f"{ref['ld_gb']:.3f} GB); launches per rank "
+                f"{[x['launches'] for x in v]}")
+    stops = guarded_stops(
+        'X1', "VIPRS over '2x1' (\"the CPU\" here) against phase 5's fit "
+              "on the card",
+        lambda dev, f, x: [x1_stop(ds, f, x)], card=[(ref['nit'],
+                                                      ref['status'])],
+        cpu=[(v[0]['nit'], v[0]['status'])], devices=('cuda',))
+    if not (v[0]['finite'] and v[0]['m'] == ds.m):
+        fail("X1: the sharded fit's PIP is not finite of shape (M,)")
+    if rel_h2 > X1_REL or rel_elbo > X1_REL or d_pip > X1_PIP:
+        fail(f"X1: the VIPRS fit over 2 ranks moved from phase 5's: h2 "
+             f"{rel_h2:.2e}, ELBO {rel_elbo:.2e}, PIP {d_pip:.2e}")
+    if not all(x['ld_bytes'] < 0.6 * ref['ld_gb'] * 1e9 for x in v):
+        fail(f"X1: a rank's card holds more than its shard of the LD: {gb}")
+
+    gr = [r['x1']['grid'] for r in ranks]
+    for key in ('h2', 'converged', 'widths', 'nit_max'):
+        if gr[0][key] != gr[1][key]:
+            fail(f"X1: the ranks' grids differ in {key}: {gr[0][key]} vs "
+                 f"{gr[1][key]}")
+    rel_g = abs(gr[0]['h2'] - PORT_GRID_BMA_H2) / PORT_GRID_BMA_H2
+    phase('X1', f"grid(100) + BMA over '1x2' (lanes {[x['lanes'] for x in gr]}"
+                f"): converged {gr[0]['converged']}/100, nit max "
+                f"{gr[0]['nit_max']}, widths per chunk {_runs(gr[0]['widths'])}"
+                f", BMA h2 {gr[0]['h2']!r} (PORT_GRID_BMA_H2 "
+                f"{PORT_GRID_BMA_H2!r}; relative {rel_g:.2e}, bound "
+                f"{X1_GRID_REL:g}); fit {gr[0]['seconds']:.3f} s, "
+                f"{gr[0]['ms_per_it']:.2f} ms/it at nit max, BMA "
+                f"{gr[0]['bma_s']:.3f} s (G3 cold: fit "
+                f"{grid_ref['fit_s']:.3f} s, {grid_ref['ms_per_it']:.2f} "
+                f"ms/it); LD on each card "
+                f"{gr[0]['ld_bytes'] / 1e9:.3f} GB; launches per rank "
+                f"{[x['launches'] for x in gr]}")
+    if gr[0]['converged'] != 100 or rel_g > X1_GRID_REL:
+        fail(f"X1: the grid over 2 ranks: converged {gr[0]['converged']}/100,"
+             f" BMA h2 relative {rel_g:.2e}")
+    for r in ranks:
+        for what, x in (('VIPRS 2x1', r['x1']['viprs']),
+                        ('grid(100) 1x2', r['x1']['grid'])):
+            paths[f"X1 {what} rank {r['rank']}"] = x['launches']
+    if min(v[0]['launches'].get(k, 0) for k in ('cavi_block_sweep_s1',
+                                                 'coupling_pass_s1')) < 1 or \
+            min(gr[0]['launches'].get(k, 0) for k in ('cavi_block_sweep_s',
+                                                       'coupling_pass_s')) < 1:
+        fail(f"X1: a kernel of the sharded paths was never launched: "
+             f"{v[0]['launches']}, {gr[0]['launches']}")
+    phase('X0-X1', f"{t_all:.1f} s (writing the genome for the ranks "
+                   f"{t_prep:.1f} s)")
+    rec['stops'] = stops
+    return rec
+
+
+def x1_stop(ds, f_abs_tol, x_abs_tol):
+    """(nit, status) of phase 5's fit on the card at other tolerances (for
+    guarded_stops)."""
+    from viprs_tpu_torch.model import VIPRS
+    np.random.seed(0)
+    m = VIPRS(ds, 'cuda').fit(max_iter=1000, f_abs_tol=f_abs_tol,
+                              x_abs_tol=x_abs_tol, patience=10)
+    return (int(m.optim_result.nit), int(m._last_result.status[0]))
+
 
 
 if __name__ == '__main__':

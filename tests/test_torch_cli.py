@@ -180,16 +180,18 @@ def test_cli_matches_jax(tmp_path, files, mode, ladder_trace):  # noqa: F811
 
 
 def test_cli_refusals(tmp_path, files):
-    """What the port does not run raises before any data is read, naming
-    its ROADMAP item; a CUDA device without CUDA is an error, never the
-    CPU. ``--grid-metric validation`` without validation genotypes fails
+    """A mesh that is not the number of processes (``--mesh 2x1`` in one
+    process) or not a mesh spec raises before any data is read, as the JAX
+    package's make_mesh refuses it; a CUDA device without CUDA is an
+    error, never the CPU. ``--grid-metric validation`` without validation genotypes fails
     with the JAX package's message before any data is read, and a
     ``--validation-bed`` fileset that does not exist as it does there.
     (``--float-precision float64`` runs: test_cli_float64_matches_jax.)"""
     base = _args(files, 'native', []) + ['--output-file',
                                          str(tmp_path / 'o')]
-    for extra, item in ((['--mesh', '2x1'], 'item 10'),):
-        with pytest.raises(NotImplementedError, match=item):
+    for extra, item in ((['--mesh', '2x1'], '2x1 != 1 processes'),
+                        (['--mesh', 'bogus'], 'mesh spec')):
+        with pytest.raises(ValueError, match=item):
             fit.main(base + extra + ['--device', 'cpu'])
     need = 'requires --validation-bed and --validation-pheno'
     for extra in (['--grid-metric', 'validation'],

@@ -172,9 +172,6 @@ MODULE_EXCEPTIONS = {
                     "ops/cavi_torch.py",
     'ops.cavi_pallas': "the Pallas kernels: the port's are ops/cavi_cuda.py "
                        "(csrc/*.cu)",
-    'parallel': "multi-device sharding: ROADMAP.md, Queue 1, item 10",
-    'parallel.distributed': "multi-device sharding: item 10",
-    'parallel.mesh': "multi-device sharding: item 10",
 }
 _TPU = "a TPU workaround (ROADMAP.md's ground rules): not ported"
 #: (module, name) or (module, class, name) the port does not have, with
@@ -183,8 +180,6 @@ NAME_EXCEPTIONS = {
     ('ops.block_ld', 'LD_LAYOUT_THRESHOLD_BYTES'): _TPU,
     ('ops.block_ld', 'XLA_DIAG_LAYOUT'): _TPU,
     ('data.dataset', 'SummaryStatsDataset', 'ld_skip_view'): _TPU,
-    ('data.dataset', 'SummaryStatsDataset', 'ld_for_mesh'):
-        "multi-device sharding: item 10",
     ('model._dispatch', 'HYBRID_MAX_LD_BYTES'): _TPU,
     ('model._dispatch', 'hybrid_ld_fits'): _TPU,
     ('model._dispatch', 'pallas_allowed'): _TPU,
@@ -358,7 +353,7 @@ def test_tile_and_mesh_arguments(nominal):
     for cls in (VIPRS, VIPRSMix):
         for mesh in ('auto', 'off', None):
             assert cls(ds, 'cpu', mesh=mesh).mesh is None
-        with pytest.raises(NotImplementedError, match='item 10'):
+        with pytest.raises(ValueError, match='2x1 != 1 processes'):
             cls(ds, 'cpu', mesh='2x1')
         with pytest.raises(ValueError, match='T = 128'):
             cls(ds, 'cpu', tile=256)

@@ -13,13 +13,17 @@ the kernels). All chromosomes are fit jointly, or, when the packed LD
 exceeds the device budget (``--device-memory-gb``, else 65% of the card's
 memory), one group of chromosomes at a time. ``--grid-metric validation``
 scores the grid on ``--validation-bed`` genotypes (decoded on
-``--device``) against ``--validation-pheno``. The port refuses what it
-has not ported: an explicit ``--mesh NBxNG`` (several devices).
+``--device``) against ``--validation-pheno``. ``--mesh NBxNG`` (or
+``auto`` with several processes) runs the fit over the processes of a
+``torchrun`` launch (``parallel.init_distributed``): every rank reads the
+data and holds it on the host, its card gets its shard of the LD, and
+only rank 0 writes the outputs and the log.
 ``--float-precision`` goes to the models, which keep float32 state either
 way (it sets their ``float_eps``, as in the JAX package).
 
     python -m viprs_tpu_torch.cli.fit -l <LD store> -s <sumstats> \\
         --output-file <prefix> [--device cpu]
+    torchrun --nproc-per-node 2 -m viprs_tpu_torch.cli.fit ... --mesh 2x1
 """
 
 import argparse
@@ -32,10 +36,6 @@ import time
 import numpy as np
 
 logger = logging.getLogger("viprs_fit")
-
-NEEDS_MESH = ("an explicit --mesh spreads the fit over several devices, "
-              "which is not ported yet; see ROADMAP.md, Queue 1, item 10 "
-              "(--mesh auto and off mean the one device)")
 
 
 def build_parser():
@@ -177,8 +177,11 @@ def build_parser():
                              "bin/viprs_fit:232-238). Default: the card's "
                              "memory on CUDA; no streaming on the CPU.")
     parser.add_argument('--mesh', dest='mesh', default='auto',
-                        help="'auto' (default) or 'off': the one device. An "
-                             "explicit '<NB>x<NG>' is not ported.")
+                        help="'auto' (default: every process on the blocks "
+                             "axis when torchrun starts several, else one "
+                             "device), 'off', or '<NB>x<NG>' (the blocks "
+                             "and grid axes; their product is the number "
+                             "of processes).")
     parser.add_argument('--device', dest='device', default='cuda',
                         help="Device of the fit: 'cuda' (default; fails "
                              "without CUDA) or 'cpu'.")
@@ -221,8 +224,6 @@ def check_args(args):
         if not args.output_dir:
             raise ValueError("Provide --output-file or --output-dir.")
         args.output_file = osp.join(args.output_dir, args.output_prefix)
-    if args.mesh not in ('auto', 'off'):
-        raise NotImplementedError(NEEDS_MESH)
     if args.grid_search_mode == 'pathwise':
         args.pathwise = True
     if args.hyp_search in ('GS', 'BMA') and args.model != 'VIPRSGrid':
@@ -329,7 +330,7 @@ def init_data(args, device):
     return loader, validation_gdl, validation_ss
 
 
-def prepare_model(args, dataset, device):
+def prepare_model(args, dataset, device, mesh=None):
     from ..gridsearch import HyperparameterGrid
     from ..model import VIPRS, VIPRSGrid, VIPRSMix
 
@@ -347,12 +348,13 @@ def prepare_model(args, dataset, device):
 
     if args.model == 'VIPRS':
         return VIPRS(dataset, device, lambda_min=lam, fix_params=fix_params,
-                     float_precision=args.float_precision)
+                     float_precision=args.float_precision, mesh=mesh)
     if args.model == 'VIPRSMix':
         # the JAX CLI passes the mixture no float_precision
         return VIPRSMix(dataset, device, K=args.n_components,
                         fix_params=fix_params,
-                        lambda_min=None if lam == 'infer' else lam)
+                        lambda_min=None if lam == 'infer' else lam,
+                        mesh=mesh)
 
     from ..data.ldsc import simple_ldsc
     try:
@@ -371,7 +373,7 @@ def prepare_model(args, dataset, device):
         n_snps=dataset.m)
     return VIPRSGrid(dataset, grid, device, lambda_min=lam,
                      fix_params=fix_params,
-                     float_precision=args.float_precision)
+                     float_precision=args.float_precision, mesh=mesh)
 
 
 def fit_model(args, model, validation_gdl, validation_ss):
@@ -514,7 +516,10 @@ def run(argv=None):
     the stores whose LD data was read, the output prefix and the loader
     (which holds the dataset of a fit that was not streamed)."""
     args = check_args(build_parser().parse_args(argv))
+    mesh = resolve_mesh_arg(args.mesh)
     device = resolve_device(args.device)
+    if mesh is not None and mesh.rank != 0:
+        return _run(args, device, mesh)
 
     from ..utils.system import setup_logger
     targets = setup_logger(modules=['viprs_fit', 'viprs_tpu_torch'],
@@ -522,7 +527,7 @@ def run(argv=None):
                            log_level=args.log_level)
     added = list(targets[0].handlers[-2:])
     try:
-        return _run(args, device)
+        return _run(args, device, mesh)
     finally:
         # a run's log handlers end with it (a process may run several)
         for h in added:
@@ -531,8 +536,25 @@ def run(argv=None):
             h.close()
 
 
-def _run(args, device):
+def resolve_mesh_arg(spec):
+    """The mesh of ``--mesh``: ``'off'`` is None; otherwise the process
+    joins the group of a torchrun launch first (``init_distributed``, a
+    no-op in one process) and the spec resolves over its processes."""
+    if spec == 'off':
+        return None
+    from ..parallel import init_distributed
+    from ..parallel.mesh import resolve_mesh
+    init_distributed()
+    return resolve_mesh(spec)
+
+
+def _run(args, device, mesh=None):
     logger.info("> Parsed arguments: %s", vars(args))
+    # under a mesh the data stays on the host and each rank's models copy
+    # their shard of the LD to the card; only rank 0 writes
+    import torch
+    host = device if mesh is None else torch.device('cpu')
+    writer = mesh is None or mesh.rank == 0
     if args.seed is not None:
         np.random.seed(args.seed)
 
@@ -541,12 +563,13 @@ def _run(args, device):
     loader, validation_gdl, validation_ss = init_data(args, device)
     groups = _plan_streaming(args, loader, device)
     if groups is None:
-        datasets = [(None, loader.to_summary_dataset(device=device))]
+        datasets = [(None, loader.to_summary_dataset(device=host))]
     else:
-        datasets = loader.iter_group_datasets(groups, device=device)
+        datasets = loader.iter_group_datasets(groups, device=host)
 
     from ..utils.table import Table
     fit_tables, hyp_tables, val_tables = [], [], []
+    halo_rows = None
     fit_time = data_time = 0.0
     total_iters = 0
     messages = []
@@ -558,8 +581,9 @@ def _run(args, device):
                         gi + 1, len(groups), group, dataset.m)
         logger.info("> Preparing model (%s / %s)...", args.model,
                     args.hyp_search)
-        model = prepare_model(args, dataset, device)
+        model = prepare_model(args, dataset, device, mesh)
         model, ft = fit_model(args, model, validation_gdl, validation_ss)
+        halo_rows = getattr(model._ld, 'halo_rows', None)
         fit_time += ft
         total_iters += int(getattr(model.optim_result, 'nit', 0) or 0)
         # a selected grid point's refit reports its own status
@@ -583,29 +607,31 @@ def _run(args, device):
 
     t0 = time.time()
     out_prefix = args.output_file
-    _mkdir_for(out_prefix)
-    Table.concat(fit_tables).write(out_prefix + '.fit.gz')
-    Table.concat(hyp_tables).write(out_prefix + '.hyp')
-    if val_tables:
-        Table.concat(val_tables).write(out_prefix + '.validation')
-    t_write = time.time() - t0
-    if args.profiler:
-        _write_prof(out_prefix, data_time, fit_time, total_iters, t_start,
-                    groups)
-
     streamed = '' if groups is None else \
         f" (streamed over {len(groups)} chromosome groups)"
-    logger.info("> Done%s. Outputs written with prefix %s", streamed,
-                out_prefix)
-    print(f"viprs_fit_torch finished in {time.time() - t_start:.2f}s"
-          f"{streamed}; outputs: {out_prefix}.fit.gz")
+    if writer:
+        _mkdir_for(out_prefix)
+        Table.concat(fit_tables).write(out_prefix + '.fit.gz')
+        Table.concat(hyp_tables).write(out_prefix + '.hyp')
+        if val_tables:
+            Table.concat(val_tables).write(out_prefix + '.validation')
+        if args.profiler:
+            _write_prof(out_prefix, data_time, fit_time, total_iters,
+                        t_start, groups)
+        logger.info("> Done%s. Outputs written with prefix %s", streamed,
+                    out_prefix)
+        print(f"viprs_fit_torch finished in {time.time() - t_start:.2f}s"
+              f"{streamed}; outputs: {out_prefix}.fit.gz")
+    t_write = time.time() - t0
     seconds = dict(loader.timings)
     seconds.update(fit=fit_time, write=t_write,
                    total=time.time() - t_start)
     return {'seconds': seconds, 'nit': total_iters, 'messages': messages,
             'groups': groups,
             'ld_data_reads': loader.ld_data_reads, 'device': str(device),
-            'output': out_prefix, 'loader': loader}
+            'output': out_prefix if writer else None, 'loader': loader,
+            'mesh': None if mesh is None else dict(mesh.shape),
+            'halo_rows': halo_rows}
 
 
 def main(argv=None):

@@ -20,6 +20,7 @@ drives the real models on a dataset of that layout whose tiles hold no data
 ``--grid-widths`` value, each ``fit(compile_only=True)``, which builds (or
 finds) the library those fits would launch and changes no state and no
 random stream. On the CPU (``--device cpu``) there is nothing to build.
+Under ``--mesh`` (a torchrun launch) each rank warms the fits of its shard.
 
     python -m viprs_tpu_torch.cli.warmup -l <LD store or glob> \\
         [--block-size 1024] [--grid-widths 100] [--device cpu]
@@ -54,8 +55,9 @@ def build_parser():
                    help='int8 tiles, as the later fits take them (float32 '
                         'otherwise).')
     p.add_argument('--mesh', dest='mesh', default='auto',
-                   help="'auto' (default) or 'off': the one device; an "
-                        "explicit mesh is not ported.")
+                   help="As for viprs_fit_torch: 'auto' (default), 'off' "
+                        "or '<NB>x<NG>' over the processes of a torchrun "
+                        "launch; each rank warms its shard's fits.")
     p.add_argument('--device', dest='device', default='cuda',
                    help="Device of the later fits: 'cuda' (default; fails "
                         "without CUDA) or 'cpu'.")
@@ -135,8 +137,9 @@ def run(argv=None):
     (``m``, ``nb``, ``block_size``), the widths warmed, the seconds of each
     step and the kernel library (its path and build seconds, 0.0 where it
     was found built; None on the CPU)."""
-    from .fit import resolve_device
+    from .fit import resolve_device, resolve_mesh_arg
     args = build_parser().parse_args(argv)
+    mesh = resolve_mesh_arg(args.mesh)
     device = resolve_device(args.device)
     t_start = time.perf_counter()
     sizes = store_block_sizes(args.ld_dir)
@@ -147,7 +150,7 @@ def run(argv=None):
     seconds = {'shapes': t_shapes}
     widths = [1, *(int(S) for S in args.grid_widths)]
     for S in widths:
-        seconds[f'S={S}'] = warm(ds, S, args.max_iter, device, args.mesh)
+        seconds[f'S={S}'] = warm(ds, S, args.max_iter, device, mesh)
         logger.info("> S=%d: %.2f s", S, seconds[f'S={S}'])
     library = None
     if device.type == 'cuda':
@@ -159,7 +162,8 @@ def run(argv=None):
     seconds['total'] = time.perf_counter() - t_start
     return {'m': ds.m, 'nb': ds.layout.nb, 'block_size': ds.layout.block_size,
             'widths': widths, 'seconds': seconds, 'library': library,
-            'device': str(device)}
+            'device': str(device),
+            'mesh': None if mesh is None else dict(mesh.shape)}
 
 
 def main(argv=None):

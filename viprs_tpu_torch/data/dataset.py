@@ -5,6 +5,9 @@ Counterpart of viprs_tpu.data.dataset, built from files by the loader
 The LD lives on the dataset's ``device``,
 packed as float32 (the default, as in the JAX package) or as int8
 (``quantize=True``); every model fits either, on the CPU or a CUDA device.
+Under a mesh (parallel/mesh.py) each rank's models take the rank's shard of
+it (``ld_for_mesh``): a dataset built on the host copies only that shard to
+the rank's card.
 """
 
 import dataclasses
@@ -81,13 +84,42 @@ class SummaryStatsDataset:
         dataset's device (zero on padding lanes)."""
         return self._flat(self.n_per_snp)
 
-    def device_inputs(self):
+    def device_inputs(self, mesh=None, device=None):
         """Cached (std_beta_flat, n_per_snp_flat), shared by every model
-        over this dataset."""
-        if 'inputs' not in self._cache:
-            self._cache['inputs'] = (self.std_beta_flat(),
-                                     self.n_per_snp_flat())
-        return self._cache['inputs']
+        over this dataset; under a mesh, the rank's rows of them (NB padded
+        to the shards) on ``device`` (default the mesh's)."""
+        if mesh is None:
+            if 'inputs' not in self._cache:
+                self._cache['inputs'] = (self.std_beta_flat(),
+                                         self.n_per_snp_flat())
+            return self._cache['inputs']
+        device = mesh.device if device is None else torch.device(device)
+        key = ('inputs', mesh, device)
+        if key not in self._cache:
+            from ..parallel.mesh import shard_flat
+            lay = self.layout
+            nb = self.ld_for_mesh(mesh, device).nb_padded
+            self._cache[key] = tuple(
+                shard_flat(mesh, torch.from_numpy(lay.to_flat(d).reshape(
+                    lay.nb, lay.block_size)), nb, device)
+                for d in (self.std_beta, self.n_per_snp))
+        return self._cache[key]
+
+    def ld_for_mesh(self, mesh, device=None):
+        """The LD a model over ``mesh`` computes with: the dataset's own
+        without a mesh, else this rank's shard of it on ``device`` (default
+        the mesh's; ``parallel.mesh.shard_ld``: its range of the blocks,
+        NB padded to the shards, and the coupling tiles that touch it).
+        Cached per mesh and device, so the models of one run (e.g. the
+        CLI's fit and grid search) share one copy on the card."""
+        if mesh is None:
+            return self.ld
+        device = mesh.device if device is None else torch.device(device)
+        key = ('ld', mesh, device)
+        if key not in self._cache:
+            from ..parallel.mesh import shard_ld
+            self._cache[key] = shard_ld(mesh, self.ld, device)
+        return self._cache[key]
 
     @classmethod
     def from_dense_blocks(cls, ld_blocks: Dict, std_beta: Dict,

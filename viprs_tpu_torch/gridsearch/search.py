@@ -109,24 +109,42 @@ def bayesian_model_average(viprs_grid_model, normalization='softmax'):
     dev = m.device
     w_full = np.zeros(len(elbos))
     w_full[keep] = weights_keep
-    w = torch.from_numpy(w_full.astype(np.float32)).to(dev)[:, None, None]
+    l0, l1 = m._lane_range()
+    w = torch.from_numpy(w_full[l0:l1].astype(np.float32)).to(dev)[
+        :, None, None]
     lam = float(np.asarray(m._hyper.lambda_min)[keep[0]])
     st = m._state
-    mask, sb = m.dataset.ld.mask, m._std_beta_flat
+    mask, sb = m._ld.mask, m._std_beta_flat
     var_tau = updates.compute_var_tau(m._n_flat, m._hyper_dev())
+    split = m._lanes_split()
 
-    gamma_avg = (st.gamma * w).sum(dim=0)
-    mu_avg = (st.mu * w).sum(dim=0)
-    q_avg = (st.q * w).sum(dim=0)
-    var_tau_avg = (var_tau * w).sum(dim=0)
+    def lane_sum(x):
+        # under a mesh that splits the lanes, the grid ranks' partial sums
+        # are added in rank order (the same bits on every rank)
+        s = x.sum(dim=0)
+        if not split:
+            return s
+        return torch.stack(m.mesh.gather(s.cpu(), 'grid')).sum(dim=0).to(dev)
+
+    gamma_avg = lane_sum(st.gamma * w)
+    mu_avg = lane_sum(st.mu * w)
+    q_avg = lane_sum(st.q * w)
+    var_tau_avg = lane_sum(var_tau * w)
     eta_avg = gamma_avg * mu_avg
     zeta_avg = gamma_avg * (mu_avg ** 2 + 1.0 / var_tau_avg)
 
-    m_total = mask.sum().to(F64)
-    pi_new = (gamma_avg * mask).sum().to(F64) / m_total
-    tau_new = pi_new * m_total / (zeta_avg * mask).sum().to(F64)
-    sigma_g = (((1.0 + lam) * zeta_avg + q_avg * eta_avg) * mask).sum().to(F64)
-    sig_e = 1.0 - 2.0 * (sb * eta_avg * mask).sum().to(F64) + sigma_g
+    sums = torch.stack([mask.sum(), (gamma_avg * mask).sum(),
+                        (zeta_avg * mask).sum(),
+                        (((1.0 + lam) * zeta_avg + q_avg * eta_avg)
+                         * mask).sum(),
+                        (sb * eta_avg * mask).sum()]).to(F64)
+    if m.mesh is not None:     # over every rank's blocks
+        sums = torch.from_numpy(m._reduce(sums.cpu().numpy()[:, None],
+                                          lanes=False)[:, 0])
+    m_total, s_gamma, s_zeta, sigma_g, s_beta_eta = sums
+    pi_new = s_gamma / m_total
+    tau_new = pi_new * m_total / s_zeta
+    sig_e = 1.0 - 2.0 * s_beta_eta + sigma_g
     g_clip = gamma_avg.clamp(1e-8, 1.0 - 1e-8)
     logits = torch.log(g_clip) - torch.log1p(-g_clip)
     pi_new, tau_new, sigma_g, sig_e = (

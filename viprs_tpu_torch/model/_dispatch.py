@@ -73,18 +73,12 @@ def select_mix_sweep_impl(sweep_impl=None, grid=False):
     return sweep_impl == 'skip' or (sweep_impl is None and not grid)
 
 
-#: What an explicit mesh raises: the port runs on one device.
-NEEDS_MESH = ("an explicit mesh spreads the fit over several devices, which "
-              "is not ported yet; see ROADMAP.md, Queue 1, item 10 ('auto', "
-              "'off' and None mean the one device)")
-
-
 def resolve_mesh(mesh):
-    """The models' ``mesh`` argument: ``'auto'``, ``'off'`` and None mean
-    the one device (None is returned); an explicit mesh raises."""
-    if mesh is None or (isinstance(mesh, str) and mesh in ('auto', 'off')):
-        return None
-    raise NotImplementedError(NEEDS_MESH)
+    """The models' ``mesh`` argument: ``parallel.mesh.resolve_mesh``
+    ('auto', 'off'/None/False, '<NB>x<NG>' or a Mesh; None for the one
+    device)."""
+    from ..parallel.mesh import resolve_mesh as resolve
+    return resolve(mesh)
 
 
 def check_tile(tile):

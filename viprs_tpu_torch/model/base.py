@@ -48,23 +48,34 @@ class BayesPRSModel:
     these dicts at every fit (``_refresh_inputs``).
     """
 
-    def __init__(self, dataset, device, float_precision='float32'):
+    def __init__(self, dataset, device, float_precision='float32',
+                 mesh=None):
         """
         :param dataset: a viprs_tpu_torch SummaryStatsDataset.
-        :param device: the device of the fit; it must hold the dataset's LD.
+        :param device: the device of the fit; it must hold the dataset's LD
+            (under a mesh, 'cuda' is the rank's card, and the LD may also
+            stay on the host: the rank's shard is copied to the device).
         :param float_precision: sets ``float_eps`` only, as in the JAX
             package: the state stays float32 whatever is passed.
+        :param mesh: a resolved ``parallel.mesh.Mesh`` or None.
         """
         if not isinstance(dataset, SummaryStatsDataset):
             raise TypeError("dataset must be a viprs_tpu_torch "
                             "SummaryStatsDataset")
         self.dataset = dataset
+        self.mesh = mesh
         self.device = torch.device(device)
         if self.device.type == 'cuda' and self.device.index is None:
-            self.device = torch.device('cuda', torch.cuda.current_device())
-        if self.device != dataset.device:
+            self.device = mesh.device if mesh is not None and \
+                mesh.device.type == 'cuda' else \
+                torch.device('cuda', torch.cuda.current_device())
+        if self.device != dataset.device and not (
+                mesh is not None and dataset.device.type == 'cpu'):
             raise ValueError(f"the dataset's LD is on {dataset.device}, the "
                              f"model was asked for {self.device}")
+        # the LD this model computes with: the dataset's, or this rank's
+        # shard of it under a mesh (parallel.mesh.ShardedLD)
+        self._ld = dataset.ld_for_mesh(mesh, self.device)
         self.float_precision = float_precision
         self.float_eps = np.finfo(float_precision).eps
         self.shapes = dict(dataset.shapes)
@@ -99,15 +110,65 @@ class BayesPRSModel:
         arrays, the dataset's cached tensors are taken, so a fit on unsplit
         statistics uploads nothing new."""
         if self._inputs_are_dataset_views():
-            self._std_beta_flat, self._n_flat = self.dataset.device_inputs()
+            self._std_beta_flat, self._n_flat = self.dataset.device_inputs(
+                self.mesh, self.device)
             return
-        lay = self.dataset.layout
+        self._std_beta_flat = self._flat(self.std_beta)
+        self._n_flat = self._flat(self.n_per_snp)
 
-        def flat(d):
-            return torch.from_numpy(lay.to_flat(d).reshape(
-                lay.nb, lay.block_size)).to(self.device)
-        self._std_beta_flat = flat(self.std_beta)
-        self._n_flat = flat(self.n_per_snp)
+    def _flat(self, per_chrom):
+        """An {chrom: array} dict as the (NB, B) float32 tensor of this
+        model's blocks on its device (``_local``)."""
+        lay = self.dataset.layout
+        return self._local(lay.to_flat(per_chrom).reshape(lay.nb,
+                                                          lay.block_size))
+
+    def _local(self, x, lanes=False):
+        """A whole (..., NB, B) array or tensor as this model's part of it
+        on its device: itself off a mesh; under a mesh the rank's blocks
+        (NB padded to the shards) and, with ``lanes`` where the lanes are
+        split, its lanes of axis 0."""
+        x = torch.as_tensor(x)
+        if self.mesh is None:
+            return x.to(self.device)
+        from ..parallel.mesh import shard_flat
+        if lanes and self._lanes_split():
+            l0, l1 = self.mesh.lane_range(x.shape[0])
+            x = x[l0:l1]
+        lead, (nb, B) = tuple(x.shape[:-2]), tuple(x.shape[-2:])
+        rows = shard_flat(self.mesh, x.reshape(-1, nb, B).transpose(0, 1),
+                          self._ld.nb_padded, self.device)
+        return rows.transpose(0, 1).reshape(lead + (rows.shape[0], B)) \
+            .contiguous()
+
+    def _global(self, x):
+        """A tensor of this model's blocks (and lanes) as the whole
+        (..., NB, B): itself off a mesh; under a mesh a host tensor
+        gathered from every rank (``parallel.distributed.fetch``, a
+        collective), the padded blocks cut off."""
+        if self.mesh is None:
+            return x
+        from ..parallel.distributed import fetch
+        h = fetch(x, self.mesh, split_lanes=self._lanes_split())
+        return torch.from_numpy(h[..., :self.dataset.layout.nb, :])
+
+    def _lanes_split(self):
+        """Whether the state's lanes (axis 0) are split over the mesh's
+        grid axis (the S-lane models; never for the others)."""
+        return False
+
+    def _reduce(self, sums, lanes=True):
+        """(R, S_local) float64 sums over this model's blocks -> over
+        every block (and, with ``lanes``, every lane) of the mesh;
+        unchanged off a mesh."""
+        if self.mesh is None:
+            return np.asarray(sums)
+        return self._ld.reduce(sums, None,
+                               self._lane_layout() if lanes else None,
+                               getattr(self, '_S', 1))[0]
+
+    def _lane_layout(self):
+        return None
 
     def _inputs_are_dataset_views(self):
         """True when std_beta/n_per_snp alias the dataset's own arrays
@@ -202,13 +263,11 @@ class BayesPRSModel:
         and eta*(q + eta) on the device, float32 per block and float64
         across blocks; only the (S,) sums come to the host."""
         from ..ops import updates
-        lay = self.dataset.layout
-        r = torch.from_numpy(lay.to_flat(self.validation_std_beta).reshape(
-            lay.nb, lay.block_size)).to(self.device)
-        mask = self.dataset.ld.mask
+        r = self._flat(self.validation_std_beta)
+        mask = self._ld.mask
         rb = updates.masked_sum(eta * r[None], mask)
         bsb = updates.masked_sum(eta * (q + eta), mask)
-        rb, bsb = torch.stack([rb, bsb]).cpu().numpy()
+        rb, bsb = self._reduce(torch.stack([rb, bsb]).cpu().numpy())
         return rb ** 2 / bsb
 
     def pseudo_validate(self, test_gdl=None):
@@ -251,12 +310,17 @@ class BayesPRSModel:
 
     def _dict_view(self, flat):
         """(S, NB, B) tensor -> {chrom: (m_c,) numpy at S = 1, (m_c, S) at
-        S > 1}."""
-        return self._lead_view(flat[0] if flat.shape[0] == 1 else flat)
+        S > 1} (under a mesh, of the tensor gathered from every rank)."""
+        flat = self._global(flat)
+        return self._view(flat[0] if flat.shape[0] == 1 else flat)
 
     def _lead_view(self, x):
         """(..., NB, B) tensor -> {chrom: (m_c, ...) numpy}, the leading
-        axes (lanes, components) after the variant axis."""
+        axes (lanes, components) after the variant axis (under a mesh, of
+        the tensor gathered from every rank)."""
+        return self._view(self._global(x))
+
+    def _view(self, x):
         lay = self.dataset.layout
         lead = tuple(x.shape[:-2])
         arr = x.reshape(-1, lay.nb * lay.block_size).cpu().numpy()[

@@ -15,6 +15,7 @@ model/base.py) gives them with the fit outcomes as a Table.
 """
 
 import numpy as np
+import torch
 
 from .viprs import VIPRS
 from ..ops import em_loop
@@ -114,6 +115,8 @@ class VIPRSGrid(VIPRS):
             return VIPRS.fit(self, **fit_kwargs)
         if pathwise:
             return self._fit_pathwise(**fit_kwargs)
+        if not fit_kwargs.get('continued'):
+            self._lanes_whole = False
         super().fit(**fit_kwargs)
         self._set_validation_result(self._last_result.final_elbo)
         return self
@@ -134,9 +137,11 @@ class VIPRSGrid(VIPRS):
         eta and its q as the fit left them), with its own initial
         hyperparameters, fresh counters, an initial objective of 0 and no
         restart; the first starts from ``param_0``'s warm start where given.
-        ``optim_result.nit`` is the sum over the grid points."""
+        ``optim_result.nit`` is the sum over the grid points. Under a
+        mesh every rank holds every lane (the blocks are split)."""
         rng = np.random if rng is None else rng
         S = self._S
+        self._lanes_whole = True
         self._refresh_inputs()
         self.initialize(theta_0, param_0, rng)
         hyper = {f: np.array(x, np.float64)
@@ -148,7 +153,7 @@ class VIPRSGrid(VIPRS):
         warm = None
         for s in range(S):
             res = em_loop.em_fit(
-                self.dataset.ld,
+                self._ld,
                 warm if warm is not None else CaviState(
                     *(x[s:s + 1] for x in state)),
                 self._std_beta_flat, self._n_flat,
@@ -199,6 +204,18 @@ class VIPRSGrid(VIPRS):
         self.optim_result = agg
 
     # ------------------------------------------------------------- collapsing
+    def _lane(self, x, idx):
+        """Lane ``idx`` of a state tensor, (1, NB, B), on every rank:
+        under a mesh that splits the lanes, the rank holding it sends it
+        to the others of its grid group."""
+        if not self._lanes_split():
+            return x[idx:idx + 1].clone()
+        l0, l1 = self._lane_range()
+        mine = x[idx - l0:idx - l0 + 1] if l0 <= idx < l1 else \
+            torch.zeros_like(x[:1])
+        owner = int(self.mesh.lane_home(self._S)[idx])
+        return self.mesh.gather(mine.cpu(), 'grid')[owner].to(x.device)
+
     def _collapse(self):
         self._S = 1
         self.n_models = 1
@@ -209,7 +226,7 @@ class VIPRSGrid(VIPRS):
         select_best_model, reference grid_utils.py:68-114)."""
         idx = int(idx)
         row = self.grid_row(idx)
-        self._state = CaviState(*(x[idx:idx + 1].clone() for x in self._state))
+        self._state = CaviState(*(self._lane(x, idx) for x in self._state))
         self._hyper = Hyper(*(np.asarray(x)[idx:idx + 1] for x in self._hyper))
         self._sigma_g = np.asarray(self._sigma_g)[idx:idx + 1]
         self._collapse()

@@ -67,14 +67,19 @@ class VIPRSMix(BayesPRSModel):
             float32), as in the JAX package.
         :param tile: the sweeps' tile width; the port's is T = 128 and
             another value raises.
-        :param mesh: 'auto', 'off' or None: the one device; an explicit
-            mesh raises (not ported).
+        :param mesh: as for VIPRS, with a grid axis of size 1: the mixture
+            splits the LD blocks over the processes only.
         :param kwargs: other arguments of the reference's constructor,
             accepted and not used, as in the JAX package.
         """
-        super().__init__(dataset, device, float_precision=float_precision)
+        mesh = _dispatch.resolve_mesh(mesh)
+        if mesh is not None and mesh.shape['grid'] != 1:
+            raise ValueError("VIPRSMix shards LD blocks only; use a mesh "
+                             "with grid-axis size 1 (all processes on "
+                             "'blocks').")
+        super().__init__(dataset, device, float_precision=float_precision,
+                         mesh=mesh)
         self.tile = _dispatch.check_tile(tile)
-        self.mesh = _dispatch.resolve_mesh(mesh)
         if K < 1:
             raise ValueError(f"K must be positive; got {K}")
         self.K = int(K)
@@ -151,7 +156,7 @@ class VIPRSMix(BayesPRSModel):
         """gamma = pi per component, mu, eta and q zero (``param_0`` is not
         read: the JAX package's mixture takes no warm start)."""
         lay = self.dataset.layout
-        shape = (self.K, lay.nb, lay.block_size)
+        shape = (self.K, self._ld.nb, lay.block_size)
         pi = torch.from_numpy(np.asarray(self._hyper.pi, np.float32))
         zeros = lambda s: torch.zeros(s, dtype=F32, device=self.device)
         self._state = MixState(
@@ -166,8 +171,10 @@ class VIPRSMix(BayesPRSModel):
         :param state: (gamma, mu, eta, q) array-likes in this model's layout.
         :param hyper: (sigma_eps, tau_beta, pi, lambda_min) array-likes.
         :param sigma_g: the sigma_g carry (a float, or (S,) for a grid).
+        Under a mesh each rank takes its blocks of the state.
         """
-        self._state = MixState.from_numpy(*state, device=self.device)
+        self._state = MixState(*(self._local(np.asarray(x, np.float32))
+                                 for x in state))
         self._hyper = MixHyper(*(np.array(x, np.float64) for x in hyper))
         self._sigma_g = np.array(sigma_g, np.float64) \
             if np.ndim(sigma_g) else float(sigma_g)
@@ -207,7 +214,7 @@ class VIPRSMix(BayesPRSModel):
         use_skip = _dispatch.select_mix_sweep_impl(sweep_impl)
         cavi_cuda.check_inner_steps(self.device, inner_steps)
         if compile_only:
-            cavi_cuda.build_for(self.dataset.ld)
+            cavi_cuda.build_for(self._sweep_args()[0])
             return self
         rng = np.random if rng is None else rng
         self._refresh_inputs()
@@ -222,7 +229,7 @@ class VIPRSMix(BayesPRSModel):
         restarts = 0
         while True:
             res = mix_em_loop.mix_em_fit(
-                self.dataset.ld, self._state, self._std_beta_flat,
+                self._ld, self._state, self._std_beta_flat,
                 self._n_flat, self._hyper, self._mix_fix(), self.d,
                 n_sample=float(self.n), m_total=float(self.m),
                 max_iter=max_iter, min_iter=min_iter, f_abs_tol=f_abs_tol,
@@ -299,14 +306,13 @@ class VIPRSMix(BayesPRSModel):
             IterationConditionCounter()
         res = self.optim_result
         restarts = 0
+        ld, halo = self._sweep_args()
         for i in range(1, max_iter + 1):
             hy = self._hyper_dev()
             self._state, eta_diff = cavi_sweep_mix_s1(
-                self.dataset.ld, self._state, self._std_beta_flat,
-                self._n_flat, hy, inner_steps)
-            st, extra = mix_em_loop.read_stats(
-                self._state, hy, self._std_beta_flat, self._n_flat,
-                self.dataset.ld.mask, 1, self.K, eta_diff.abs().amax())
+                ld, self._state, self._std_beta_flat, self._n_flat, hy,
+                inner_steps, halo)
+            st, extra = self._read_stats(1, eta_diff.abs().amax())
             st = {k: v[0] for k, v in st.items()}
             max_ed = float(extra[0])
             self._m_step(st)
@@ -377,11 +383,27 @@ class VIPRSMix(BayesPRSModel):
         return MixHyper(*(torch.from_numpy(np.asarray(x, np.float32))
                           .to(self.device) for x in self._hyper))
 
+    def _sweep_args(self):
+        """(the BlockLD the sweeps take, their ``halo``): this rank's
+        blocks and its halo exchange under a mesh."""
+        if self.mesh is None:
+            return self._ld, None
+        return self._ld.ld, self._ld.couple
+
+    def _read_stats(self, S, *extra):
+        """``mix_em_loop.read_stats`` of the current state (and one
+        per-lane maximum in ``extra``), over every rank under a mesh."""
+        st, ex = mix_em_loop.read_stats(
+            self._state, self._hyper_dev(), self._std_beta_flat,
+            self._n_flat, self._ld.mask, S, self.K, *extra)
+        if self.mesh is None:
+            return st, ex
+        return mix_em_loop.reduce_stats(self._ld, st, S, self.K,
+                                        ex[:S] if extra else None)
+
     def _lane_stats(self):
         """The single model's statistics as one lane ((1,) / (1, K))."""
-        return mix_em_loop.read_stats(
-            self._state, self._hyper_dev(), self._std_beta_flat,
-            self._n_flat, self.dataset.ld.mask, 1, self.K)[0]
+        return self._read_stats(1)[0]
 
     def _elbo_from(self, st):
         """The ELBO of one model's statistics ({name: scalar or (K,)}) with
@@ -418,9 +440,7 @@ class VIPRSMix(BayesPRSModel):
         """(statistics, float64 hyperparameters, sigma_g), lane-shaped
         ((S,) / (S, K); S = 1 for one model)."""
         S, K = self._lanes(), self.K
-        st = mix_em_loop.read_stats(
-            self._state, self._hyper_dev(), self._std_beta_flat,
-            self._n_flat, self.dataset.ld.mask, S, K)[0]
+        st = self._read_stats(S)[0]
         h = MixHyper(*(np.reshape(np.asarray(x, np.float64), s) for x, s in
                        zip(self._hyper, (S, (S, K), (S, K), S))))
         return st, h, np.reshape(np.asarray(self._sigma_g, np.float64), S)

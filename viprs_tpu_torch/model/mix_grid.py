@@ -120,7 +120,7 @@ class VIPRSMixGrid(VIPRSMix):
         if self.n_models == 1:
             return super().initialize_variational_parameters(param_0)
         lay = self.dataset.layout
-        shape = (self.n_models, self.K, lay.nb, lay.block_size)
+        shape = (self.n_models, self.K, self._ld.nb, lay.block_size)
         pi = torch.from_numpy(np.asarray(self._hyper.pi, np.float32))
         zeros = lambda s: torch.zeros(s, dtype=F32, device=self.device)
         self._state = MixState(
@@ -161,7 +161,7 @@ class VIPRSMixGrid(VIPRSMix):
         use_skip = _dispatch.select_mix_sweep_impl(sweep_impl, grid=True)
         cavi_cuda.check_inner_steps(self.device, inner_steps)
         if compile_only:
-            cavi_cuda.build_for(self.dataset.ld)
+            cavi_cuda.build_for(self._sweep_args()[0])
             return self
         rng = np.random if rng is None else rng
         self._refresh_inputs()
@@ -173,7 +173,7 @@ class VIPRSMixGrid(VIPRSMix):
             chunk_iters = min(100, max_iter) if S >= 8 else max_iter
         chunk_iters = max(1, min(chunk_iters, max_iter))
 
-        ld, dev = self.dataset.ld, self.device
+        ld, dev = self._ld, self.device
         restarts = it_done = 0
         active = np.ones(S, bool)
         statuses = np.full(S, opt.MAX_ITER, np.int32)

@@ -80,15 +80,23 @@ class VIPRS(BayesPRSModel):
             (pack it with ``quantize=True`` for int8).
         :param tile: the sweeps' tile width; the port's is T = 128 and
             another value raises.
-        :param mesh: 'auto', 'off' or None: the one device; an explicit
-            mesh raises (not ported).
+        :param mesh: ``'auto'`` (every process on the ``blocks`` axis when
+            there are several, else one device), ``'off'``/None (one
+            device), ``'<NB>x<NG>'`` or a ``parallel.mesh.Mesh``: the fit
+            runs over the processes of ``torch.distributed``'s default
+            group (``parallel.init_distributed``), each rank on its range
+            of the LD blocks and, where the grid axis divides S, of the
+            lanes (parallel/mesh.py).
         """
-        super().__init__(dataset, device, float_precision=float_precision)
+        super().__init__(dataset, device, float_precision=float_precision,
+                         mesh=_dispatch.resolve_mesh(mesh))
         self.fix_params = dict(fix_params or {})
         self.tracked_params = list(tracked_params or [])
         self.tile = _dispatch.check_tile(tile)
         self.threads = threads
-        self.mesh = _dispatch.resolve_mesh(mesh)
+        # the pathwise grid holds every lane on every rank (lanes whole)
+        self._lanes_whole = False
+        self._layouts = {}
         if isinstance(lambda_min, str) and lambda_min == 'infer':
             self.lambda_min = self.infer_lambda_min()
         else:
@@ -193,27 +201,29 @@ class VIPRS(BayesPRSModel):
         device (``compute_q``)."""
         param_0 = param_0 or {}
         lay = self.dataset.layout
-        shape = (self._S, lay.nb, lay.block_size)
+        l0, l1 = self._lane_range()
+        shape = (l1 - l0, self._ld.nb, lay.block_size)
         dev = self.device
 
         def lanes(flat):
-            return torch.from_numpy(np.asarray(flat, np.float32)).to(dev) \
-                .reshape(1, lay.nb, lay.block_size).expand(shape).contiguous()
+            return self._local(np.asarray(flat, np.float32).reshape(
+                1, lay.nb, lay.block_size)).expand(shape).contiguous()
         if 'gamma' in param_0:
             g = np.clip(lay.to_flat(param_0['gamma']), 1e-8, 1 - 1e-8)
             logits = lanes(_logit(g))
         else:
             pi = torch.from_numpy(
                 _logit(np.asarray(self._hyper.pi, np.float64))
-                .astype(np.float32)).to(dev)
+                .astype(np.float32)[l0:l1]).to(dev)
             logits = pi[:, None, None].expand(shape).contiguous()
         if 'mu' in param_0:
             mu = lanes(lay.to_flat(param_0['mu']))
         else:
             mu = torch.zeros(shape, dtype=F32, device=dev)
         if 'mu' in param_0 or 'gamma' in param_0:
-            eta = torch.sigmoid(logits) * mu * self.dataset.ld.mask[None]
-            q = compute_q(self.dataset.ld, eta)
+            eta = torch.sigmoid(logits) * mu * self._ld.mask[None]
+            q = compute_q(self._ld, eta) if self.mesh is None else \
+                self._ld.compute_q(eta)
         else:
             eta = torch.zeros(shape, dtype=F32, device=dev)
             q = torch.zeros(shape, dtype=F32, device=dev)
@@ -222,6 +232,35 @@ class VIPRS(BayesPRSModel):
 
     def _clear_posterior(self):
         self._pip = self._post_mean_beta = self._post_var_beta = None
+
+    # ------------------------------------------------------- the mesh
+    def _lanes_split(self):
+        return (self.mesh is not None and not self._lanes_whole
+                and self.mesh.splits_lanes(self._S))
+
+    def _lane_range(self):
+        """The lanes [l0, l1) of ``_S`` this rank holds (all of them off a
+        mesh or where the grid axis does not split them)."""
+        if not self._lanes_split():
+            return 0, self._S
+        return self.mesh.lane_range(self._S)
+
+    def _lane_layout(self):
+        """``Mesh.lane_layout`` of this rank's lanes where they are split
+        (a collective the first time for each S), else None."""
+        if not self._lanes_split():
+            return None
+        if self._S not in self._layouts:
+            self._layouts[self._S] = self.mesh.lane_layout(
+                np.arange(*self._lane_range()))
+        return self._layouts[self._S]
+
+    def _sweep_args(self):
+        """(the BlockLD the sweeps take, their ``halo``): this rank's
+        blocks and its halo exchange under a mesh."""
+        if self.mesh is None:
+            return self._ld, None
+        return self._ld.ld, self._ld.couple
 
     # ------------------------------------------------- manual EM stepping
     # (the reference API: VIPRS.e_step / m_step / update_* drive EM by
@@ -232,12 +271,14 @@ class VIPRS(BayesPRSModel):
         (K1 with ``coupling_pass_s1`` at S = 1, K3 with ``coupling_pass_s``
         at S > 1 on the card; their plain versions on the CPU). Keeps the
         sweep's eta change as ``_last_eta_diff``."""
-        act = torch.ones(self._S, dtype=F32, device=self.device)
+        act = torch.ones(self._state.eta.shape[0], dtype=F32,
+                         device=self.device)
         sweep = cavi_cuda.cavi_sweep_s1 if self._S == 1 \
             else cavi_cuda.cavi_sweep_s
+        ld, halo = self._sweep_args()
         self._state, self._last_eta_diff = sweep(
-            self.dataset.ld, self._state, self._std_beta_flat, self._n_flat,
-            self._hyper_dev(), act)
+            ld, self._state, self._std_beta_flat, self._n_flat,
+            self._hyper_dev(), act, halo=halo)
         self._clear_posterior()
         return self
 
@@ -351,7 +392,7 @@ class VIPRS(BayesPRSModel):
         use_skip, use_hybrid = _dispatch.select_sweep_impl(S, sweep_impl)
         cavi_cuda.check_inner_steps(self.device, inner_steps)
         if compile_only:
-            cavi_cuda.build_for(self.dataset.ld)
+            cavi_cuda.build_for(self._sweep_args()[0])
             return self
         if continued and self._state is None:
             raise ValueError("continued=True needs a state: fit, initialize "
@@ -397,7 +438,9 @@ class VIPRS(BayesPRSModel):
             restarts = max_restarts    # the host restart must not re-fire
         pbar = None if disable_pbar else self._make_pbar(max_iter)
 
-        ld, dev = self.dataset.ld, self.device
+        ld, dev = self._ld, self.device
+        split = self._lanes_split()
+        l0, l1 = self._lane_range()
         init_elbo = last_elbo = None
         counters = em_loop.init_counters(S)
         active = np.ones(S, bool)
@@ -418,6 +461,10 @@ class VIPRS(BayesPRSModel):
             bucket = min(S, 1 << max(0, int(np.ceil(np.log2(max(n_act, 1))))))
             if last_elbo is None:
                 bucket = S
+            if self.mesh is not None:
+                # compacted widths stay multiples of the mesh's grid axis
+                g_ax = self.mesh.shape['grid']
+                bucket = min(S, -(-bucket // g_ax) * g_ax)
             if bucket > S_run:          # restarts can re-activate lanes
                 S_run = bucket
             elif S >= 8 and bucket <= S_run // 4:
@@ -427,7 +474,12 @@ class VIPRS(BayesPRSModel):
                 sel = np.nonzero(active)[0]
                 sel_pad = np.concatenate(
                     [sel, np.full(S_run - n_act, sel[0])]).astype(np.int64)
-                sel_dev = torch.from_numpy(sel_pad).to(dev)
+                # split lanes stay on their rank: it runs the chunk's slots
+                # whose lane it holds (maybe none)
+                mine = np.nonzero((sel_pad >= l0) & (sel_pad < l1))[0] \
+                    if split else None
+                rows = sel_pad if mine is None else sel_pad[mine] - l0
+                sel_dev = torch.from_numpy(rows).to(dev)
                 state_in = CaviState(*(x.index_select(0, sel_dev)
                                        for x in self._state))
                 hyper_in = Hyper(*(np.asarray(x)[sel_pad] for x in self._hyper))
@@ -447,6 +499,7 @@ class VIPRS(BayesPRSModel):
                 init_elbo_in, active_in = init_elbo, active
                 sigma_g_in = self._sigma_g
                 run_skip, run_hybrid = use_skip, use_hybrid
+                mine = np.arange(l0, l1) if split else None
             self._chunk_trace.append((S_run, run_skip, run_hybrid))
 
             res = em_loop.em_fit(
@@ -459,7 +512,7 @@ class VIPRS(BayesPRSModel):
                 counters0=counters_in, sigma_g0=sigma_g_in,
                 max_restarts=1 if ingraph_restart else 0,
                 restart_hyper=r_hyper, restart_logit=r_logit,
-                inner_steps=inner_steps)
+                inner_steps=inner_steps, lanes=mine)
             n_in_chunk = res.n_iter_total
             it_done += n_in_chunk
             n_skip += res.n_skip
@@ -467,9 +520,15 @@ class VIPRS(BayesPRSModel):
                 self._act_trace.extend(res.act_hist[1:])
 
             if compact:
-                sel_dev = torch.from_numpy(sel).to(dev)
+                if mine is None:
+                    dst = torch.from_numpy(sel).to(dev)
+                    src = torch.arange(n_act, device=dev)
+                else:
+                    live = mine < n_act     # not a padding duplicate
+                    dst = torch.from_numpy(sel_pad[mine[live]] - l0).to(dev)
+                    src = torch.from_numpy(np.nonzero(live)[0]).to(dev)
                 for full, part in zip(self._state, res.state):
-                    full.index_copy_(0, sel_dev, part[:n_act])
+                    full.index_copy_(0, dst, part.index_select(0, src))
                 hyper = {f: np.array(x, np.float64)
                          for f, x in zip(Hyper._fields, self._hyper)}
                 for f, x in zip(Hyper._fields, res.hyper):
@@ -596,8 +655,10 @@ class VIPRS(BayesPRSModel):
         self._hyper = Hyper(**h)
         self._update_fix_mask()
         dev = self.device
-        m3 = torch.from_numpy(restart_mask).to(dev)[:, None, None]
-        fresh = torch.from_numpy(_logit(h['pi']).astype(np.float32)).to(dev)
+        own = slice(*self._lane_range())
+        m3 = torch.from_numpy(restart_mask[own]).to(dev)[:, None, None]
+        fresh = torch.from_numpy(_logit(h['pi']).astype(np.float32)[
+            own]).to(dev)
         zero = torch.zeros((), dtype=F32, device=dev)
         st = self._state
         self._state = CaviState(
@@ -680,8 +741,11 @@ class VIPRS(BayesPRSModel):
 
     # ------------------------------------------------------------ objective
     def _hyper_dev(self):
-        return Hyper(*(torch.from_numpy(np.asarray(x, np.float32)).to(self.device)
-                       for x in self._hyper))
+        """The hyperparameters of this rank's lanes as float32 device
+        tensors."""
+        own = slice(*self._lane_range())
+        return Hyper(*(torch.from_numpy(np.atleast_1d(np.asarray(
+            x, np.float32))[own]).to(self.device) for x in self._hyper))
 
     def _hyper32(self):
         """The hyperparameters rounded through float32 (the values the
@@ -691,10 +755,15 @@ class VIPRS(BayesPRSModel):
 
     def _host_stats(self):
         """The sweep statistics of the current state ((S,) float64 CPU
-        tensors): one device reduction, one host read."""
-        return em_loop.read_stats(self._state, self._n_flat,
-                                  self._std_beta_flat, self.dataset.ld.mask,
-                                  self._hyper_dev())[0]
+        tensors): one device reduction, one host read (under a mesh, then
+        added over every rank)."""
+        st = em_loop.read_stats(self._state, self._n_flat,
+                                self._std_beta_flat, self._ld.mask,
+                                self._hyper_dev())[0]
+        if self.mesh is None:
+            return st
+        return updates.SweepStats(*(torch.from_numpy(r) for r in self._reduce(
+            np.stack([x.numpy() for x in st]))))
 
     def _sigma_g_t(self):
         return torch.from_numpy(np.array(self._sigma_g, np.float64)
@@ -815,8 +884,11 @@ class VIPRS(BayesPRSModel):
         ELBO history to an .npz file with the JAX package's keys, shapes and
         dtypes (state (S, NB, B) float32, hyperparameters and sigma_g (S,)
         float64), so either package loads the other's file; resume with
-        ``load_checkpoint`` and ``fit(continued=True)``."""
-        st = torch.stack(list(self._state)).cpu().numpy()
+        ``load_checkpoint`` and ``fit(continued=True)``. Under a mesh the
+        state is gathered from every rank and rank 0 writes the file."""
+        st = [self._global(x).cpu().numpy() for x in self._state]
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         np.savez_compressed(
             f_name, logits=st[0], mu=st[1], eta=st[2], q=st[3],
             sigma_eps=np.atleast_1d(np.asarray(self._hyper.sigma_eps)),
@@ -831,13 +903,15 @@ class VIPRS(BayesPRSModel):
         package (the lane count ``_S`` is the file's): the state goes to
         this model's device. It is how a JAX ``VIPRS`` or ``VIPRSGrid`` fit
         is carried over to the port (as ``VIPRSMix.set_state`` carries a
-        mixture's)."""
+        mixture's). Under a mesh each rank takes its part of the state."""
         path = f_name if str(f_name).endswith('.npz') else f_name + '.npz'
         with np.load(path) as f:
             z = {k: f[k] for k in f.files}
-        self._state = CaviState.from_numpy(z['logits'], z['mu'], z['eta'],
-                                           z['q'], device=self.device)
         self._S = int(z['logits'].shape[0])
+        self._lanes_whole = False
+        self._state = CaviState(*(self._local(
+            np.ascontiguousarray(z[k], np.float32), lanes=True)
+            for k in ('logits', 'mu', 'eta', 'q')))
         self._hyper = Hyper(sigma_eps=z['sigma_eps'], tau_beta=z['tau_beta'],
                             pi=z['pi'], lambda_min=z['lambda_min'])
         self._sigma_g = z['sigma_g']

@@ -216,6 +216,138 @@ class BlockLD:
                    scale=float(scale))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardView:
+    """One shard of a BlockLD: a contiguous range of its blocks and the
+    coupling tiles that touch it (``shard_blocks``).
+
+    :ivar ld: the range's blocks (NB_local = hi - lo): diagonal tiles,
+        mask and ``diag_nz``, no coupling tile. Blocks past the source's
+        end (padding) are empty.
+    :ivar cpl: the coupling view, or None when no tile touches the range:
+        NB_local + n_ghost blocks, the shard's blocks first, then one ghost
+        slot per block of another shard that a tile reaches; its coupling
+        fields are real (the touching tiles in their global order, src and
+        dst remapped to slots, ``off_nz`` kept, ``cpl_slabs`` of the
+        shard's own blocks only) and its ``diag``, ``mask`` and
+        ``diag_nz`` are zero stand-ins that give it that NB.
+    :ivar lo, hi: the range [lo, hi) of global blocks.
+    :ivar ghosts: (n_ghost,) global block of each ghost slot, ascending.
+    :ivar exports: (n_exp,) the shard's blocks (local indices) that another
+        shard's tiles read, ascending.
+    """
+    ld: BlockLD
+    cpl: object
+    lo: int
+    hi: int
+    ghosts: np.ndarray
+    exports: np.ndarray
+
+
+def halo_plan(off_src, off_dst, bounds):
+    """Per shard of the block boundaries ``bounds``, (ghosts, exports): the
+    global blocks of other shards its coupling tiles reach, and its own
+    blocks (local indices) that other shards' tiles reach; ascending."""
+    src = np.asarray(off_src, np.int64)
+    dst = np.asarray(off_dst, np.int64)
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        s_in = (src >= lo) & (src < hi)
+        d_in = (dst >= lo) & (dst < hi)
+        cross = s_in != d_in
+        ghosts = np.unique(np.where(s_in, dst, src)[cross])
+        exports = np.unique(np.where(s_in, src, dst)[cross]) - lo
+        out.append((ghosts, exports))
+    return out
+
+
+def shard_rows(x, lo, hi, device):
+    """Rows [lo, hi) of ``x`` on ``device``, zero rows past its end (the
+    padding of NB to the shards); a broadcast stand-in (stride 0, e.g.
+    viprs_warmup's tiles) stays one."""
+    device = torch.device(device)
+    if x.stride(0) == 0:
+        return x[:1].to(device).expand((hi - lo,) + tuple(x.shape[1:]))
+    real = x[min(lo, x.shape[0]):min(hi, x.shape[0])].to(device)
+    pad = (hi - lo) - real.shape[0]
+    if pad:
+        real = torch.cat([real, torch.zeros(
+            (pad,) + tuple(x.shape[1:]), dtype=x.dtype, device=device)])
+    return real.contiguous()
+
+
+def shard_blocks(ld: BlockLD, lo, hi, device, plan=None) -> ShardView:
+    """The shard [lo, hi) of ``ld``'s blocks on ``device``: only its
+    blocks' tiles and the coupling tiles touching them are copied there
+    (``ld`` may stay on the host). Blocks at or past ``ld.nb`` are padding
+    (zero tiles and mask). A destination block's coupling tiles keep their
+    global order, so the coupling pass over the view sums them as the
+    pass over ``ld`` does.
+
+    :param plan: the shard's (ghosts, exports) of ``halo_plan`` (computed
+        here when None)."""
+    device = torch.device(device)
+    B = ld.block_size
+    nb_loc = hi - lo
+    m = -(-B // NZ_BLOCK)
+
+    def rows(x):
+        return shard_rows(x, lo, hi, device)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    i32 = np.int32
+    local = BlockLD(
+        diag=rows(ld.diag), off_data=put(np.zeros((0, B, B), _np_dtype(
+            ld.diag.dtype))), off_src=put(np.zeros(0, i32)),
+        off_dst=put(np.zeros(0, i32)), mask=rows(ld.mask),
+        inc_ptr=put(np.zeros(nb_loc + 1, i32)), inc_tile=put(np.zeros(0, i32)),
+        off_nz=put(np.zeros((0, m, m), np.uint8)), cpl_slabs=put(np.zeros(
+            0, i32)), diag_nz=rows(ld.diag_nz), scale=ld.scale)
+
+    src = ld.off_src.cpu().numpy().astype(np.int64)
+    dst = ld.off_dst.cpu().numpy().astype(np.int64)
+    if plan is None:
+        plan = halo_plan(src, dst, [lo, hi])[0]
+    ghosts, exports = plan
+    touch = np.nonzero(((src >= lo) & (src < hi))
+                       | ((dst >= lo) & (dst < hi)))[0]
+    if len(touch) == 0:
+        return ShardView(ld=local, cpl=None, lo=lo, hi=hi, ghosts=ghosts,
+                         exports=exports)
+
+    def slot(b):
+        return np.where((b >= lo) & (b < hi), b - lo,
+                        nb_loc + np.searchsorted(ghosts, b))
+    s_l, d_l = slot(src[touch]), slot(dst[touch])
+    nb_ext = nb_loc + len(ghosts)
+    idx = torch.from_numpy(touch).to(ld.off_data.device)
+    off_nz = ld.off_nz.index_select(0, idx.to(ld.off_nz.device)).cpu()
+    inc_ptr, inc_tile = incident_tiles(s_l, d_l, nb_ext)
+    slabs = coupling_slabs(off_nz.numpy(), s_l, d_l, nb_ext)
+    slabs = slabs[slabs // -(-B // SLAB) < nb_loc]
+    dt = ld.diag.dtype
+    cpl = BlockLD(
+        diag=torch.zeros((1, B, B), dtype=dt, device=device).expand(
+            nb_ext, B, B),
+        off_data=ld.off_data.index_select(0, idx).to(device).contiguous(),
+        off_src=put(s_l.astype(i32)), off_dst=put(d_l.astype(i32)),
+        mask=torch.zeros((1, B), dtype=torch.float32, device=device).expand(
+            nb_ext, B),
+        inc_ptr=put(inc_ptr), inc_tile=put(inc_tile),
+        off_nz=off_nz.to(device).contiguous(), cpl_slabs=put(slabs),
+        diag_nz=torch.zeros((1, m, m), dtype=torch.uint8,
+                            device=device).expand(nb_ext, m, m),
+        scale=ld.scale)
+    return ShardView(ld=local, cpl=cpl, lo=lo, hi=hi, ghosts=ghosts,
+                     exports=exports)
+
+
+def _np_dtype(dtype):
+    """The numpy dtype of a torch dtype."""
+    return torch.zeros(0, dtype=dtype).numpy().dtype
+
+
 def _torch_dtype(dtype):
     """A torch dtype from a torch dtype, a numpy dtype or its name."""
     if isinstance(dtype, torch.dtype):

@@ -274,27 +274,38 @@ def _couple_s1(ld: BlockLD, q, eta_diff, blk_mask):
     return coupling_pass_s1_inplace(ld, q, eta_diff, blk_mask)
 
 
+def _couple(couple_fn, ld, q, eta_diff, blk_mask, halo):
+    """The coupling pass of a composed sweep: ``couple_fn`` on ``ld``'s
+    coupling tiles, or, on a shard of a mesh, ``halo(couple_fn, q,
+    eta_diff, blk_mask)`` (``parallel.mesh.ShardedLD.couple``: the ghost
+    blocks from the ranks that own them, then ``couple_fn`` on the shard's
+    coupling tiles)."""
+    if halo is None:
+        return couple_fn(ld, q, eta_diff, blk_mask)
+    return halo(couple_fn, q, eta_diff, blk_mask)
+
+
 def cavi_sweep_s1(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                  hyper: Hyper, active, inner_steps=INNER_STEPS):
+                  hyper: Hyper, active, inner_steps=INNER_STEPS, halo=None):
     """The all-active S = 1 sweep (replaces cavi_pallas.cavi_sweep_pallas_s1;
     same contract as cavi_torch.cavi_sweep at S = 1)."""
     return cavi_sweep_s1_skip(ld, state, std_beta, n_per_snp, hyper, active,
-                              _all_blocks(ld), inner_steps)
+                              _all_blocks(ld), inner_steps, halo)
 
 
 def cavi_sweep_s1_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
                        hyper: Hyper, active, blk_mask,
-                       inner_steps=INNER_STEPS):
+                       inner_steps=INNER_STEPS, halo=None):
     """The S = 1 sweep over the blocks flagged in ``blk_mask`` ((NB,) bool or
     int; replaces cavi_pallas.cavi_sweep_pallas_s1_skip): unflagged blocks
     pass through bit-exactly, and the coupling tiles touching a flagged
     block are applied (no refresh_q afterwards). With every block flagged it
     is the all-active sweep, so the hybrid EM iteration picks its branch by
-    the mask alone."""
+    the mask alone. ``halo``: see ``_couple``."""
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_s1(ld, state, std_beta, n_per_snp, hyper,
                                    active, blk_mask, inner_steps)
-    q = _couple_s1(ld, new.q, eta_diff, blk_mask)
+    q = _couple(_couple_s1, ld, new.q, eta_diff, blk_mask, halo)
     return new._replace(q=q), eta_diff
 
 
@@ -436,26 +447,26 @@ def _couple_s(ld: BlockLD, q, eta_diff, blk_mask):
 
 
 def cavi_sweep_s(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
-                 hyper: Hyper, active, inner_steps=INNER_STEPS):
+                 hyper: Hyper, active, inner_steps=INNER_STEPS, halo=None):
     """The all-active S-lane sweep, coupling included (replaces
     cavi_pallas.cavi_sweep_pallas at S > 1 and its refresh_q; same contract
     as cavi_torch.cavi_sweep)."""
     return cavi_sweep_s_skip(ld, state, std_beta, n_per_snp, hyper, active,
-                             _all_blocks(ld), inner_steps)
+                             _all_blocks(ld), inner_steps, halo)
 
 
 def cavi_sweep_s_skip(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
                       hyper: Hyper, active, blk_mask,
-                      inner_steps=INNER_STEPS):
+                      inner_steps=INNER_STEPS, halo=None):
     """The S-lane sweep over the blocks flagged in ``blk_mask`` ((NB,) bool
     or int, e.g. ``cavi_torch.union_block_mask`` of the proposal masks;
     replaces cavi_pallas.cavi_sweep_pallas_skip_s): unflagged blocks pass
     through bit-exactly, and the coupling tiles touching a flagged block are
-    applied."""
+    applied. ``halo``: see ``_couple``."""
     blk_mask = blk_mask.to(torch.int32)
     new, eta_diff = block_sweep_s(ld, state, std_beta, n_per_snp, hyper,
                                   active, blk_mask, inner_steps)
-    q = _couple_s(ld, new.q, eta_diff, blk_mask)
+    q = _couple(_couple_s, ld, new.q, eta_diff, blk_mask, halo)
     return new._replace(q=q), eta_diff
 
 
@@ -584,30 +595,30 @@ def block_sweep_mix(ld: BlockLD, state: MixState, std_beta, n_per_snp,
 
 
 def _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask, unit_diag,
-                  count, inner_steps):
+                  count, inner_steps, halo):
     blk_mask = blk_mask.to(torch.int32)
     lanes = MixState(*(x[None] for x in state))
     new, eta_diff = block_sweep_mix(ld, lanes, std_beta, n_per_snp,
                                     hyper.lanes(), None, blk_mask, unit_diag,
                                     count, inner_steps)
-    q = _couple_s1(ld, new.q, eta_diff, blk_mask)
+    q = _couple(_couple_s1, ld, new.q, eta_diff, blk_mask, halo)
     return MixState(new.gamma[0], new.mu[0], new.eta[0], q[0]), eta_diff[0]
 
 
 def cavi_sweep_mix_s1(ld: BlockLD, state: MixState, std_beta, n_per_snp,
-                      hyper: MixHyper, inner_steps=INNER_STEPS):
+                      hyper: MixHyper, inner_steps=INNER_STEPS, halo=None):
     """The single-model all-active mixture sweep, coupling included
     (replaces cavi_pallas.cavi_sweep_mixture_pallas, K5): state gamma/mu
     (K, NB, B), eta/q (NB, B); hyper scalars and (K,). Returns (new_state,
     eta_diff)."""
     return _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper,
                          _all_blocks(ld), False, 'cavi_sweep_mix_s1',
-                         inner_steps)
+                         inner_steps, halo)
 
 
 def cavi_sweep_mix_s1_skip(ld: BlockLD, state: MixState, std_beta,
                            n_per_snp, hyper: MixHyper, blk_mask,
-                           inner_steps=INNER_STEPS):
+                           inner_steps=INNER_STEPS, halo=None):
     """The single-model mixture sweep over the blocks flagged in
     ``blk_mask`` ((NB,) bool or int, e.g. cavi_mix.mix_block_proposal_mask;
     replaces cavi_pallas.cavi_sweep_mixture_pallas_skip, K6): unflagged
@@ -615,11 +626,12 @@ def cavi_sweep_mix_s1_skip(ld: BlockLD, state: MixState, std_beta,
     block are applied, and the relaxation takes the variant mask as the unit
     diagonal."""
     return _sweep_mix_s1(ld, state, std_beta, n_per_snp, hyper, blk_mask,
-                         True, 'cavi_sweep_mix_s1_skip', inner_steps)
+                         True, 'cavi_sweep_mix_s1_skip', inner_steps, halo)
 
 
 def cavi_sweep_mix_s(ld: BlockLD, state: MixState, std_beta, n_per_snp,
-                     hyper: MixHyper, active, inner_steps=INNER_STEPS):
+                     hyper: MixHyper, active, inner_steps=INNER_STEPS,
+                     halo=None):
     """The all-active S-lane mixture sweep, coupling included (replaces
     cavi_pallas.cavi_sweep_mixture_pallas_batch, K7): state gamma/mu
     (S, K, NB, B), eta/q (S, NB, B); hyper (S,) / (S, K); active (S,)
@@ -628,13 +640,13 @@ def cavi_sweep_mix_s(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
                                     active.to(F32), blk_mask, False,
                                     'cavi_sweep_mix_s', inner_steps)
-    return new._replace(q=_couple_s(ld, new.q, eta_diff, blk_mask)), \
-        eta_diff
+    return new._replace(q=_couple(_couple_s, ld, new.q, eta_diff, blk_mask,
+                                  halo)), eta_diff
 
 
 def cavi_sweep_mix_s_skip(ld: BlockLD, state: MixState, std_beta, n_per_snp,
                           hyper: MixHyper, active, blk_mask,
-                          inner_steps=INNER_STEPS):
+                          inner_steps=INNER_STEPS, halo=None):
     """The S-lane mixture sweep over the blocks flagged in ``blk_mask``
     ((NB,) bool or int: the union over the live lanes of
     cavi_mix.mix_block_proposal_mask_batch; replaces
@@ -644,5 +656,5 @@ def cavi_sweep_mix_s_skip(ld: BlockLD, state: MixState, std_beta, n_per_snp,
     new, eta_diff = block_sweep_mix(ld, state, std_beta, n_per_snp, hyper,
                                     active.to(F32), blk_mask, True,
                                     'cavi_sweep_mix_s_skip', inner_steps)
-    return new._replace(q=_couple_s(ld, new.q, eta_diff, blk_mask)), \
-        eta_diff
+    return new._replace(q=_couple(_couple_s, ld, new.q, eta_diff, blk_mask,
+                                  halo)), eta_diff

@@ -23,6 +23,17 @@ A fit split into chunks (lane compaction in model/viprs.py) carries the
 objective (``init_elbo``), the active lanes, the global iteration offset
 ``i0``, the ladder's counters (``EMCounters``) and ``sigma_g`` across calls,
 so a chunked run takes the single call's path.
+
+On a shard of a mesh (``ld`` a ``parallel.mesh.ShardedLD``) the loop runs
+the same sweeps on the rank's blocks, the coupling pass after the halo
+exchange (``ShardedLD.couple``), and makes its one host vector global
+before the M-step: sums and maxima over the ranks of the blocks group
+(``ShardedLD.reduce``), then the lanes of the grid group where the lanes
+are split (``lanes``). The skip rules' block masks are made global before
+the sweep (``ShardedLD.count_blocks``): the hybrid gate compares the count
+of every rank's proposed blocks with ``HYBRID_FRAC`` of the unpadded NB,
+and K4's union spans the lanes of every rank. Every rank then runs the
+same host M-step and ladder and takes the same decisions.
 """
 
 from typing import Callable, List, NamedTuple, Optional
@@ -32,8 +43,8 @@ import torch
 
 from . import updates
 from .block_ld import BlockLD
-from .cavi_cuda import (block_proposal_mask, cavi_sweep_s, cavi_sweep_s1_skip,
-                        cavi_sweep_s_skip)
+from .cavi_cuda import (block_proposal_mask, cavi_sweep_s, cavi_sweep_s1,
+                        cavi_sweep_s1_skip, cavi_sweep_s_skip)
 from .cavi_torch import (CaviState, ETA_DIFF_EPS, INNER_STEPS, Hyper,
                          union_block_mask)
 from ..utils import optimize as opt
@@ -111,8 +122,47 @@ def read_stats(state, n_per_snp, std_beta, mask, h_dev, *extra):
     host = torch.cat([*st, *(x.reshape(-1).to(F64) for x in extra)]).cpu()
     S = st[0].shape[0]
     n = len(st) * S
-    return (updates.SweepStats(*(host[i:i + S] for i in range(0, n, S))),
-            host[n:])
+    return updates.SweepStats(*host[:n].reshape(len(st), S)), host[n:]
+
+
+def _shard_sweep(shard, state, std_beta, n_per_snp, h_dev, act_dev, act_f,
+                 S, use_skip, use_hybrid, gate_eps, thresh, split, has_lanes,
+                 inner_steps):
+    """The E-step of ``em_fit`` on a shard: the unsharded rule's kernels on
+    the rank's blocks, the block masks made global before the sweep and
+    the halo before the coupling pass. A rank holding no lane (its grid
+    group's lanes all compacted away) sweeps nothing; the ranks it would
+    exchange with hold the same lanes. Returns (state, eta_diff, global
+    count of flagged blocks, -1 where the rule has no mask)."""
+    ld = shard.ld
+    halo = shard.couple
+    if S == 1 and (use_hybrid or use_skip):
+        eps = gate_eps if use_hybrid else ETA_DIFF_EPS
+        blk = block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev,
+                                  eps=eps)[0] & bool(act_f[0] > 0.0)
+        blk_mask, n_act = shard.count_blocks(blk)
+        if use_hybrid and n_act > thresh:
+            blk_mask = torch.ones_like(blk_mask)
+        return (*cavi_sweep_s1_skip(ld, state, std_beta, n_per_snp, h_dev,
+                                    act_dev, blk_mask, inner_steps, halo),
+                n_act)
+    if S == 1:
+        return (*cavi_sweep_s1(ld, state, std_beta, n_per_snp, h_dev,
+                               act_dev, inner_steps, halo), -1)
+    n_act = -1
+    if use_skip:
+        blk = union_block_mask(
+            block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev),
+            act_dev)
+        blk_mask, n_act = shard.count_blocks(blk, split)
+    if not has_lanes:
+        return state, torch.zeros_like(state.eta), n_act
+    if use_skip:
+        return (*cavi_sweep_s_skip(ld, state, std_beta, n_per_snp, h_dev,
+                                   act_dev, blk_mask, inner_steps, halo),
+                n_act)
+    return (*cavi_sweep_s(ld, state, std_beta, n_per_snp, h_dev, act_dev,
+                          inner_steps, halo), n_act)
 
 
 def _hyper_f64(values, S):
@@ -129,10 +179,14 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
            use_skip: bool = False, use_hybrid: bool = False,
            hybrid_eps: float = None, i0: int = 0, counters0=None,
            sigma_g0=None, max_restarts: int = 0, restart_hyper=None,
-           restart_logit=None, inner_steps: int = INNER_STEPS) -> EMResult:
+           restart_logit=None, inner_steps: int = INNER_STEPS,
+           lanes=None) -> EMResult:
     """Run EM until every lane terminates or ``max_iter`` iterations.
 
-    :param state0: CaviState of (S, NB, B) float32 on ``ld.device``.
+    :param ld: a BlockLD, or a ShardedLD (a rank's shard of a mesh; the
+        tensors are then the rank's blocks).
+    :param state0: CaviState of (S, NB, B) float32 on ``ld.device`` (on a
+        shard whose lanes are split, the rank's ``lanes`` only).
     :param hyper0: (sigma_eps, tau_beta, pi, lambda_min), each (S,)
         array-like (a Hyper); rounded through float32.
     :param fix: (sigma_eps, tau_beta, pi) per-lane bools (a FixMask).
@@ -153,15 +207,29 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
         float32), sigma_eps is fixed from then on and its counters reset.
     :param inner_steps: the sweeps' inner steps per tile (the plain
         versions take INNER_STEPS only).
+    :param lanes: on a shard whose grid axis splits the lanes, the indices
+        (into the S lanes of ``hyper0``) of the lanes this rank holds, in
+        the order of ``state0``'s rows (it may hold none); None: all.
     :returns: EMResult (``status == MAX_ITER`` means the lane ran out of
-        THIS call's budget: a chunked driver continues it).
+        THIS call's budget: a chunked driver continues it; on a shard the
+        state is the rank's part).
     """
-    S = state0.eta.shape[0]
+    shard = ld if getattr(ld, 'mesh', None) is not None else None
+    S = len(np.atleast_1d(hyper0[0])) if shard is not None \
+        else state0.eta.shape[0]
     if use_hybrid and S != 1:
         raise ValueError(f"the hybrid rule is the S == 1 dispatch; got S={S}")
     dev = ld.device
     mask = ld.mask
-    nb = ld.nb
+    if shard is None:
+        nb = ld.nb
+        own = slice(None)
+    else:
+        nb = shard.nb_total
+        ld = shard.ld
+        own = slice(None) if lanes is None else np.asarray(lanes, np.int64)
+        layout = None if lanes is None else shard.mesh.lane_layout(own)
+    has_lanes = state0.eta.shape[0] > 0
     thresh = int(HYBRID_FRAC * nb)
     gate_eps = x_abs_tol if hybrid_eps is None else hybrid_eps
     fix = updates.FixMask.from_numpy(*fix)
@@ -175,13 +243,25 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
         np.array(active0, bool).reshape(S)
     fix_se = fix.sigma_eps.numpy().copy()
     restarts_left = np.full(S, max_restarts, np.int32)
-    ones_blk = torch.ones(nb, dtype=torch.int32, device=dev)
+    ones_blk = torch.ones(ld.nb, dtype=torch.int32, device=dev)
     f32 = np.float32
+
+    def global_stats(st, maxes=()):
+        """The rank's statistics (and per-lane maxima) over every block
+        and lane of the mesh; unchanged off a mesh."""
+        if shard is None:
+            return st, maxes
+        sums, mx = shard.reduce(np.stack([x.numpy() for x in st]),
+                                np.stack(maxes) if len(maxes) else None,
+                                layout, S)
+        return updates.SweepStats(*(torch.from_numpy(r) for r in sums)), \
+            list(mx)
 
     def objective(state, hyper, fix_se, sigma_g):
         h32 = Hyper(*(x.to(F32) for x in hyper))
         st, _ = read_stats(state, n_per_snp, std_beta, mask,
-                            Hyper(*(x.to(dev) for x in h32)))
+                            Hyper(*(x[own].to(dev) for x in h32)))
+        st, _ = global_stats(st)
         return updates.elbo(st, h32, torch.from_numpy(fix_se),
                             torch.from_numpy(sigma_g), n_sample,
                             m_total).numpy()
@@ -203,13 +283,18 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
         act_f = active.astype(f32) * damping
         hv = torch.from_numpy(np.stack(
             [hyper.sigma_eps.numpy(), hyper.tau_beta.numpy(), hyper.pi.numpy(),
-             act_f, hyper.lambda_min.numpy()]).astype(f32)).to(dev)
+             act_f, hyper.lambda_min.numpy()]).astype(f32)[:, own]).to(dev)
         h_dev = Hyper(hv[0], hv[1], hv[2], hv[4])
         act_dev = hv[3]
 
         # ---- E-step ----
         n_act_blk = None
-        if S == 1 and (use_hybrid or use_skip):
+        if shard is not None:
+            state, eta_diff, n_act_g = _shard_sweep(
+                shard, state, std_beta, n_per_snp, h_dev, act_dev, act_f, S,
+                use_skip, use_hybrid, gate_eps, thresh, lanes is not None,
+                has_lanes, inner_steps)
+        elif S == 1 and (use_hybrid or use_skip):
             eps = gate_eps if use_hybrid else ETA_DIFF_EPS
             blk = block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev,
                                       eps=eps)[0] & bool(act_f[0] > 0.0)
@@ -241,8 +326,13 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
         extra_dev = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
         stats, extra = read_stats(state, n_per_snp, std_beta, mask, h_dev,
                                    *extra_dev)
-        max_ed = extra[:S].numpy().astype(f32)
-        n_act = -1 if n_act_blk is None else int(extra[S])
+        if shard is None:
+            max_ed = extra[:S].numpy().astype(f32)
+            n_act = -1 if n_act_blk is None else int(extra[S])
+        else:
+            stats, (med,) = global_stats(stats, [extra.numpy()])
+            max_ed = med.astype(f32)
+            n_act = n_act_g
         if use_hybrid and n_act <= thresh:
             n_skip += 1
 
@@ -302,9 +392,10 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
                     & ~fix_se & (i < max_iter))
             if fire.any():
                 st[fire] = opt.RUNNING
-                f3 = torch.from_numpy(fire).to(dev)[:, None, None]
+                f3 = torch.from_numpy(fire[own]).to(dev)[:, None, None]
                 rl = torch.from_numpy(np.array(np.broadcast_to(
-                    np.float32(restart_logit), (S,)))).to(dev)[:, None, None]
+                    np.float32(restart_logit), (S,)))[own]).to(dev)[
+                        :, None, None]
                 zero = torch.zeros((), dtype=F32, device=dev)
                 state = CaviState(logits=torch.where(f3, rl, state.logits),
                                   mu=torch.where(f3, zero, state.mu),
@@ -340,8 +431,9 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
     status = np.where(active, opt.MAX_ITER, status).astype(np.int32)
 
     def mse_of(state=state, hyper=hyper, sigma_g=sigma_g.copy()):
-        h32 = Hyper(*(x.to(F32).to(dev) for x in hyper))
-        st, _ = read_stats(state, n_per_snp, std_beta, mask, h32)
+        h32 = Hyper(*(x.to(F32)[own].to(dev) for x in hyper))
+        st, _ = global_stats(read_stats(state, n_per_snp, std_beta, mask,
+                                        h32)[0])
         return updates.mse(st, torch.from_numpy(sigma_g)).numpy()
 
     return EMResult(

@@ -22,6 +22,12 @@ The two loops differ on purpose, as in the JAX package:
   lanes of ``cavi_mix.mix_block_proposal_mask_batch``.
 
 A fit through the batch loop at S = 1 is therefore not a VIPRSMix fit.
+
+On a shard of a mesh (``ld`` a ``parallel.mesh.ShardedLD``; the mixtures
+split the blocks only) both loops run their sweeps on the rank's blocks
+with the halo before the coupling pass, make the activity masks global
+before the sweep, and add the statistics of every rank (max |d_eta| its
+maximum) before the host M-step, as ``em_loop.em_fit`` does.
 """
 
 from typing import Callable, List, NamedTuple, Optional
@@ -166,6 +172,23 @@ def read_stats(state, hy_dev, std_beta, n_per_snp, mask, S, K, *extra):
     return out, host[i:]
 
 
+def reduce_stats(shard, st, S, K, med=None):
+    """``read_stats``'s statistics (and (S,) max |d_eta|) of a rank's
+    blocks over every block of the mesh (``ShardedLD.reduce``); unchanged
+    when ``shard`` is None."""
+    if shard is None:
+        return st, med
+    rows = [st[k].reshape(S, -1).T for k, _ in _STATS]
+    sums, mx = shard.reduce(np.concatenate(rows),
+                            None if med is None else np.reshape(med, (1, S)))
+    out, i = {}, 0
+    for (k, per_k), r in zip(_STATS, rows):
+        n = len(r)
+        out[k] = sums[i:i + n].T.reshape((S, K) if per_k else (S,))
+        i += n
+    return out, None if med is None else mx[0]
+
+
 def _f32(x):
     """Float64 values rounded through float32 (the JAX loops hand float32
     hyperparameters to every sweep)."""
@@ -180,6 +203,10 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
     masking and the damping ladder (and the lane sweeps K7/K8)."""
     dev = ld.device
     mask = ld.mask
+    shard = ld if getattr(ld, 'mesh', None) is not None else None
+    halo = None
+    if shard is not None:
+        ld, halo = shard.ld, shard.couple
     K = state0.gamma.shape[-3]
     S = state0.gamma.shape[0] if batch else 1
     f32 = np.float32
@@ -211,9 +238,13 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
             return MixHyper(se, tau, pi, lam), act
         return MixHyper(se[0], tau[0], pi[0], lam[0]), act
 
+    def global_stats(st, med=None):
+        return reduce_stats(shard, st, S, K, med)
+
     def objective(state, h, sigma_g):
         hy, _ = dev_hyper(h, np.ones(S, f32))
-        st, _ = read_stats(state, hy, std_beta, n_per_snp, mask, S, K)
+        st, _ = global_stats(read_stats(state, hy, std_beta, n_per_snp,
+                                        mask, S, K)[0])
         return _mix_elbo(st, MixHyper(*(_f32(x) for x in h)), fix_se,
                          sigma_g, n_sample)
 
@@ -233,37 +264,48 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
         hy, act_dev = dev_hyper(h, act_f)
 
         # ---- E-step ----
-        n_act_blk = None
+        n_act_blk = n_act_g = None
+        if use_skip:
+            if batch:
+                pm = cavi_mix.mix_block_proposal_mask_batch(
+                    ld, state, std_beta, n_per_snp, hy)
+                blk = (pm & (act_dev > 0.0)[:, None]).any(dim=0)
+            else:
+                blk = cavi_mix.mix_block_proposal_mask(ld, state, std_beta,
+                                                       n_per_snp, hy)
+            if shard is None:
+                n_act_blk = blk.sum()
+            else:
+                blk, n_act_g = shard.count_blocks(blk)
         if not batch and use_skip:
-            blk = cavi_mix.mix_block_proposal_mask(ld, state, std_beta,
-                                                   n_per_snp, hy)
-            n_act_blk = blk.sum()
             state, eta_diff = cavi_sweep_mix_s1_skip(ld, state, std_beta,
                                                      n_per_snp, hy, blk,
-                                                     inner_steps)
+                                                     inner_steps, halo)
         elif not batch:
             state, eta_diff = cavi_sweep_mix_s1(ld, state, std_beta,
-                                                n_per_snp, hy, inner_steps)
+                                                n_per_snp, hy, inner_steps,
+                                                halo)
         elif use_skip:
-            pm = cavi_mix.mix_block_proposal_mask_batch(ld, state, std_beta,
-                                                        n_per_snp, hy)
-            blk = (pm & (act_dev > 0.0)[:, None]).any(dim=0)
-            n_act_blk = blk.sum()
             state, eta_diff = cavi_sweep_mix_s_skip(ld, state, std_beta,
                                                     n_per_snp, hy, act_dev,
-                                                    blk, inner_steps)
+                                                    blk, inner_steps, halo)
         else:
             state, eta_diff = cavi_sweep_mix_s(ld, state, std_beta,
                                                n_per_snp, hy, act_dev,
-                                               inner_steps)
+                                               inner_steps, halo)
 
         # ---- reductions with the e-step hyperparameters (one read) ----
         med_dev = (eta_diff.abs() * mask).reshape(S, -1).amax(dim=1)
         extra = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
         st, ex = read_stats(state, hy, std_beta, n_per_snp, mask, S, K,
                              *extra)
-        max_ed = ex[:S].astype(f32)
-        act_hist.append(-1 if n_act_blk is None else int(ex[S]))
+        if shard is None:
+            max_ed = ex[:S].astype(f32)
+            act_hist.append(-1 if n_act_blk is None else int(ex[S]))
+        else:
+            st, med = global_stats(st, ex[:S])
+            max_ed = med.astype(f32)
+            act_hist.append(-1 if n_act_g is None else n_act_g)
 
         # ---- M-step (VIPRSMix.py:227-260), float64 ----
         frozen = ~active
@@ -339,8 +381,8 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
                                       divc, damping) if batch else None
 
     def mse_of(state=state, h=h, sigma_g=sigma_g.copy()):
-        st, _ = read_stats(state, dev_hyper(h, np.ones(S, f32))[0], std_beta,
-                           n_per_snp, mask, S, K)
+        st, _ = global_stats(read_stats(state, dev_hyper(h, np.ones(S, f32))[0],
+                                        std_beta, n_per_snp, mask, S, K)[0])
         return (1.0 - 2.0 * st['sum_beta_eta'] + sigma_g
                 - st['sum_zeta_k'].sum(axis=1) + st['sum_eta_sq'])
 
