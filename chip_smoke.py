@@ -715,10 +715,10 @@ def main():
                           h2=model.get_heritability(),
                           success=bool(model.optim_result.success),
                           message=model.optim_result.message,
-                          n_skip=model._n_skip)
+                          n_skip=model.fit_counters.skip_iterations)
         phase('fit', f"{name}: {dt:.3f} s, nit {model.optim_result.nit}, "
                      f"h2 {model.get_heritability():.6f}, skip-branch "
-                     f"iterations {model._n_skip}, "
+                     f"iterations {model.fit_counters.skip_iterations}, "
                      f"'{model.optim_result.message}'")
         if name == 'warm0':
             fitted = model
@@ -1505,8 +1505,8 @@ def grid_cut_fit(sub, sb, nf, tag='G2', nit_window=3):
     nit_c, nit_p = gc._last_result.nit, gp._last_result.nit
     st_c, st_p = gc._last_result.status, gp._last_result.status
     h2_c, h2_p = gc.get_heritability(), gp.get_heritability()
-    widths = ([w for w, *_ in gc._chunk_trace],
-              [w for w, *_ in gp._chunk_trace])
+    widths = ([c.width for c in gc.fit_counters.chunks],
+              [c.width for c in gp.fit_counters.chunks])
     phase(tag, f"16-point grid on the {sub.diag.dtype} cut, chunk_iters=2: "
                f"card "
                 f"{fits['card_s']:.1f} s, CPU {fits['plain_s']:.1f} s; "
@@ -1583,8 +1583,8 @@ def grid_genome(ds):
                    valid=int(g.valid_terminated_models.sum()),
                    nit_max=int(nit.max()), nit_median=float(np.median(nit)),
                    ms_per_it=1e3 * t_fit / max(int(nit.max()), 1),
-                   widths=[w for w, *_ in g._chunk_trace],
-                   act_trace=list(g._act_trace))
+                   widths=[c.width for c in g.fit_counters.chunks],
+                   act_trace=g.fit_counters.active_blocks)
         if bma:
             t0 = time.perf_counter()
             bayesian_model_average(g)
@@ -2746,14 +2746,15 @@ def mix_grid_genome(ds):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         h2 = g.get_heritability()
+        nit = np.array([r.nit for r in g.optim_results])
         out = dict(fit_s=dt, converged=int(g.converged_models.sum()),
                    valid=int(g.valid_terminated_models.sum()),
-                   nit_max=int(g._nit.max()),
-                   nit_median=float(np.median(g._nit)),
-                   ms_per_it=1e3 * dt / max(int(g._nit.max()), 1),
-                   widths=list(g._chunk_trace),
+                   nit_max=int(nit.max()),
+                   nit_median=float(np.median(nit)),
+                   ms_per_it=1e3 * dt / max(int(nit.max()), 1),
+                   widths=[c.width for c in g.fit_counters.chunks],
                    h2_range=[float(h2.min()), float(h2.max())],
-                   nit=[int(x) for x in g._nit], h2=[float(x) for x in h2],
+                   nit=[int(x) for x in nit], h2=[float(x) for x in h2],
                    elbo=[float(x) for x in g.elbo()],
                    launches=dict(cavi_cuda.LAUNCHES))
         runs[name] = out
@@ -3078,12 +3079,13 @@ def f32_genome(ds32, fit_kw):
             runs[name] = dict(seconds=dt, nit=r.nit, h2=m.get_heritability(),
                               success=bool(r.success), message=r.message,
                               ms_per_it=1e3 * dt / max(r.nit, 1),
-                              n_skip=getattr(m, '_n_skip', None),
+                              n_skip=m.fit_counters.skip_iterations,
                               launches=launches)
             phase('F2', f"{model} on float32 LD, {name}: {dt:.3f} s, nit "
                         f"{r.nit} ({runs[name]['ms_per_it']:.2f} ms/it), h2 "
                         f"{m.get_heritability()!r}, '{r.message}'"
-                        + (f", skip-branch iterations {m._n_skip}"
+                        + (f", skip-branch iterations "
+                           f"{m.fit_counters.skip_iterations}"
                            if model == 'VIPRS' else '')
                         + f"; launches {launches}")
             if not r.success:
@@ -3741,7 +3743,7 @@ def select_genome(ds, record_paths):
     rec.update(valid=int(g.valid_terminated_models.sum()),
                converged=int(g.converged_models.sum()),
                nit_max=int(nit.max()), nit_median=float(np.median(nit)),
-               widths=[w for w, *_ in g._chunk_trace])
+               widths=[c.width for c in g.fit_counters.chunks])
     t0 = time.perf_counter()
     pv = g.pseudo_validate()
     rec['pseudo_validate_s'] = time.perf_counter() - t0
@@ -3766,7 +3768,7 @@ def select_genome(ds, record_paths):
     rec.update(refit_nit=g.optim_result.nit, h2=g.get_heritability(),
                refit_message=g.optim_results[0].message,
                refit_success=bool(g.optim_result.success),
-               refit_skip_iterations=g._n_skip)
+               refit_skip_iterations=g.fit_counters.skip_iterations)
     phase(tag, f"grid(100) on the split: fit {rec['fit_s']:.3f} s, valid "
                f"{rec['valid']}/100, converged {rec['converged']}/100, nit "
                f"max {rec['nit_max']} median {rec['nit_median']:g}, widths "
@@ -4267,7 +4269,7 @@ def surface_genome(ds, fit_kw, warm, ref_hist, record_paths):
     record_paths['E1 continued fit'] = launched
     dh2 = abs(cm.get_heritability() - h2_0)
     d_elbo = cm.history['ELBO'][-1] - elbo_0
-    act = cm._act_trace
+    act = cm.fit_counters.active_blocks
     rec['continued'] = dict(seconds=dt, nit=cm.optim_result.nit,
                             message=cm.optim_result.message, h2_diff=dh2,
                             elbo_gain=d_elbo, active_blocks=act,
@@ -5699,7 +5701,8 @@ def x1_fits(ds, root, rank, dev):
     out['viprs'] = dict(
         seconds=dt, nit=nit, status=int(m._last_result.status[0]),
         ms_per_it=1e3 * dt / max(nit, 1), h2=float(m.get_heritability()),
-        elbo=float(m.history['ELBO'][-1]), n_skip=int(m._n_skip),
+        elbo=float(m.history['ELBO'][-1]),
+        n_skip=m.fit_counters.skip_iterations,
         launches=launches, ld_bytes=m._ld.nbytes(),
         shard=[m._ld.lo, m._ld.hi], halo_rows=m._ld.halo_rows,
         finite=bool(np.isfinite(pip).all()), m=int(pip.shape[0]))
@@ -5718,7 +5721,7 @@ def x1_fits(ds, root, rank, dev):
                valid=int(g.valid_terminated_models.sum()),
                nit_max=int(nit.max()),
                ms_per_it=1e3 * dt / max(int(nit.max()), 1),
-               widths=[w for w, *_ in g._chunk_trace],
+               widths=[c.width for c in g.fit_counters.chunks],
                lanes=list(g._lane_range()),
                launches={k: v for k, v in cavi_cuda.LAUNCHES.items() if v},
                ld_bytes=g._ld.nbytes())

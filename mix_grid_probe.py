@@ -113,8 +113,8 @@ def main():
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         fits[name] = dict(
-            fit_s=dt, widths=list(g._chunk_trace),
-            nit=[int(x) for x in g._nit],
+            fit_s=dt, widths=[c.width for c in g.fit_counters.chunks],
+            nit=[int(r.nit) for r in g.optim_results],
             h2=[float(x) for x in g.get_heritability()],
             elbo=[float(x) for x in g.elbo()],
             valid=int(g.valid_terminated_models.sum()),

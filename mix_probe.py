@@ -345,9 +345,10 @@ def main():
                                     m._last_result.act_hist[1:])
         else:
             fits[name] = fit_record(
-                args.tag, f'{label} {name}', m, dt, m._act_trace,
-                f', skip-branch iterations {m._n_skip}')
-            fits[name]['n_skip'] = int(m._n_skip)
+                args.tag, f'{label} {name}', m, dt,
+                m.fit_counters.active_blocks,
+                f', skip-branch iterations {m.fit_counters.skip_iterations}')
+            fits[name]['n_skip'] = m.fit_counters.skip_iterations
     rec['fits'] = fits
     rec['profile'] = cs.profile_fit(ds, fit_kw, make=model, trace_name=None)
 

@@ -89,7 +89,8 @@ def assert_grids_match(jm, tm, pip=True):
     np.testing.assert_array_equal(tr.status, np.asarray(jr.status))
     np.testing.assert_allclose(tr.final_elbo, np.asarray(jr.final_elbo),
                                rtol=1e-6)
-    assert [w for w, *_ in tm._chunk_trace] == [w for w, *_ in jm._chunk_trace]
+    assert [c.width for c in tm.fit_counters.chunks] == \
+        [w for w, *_ in jm._chunk_trace]
     assert tm.fix_params == jm.fix_params
     for f in ('sigma_eps', 'tau_beta', 'pi', 'lambda_min'):
         np.testing.assert_allclose(getattr(tm._hyper, f),
@@ -104,6 +105,23 @@ def assert_grids_match(jm, tm, pip=True):
             assert tm.pip[c].shape == (tm.shapes[c], tm.n_models)
             np.testing.assert_allclose(tm.pip[c], jm.pip[c], atol=1e-5,
                                        rtol=0)
+
+
+def assert_fit_counters(tm, widths=None):
+    """The port's ``fit_counters`` of a fit with no restart: the chunk
+    widths (the JAX package's where given), every running lane counted once
+    an iteration (its nit) and padding never, each chunk's width swept every
+    iteration, a compaction for each chunk narrower than the grid, and one
+    host read an iteration and one for the first chunk's objective."""
+    fc = tm.fit_counters
+    if widths is not None:
+        assert [c.width for c in fc.chunks] == list(widths)
+    assert fc.live_lane_sweeps == sum(r.nit for r in tm.optim_results) == \
+        sum(c.live_lane_iterations for c in fc.chunks)
+    assert fc.lane_sweeps == sum(c.width * c.iterations for c in fc.chunks)
+    assert fc.compactions == sum(c.width < tm.n_models for c in fc.chunks)
+    assert fc.host_reads == sum(c.iterations for c in fc.chunks) + 1
+    assert fc.lane_sweeps >= fc.live_lane_sweeps
 
 
 def assert_grid_end_points_match(jm, tm, nit_window=3):
@@ -169,10 +187,12 @@ def test_grid_fit_matches_jax(datasets, chunk_iters, ladder_trace,
                           f_abs_tol=3e-3)
         assert_clear_of_thresholds(ladder_trace)
         assert_grids_match(jm, tm)
+        assert_fit_counters(tm, [w for w, *_ in jm._chunk_trace])
     else:
         jm, tm = fit_both(*datasets, GRID_12, max_iter=200,
                           chunk_iters=chunk_iters)
         assert_grid_end_points_match(jm, tm)
+        assert_fit_counters(tm)
         # the counters after the first chunk: those of the ladder's
         # thresholds exactly, the best ELBO at the ELBO's tolerance, and the
         # ELBO-drop flag on the lanes whose last ELBO change is clear of the
@@ -190,8 +210,8 @@ def test_grid_fit_matches_jax(datasets, chunk_iters, ladder_trace,
         clear = np.abs(hist[chunk_iters] - hist[chunk_iters - 1]) >= 1e-3
         np.testing.assert_array_equal(tc.prev_dropped[clear],
                                       np.asarray(jc.prev_dropped)[clear])
-        assert len(tm._chunk_trace) > 1
-    assert tm.n_models == 12 and len(tm._chunk_trace) >= 1
+        assert len(tm.fit_counters.chunks) > 1
+    assert tm.n_models == 12 and len(tm.fit_counters.chunks) >= 1
     assert tm.converged_models.all()
     vt = tm.validation_result
     np.testing.assert_array_equal(vt['ELBO'], tm._last_result.final_elbo)
@@ -209,9 +229,11 @@ def test_compacted_grid_matches_jax():
     jds, ds = both_datasets(7, 3000, (250, 200), 0.4, 128)
     jm, tm = fit_both(jds, ds, dict(pi_steps=16), max_iter=150,
                       chunk_iters=2, sweep_impl='xla')
-    for m in (tm, jm):
-        widths = [w for w, *_ in m._chunk_trace]
+    for widths in ([c.width for c in tm.fit_counters.chunks],
+                   [w for w, *_ in jm._chunk_trace]):
         assert widths[0] == 16 and min(widths) == 1
+    assert 'sigma_epsilon' not in tm.fix_params     # no lane restarted
+    assert_fit_counters(tm)
     assert_grid_end_points_match(jm, tm)
     for f in ('sigma_eps', 'tau_beta', 'pi', 'lambda_min'):
         np.testing.assert_allclose(getattr(tm._hyper, f),

@@ -47,6 +47,7 @@ from viprs_tpu_torch.model import VIPRSMix, VIPRSMixGrid
 from viprs_tpu_torch.ops import cavi_cuda, mix_em_loop
 from viprs_tpu_torch.utils import optimize as opt
 
+from test_torch_grid import assert_fit_counters
 from test_torch_viprs import (REPO, assert_clear_of_thresholds,  # noqa: F401
                               both_datasets, flat, interpret, ladder_trace)
 
@@ -244,6 +245,11 @@ def jax_widths(trace):
             if c['kind'] == 'mix_batch']
 
 
+def chunk_widths(model):
+    """The lane width of each loop call of the port's fit."""
+    return [c.width for c in model.fit_counters.chunks]
+
+
 def assert_grid_end_points_match(jm, tm, nit_window=3):
     """Per-lane end points of grid fits whose stops may land on either side
     of a threshold: the final ELBO within rtol 1e-6, h2 within 1e-5, PIP
@@ -332,7 +338,8 @@ def test_mix_grid_matches_jax(datasets, ladder_trace, K, S, chunk_iters):
                                f_abs_tol=0.2)
         assert_clear_of_thresholds(ladder_trace)
         assert_mix_grids_match(jm, tm)
-        assert tm._chunk_trace == jax_widths(ladder_trace) == [S]
+        assert chunk_widths(tm) == jax_widths(ladder_trace) == [S]
+        assert_fit_counters(tm, [S])
     else:
         jm, tm = fit_grid_both(*datasets, spec, K, max_iter=60,
                                chunk_iters=chunk_iters)
@@ -340,7 +347,8 @@ def test_mix_grid_matches_jax(datasets, ladder_trace, K, S, chunk_iters):
         assert_hyper_close(tm._hyper, jm._hyper, K)
         widths = jax_widths(ladder_trace)
         assert widths[0] == S and min(widths) == 1
-        assert tm._chunk_trace == widths
+        assert chunk_widths(tm) == widths
+        assert_fit_counters(tm, widths)
     assert tm.n_models == S and len(tm.history['ELBO'][0]) == S
     assert tm.valid_terminated_models.all()
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
@@ -359,7 +367,7 @@ def test_mix_grid_on_float32_ld_matches_jax(ladder_trace):
                            min_iter=5, f_abs_tol=0.2)
     assert_clear_of_thresholds(ladder_trace)
     assert_mix_grids_match(jm, tm)
-    assert tm._chunk_trace == jax_widths(ladder_trace) == [S]
+    assert chunk_widths(tm) == jax_widths(ladder_trace) == [S]
     assert tm.n_models == S and tm.valid_terminated_models.all()
     assert sum(cavi_cuda.LAUNCHES.values()) == 0
 

@@ -130,7 +130,8 @@ def case_viprs(mesh):
                h2=float(m.get_heritability()), elbo=m.history['ELBO'],
                nit=int(m.optim_result.nit), msg=m.optim_result.message,
                beta=_cat(m.post_mean_beta), pip=_cat(m.pip),
-               n_skip=int(m._n_skip), act=[int(a) for a in m._act_trace])
+               n_skip=m.fit_counters.skip_iterations,
+               act=m.fit_counters.active_blocks)
     w = VIPRS(ds, 'cpu', mesh=mesh)
     np.random.seed(2)
     w.fit(max_iter=20, param_0={'gamma': m.pip, 'mu': m.var_mu})
@@ -159,7 +160,7 @@ def case_grid_bma(mesh):
     g = VIPRSGrid(ds, _grid(ds, 4, 2), 'cpu', mesh=mesh)
     g.fit(max_iter=150)
     out = dict(elbo=[float(e) for e in g.validation_result['ELBO']],
-               trace=[list(map(int, t)) for t in g._chunk_trace],
+               trace=[[c.width, c.rule] for c in g.fit_counters.chunks],
                nit=[int(r.nit) for r in g.optim_results],
                pv=None)
     bayesian_model_average(g)
@@ -238,7 +239,7 @@ def case_deploy(mesh):
     g.fit(max_iter=80, min_iter=1, chunk_iters=10, f_abs_tol=1e-9,
           x_abs_tol=1e-9)
     out = dict(grid_elbos=[float(e) for e in g.validation_result['ELBO']],
-               chunk_trace=[list(map(int, t)) for t in g._chunk_trace],
+               chunk_trace=[[c.width, c.rule] for c in g.fit_counters.chunks],
                nit=[int(r.nit) for r in g.optim_results])
     bayesian_model_average(g)
     out['bma_h2'] = float(g.get_heritability())

@@ -922,7 +922,7 @@ def test_progress_bar_without_tqdm(nominal, monkeypatch, caplog):
     with caplog.at_level(logging.INFO, logger='viprs_tpu_torch.model.viprs'):
         m = VIPRS(ds, 'cpu').fit(disable_pbar=False, sweep_impl='xla',
                                  **dict(FIT_KW, max_iter=30, min_iter=30))
-    assert [w for w, *_ in m._chunk_trace] == [1, 1]
+    assert [c.width for c in m.fit_counters.chunks] == [1, 1]
     assert sum('iteration 25/30' in r.message or 'iteration 30/30'
                in r.message for r in caplog.records) == 2
 

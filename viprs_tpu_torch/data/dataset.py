@@ -18,6 +18,7 @@ import torch
 
 from ..ops.block_ld import BlockLD, BlockLayout, pack_banded, \
     pack_dense_blocks
+from ..utils import trace
 
 
 @dataclasses.dataclass
@@ -122,6 +123,7 @@ class SummaryStatsDataset:
         return self._cache[key]
 
     @classmethod
+    @trace.entry('viprs.pack')
     def from_dense_blocks(cls, ld_blocks: Dict, std_beta: Dict,
                           n_per_snp: Dict, snp_table: Optional[Dict] = None,
                           block_size: int = 1024, quantize: bool = False, *,

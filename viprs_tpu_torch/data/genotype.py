@@ -11,13 +11,11 @@ Table`s with the JAX package's column names. Genotypes live on the card
 unless the caller asks for the CPU; a CUDA device without CUDA raises.
 """
 
-import contextlib
-import time
-
 import numpy as np
 import torch
 
 from ..utils.table import Table, read_table
+from ..utils.trace import StageClock
 
 BIM_COLUMNS = ('CHR', 'SNP', 'CM', 'POS', 'A1', 'A2')
 FAM_COLUMNS = ('FID', 'IID', 'father', 'mother', 'sex', 'PHENO')
@@ -48,46 +46,6 @@ def genotype_device(device):
             "torch.cuda.is_available() is false; pass device='cpu' to "
             "decode them on the CPU")
     return dev
-
-
-class StageClock:
-    """Seconds per stage. Host stages (reading, uploading) by the host
-    clock; device stages (decoding, products) by CUDA events on a CUDA
-    device, read once, when ``seconds()`` is asked for; by the host clock
-    on the CPU."""
-
-    def __init__(self, device):
-        self._cuda = device.type == 'cuda'
-        self._host = {}
-        self._events = {}
-
-    @contextlib.contextmanager
-    def host(self, name):
-        t0 = time.perf_counter()
-        yield
-        self._host[name] = self._host.get(name, 0.0) + \
-            time.perf_counter() - t0
-
-    @contextlib.contextmanager
-    def device(self, name):
-        if not self._cuda:
-            with self.host(name):
-                yield
-            return
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        yield
-        end.record()
-        self._events.setdefault(name, []).append((start, end))
-
-    def seconds(self):
-        out = dict(self._host)
-        if self._events:
-            torch.cuda.synchronize()
-        for name, pairs in self._events.items():
-            out[name] = out.get(name, 0.0) + sum(
-                s.elapsed_time(e) for s, e in pairs) / 1e3
-        return out
 
 
 def _beta_matrix(beta, chromosomes, m):

@@ -20,7 +20,6 @@ import logging
 import os
 import os.path as osp
 import re
-import time
 
 import numpy as np
 
@@ -31,6 +30,7 @@ from .harmonize import merge_snp_tables
 from .sumstats import SumstatsTable, read_sumstats
 from ..utils.system import get_filenames
 from ..utils.table import Table, read_table
+from ..utils.trace import StageClock
 
 logger = logging.getLogger(__name__)
 
@@ -55,8 +55,10 @@ class GWADataLoader:
     :ivar ld_blocks: {chrom: [dense LD blocks]} (host-side, before packing;
         int8 at scale 1/127 from a quantized store).
     :ivar ld_snp_tables: {chrom: Table} variant tables aligned with ld_blocks.
-    :ivar timings: {stage: seconds} of the stages run so far ('tables',
-        'sumstats', 'harmonize', 'ld_read', 'pack', 'upload', 'cache').
+    :ivar clock: the stage totals (``utils.trace.StageClock``) behind
+        ``timings``, {stage: seconds} of the stages run so far ('tables',
+        'sumstats', 'harmonize', 'ld_read', 'pack', 'upload', 'cache'; a
+        stage run again adds to its total).
     """
 
     def __init__(self, bed_files=None, ld_store_files=None,
@@ -74,7 +76,7 @@ class GWADataLoader:
                                            device=device)
         self.block_size = block_size
         self.quantize_ld = quantize_ld
-        self.timings = {}
+        self.clock = StageClock()
         self._ld_blocks = None
         self.ld_snp_tables = None
         self._ld_sources = None      # [(kind, path)] for lazy loads + cache key
@@ -82,10 +84,9 @@ class GWADataLoader:
         self._ld_present = None      # {chrom: bool mask in STORE order}
         self.ld_data_reads = 0       # stores whose LD data was read
 
-        t0 = time.perf_counter()
-        if ld_store_files:
-            self._open_stores(get_filenames(ld_store_files))
-        self.timings['tables'] = time.perf_counter() - t0
+        with self.clock.host('tables'):
+            if ld_store_files:
+                self._open_stores(get_filenames(ld_store_files))
 
         self.sumstats_table = None
         self._raw_sumstats = None
@@ -138,6 +139,11 @@ class GWADataLoader:
             vals, likelihood)
 
     @property
+    def timings(self):
+        """{stage: seconds} of the stages run so far (``clock``)."""
+        return self.clock.seconds()
+
+    @property
     def sample_table(self):
         """The genotype's samples (the .fam Table, PHENO replaced by the
         phenotype when one is set; also as ``.phenotype``), or None."""
@@ -186,12 +192,12 @@ class GWADataLoader:
         return self._raw_sumstats
 
     def _read_sumstats(self, sumstats_files, sumstats_format, **kwargs):
-        t0 = time.perf_counter()
-        files = get_filenames(sumstats_files)
-        self._raw_sumstats = SumstatsTable(Table.concat(
-            read_sumstats(f, sumstats_format=sumstats_format, **kwargs).table
-            for f in files))
-        self.timings['sumstats'] = time.perf_counter() - t0
+        with self.clock.host('sumstats'):
+            files = get_filenames(sumstats_files)
+            self._raw_sumstats = SumstatsTable(Table.concat(
+                read_sumstats(f, sumstats_format=sumstats_format,
+                              **kwargs).table
+                for f in files))
 
     def read_summary_statistics(self, sumstats_files,
                                 sumstats_format='magenpy', **kwargs):
@@ -300,29 +306,29 @@ class GWADataLoader:
         applying the accumulated variant masks."""
         if self._ld_blocks is not None or not self._ld_sources:
             return self._ld_blocks
-        t0 = time.perf_counter()
-        chroms = set(self.ld_snp_tables or {})
-        blocks = {}
-        src_chroms = self._ld_source_chroms or [None] * len(self._ld_sources)
-        for (kind, store), known in zip(self._ld_sources, src_chroms):
-            if chroms and known is not None and not (chroms & known):
-                continue  # nothing wanted from this store: skip the read
-            loaded = self._load_source_blocks(kind, store,
-                                              chromosomes=chroms or None)
-            for c, blks in loaded.items():
-                if c in chroms or not chroms:
-                    blocks[c] = blks
-        if self._ld_present is not None:
-            sliced = {}
-            for c, blks in blocks.items():
-                if c not in self._ld_present:
-                    continue
-                sub, _ = self._slice_blocks(blks, self._ld_present[c])
-                if sub:
-                    sliced[c] = sub
-            blocks = sliced
-        self._ld_blocks = blocks
-        self.timings['ld_read'] = time.perf_counter() - t0
+        with self.clock.host('ld_read'):
+            chroms = set(self.ld_snp_tables or {})
+            blocks = {}
+            src_chroms = self._ld_source_chroms or \
+                [None] * len(self._ld_sources)
+            for (kind, store), known in zip(self._ld_sources, src_chroms):
+                if chroms and known is not None and not (chroms & known):
+                    continue  # nothing wanted from this store: skip the read
+                loaded = self._load_source_blocks(kind, store,
+                                                  chromosomes=chroms or None)
+                for c, blks in loaded.items():
+                    if c in chroms or not chroms:
+                        blocks[c] = blks
+            if self._ld_present is not None:
+                sliced = {}
+                for c, blks in blocks.items():
+                    if c not in self._ld_present:
+                        continue
+                    sub, _ = self._slice_blocks(blks, self._ld_present[c])
+                    if sub:
+                        sliced[c] = sub
+                blocks = sliced
+            self._ld_blocks = blocks
         return self._ld_blocks
 
     # ------------------------------------------------------------ harmonization
@@ -330,66 +336,66 @@ class GWADataLoader:
         """Intersect and allele-align the summary statistics with the LD
         variant tables (the LD store's variant order defines the blocks).
         Table work only: the LD data is sliced when, and if, it is read."""
-        t0 = time.perf_counter()
-        if self._raw_sumstats is None:
-            raise ValueError("No summary statistics loaded.")
-        if self.ld_snp_tables is None:
-            raise ValueError("The LD store has no variant tables; cannot "
-                             "harmonize.")
+        with self.clock.host('harmonize'):
+            if self._raw_sumstats is None:
+                raise ValueError("No summary statistics loaded.")
+            if self.ld_snp_tables is None:
+                raise ValueError("The LD store has no variant tables; cannot "
+                                 "harmonize.")
 
-        ss = self._raw_sumstats.table
-        signed = [col for col in ('BETA', 'Z') if col in ss]
-        self.sumstats_table = {}
-        new_blocks, new_tables = {}, {}
-        lazy = self._ld_blocks is None
-        self._ld_present = {} if lazy else None
-        # the statistics' rows by SNP id, built once: each chromosome's
-        # merge then takes only the rows of its variants (the same result
-        # as merging the whole table, whose other rows match nothing)
-        ids = ss['SNP'].astype(str).tolist()
-        row_of = dict(zip(ids, range(len(ids))))
-        if len(row_of) < len(ids):        # repeated ids: merge all rows
-            row_of = None
+            ss = self._raw_sumstats.table
+            signed = [col for col in ('BETA', 'Z') if col in ss]
+            self.sumstats_table = {}
+            new_blocks, new_tables = {}, {}
+            lazy = self._ld_blocks is None
+            self._ld_present = {} if lazy else None
+            # the statistics' rows by SNP id, built once: each chromosome's
+            # merge then takes only the rows of its variants (the same result
+            # as merging the whole table, whose other rows match nothing)
+            ids = ss['SNP'].astype(str).tolist()
+            row_of = dict(zip(ids, range(len(ids))))
+            if len(row_of) < len(ids):        # repeated ids: merge all rows
+                row_of = None
 
-        for c, ld_tab in self.ld_snp_tables.items():
-            right = ss
-            if row_of is not None:
-                rows = np.fromiter((row_of.get(k, -1) for k in
-                                    ld_tab['SNP'].astype(str).tolist()),
-                                   np.int64, len(ld_tab))
-                right = ss.take(np.sort(rows[rows >= 0]))
-            merged = merge_snp_tables(ld_tab.select(['SNP', 'A1', 'A2']),
-                                      right, how='left',
-                                      signed_statistics=signed)
-            present = ~np.isnan(merged['Z' if 'Z' in merged else 'BETA'])
-            if not present.any():
-                continue
-
-            if lazy:
-                self._ld_present[c] = present
-                kept = np.where(present)[0]
-            else:
-                blocks, kept = self._slice_blocks(self._ld_blocks[c], present)
-                if not blocks:
+            for c, ld_tab in self.ld_snp_tables.items():
+                right = ss
+                if row_of is not None:
+                    rows = np.fromiter((row_of.get(k, -1) for k in
+                                        ld_tab['SNP'].astype(str).tolist()),
+                                       np.int64, len(ld_tab))
+                    right = ss.take(np.sort(rows[rows >= 0]))
+                merged = merge_snp_tables(ld_tab.select(['SNP', 'A1', 'A2']),
+                                          right, how='left',
+                                          signed_statistics=signed)
+                present = ~np.isnan(merged['Z' if 'Z' in merged else 'BETA'])
+                if not present.any():
                     continue
-                new_blocks[c] = blocks
 
-            keep_tab = ld_tab.take(kept)
-            if 'CHR' not in keep_tab:
-                keep_tab.insert(0, 'CHR', c)
-            new_tables[c] = keep_tab
+                if lazy:
+                    self._ld_present[c] = present
+                    kept = np.where(present)[0]
+                else:
+                    blocks, kept = self._slice_blocks(self._ld_blocks[c],
+                                                      present)
+                    if not blocks:
+                        continue
+                    new_blocks[c] = blocks
 
-            sub = merged.take(kept)
-            sub['CHR'] = c
-            sub['POS'] = keep_tab['POS'] if 'POS' in keep_tab \
-                else np.arange(len(sub))
-            self.sumstats_table[c] = SumstatsTable(sub)
+                keep_tab = ld_tab.take(kept)
+                if 'CHR' not in keep_tab:
+                    keep_tab.insert(0, 'CHR', c)
+                new_tables[c] = keep_tab
 
-        if not lazy:
-            self._ld_blocks = new_blocks
-        self.ld_snp_tables = new_tables
-        self._dataset = None
-        self.timings['harmonize'] = time.perf_counter() - t0
+                sub = merged.take(kept)
+                sub['CHR'] = c
+                sub['POS'] = keep_tab['POS'] if 'POS' in keep_tab \
+                    else np.arange(len(sub))
+                self.sumstats_table[c] = SumstatsTable(sub)
+
+            if not lazy:
+                self._ld_blocks = new_blocks
+            self.ld_snp_tables = new_tables
+            self._dataset = None
         return self
 
     def filter_snps(self, extract_snps, chromosome=None):
@@ -576,34 +582,30 @@ class GWADataLoader:
         from ..ops.block_ld import pack_dense_blocks
         key = hit = None
         if self._ld_sources and pack_cache.cache_root() is not None:
-            t0 = time.perf_counter()
-            key = pack_cache.compute_key(
-                [s for _, s in self._ld_sources],
-                {c: t['SNP'] for c, t in self.ld_snp_tables.items()},
-                block_size, quantize)
-            hit = pack_cache.load_packed(key)
-            self.timings['cache'] = time.perf_counter() - t0
+            with self.clock.host('cache'):
+                key = pack_cache.compute_key(
+                    [s for _, s in self._ld_sources],
+                    {c: t['SNP'] for c, t in self.ld_snp_tables.items()},
+                    block_size, quantize)
+                hit = pack_cache.load_packed(key)
         if hit is not None:
             logger.info("Packed-LD cache hit (%s...)", key[:12])
             packed, layout = hit
         else:
             self._ensure_ld_blocks()
-            t0 = time.perf_counter()
-            packed, layout = pack_dense_blocks(
-                self.ld_blocks, block_size=block_size, quantize=quantize)
-            self.timings['pack'] = time.perf_counter() - t0
+            with self.clock.host('pack'):
+                packed, layout = pack_dense_blocks(
+                    self.ld_blocks, block_size=block_size, quantize=quantize)
             if key is not None:
-                t0 = time.perf_counter()
-                pack_cache.save_packed(key, packed, layout)
-                self.timings['cache'] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self._dataset = SummaryStatsDataset.from_packed(
-            packed, layout, std_beta, n_per_snp, snp_table=snp_tables,
-            device=device,
-            phenotype_likelihood=self.phenotype_likelihood or 'gaussian')
-        if self._dataset.device.type == 'cuda':
-            torch.cuda.synchronize(self._dataset.device)
-        self.timings['upload'] = time.perf_counter() - t0
+                with self.clock.host('cache'):
+                    pack_cache.save_packed(key, packed, layout)
+        with self.clock.host('upload'):
+            self._dataset = SummaryStatsDataset.from_packed(
+                packed, layout, std_beta, n_per_snp, snp_table=snp_tables,
+                device=device,
+                phenotype_likelihood=self.phenotype_likelihood or 'gaussian')
+            if self._dataset.device.type == 'cuda':
+                torch.cuda.synchronize(self._dataset.device)
         return self._dataset
 
     # ------------------------------------------------------------- streaming
@@ -660,7 +662,7 @@ class GWADataLoader:
         chroms = set(chromosomes)
         sub = GWADataLoader.__new__(GWADataLoader)
         sub.__dict__.update(self.__dict__)
-        sub.timings = {}
+        sub.clock = StageClock()
         sub.ld_snp_tables = {c: t for c, t in
                              (self.ld_snp_tables or {}).items()
                              if c in chroms} or None
@@ -691,8 +693,7 @@ class GWADataLoader:
                                         quantize=quantize, device=device)
             yield group, ds
             self.ld_data_reads = sub.ld_data_reads
-            for k, v in sub.timings.items():
-                self.timings[k] = self.timings.get(k, 0.0) + v
+            self.clock.add(sub.timings)
             sub.cleanup()
             del sub, ds
 

@@ -15,6 +15,8 @@ import logging
 import numpy as np
 import torch
 
+from ..utils import trace
+
 logger = logging.getLogger(__name__)
 
 F64 = torch.float64
@@ -77,6 +79,7 @@ def select_best_model(viprs_grid_model, validation_gdl=None, criterion='ELBO'):
     return viprs_grid_model
 
 
+@trace.entry('viprs.bma')
 def bayesian_model_average(viprs_grid_model, normalization='softmax'):
     """ELBO-weighted averaging of the variational parameters across the
     validly terminated grid points, followed by an unconstrained M-step

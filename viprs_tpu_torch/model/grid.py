@@ -21,6 +21,7 @@ from .viprs import VIPRS
 from ..ops import em_loop
 from ..ops.cavi_torch import CaviState, Hyper
 from ..ops.updates import FixMask
+from ..utils import trace
 from ..utils.optimize import OptimizeResult, summarize_statuses
 
 _HYPER_FIELD = {'sigma_epsilon': 'sigma_eps', 'tau_beta': 'tau_beta',
@@ -106,6 +107,7 @@ class VIPRSGrid(VIPRS):
                                              'pi')))
 
     # -------------------------------------------------------------------- fit
+    @trace.entry('viprs.fit', fit=True)
     def fit(self, pathwise=False, **fit_kwargs):
         """Fit the grid: all grid points simultaneously, finished lanes
         masked out (``VIPRS.fit``'s arguments), or with ``pathwise=True``
@@ -151,18 +153,22 @@ class VIPRSGrid(VIPRS):
         nits, statuses = np.zeros(S, np.int32), np.zeros(S, np.int32)
         state = self._state
         warm = None
+        fc = self.fit_counters = trace.FitCounters()
         for s in range(S):
-            res = em_loop.em_fit(
-                self._ld,
-                warm if warm is not None else CaviState(
-                    *(x[s:s + 1] for x in state)),
-                self._std_beta_flat, self._n_flat,
-                Hyper(*(hyper[f][s:s + 1] for f in Hyper._fields)),
-                FixMask(*(x[s:s + 1] for x in fix)), n_sample=float(self.n),
-                m_total=float(self.m), init_elbo=np.zeros(1),
-                active0=np.ones(1, bool), max_iter=max_iter,
-                min_iter=min_iter, f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol,
-                patience=patience)
+            with trace.span('viprs.chunk'):
+                res = em_loop.em_fit(
+                    self._ld,
+                    warm if warm is not None else CaviState(
+                        *(x[s:s + 1] for x in state)),
+                    self._std_beta_flat, self._n_flat,
+                    Hyper(*(hyper[f][s:s + 1] for f in Hyper._fields)),
+                    FixMask(*(x[s:s + 1] for x in fix)),
+                    n_sample=float(self.n), m_total=float(self.m),
+                    init_elbo=np.zeros(1), active0=np.ones(1, bool),
+                    max_iter=max_iter, min_iter=min_iter,
+                    f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol,
+                    patience=patience)
+            fc.add_chunk(1, 'all', res)
             warm = res.state
             for full, part in zip(state, warm):
                 full[s:s + 1].copy_(part)

@@ -33,7 +33,7 @@ from ..ops.cavi_cuda import cavi_sweep_mix_s1
 from ..ops.cavi_mix import MixHyper, MixState, mix_var_tau
 from ..ops.cavi_torch import INNER_STEPS, TILE
 from ..ops.mix_em_loop import MixFix
-from ..utils import optimize as opt
+from ..utils import optimize as opt, trace
 from ..utils.optimize import IterationConditionCounter, OptimizeResult
 
 logger = logging.getLogger(__name__)
@@ -97,6 +97,7 @@ class VIPRSMix(BayesPRSModel):
         self._sigma_g = 0.0
         self.optim_result = OptimizeResult()
         self.history = {}
+        self.fit_counters = trace.FitCounters()
         self._std_beta_flat = self._n_flat = None
         self._refresh_inputs()
 
@@ -187,6 +188,7 @@ class VIPRSMix(BayesPRSModel):
                       'pis' in self.fix_params,
                       float(self.fix_params.get('pi', 0.0)))
 
+    @trace.entry('viprs.fit', fit=True)
     def fit(self, max_iter=1000, theta_0=None, param_0=None, continued=False,
             min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10,
             max_restarts=1, fused=True, sweep_impl=None,
@@ -227,14 +229,18 @@ class VIPRSMix(BayesPRSModel):
             self.initialize(theta_0, rng=rng)
         self.history.setdefault('ELBO', [])
         restarts = 0
+        fc = self.fit_counters = trace.FitCounters()
         while True:
-            res = mix_em_loop.mix_em_fit(
-                self._ld, self._state, self._std_beta_flat,
-                self._n_flat, self._hyper, self._mix_fix(), self.d,
-                n_sample=float(self.n), m_total=float(self.m),
-                max_iter=max_iter, min_iter=min_iter, f_abs_tol=f_abs_tol,
-                x_abs_tol=x_abs_tol, patience=patience, use_skip=use_skip,
-                sigma_g0=float(self._sigma_g), inner_steps=inner_steps)
+            with trace.span('viprs.chunk'):
+                res = mix_em_loop.mix_em_fit(
+                    self._ld, self._state, self._std_beta_flat,
+                    self._n_flat, self._hyper, self._mix_fix(), self.d,
+                    n_sample=float(self.n), m_total=float(self.m),
+                    max_iter=max_iter, min_iter=min_iter,
+                    f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol,
+                    patience=patience, use_skip=use_skip,
+                    sigma_g0=float(self._sigma_g), inner_steps=inner_steps)
+            fc.add_chunk(1, trace.sweep_rule(use_skip), res)
             self._state, self._hyper = res.state, res.hyper
             self._sigma_g = float(res.sigma_g)
             code = int(res.status)
@@ -296,7 +302,8 @@ class VIPRSMix(BayesPRSModel):
         max |d eta| over every variant in one device->host read, then
         ``_m_step``, the ELBO and the MSE on the host. A negative MSE
         re-initializes the model once with sigma_epsilon fixed at 0.95 and
-        goes on from the next iteration."""
+        goes on from the next iteration. ``fit_counters`` holds one chunk of
+        width 1 and one read a sweep; the iterations take no spans."""
         if not continued:
             self.initialize(theta_0, rng=rng)
         hist = self.history.setdefault('ELBO', [])
@@ -305,9 +312,10 @@ class VIPRSMix(BayesPRSModel):
         sig_icc, div_icc = IterationConditionCounter(), \
             IterationConditionCounter()
         res = self.optim_result
-        restarts = 0
+        restarts = sweeps = 0
         ld, halo = self._sweep_args()
         for i in range(1, max_iter + 1):
+            sweeps += 1
             hy = self._hyper_dev()
             self._state, eta_diff = cavi_sweep_mix_s1(
                 ld, self._state, self._std_beta_flat, self._n_flat, hy,
@@ -373,6 +381,9 @@ class VIPRSMix(BayesPRSModel):
             res.update(hist[-1], stop_iteration=True, success=False,
                        message=opt.STATUS_MESSAGES[opt.MAX_ITER],
                        increment=False)
+        self.fit_counters = trace.FitCounters(
+            chunks=[trace.Chunk(1, 'all', sweeps, sweeps)],
+            lane_sweeps=sweeps, live_lane_sweeps=sweeps, host_reads=sweeps)
         if not res.success:
             logger.warning("\t%s", res.message)
         self._pip = self._post_mean_beta = self._post_var_beta = None

@@ -7,7 +7,8 @@ masked out, and the fit runs in chunks with its own compaction rule (not
 VIPRSGrid's): ``chunk_iters = min(100, max_iter)`` at S >= 8, and the live
 lanes are compacted to the next power-of-2 width on ANY halving, padded with
 frozen duplicates of the first live lane. A negative MSE restarts the lanes
-it hit once, with sigma_epsilon fixed at 0.95.
+it hit once, with sigma_epsilon fixed at 0.95. The chunks' widths,
+iterations and live lane-iterations are the public ``fit_counters``.
 
 Per lane a gridded ``pi`` is the TOTAL proportion causal (renormalised in
 the M-step), a gridded ``tau_beta`` scales the multipliers ``d``, and
@@ -30,7 +31,7 @@ from ..data.ldsc import simple_ldsc
 from ..ops import cavi_cuda, mix_em_loop as mel
 from ..ops.cavi_mix import MixHyper, MixState
 from ..ops.cavi_torch import INNER_STEPS
-from ..utils import optimize as opt
+from ..utils import optimize as opt, trace
 from ..utils.optimize import OptimizeResult, summarize_statuses
 
 logger = logging.getLogger(__name__)
@@ -55,7 +56,6 @@ class VIPRSMixGrid(VIPRSMix):
         self.optim_results = []
         super().__init__(dataset, device, K=K, **kwargs)
         self._S = self.n_models
-        self._chunk_trace = []
 
     # --------------------------------------------------------------- statuses
     @property
@@ -140,6 +140,7 @@ class VIPRSMixGrid(VIPRSMix):
             np.full(S, 'pis' in self.fix_params), total_pi)
 
     # --------------------------------------------------------------------- fit
+    @trace.entry('viprs.fit', fit=True)
     def fit(self, max_iter=1000, theta_0=None, param_0=None, continued=False,
             min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6, patience=10,
             max_restarts=1, chunk_iters=None, sweep_impl=None,
@@ -183,7 +184,7 @@ class VIPRSMixGrid(VIPRSMix):
         self._sigma_g = np.array(np.broadcast_to(self._sigma_g, S),
                                  np.float64)
         S_run = S
-        self._chunk_trace = []
+        fc = self.fit_counters = trace.FitCounters()
         while it_done < max_iter:
             this_chunk = min(chunk_iters, max_iter - it_done)
             n_act = int(active.sum())
@@ -197,60 +198,67 @@ class VIPRSMixGrid(VIPRSMix):
             compact = S_run < S
             fix_full = self._batch_fix()
             if compact:
-                sel = np.nonzero(active)[0]
-                sel_pad = np.concatenate(
-                    [sel, np.full(S_run - n_act, sel[0])]).astype(np.int64)
-                sel_dev = torch.from_numpy(sel_pad).to(dev)
-                state_in = MixState(*(x.index_select(0, sel_dev)
-                                      for x in self._state))
-                hyper_in = MixHyper(*(np.asarray(x)[sel_pad]
-                                      for x in self._hyper))
-                fix_in = mel.MixFixBatch(*(x[sel_pad] for x in fix_full))
-                counters_in = mel.MixCounters(*(x[sel_pad] for x in counters))
-                init_elbo_in = None if init_elbo is None else \
-                    init_elbo[sel_pad]
-                active_in = np.arange(S_run) < n_act
-                sigma_g_in = self._sigma_g[sel_pad]
+                with trace.span('viprs.compact'):
+                    sel = np.nonzero(active)[0]
+                    sel_pad = np.concatenate(
+                        [sel, np.full(S_run - n_act, sel[0])]).astype(
+                            np.int64)
+                    sel_dev = torch.from_numpy(sel_pad).to(dev)
+                    state_in = MixState(*(x.index_select(0, sel_dev)
+                                          for x in self._state))
+                    hyper_in = MixHyper(*(np.asarray(x)[sel_pad]
+                                          for x in self._hyper))
+                    fix_in = mel.MixFixBatch(*(x[sel_pad] for x in fix_full))
+                    counters_in = mel.MixCounters(*(x[sel_pad]
+                                                    for x in counters))
+                    init_elbo_in = None if init_elbo is None else \
+                        init_elbo[sel_pad]
+                    active_in = np.arange(S_run) < n_act
+                    sigma_g_in = self._sigma_g[sel_pad]
             else:
                 state_in, hyper_in = self._state, self._hyper
                 fix_in, counters_in = fix_full, counters
                 init_elbo_in, active_in = init_elbo, active
                 sigma_g_in = self._sigma_g
-            self._chunk_trace.append(S_run)
 
-            res = mel.mix_em_fit_batch(
-                ld, state_in, self._std_beta_flat, self._n_flat, hyper_in,
-                fix_in, self.d, n_sample=float(self.n), m_total=float(self.m),
-                max_iter=this_chunk, min_iter=min_iter, f_abs_tol=f_abs_tol,
-                x_abs_tol=x_abs_tol, patience=patience, active0=active_in,
-                sigma_g0=sigma_g_in, i0=it_done, counters0=counters_in,
-                init_elbo=init_elbo_in, use_skip=use_skip,
-                inner_steps=inner_steps)
+            with trace.span('viprs.chunk'):
+                res = mel.mix_em_fit_batch(
+                    ld, state_in, self._std_beta_flat, self._n_flat,
+                    hyper_in, fix_in, self.d, n_sample=float(self.n),
+                    m_total=float(self.m), max_iter=this_chunk,
+                    min_iter=min_iter, f_abs_tol=f_abs_tol,
+                    x_abs_tol=x_abs_tol, patience=patience,
+                    active0=active_in, sigma_g0=sigma_g_in, i0=it_done,
+                    counters0=counters_in, init_elbo=init_elbo_in,
+                    use_skip=use_skip, inner_steps=inner_steps)
+            fc.add_chunk(S_run, trace.sweep_rule(use_skip), res)
+            fc.compactions += int(compact)
             n_in_chunk = res.n_iter_total
             it_done += n_in_chunk
 
             if compact:
-                sel_dev = torch.from_numpy(sel).to(dev)
-                for full, part in zip(self._state, res.state):
-                    full.index_copy_(0, sel_dev, part[:n_act])
-                hyper = [np.array(x, np.float64) for x in self._hyper]
-                for full, part in zip(hyper, res.hyper):
-                    full[sel] = part[:n_act]
-                self._hyper = MixHyper(*hyper)
-                self._sigma_g = self._sigma_g.copy()
-                self._sigma_g[sel] = res.sigma_g[:n_act]
-                counters = mel.MixCounters(*(c.copy() for c in counters))
-                for c, p in zip(counters, res.counters):
-                    c[sel] = p[:n_act]
-                statuses[sel] = res.status[:n_act]
-                nit_acc[sel] = res.nit[:n_act]
-                fill = init_elbo if init_elbo is not None else last_elbo
-                for row in res.elbo_hist[1:]:
-                    full_row = fill.copy()
-                    full_row[sel] = row[:n_act]
-                    hist.append(full_row)
-                init_elbo = fill.copy()
-                init_elbo[sel] = res.final_elbo[:n_act]
+                with trace.span('viprs.compact'):
+                    sel_dev = torch.from_numpy(sel).to(dev)
+                    for full, part in zip(self._state, res.state):
+                        full.index_copy_(0, sel_dev, part[:n_act])
+                    hyper = [np.array(x, np.float64) for x in self._hyper]
+                    for full, part in zip(hyper, res.hyper):
+                        full[sel] = part[:n_act]
+                    self._hyper = MixHyper(*hyper)
+                    self._sigma_g = self._sigma_g.copy()
+                    self._sigma_g[sel] = res.sigma_g[:n_act]
+                    counters = mel.MixCounters(*(c.copy() for c in counters))
+                    for c, p in zip(counters, res.counters):
+                        c[sel] = p[:n_act]
+                    statuses[sel] = res.status[:n_act]
+                    nit_acc[sel] = res.nit[:n_act]
+                    fill = init_elbo if init_elbo is not None else last_elbo
+                    for row in res.elbo_hist[1:]:
+                        full_row = fill.copy()
+                        full_row[sel] = row[:n_act]
+                        hist.append(full_row)
+                    init_elbo = fill.copy()
+                    init_elbo[sel] = res.final_elbo[:n_act]
             else:
                 self._state, self._hyper = res.state, res.hyper
                 self._sigma_g = res.sigma_g
@@ -283,7 +291,6 @@ class VIPRSMixGrid(VIPRSMix):
                 break
 
         self._final_elbo = last_elbo
-        self._nit = nit_acc
         self.optim_results = summarize_statuses(statuses, last_elbo, nit_acc)
         agg = OptimizeResult()
         agg.nit = int(nit_acc.max())

@@ -15,7 +15,9 @@ of 1 with tracked parameters. Between chunks the ladder's counters carry
 over, so chunking changes no number; once the live lanes have shrunk
 four-fold they are compacted to the next power-of-2 width (padded with
 frozen duplicates of a live lane) and the sweep rule is decided again for
-that width, as in the JAX package.
+that width, as in the JAX package. What the chunks did (widths, sweep
+rules, iterations, live lane-iterations, compactions, host reads) is the
+public ``fit_counters`` after a fit (utils/trace.FitCounters).
 
 Randomness is the JAX package's: the initial pi draw and the restart draws
 are numpy draws from ``rng`` (default: numpy's global stream), so
@@ -33,7 +35,7 @@ from ..data.ldsc import simple_ldsc
 from ..ops import cavi_cuda, em_loop, updates
 from ..ops.cavi_torch import INNER_STEPS, TILE, CaviState, Hyper, compute_q
 from ..ops.updates import FixMask
-from ..utils import optimize as opt
+from ..utils import optimize as opt, trace
 from ..utils.optimize import OptimizeResult
 
 logger = logging.getLogger(__name__)
@@ -109,9 +111,7 @@ class VIPRS(BayesPRSModel):
         self._last_eta_diff = None
         self.optim_result = OptimizeResult()
         self.history = {}
-        self._act_trace = []
-        self._chunk_trace = []
-        self._n_skip = 0
+        self.fit_counters = trace.FitCounters()
         self._last_result = None
         self._std_beta_flat = self._n_flat = None
         self._refresh_inputs()
@@ -346,6 +346,7 @@ class VIPRS(BayesPRSModel):
         return self
 
     # ------------------------------------------------------------ fit
+    @trace.entry('viprs.fit', fit=True)
     def fit(self, max_iter=1000, theta_0=None, param_0=None, continued=False,
             disable_pbar=True, min_iter=3, f_abs_tol=1e-6, x_abs_tol=1e-6,
             patience=10, max_restarts=1, chunk_iters=None,
@@ -449,8 +450,7 @@ class VIPRS(BayesPRSModel):
         med_acc = np.zeros(S)
         S_run = S
         it_done = n_skip = 0
-        self._chunk_trace = []     # (width, use_skip, use_hybrid) per chunk
-        self._act_trace = []       # active blocks per iteration (skip rules)
+        fc = self.fit_counters = trace.FitCounters()
 
         while it_done < max_iter:
             this_chunk = min(chunk_iters, max_iter - it_done)
@@ -471,24 +471,29 @@ class VIPRS(BayesPRSModel):
                 S_run = bucket
             compact = S_run < S
             if compact:
-                sel = np.nonzero(active)[0]
-                sel_pad = np.concatenate(
-                    [sel, np.full(S_run - n_act, sel[0])]).astype(np.int64)
-                # split lanes stay on their rank: it runs the chunk's slots
-                # whose lane it holds (maybe none)
-                mine = np.nonzero((sel_pad >= l0) & (sel_pad < l1))[0] \
-                    if split else None
-                rows = sel_pad if mine is None else sel_pad[mine] - l0
-                sel_dev = torch.from_numpy(rows).to(dev)
-                state_in = CaviState(*(x.index_select(0, sel_dev)
-                                       for x in self._state))
-                hyper_in = Hyper(*(np.asarray(x)[sel_pad] for x in self._hyper))
-                fix_in = FixMask(*(np.asarray(x)[sel_pad]
-                                   for x in self._fix_mask))
-                counters_in = em_loop.EMCounters(*(x[sel_pad] for x in counters))
-                init_elbo_in = None if init_elbo is None else init_elbo[sel_pad]
-                active_in = np.arange(S_run) < n_act
-                sigma_g_in = self._sigma_g[sel_pad]
+                with trace.span('viprs.compact'):
+                    sel = np.nonzero(active)[0]
+                    sel_pad = np.concatenate(
+                        [sel, np.full(S_run - n_act, sel[0])]).astype(
+                            np.int64)
+                    # split lanes stay on their rank: it runs the chunk's
+                    # slots whose lane it holds (maybe none)
+                    mine = np.nonzero((sel_pad >= l0) & (sel_pad < l1))[0] \
+                        if split else None
+                    rows = sel_pad if mine is None else sel_pad[mine] - l0
+                    sel_dev = torch.from_numpy(rows).to(dev)
+                    state_in = CaviState(*(x.index_select(0, sel_dev)
+                                           for x in self._state))
+                    hyper_in = Hyper(*(np.asarray(x)[sel_pad]
+                                       for x in self._hyper))
+                    fix_in = FixMask(*(np.asarray(x)[sel_pad]
+                                       for x in self._fix_mask))
+                    counters_in = em_loop.EMCounters(*(x[sel_pad]
+                                                       for x in counters))
+                    init_elbo_in = None if init_elbo is None else \
+                        init_elbo[sel_pad]
+                    active_in = np.arange(S_run) < n_act
+                    sigma_g_in = self._sigma_g[sel_pad]
                 if sweep_impl is None:
                     run_skip, run_hybrid = _dispatch.select_sweep_impl(S_run)
                 else:
@@ -500,55 +505,60 @@ class VIPRS(BayesPRSModel):
                 sigma_g_in = self._sigma_g
                 run_skip, run_hybrid = use_skip, use_hybrid
                 mine = np.arange(l0, l1) if split else None
-            self._chunk_trace.append((S_run, run_skip, run_hybrid))
 
-            res = em_loop.em_fit(
-                ld, state_in, self._std_beta_flat, self._n_flat, hyper_in,
-                fix_in, n_sample=float(self.n), m_total=float(self.m),
-                init_elbo=init_elbo_in, active0=active_in,
-                max_iter=this_chunk, min_iter=min_iter, f_abs_tol=f_abs_tol,
-                x_abs_tol=x_abs_tol, patience=patience, use_skip=run_skip,
-                use_hybrid=run_hybrid, hybrid_eps=hybrid_eps, i0=it_done,
-                counters0=counters_in, sigma_g0=sigma_g_in,
-                max_restarts=1 if ingraph_restart else 0,
-                restart_hyper=r_hyper, restart_logit=r_logit,
-                inner_steps=inner_steps, lanes=mine)
+            with trace.span('viprs.chunk'):
+                res = em_loop.em_fit(
+                    ld, state_in, self._std_beta_flat, self._n_flat,
+                    hyper_in, fix_in, n_sample=float(self.n),
+                    m_total=float(self.m), init_elbo=init_elbo_in,
+                    active0=active_in, max_iter=this_chunk,
+                    min_iter=min_iter, f_abs_tol=f_abs_tol,
+                    x_abs_tol=x_abs_tol, patience=patience,
+                    use_skip=run_skip, use_hybrid=run_hybrid,
+                    hybrid_eps=hybrid_eps, i0=it_done,
+                    counters0=counters_in, sigma_g0=sigma_g_in,
+                    max_restarts=1 if ingraph_restart else 0,
+                    restart_hyper=r_hyper, restart_logit=r_logit,
+                    inner_steps=inner_steps, lanes=mine)
+            fc.add_chunk(S_run, trace.sweep_rule(run_skip, run_hybrid), res)
+            fc.compactions += int(compact)
             n_in_chunk = res.n_iter_total
             it_done += n_in_chunk
             n_skip += res.n_skip
-            if run_skip or run_hybrid:
-                self._act_trace.extend(res.act_hist[1:])
 
             if compact:
-                if mine is None:
-                    dst = torch.from_numpy(sel).to(dev)
-                    src = torch.arange(n_act, device=dev)
-                else:
-                    live = mine < n_act     # not a padding duplicate
-                    dst = torch.from_numpy(sel_pad[mine[live]] - l0).to(dev)
-                    src = torch.from_numpy(np.nonzero(live)[0]).to(dev)
-                for full, part in zip(self._state, res.state):
-                    full.index_copy_(0, dst, part.index_select(0, src))
-                hyper = {f: np.array(x, np.float64)
-                         for f, x in zip(Hyper._fields, self._hyper)}
-                for f, x in zip(Hyper._fields, res.hyper):
-                    hyper[f][sel] = x[:n_act]
-                self._hyper = Hyper(**hyper)
-                self._sigma_g = self._sigma_g.copy()
-                self._sigma_g[sel] = res.sigma_g[:n_act]
-                counters = em_loop.EMCounters(*(c.copy() for c in counters))
-                for c, p in zip(counters, res.counters):
-                    c[sel] = p[:n_act]
-                statuses[sel] = res.status[:n_act]
-                nit_acc[sel] = res.nit[:n_act]
-                med_acc[sel] = res.max_eta_diff[:n_act]
-                fill = init_elbo if init_elbo is not None else last_elbo
-                for row in res.elbo_hist[1:]:
-                    full_row = fill.copy()
-                    full_row[sel] = row[:n_act]
-                    hist.append(full_row)
-                init_elbo = fill.copy()
-                init_elbo[sel] = res.final_elbo[:n_act]
+                with trace.span('viprs.compact'):
+                    if mine is None:
+                        dst = torch.from_numpy(sel).to(dev)
+                        src = torch.arange(n_act, device=dev)
+                    else:
+                        live = mine < n_act     # not a padding duplicate
+                        dst = torch.from_numpy(
+                            sel_pad[mine[live]] - l0).to(dev)
+                        src = torch.from_numpy(np.nonzero(live)[0]).to(dev)
+                    for full, part in zip(self._state, res.state):
+                        full.index_copy_(0, dst, part.index_select(0, src))
+                    hyper = {f: np.array(x, np.float64)
+                             for f, x in zip(Hyper._fields, self._hyper)}
+                    for f, x in zip(Hyper._fields, res.hyper):
+                        hyper[f][sel] = x[:n_act]
+                    self._hyper = Hyper(**hyper)
+                    self._sigma_g = self._sigma_g.copy()
+                    self._sigma_g[sel] = res.sigma_g[:n_act]
+                    counters = em_loop.EMCounters(*(c.copy()
+                                                    for c in counters))
+                    for c, p in zip(counters, res.counters):
+                        c[sel] = p[:n_act]
+                    statuses[sel] = res.status[:n_act]
+                    nit_acc[sel] = res.nit[:n_act]
+                    med_acc[sel] = res.max_eta_diff[:n_act]
+                    fill = init_elbo if init_elbo is not None else last_elbo
+                    for row in res.elbo_hist[1:]:
+                        full_row = fill.copy()
+                        full_row[sel] = row[:n_act]
+                        hist.append(full_row)
+                    init_elbo = fill.copy()
+                    init_elbo[sel] = res.final_elbo[:n_act]
             else:
                 counters = res.counters
                 if ingraph_restart and res.restarts_used.max() > 0:
@@ -609,7 +619,6 @@ class VIPRS(BayesPRSModel):
 
         if pbar is not None:
             pbar.close()
-        self._n_skip = n_skip
         self._clear_posterior()
         self._populate_optim_result(self._last_result)
         if not self.optim_result.success:

@@ -24,6 +24,11 @@ objective (``init_elbo``), the active lanes, the global iteration offset
 ``i0``, the ladder's counters (``EMCounters``) and ``sigma_g`` across calls,
 so a chunked run takes the single call's path.
 
+Each iteration is the span ``viprs.em.iter`` with its children
+``viprs.em.estep``, ``viprs.em.read`` and ``viprs.em.mstep`` (utils/
+trace.py); a call's result counts the lanes it swept while they ran
+(``live_lane_sweeps``) and its device-to-host reads (``host_reads``).
+
 On a shard of a mesh (``ld`` a ``parallel.mesh.ShardedLD``) the loop runs
 the same sweeps on the rank's blocks, the coupling pass after the halo
 exchange (``ShardedLD.couple``), and makes its one host vector global
@@ -47,7 +52,7 @@ from .cavi_cuda import (block_proposal_mask, cavi_sweep_s, cavi_sweep_s1,
                         cavi_sweep_s1_skip, cavi_sweep_s_skip)
 from .cavi_torch import (CaviState, ETA_DIFF_EPS, INNER_STEPS, Hyper,
                          union_block_mask)
-from ..utils import optimize as opt
+from ..utils import optimize as opt, trace
 
 F32 = torch.float32
 F64 = torch.float64
@@ -104,6 +109,8 @@ class EMResult(NamedTuple):
     restarts_used: np.ndarray    # (S,) int32
     act_hist: List[int]          # active blocks per iteration (-1: not measured)
     n_skip: int                  # iterations that took the hybrid's skip branch
+    live_lane_sweeps: int = 0    # sum over iterations of the running lanes
+    host_reads: int = 0          # device-to-host reads of this call
 
     @property
     def final_mse(self):
@@ -258,15 +265,19 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
             list(mx)
 
     def objective(state, hyper, fix_se, sigma_g):
-        h32 = Hyper(*(x.to(F32) for x in hyper))
-        st, _ = read_stats(state, n_per_snp, std_beta, mask,
-                            Hyper(*(x[own].to(dev) for x in h32)))
-        st, _ = global_stats(st)
-        return updates.elbo(st, h32, torch.from_numpy(fix_se),
-                            torch.from_numpy(sigma_g), n_sample,
-                            m_total).numpy()
+        nonlocal host_reads
+        host_reads += 1
+        with trace.span('viprs.em.objective'):
+            h32 = Hyper(*(x.to(F32) for x in hyper))
+            st, _ = read_stats(state, n_per_snp, std_beta, mask,
+                                Hyper(*(x[own].to(dev) for x in h32)))
+            st, _ = global_stats(st)
+            return updates.elbo(st, h32, torch.from_numpy(fix_se),
+                                torch.from_numpy(sigma_g), n_sample,
+                                m_total).numpy()
 
     state = state0
+    host_reads = live_lane_sweeps = 0
     prev_elbo = objective(state, hyper, fix_se, sigma_g) if init_elbo is None \
         else np.array(init_elbo, np.float64).reshape(S)
     elbo_hist = [prev_elbo.copy()]
@@ -278,155 +289,167 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
 
     i = 0
     while i < max_iter and active.any():
-        i += 1
-        gi = i0 + i
-        act_f = active.astype(f32) * damping
-        hv = torch.from_numpy(np.stack(
-            [hyper.sigma_eps.numpy(), hyper.tau_beta.numpy(), hyper.pi.numpy(),
-             act_f, hyper.lambda_min.numpy()]).astype(f32)[:, own]).to(dev)
-        h_dev = Hyper(hv[0], hv[1], hv[2], hv[4])
-        act_dev = hv[3]
+        live_lane_sweeps += int(active.sum())
+        with trace.steps('viprs.em.iter') as step:
+            step('viprs.em.estep')
+            i += 1
+            gi = i0 + i
+            act_f = active.astype(f32) * damping
+            hv = torch.from_numpy(np.stack(
+                [hyper.sigma_eps.numpy(), hyper.tau_beta.numpy(),
+                 hyper.pi.numpy(), act_f, hyper.lambda_min.numpy()]
+            ).astype(f32)[:, own]).to(dev)
+            h_dev = Hyper(hv[0], hv[1], hv[2], hv[4])
+            act_dev = hv[3]
 
-        # ---- E-step ----
-        n_act_blk = None
-        if shard is not None:
-            state, eta_diff, n_act_g = _shard_sweep(
-                shard, state, std_beta, n_per_snp, h_dev, act_dev, act_f, S,
-                use_skip, use_hybrid, gate_eps, thresh, lanes is not None,
-                has_lanes, inner_steps)
-        elif S == 1 and (use_hybrid or use_skip):
-            eps = gate_eps if use_hybrid else ETA_DIFF_EPS
-            blk = block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev,
-                                      eps=eps)[0] & bool(act_f[0] > 0.0)
-            n_act_blk = blk.sum()
-            blk_mask = blk.to(torch.int32)
-            if use_hybrid:
-                blk_mask = torch.where(n_act_blk <= thresh, blk_mask, ones_blk)
-            state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
-                                                 n_per_snp, h_dev, act_dev,
-                                                 blk_mask, inner_steps)
-        elif S == 1:
-            state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
-                                                 n_per_snp, h_dev, act_dev,
-                                                 ones_blk, inner_steps)
-        elif use_skip:
-            blk = union_block_mask(
-                block_proposal_mask(ld, state, std_beta, n_per_snp, h_dev),
-                act_dev)
-            n_act_blk = blk.sum()
-            state, eta_diff = cavi_sweep_s_skip(ld, state, std_beta,
-                                                n_per_snp, h_dev, act_dev, blk,
-                                                inner_steps)
-        else:
-            state, eta_diff = cavi_sweep_s(ld, state, std_beta, n_per_snp,
-                                           h_dev, act_dev, inner_steps)
+            # ---- E-step ----
+            n_act_blk = None
+            if shard is not None:
+                state, eta_diff, n_act_g = _shard_sweep(
+                    shard, state, std_beta, n_per_snp, h_dev, act_dev, act_f,
+                    S, use_skip, use_hybrid, gate_eps, thresh,
+                    lanes is not None, has_lanes, inner_steps)
+                host_reads += int(n_act_g >= 0)   # the mask made global
+            elif S == 1 and (use_hybrid or use_skip):
+                eps = gate_eps if use_hybrid else ETA_DIFF_EPS
+                blk = block_proposal_mask(ld, state, std_beta, n_per_snp,
+                                          h_dev, eps=eps)[0] \
+                    & bool(act_f[0] > 0.0)
+                n_act_blk = blk.sum()
+                blk_mask = blk.to(torch.int32)
+                if use_hybrid:
+                    blk_mask = torch.where(n_act_blk <= thresh, blk_mask,
+                                           ones_blk)
+                state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
+                                                     n_per_snp, h_dev, act_dev,
+                                                     blk_mask, inner_steps)
+            elif S == 1:
+                state, eta_diff = cavi_sweep_s1_skip(ld, state, std_beta,
+                                                     n_per_snp, h_dev, act_dev,
+                                                     ones_blk, inner_steps)
+            elif use_skip:
+                blk = union_block_mask(
+                    block_proposal_mask(ld, state, std_beta, n_per_snp,
+                                        h_dev), act_dev)
+                n_act_blk = blk.sum()
+                state, eta_diff = cavi_sweep_s_skip(ld, state, std_beta,
+                                                    n_per_snp, h_dev, act_dev,
+                                                    blk, inner_steps)
+            else:
+                state, eta_diff = cavi_sweep_s(ld, state, std_beta, n_per_snp,
+                                               h_dev, act_dev, inner_steps)
 
-        # ---- reductions with the e-step hyperparameters (one read) ----
-        med_dev = (eta_diff.abs() * mask[None]).amax(dim=(1, 2))
-        extra_dev = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
-        stats, extra = read_stats(state, n_per_snp, std_beta, mask, h_dev,
-                                   *extra_dev)
-        if shard is None:
-            max_ed = extra[:S].numpy().astype(f32)
-            n_act = -1 if n_act_blk is None else int(extra[S])
-        else:
-            stats, (med,) = global_stats(stats, [extra.numpy()])
-            max_ed = med.astype(f32)
-            n_act = n_act_g
-        if use_hybrid and n_act <= thresh:
-            n_skip += 1
+            # ---- reductions with the e-step hyperparameters (one read) ----
+            step('viprs.em.read')
+            med_dev = (eta_diff.abs() * mask[None]).amax(dim=(1, 2))
+            extra_dev = (med_dev,) if n_act_blk is None \
+                else (med_dev, n_act_blk)
+            stats, extra = read_stats(state, n_per_snp, std_beta, mask, h_dev,
+                                       *extra_dev)
+            host_reads += 1
+            if shard is None:
+                max_ed = extra[:S].numpy().astype(f32)
+                n_act = -1 if n_act_blk is None else int(extra[S])
+            else:
+                stats, (med,) = global_stats(stats, [extra.numpy()])
+                max_ed = med.astype(f32)
+                n_act = n_act_g
+            if use_hybrid and n_act <= thresh:
+                n_skip += 1
 
-        # ---- M-step and objectives (host, float64) ----
-        fix_cur = fix._replace(sigma_eps=torch.from_numpy(fix_se.copy()))
-        new_hyper, sg = updates.m_step(stats, hyper, fix_cur, m_total,
-                                       torch.from_numpy(active.copy()))
-        sg = np.where(active, sg.numpy(), sigma_g)
-        sg_t = torch.from_numpy(sg)
-        curr = updates.elbo(stats, new_hyper, fix_cur.sigma_eps, sg_t,
-                            n_sample, m_total).numpy()
-        curr = np.where(active, curr, prev_elbo)
-        curr_mse = updates.mse(stats, sg_t).numpy()
-        h2 = updates.heritability(sg_t, new_hyper.sigma_eps).numpy()
-        max_ed = np.where(active, max_ed, max_ed_c)
-        hyper = new_hyper
+            # ---- M-step and objectives (host, float64) ----
+            step('viprs.em.mstep')
+            fix_cur = fix._replace(sigma_eps=torch.from_numpy(fix_se.copy()))
+            new_hyper, sg = updates.m_step(stats, hyper, fix_cur, m_total,
+                                           torch.from_numpy(active.copy()))
+            sg = np.where(active, sg.numpy(), sigma_g)
+            sg_t = torch.from_numpy(sg)
+            curr = updates.elbo(stats, new_hyper, fix_cur.sigma_eps, sg_t,
+                                n_sample, m_total).numpy()
+            curr = np.where(active, curr, prev_elbo)
+            curr_mse = updates.mse(stats, sg_t).numpy()
+            h2 = updates.heritability(sg_t, new_hyper.sigma_eps).numpy()
+            max_ed = np.where(active, max_ed, max_ed_c)
+            hyper = new_hyper
 
-        # ---- patience counters ----
-        sigg = ((gi > min_iter) & (np.abs(sg - sigma_g) <= x_abs_tol)
-                & (max_ed < f32(x_abs_tol * 10.0)))
-        sgc = np.where(sigg, sgc + 1, 0)
-        dropped = curr < prev_elbo
-        div_cond = dropped & ~(np.abs(curr - prev_elbo)
-                               <= 1e3 * f_abs_tol + 1e-4 * np.abs(prev_elbo))
-        divc = np.where(div_cond, divc + 1, 0)
-        osc = np.where(dropped & prev_dropped, osc + 1,
-                       np.where(dropped, osc, 0))
-        esc = active & (osc > 5) & (damping > f32(0.01))
-        damping = np.where(esc, damping * f32(0.7), damping).astype(f32)
-        osc = np.where(esc, 0, osc)
-        improved = curr > best + f_abs_tol
-        best = np.maximum(best, curr)
-        stall = np.where(improved | ~active, 0, stall + 1)
-        esc = active & (stall > 2 * patience) & (damping > f32(0.01))
-        damping = np.where(esc, damping * f32(0.5), damping).astype(f32)
-        stall = np.where(esc, 0, stall)
+            # ---- patience counters ----
+            sigg = ((gi > min_iter) & (np.abs(sg - sigma_g) <= x_abs_tol)
+                    & (max_ed < f32(x_abs_tol * 10.0)))
+            sgc = np.where(sigg, sgc + 1, 0)
+            dropped = curr < prev_elbo
+            div_cond = dropped & ~(np.abs(curr - prev_elbo)
+                                   <= 1e3 * f_abs_tol
+                                   + 1e-4 * np.abs(prev_elbo))
+            divc = np.where(div_cond, divc + 1, 0)
+            osc = np.where(dropped & prev_dropped, osc + 1,
+                           np.where(dropped, osc, 0))
+            esc = active & (osc > 5) & (damping > f32(0.01))
+            damping = np.where(esc, damping * f32(0.7), damping).astype(f32)
+            osc = np.where(esc, 0, osc)
+            improved = curr > best + f_abs_tol
+            best = np.maximum(best, curr)
+            stall = np.where(improved | ~active, 0, stall + 1)
+            esc = active & (stall > 2 * patience) & (damping > f32(0.01))
+            damping = np.where(esc, damping * f32(0.5), damping).astype(f32)
+            stall = np.where(esc, 0, stall)
 
-        # ---- the ladder (ordered) ----
-        st = np.full(S, opt.RUNNING, np.int32)
-        late = gi > min_iter
-        for cond, code in (
-                (curr_mse < 0.0, opt.MSE_NEGATIVE),
-                (~np.isfinite(curr), opt.ELBO_NONFINITE),
-                (hyper.sigma_eps.numpy() < 0.0, opt.SIGMA_EPS_NEGATIVE),
-                ((h2 > 1.0) | (h2 < 0.0), opt.H2_OUT_OF_BOUNDS),
-                (late & (np.abs(curr - prev_elbo) <= f_abs_tol),
-                 opt.CONVERGED_F),
-                (late & (max_ed < f32(x_abs_tol)), opt.CONVERGED_X),
-                (sgc > patience, opt.CONVERGED_SIGMA_G),
-                (divc > patience, opt.DIVERGED_ELBO)):
-            st[(st == opt.RUNNING) & cond] = code
+            # ---- the ladder (ordered) ----
+            st = np.full(S, opt.RUNNING, np.int32)
+            late = gi > min_iter
+            for cond, code in (
+                    (curr_mse < 0.0, opt.MSE_NEGATIVE),
+                    (~np.isfinite(curr), opt.ELBO_NONFINITE),
+                    (hyper.sigma_eps.numpy() < 0.0, opt.SIGMA_EPS_NEGATIVE),
+                    ((h2 > 1.0) | (h2 < 0.0), opt.H2_OUT_OF_BOUNDS),
+                    (late & (np.abs(curr - prev_elbo) <= f_abs_tol),
+                     opt.CONVERGED_F),
+                    (late & (max_ed < f32(x_abs_tol)), opt.CONVERGED_X),
+                    (sgc > patience, opt.CONVERGED_SIGMA_G),
+                    (divc > patience, opt.DIVERGED_ELBO)):
+                st[(st == opt.RUNNING) & cond] = code
 
-        # ---- in-loop restart on negative MSE (reference behavior) ----
-        prev_out = curr
-        if max_restarts > 0:
-            fire = (active & (st == opt.MSE_NEGATIVE) & (restarts_left > 0)
-                    & ~fix_se & (i < max_iter))
-            if fire.any():
-                st[fire] = opt.RUNNING
-                f3 = torch.from_numpy(fire[own]).to(dev)[:, None, None]
-                rl = torch.from_numpy(np.array(np.broadcast_to(
-                    np.float32(restart_logit), (S,)))[own]).to(dev)[
-                        :, None, None]
-                zero = torch.zeros((), dtype=F32, device=dev)
-                state = CaviState(logits=torch.where(f3, rl, state.logits),
-                                  mu=torch.where(f3, zero, state.mu),
-                                  eta=torch.where(f3, zero, state.eta),
-                                  q=torch.where(f3, zero, state.q))
-                fire_t = torch.from_numpy(fire)
-                hyper = Hyper(*(torch.where(fire_t, _hyper_f64(r, S), h)
-                                for r, h in zip(restart_hyper[:3], hyper)),
-                              lambda_min=hyper.lambda_min)
-                sg = np.where(fire, 0.0, sg)
-                fix_se = fix_se | fire
-                prev_out = np.where(fire, objective(state, hyper, fix_se, sg),
-                                    curr)
-                fresh = init_counters(S)
-                dropped = np.where(fire, fresh.prev_dropped, dropped)
-                osc, best, stall, sgc, divc, damping = (
-                    np.where(fire, f, c) for f, c in zip(
-                        fresh[1:], (osc, best, stall, sgc, divc, damping)))
-                damping = damping.astype(f32)
-                restarts_left = restarts_left - fire
+            # ---- in-loop restart on negative MSE (reference behavior) ----
+            prev_out = curr
+            if max_restarts > 0:
+                fire = (active & (st == opt.MSE_NEGATIVE) & (restarts_left > 0)
+                        & ~fix_se & (i < max_iter))
+                if fire.any():
+                    st[fire] = opt.RUNNING
+                    f3 = torch.from_numpy(fire[own]).to(dev)[:, None, None]
+                    rl = torch.from_numpy(np.array(np.broadcast_to(
+                        np.float32(restart_logit), (S,)))[own]).to(dev)[
+                            :, None, None]
+                    zero = torch.zeros((), dtype=F32, device=dev)
+                    state = CaviState(logits=torch.where(f3, rl, state.logits),
+                                      mu=torch.where(f3, zero, state.mu),
+                                      eta=torch.where(f3, zero, state.eta),
+                                      q=torch.where(f3, zero, state.q))
+                    fire_t = torch.from_numpy(fire)
+                    hyper = Hyper(*(torch.where(fire_t, _hyper_f64(r, S), h)
+                                    for r, h in zip(restart_hyper[:3], hyper)),
+                                  lambda_min=hyper.lambda_min)
+                    sg = np.where(fire, 0.0, sg)
+                    fix_se = fix_se | fire
+                    prev_out = np.where(
+                        fire, objective(state, hyper, fix_se, sg), curr)
+                    fresh = init_counters(S)
+                    dropped = np.where(fire, fresh.prev_dropped, dropped)
+                    osc, best, stall, sgc, divc, damping = (
+                        np.where(fire, f, c) for f, c in zip(
+                            fresh[1:], (osc, best, stall, sgc, divc, damping)))
+                    damping = damping.astype(f32)
+                    restarts_left = restarts_left - fire
 
-        newly = active & (st != opt.RUNNING)
-        status = np.where(newly, st, status)
-        nit = np.where(active, gi, nit).astype(np.int32)
-        active = active & ~newly
-        sigma_g = sg
-        prev_elbo = prev_out
-        prev_dropped = dropped
-        max_ed_c = max_ed
-        elbo_hist.append(curr)
-        act_hist.append(n_act)
+            newly = active & (st != opt.RUNNING)
+            status = np.where(newly, st, status)
+            nit = np.where(active, gi, nit).astype(np.int32)
+            active = active & ~newly
+            sigma_g = sg
+            prev_elbo = prev_out
+            prev_dropped = dropped
+            max_ed_c = max_ed
+            elbo_hist.append(curr)
+            act_hist.append(n_act)
 
     status = np.where(active, opt.MAX_ITER, status).astype(np.int32)
 
@@ -444,4 +467,5 @@ def em_fit(ld: BlockLD, state0: CaviState, std_beta, n_per_snp, hyper0,
                                        divc, damping),
         max_eta_diff=max_ed_c,
         restarts_used=np.full(S, max_restarts, np.int32) - restarts_left,
-        act_hist=act_hist, n_skip=n_skip)
+        act_hist=act_hist, n_skip=n_skip, live_lane_sweeps=live_lane_sweeps,
+        host_reads=host_reads)

@@ -28,6 +28,10 @@ split the blocks only) both loops run their sweeps on the rank's blocks
 with the halo before the coupling pass, make the activity masks global
 before the sweep, and add the statistics of every rank (max |d_eta| its
 maximum) before the host M-step, as ``em_loop.em_fit`` does.
+
+Both loops make each iteration the span ``viprs.em.iter`` with the
+children ``em_loop`` gives it (utils/trace.py), and return the counts
+``live_lane_sweeps`` and ``host_reads`` as ``em_loop.em_fit`` does.
 """
 
 from typing import Callable, List, NamedTuple, Optional
@@ -41,7 +45,7 @@ from .cavi_cuda import (cavi_sweep_mix_s, cavi_sweep_mix_s1,
                         cavi_sweep_mix_s1_skip, cavi_sweep_mix_s_skip)
 from .cavi_mix import MixHyper, MixState
 from .cavi_torch import INNER_STEPS
-from ..utils import optimize as opt
+from ..utils import optimize as opt, trace
 
 F32 = torch.float32
 F64 = torch.float64
@@ -130,6 +134,8 @@ class MixEMResult(NamedTuple):
     mse_of: Optional[Callable[[], np.ndarray]]  # computes final_mse
     counters: MixCounters        # None for the single model
     act_hist: List[int]          # active blocks per iteration (-1: all)
+    live_lane_sweeps: int = 0    # sum over iterations of the running lanes
+    host_reads: int = 0          # device-to-host reads of this call
 
     @property
     def final_mse(self):
@@ -242,13 +248,17 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
         return reduce_stats(shard, st, S, K, med)
 
     def objective(state, h, sigma_g):
-        hy, _ = dev_hyper(h, np.ones(S, f32))
-        st, _ = global_stats(read_stats(state, hy, std_beta, n_per_snp,
-                                        mask, S, K)[0])
-        return _mix_elbo(st, MixHyper(*(_f32(x) for x in h)), fix_se,
-                         sigma_g, n_sample)
+        nonlocal host_reads
+        host_reads += 1
+        with trace.span('viprs.em.objective'):
+            hy, _ = dev_hyper(h, np.ones(S, f32))
+            st, _ = global_stats(read_stats(state, hy, std_beta, n_per_snp,
+                                            mask, S, K)[0])
+            return _mix_elbo(st, MixHyper(*(_f32(x) for x in h)), fix_se,
+                             sigma_g, n_sample)
 
     state = state0
+    host_reads = live_lane_sweeps = 0
     prev_elbo = objective(state, h, sigma_g) if init_elbo is None else \
         np.array(init_elbo, np.float64).reshape(S)
     elbo_hist = [prev_elbo.copy()]
@@ -258,123 +268,134 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
 
     i = 0
     while i < max_iter and active.any():
-        i += 1
-        gi = i0 + i
-        act_f = active.astype(f32) * damping
-        hy, act_dev = dev_hyper(h, act_f)
+        live_lane_sweeps += int(active.sum())
+        with trace.steps('viprs.em.iter') as step:
+            step('viprs.em.estep')
+            i += 1
+            gi = i0 + i
+            act_f = active.astype(f32) * damping
+            hy, act_dev = dev_hyper(h, act_f)
 
-        # ---- E-step ----
-        n_act_blk = n_act_g = None
-        if use_skip:
-            if batch:
-                pm = cavi_mix.mix_block_proposal_mask_batch(
-                    ld, state, std_beta, n_per_snp, hy)
-                blk = (pm & (act_dev > 0.0)[:, None]).any(dim=0)
+            # ---- E-step ----
+            n_act_blk = n_act_g = None
+            if use_skip:
+                if batch:
+                    pm = cavi_mix.mix_block_proposal_mask_batch(
+                        ld, state, std_beta, n_per_snp, hy)
+                    blk = (pm & (act_dev > 0.0)[:, None]).any(dim=0)
+                else:
+                    blk = cavi_mix.mix_block_proposal_mask(ld, state, std_beta,
+                                                           n_per_snp, hy)
+                if shard is None:
+                    n_act_blk = blk.sum()
+                else:
+                    blk, n_act_g = shard.count_blocks(blk)
+                    host_reads += 1
+            if not batch and use_skip:
+                state, eta_diff = cavi_sweep_mix_s1_skip(ld, state, std_beta,
+                                                         n_per_snp, hy, blk,
+                                                         inner_steps, halo)
+            elif not batch:
+                state, eta_diff = cavi_sweep_mix_s1(ld, state, std_beta,
+                                                    n_per_snp, hy, inner_steps,
+                                                    halo)
+            elif use_skip:
+                state, eta_diff = cavi_sweep_mix_s_skip(ld, state, std_beta,
+                                                        n_per_snp, hy, act_dev,
+                                                        blk, inner_steps, halo)
             else:
-                blk = cavi_mix.mix_block_proposal_mask(ld, state, std_beta,
-                                                       n_per_snp, hy)
+                state, eta_diff = cavi_sweep_mix_s(ld, state, std_beta,
+                                                   n_per_snp, hy, act_dev,
+                                                   inner_steps, halo)
+
+            # ---- reductions with the e-step hyperparameters (one read) ----
+            step('viprs.em.read')
+            med_dev = (eta_diff.abs() * mask).reshape(S, -1).amax(dim=1)
+            extra = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
+            st, ex = read_stats(state, hy, std_beta, n_per_snp, mask, S, K,
+                                 *extra)
+            host_reads += 1
             if shard is None:
-                n_act_blk = blk.sum()
+                max_ed = ex[:S].astype(f32)
+                act_hist.append(-1 if n_act_blk is None else int(ex[S]))
             else:
-                blk, n_act_g = shard.count_blocks(blk)
-        if not batch and use_skip:
-            state, eta_diff = cavi_sweep_mix_s1_skip(ld, state, std_beta,
-                                                     n_per_snp, hy, blk,
-                                                     inner_steps, halo)
-        elif not batch:
-            state, eta_diff = cavi_sweep_mix_s1(ld, state, std_beta,
-                                                n_per_snp, hy, inner_steps,
-                                                halo)
-        elif use_skip:
-            state, eta_diff = cavi_sweep_mix_s_skip(ld, state, std_beta,
-                                                    n_per_snp, hy, act_dev,
-                                                    blk, inner_steps, halo)
-        else:
-            state, eta_diff = cavi_sweep_mix_s(ld, state, std_beta,
-                                               n_per_snp, hy, act_dev,
-                                               inner_steps, halo)
+                st, med = global_stats(st, ex[:S])
+                max_ed = med.astype(f32)
+                act_hist.append(-1 if n_act_g is None else n_act_g)
 
-        # ---- reductions with the e-step hyperparameters (one read) ----
-        med_dev = (eta_diff.abs() * mask).reshape(S, -1).amax(dim=1)
-        extra = (med_dev,) if n_act_blk is None else (med_dev, n_act_blk)
-        st, ex = read_stats(state, hy, std_beta, n_per_snp, mask, S, K,
-                             *extra)
-        if shard is None:
-            max_ed = ex[:S].astype(f32)
-            act_hist.append(-1 if n_act_blk is None else int(ex[S]))
-        else:
-            st, med = global_stats(st, ex[:S])
-            max_ed = med.astype(f32)
-            act_hist.append(-1 if n_act_g is None else n_act_g)
+            # ---- M-step (VIPRSMix.py:227-260), float64 ----
+            step('viprs.em.mstep')
+            frozen = ~active
+            pi_est = st['sum_gamma_k']
+            pi_renorm = total_pi[:, None] * pi_est \
+                / pi_est.sum(axis=1, keepdims=True)
+            pi_new = np.where(total_pi[:, None] > 0, pi_renorm,
+                              pi_est / m_total)
+            pi = np.where((fix_pi | frozen)[:, None], h.pi, pi_new)
+            tau_est = pi.sum(axis=1) * m_total / (st['sum_zeta_k'] @ d)
+            tau_new = np.clip(d[None] * tau_est[:, None], 1.0, None)
+            tau = np.where((fix_tb | frozen)[:, None], h.tau_beta, tau_new)
+            sg = (1.0 + h.lambda_min) * st['sum_zeta_k'].sum(axis=1) \
+                + st['sum_q_eta']
+            se_new = 1.0 - 2.0 * st['sum_beta_eta'] + sg
+            se = np.where(fix_se | frozen, h.sigma_eps, se_new)
+            h = MixHyper(se, tau, pi, h.lambda_min)
 
-        # ---- M-step (VIPRSMix.py:227-260), float64 ----
-        frozen = ~active
-        pi_est = st['sum_gamma_k']
-        pi_renorm = total_pi[:, None] * pi_est \
-            / pi_est.sum(axis=1, keepdims=True)
-        pi_new = np.where(total_pi[:, None] > 0, pi_renorm, pi_est / m_total)
-        pi = np.where((fix_pi | frozen)[:, None], h.pi, pi_new)
-        tau_est = pi.sum(axis=1) * m_total / (st['sum_zeta_k'] @ d)
-        tau_new = np.clip(d[None] * tau_est[:, None], 1.0, None)
-        tau = np.where((fix_tb | frozen)[:, None], h.tau_beta, tau_new)
-        sg = (1.0 + h.lambda_min) * st['sum_zeta_k'].sum(axis=1) \
-            + st['sum_q_eta']
-        se_new = 1.0 - 2.0 * st['sum_beta_eta'] + sg
-        se = np.where(fix_se | frozen, h.sigma_eps, se_new)
-        h = MixHyper(se, tau, pi, h.lambda_min)
+            curr = _mix_elbo(st, h, fix_se, sg, n_sample)
+            curr_mse = (1.0 - 2.0 * st['sum_beta_eta'] + sg
+                        - st['sum_zeta_k'].sum(axis=1) + st['sum_eta_sq'])
+            sg = np.where(active, sg, sigma_g)
+            curr = np.where(active, curr, prev_elbo)
+            h2 = sg / (sg + se)
 
-        curr = _mix_elbo(st, h, fix_se, sg, n_sample)
-        curr_mse = (1.0 - 2.0 * st['sum_beta_eta'] + sg
-                    - st['sum_zeta_k'].sum(axis=1) + st['sum_eta_sq'])
-        sg = np.where(active, sg, sigma_g)
-        curr = np.where(active, curr, prev_elbo)
-        h2 = sg / (sg + se)
+            # ---- patience counters ----
+            sigg = ((gi > min_iter) & (np.abs(sg - sigma_g) <= x_abs_tol)
+                    & (max_ed < f32(x_abs_tol * 10.0)))
+            sgc = np.where(sigg, sgc + 1, 0)
+            dropped = curr < prev_elbo
+            div_cond = dropped & ~(np.abs(curr - prev_elbo)
+                                   <= 1e3 * f_abs_tol
+                                   + 1e-4 * np.abs(prev_elbo))
+            divc = np.where(div_cond, divc + 1, 0)
+            if batch:
+                # oscillation / stall damping ladder (mix_em_loop.py:454-476)
+                osc = np.where(dropped & prev_dropped, osc + 1,
+                               np.where(dropped, osc, 0))
+                esc = active & (osc > 5) & (damping > f32(0.01))
+                damping = np.where(esc, damping * f32(0.7),
+                                   damping).astype(f32)
+                osc = np.where(esc, 0, osc)
+                improved = curr > best + f_abs_tol
+                best = np.maximum(best, curr)
+                stall = np.where(improved | ~active, 0, stall + 1)
+                esc = active & (stall > 2 * patience) & (damping > f32(0.01))
+                damping = np.where(esc, damping * f32(0.5),
+                                   damping).astype(f32)
+                stall = np.where(esc, 0, stall)
 
-        # ---- patience counters ----
-        sigg = ((gi > min_iter) & (np.abs(sg - sigma_g) <= x_abs_tol)
-                & (max_ed < f32(x_abs_tol * 10.0)))
-        sgc = np.where(sigg, sgc + 1, 0)
-        dropped = curr < prev_elbo
-        div_cond = dropped & ~(np.abs(curr - prev_elbo)
-                               <= 1e3 * f_abs_tol + 1e-4 * np.abs(prev_elbo))
-        divc = np.where(div_cond, divc + 1, 0)
-        if batch:
-            # oscillation / stall damping ladder (mix_em_loop.py:454-476)
-            osc = np.where(dropped & prev_dropped, osc + 1,
-                           np.where(dropped, osc, 0))
-            esc = active & (osc > 5) & (damping > f32(0.01))
-            damping = np.where(esc, damping * f32(0.7), damping).astype(f32)
-            osc = np.where(esc, 0, osc)
-            improved = curr > best + f_abs_tol
-            best = np.maximum(best, curr)
-            stall = np.where(improved | ~active, 0, stall + 1)
-            esc = active & (stall > 2 * patience) & (damping > f32(0.01))
-            damping = np.where(esc, damping * f32(0.5), damping).astype(f32)
-            stall = np.where(esc, 0, stall)
+            # ---- the ladder (ordered) ----
+            st_code = np.full(S, opt.RUNNING, np.int32)
+            late = gi > min_iter
+            for cond, code in (
+                    (curr_mse < 0.0, opt.MSE_NEGATIVE),
+                    (~np.isfinite(curr), opt.ELBO_NONFINITE),
+                    (se < 0.0, opt.SIGMA_EPS_NEGATIVE),
+                    ((h2 > 1.0) | (h2 < 0.0), opt.H2_OUT_OF_BOUNDS),
+                    (late & (np.abs(curr - prev_elbo) <= f_abs_tol),
+                     opt.CONVERGED_F),
+                    (late & (max_ed < f32(x_abs_tol)), opt.CONVERGED_X),
+                    (sgc > patience, opt.CONVERGED_SIGMA_G),
+                    (divc > patience, opt.DIVERGED_ELBO)):
+                st_code[(st_code == opt.RUNNING) & cond] = code
 
-        # ---- the ladder (ordered) ----
-        st_code = np.full(S, opt.RUNNING, np.int32)
-        late = gi > min_iter
-        for cond, code in (
-                (curr_mse < 0.0, opt.MSE_NEGATIVE),
-                (~np.isfinite(curr), opt.ELBO_NONFINITE),
-                (se < 0.0, opt.SIGMA_EPS_NEGATIVE),
-                ((h2 > 1.0) | (h2 < 0.0), opt.H2_OUT_OF_BOUNDS),
-                (late & (np.abs(curr - prev_elbo) <= f_abs_tol),
-                 opt.CONVERGED_F),
-                (late & (max_ed < f32(x_abs_tol)), opt.CONVERGED_X),
-                (sgc > patience, opt.CONVERGED_SIGMA_G),
-                (divc > patience, opt.DIVERGED_ELBO)):
-            st_code[(st_code == opt.RUNNING) & cond] = code
-
-        newly = active & (st_code != opt.RUNNING)
-        status = np.where(newly, st_code, status)
-        nit = np.where(active, gi, nit).astype(np.int32)
-        active = active & ~newly
-        sigma_g = sg
-        prev_elbo = curr
-        prev_dropped = dropped
-        elbo_hist.append(curr)
+            newly = active & (st_code != opt.RUNNING)
+            status = np.where(newly, st_code, status)
+            nit = np.where(active, gi, nit).astype(np.int32)
+            active = active & ~newly
+            sigma_g = sg
+            prev_elbo = curr
+            prev_dropped = dropped
+            elbo_hist.append(curr)
 
     status = np.where(active, opt.MAX_ITER, status).astype(np.int32)
     counters = MixCounters.from_numpy(prev_dropped, osc, best, stall, sgc,
@@ -389,7 +410,9 @@ def _run(ld: BlockLD, state0, std_beta, n_per_snp, hyper0, fix, d_mult,
     return MixEMResult(state=state, hyper=h, sigma_g=sigma_g, status=status,
                        nit=nit, elbo_hist=elbo_hist, n_iter_total=i,
                        final_elbo=prev_elbo, mse_of=mse_of,
-                       counters=counters, act_hist=act_hist)
+                       counters=counters, act_hist=act_hist,
+                       live_lane_sweeps=live_lane_sweeps,
+                       host_reads=host_reads)
 
 
 def mix_em_fit(ld: BlockLD, state0: MixState, std_beta, n_per_snp,
