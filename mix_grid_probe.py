@@ -26,6 +26,17 @@ default; the profiler's trace under ``--trace-dir``) and on stdout:
   SHA-256 of each output's bytes (equal digests in two checkouts:
   bit-identical outputs).
 
+With ``--cells A,B`` it records instead, in OUT/grid_lanes_NAME.json, the
+end point of each lane of the benchmark's grid fits: per named cell of
+portbench, the peak device memory over packing and the fits, and per trait
+of the cell's pool (drawn as the cell's traffic file says), ``VIPRSGrid(ds,
+HyperparameterGrid(...), 'cuda').fit(max_iter)`` after ``np.random.seed``
+of the trait's theta_0 seed, as the benchmark fits it: seconds, the loop
+calls (width, iterations), the chunk widths, the lane-sweeps, and each
+lane's nit, status, final ELBO (``float.hex``) and SHA-256 of its final
+state (logits, mu, eta, q) and of its hyperparameters; equal digests in two
+checkouts mean bit-identical lanes.
+
 It imports nothing of JAX.
 """
 
@@ -50,6 +61,99 @@ def digest(*tensors):
     return h.hexdigest()
 
 
+def card():
+    """The card's name and power limit."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def trait_pool(panel, traffic):
+    """The cell's pool of traits and the theta_0 seed of each, drawn from
+    the traffic's pool seed as the benchmark draws them."""
+    from portbench.panel import draw_trait
+    t, pool = traffic['trait'], traffic['pool']
+    rng = np.random.default_rng(int(pool['seed']))
+    traits, thetas = [], []
+    for _ in range(int(pool['size'])):
+        traits.append(draw_trait(panel, rng, float(t['h2']),
+                                 float(t['prop_causal']), float(t['n'])))
+        thetas.append(int(rng.integers(0, 2 ** 32)))
+    return traits, thetas
+
+
+def grid_lanes(args, rec):
+    """The ``--cells`` record: each lane's end point in the cells' grid
+    fits."""
+    import torch
+    from portbench.panel import make_panel
+    from portbench.run import Bench
+    from viprs_tpu_torch.data.dataset import SummaryStatsDataset
+    from viprs_tpu_torch.gridsearch import HyperparameterGrid
+    from viprs_tpu_torch.model import VIPRSGrid
+    from viprs_tpu_torch.ops.cavi_cuda import build_for
+
+    dev = torch.device('cuda', 0)
+    torch.zeros(1, device=dev)
+    bench = Bench()
+    rec['cells'] = {}
+    for cell in args.cells.split(','):
+        spec = bench.cell(cell)
+        _, cfg = bench.config(spec['config'])
+        traffic = bench.traffic(spec['traffic'])
+        panel = make_panel(cfg)
+        traits, thetas = trait_pool(panel, traffic)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ds0 = SummaryStatsDataset.from_dense_blocks(
+            panel.blocks, *traits[0], block_size=int(cfg['block_size']),
+            quantize=bool(cfg['quantize']), device=dev)
+        del panel
+        build_for(ds0.ld)
+        grid = HyperparameterGrid(n_snps=ds0.m, **traffic['grid'])
+        fits = []
+        for k, (trait, theta) in enumerate(zip(traits, thetas)):
+            np.random.seed(theta)
+            g = VIPRSGrid(SummaryStatsDataset(
+                ld=ds0.ld, layout=ds0.layout, std_beta=trait[0],
+                n_per_snp=trait[1]), grid, 'cuda')
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.fit(max_iter=int(traffic['max_iter']))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            fc, res = g.fit_counters, g._last_result
+            hyper = np.stack([np.asarray(x, np.float64) for x in g._hyper])
+            f = dict(trait=k, fit_s=dt,
+                     calls=[[c.width, c.iterations] for c in fc.chunks],
+                     chunk_widths=getattr(fc, 'outer_widths', None),
+                     lane_sweeps=fc.lane_sweeps,
+                     live_lane_sweeps=fc.live_lane_sweeps,
+                     nit=res.nit.tolist(), status=res.status.tolist(),
+                     elbo=[float(x).hex() for x in res.final_elbo],
+                     state=[digest(*(x[s] for x in g._state))
+                            for s in range(g.n_models)],
+                     hyper=[hashlib.sha256(hyper[:, s].tobytes()).hexdigest()
+                            for s in range(g.n_models)])
+            fits.append(f)
+            dead = 100.0 * (1 - f['live_lane_sweeps'] / f['lane_sweeps'])
+            print(f"[{args.tag}] {cell} trait {k}: {dt:.3f} s, nit max "
+                  f"{max(f['nit'])}, {len(f['calls'])} loop calls, dead "
+                  f"lane-sweeps {dead:.2f}%, chunks {f['chunk_widths']}",
+                  flush=True)
+            del g
+        peak = torch.cuda.max_memory_allocated(dev)
+        rec['cells'][cell] = dict(fits=fits, peak_bytes=peak)
+        print(f"[{args.tag}] {cell}: peak {peak / 2 ** 30:.4f} GiB",
+              flush=True)
+        del ds0
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f'grid_lanes_{args.tag}.json')
+    with open(path, 'w') as fh:
+        json.dump(rec, fh)
+    print(f"[{args.tag}] wrote {path}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--tag', required=True,
@@ -59,12 +163,20 @@ def main():
     ap.add_argument('--trace-dir', default=os.path.join('viprs_tpu_torch',
                                                         '_build'),
                     help='directory of the profiler trace (tens of MB)')
+    ap.add_argument('--cells', default=None,
+                    help='portbench grid cells (comma-separated): record '
+                         'the end point of each lane of their fits instead')
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", flush=True)
         sys.exit(1)
+    rec = {'tag': args.tag, 'cwd': os.getcwd(), 'card': card()}
+    print(f"[{args.tag}] {rec['card']}", flush=True)
+    if args.cells:
+        grid_lanes(args, rec)
+        return
     import bench
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
@@ -75,11 +187,6 @@ def main():
     from viprs_tpu_torch.ops.cavi_mix import MixHyper, MixState
     from viprs_tpu_torch.ops.cavi_torch import CaviState, Hyper
 
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    rec = {'tag': args.tag, 'cwd': os.getcwd(), 'card': card}
-    print(f"[{args.tag}] {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     _, info = _build.build()
     rec['build_seconds'] = info['seconds']

@@ -89,8 +89,7 @@ def assert_grids_match(jm, tm, pip=True):
     np.testing.assert_array_equal(tr.status, np.asarray(jr.status))
     np.testing.assert_allclose(tr.final_elbo, np.asarray(jr.final_elbo),
                                rtol=1e-6)
-    assert [c.width for c in tm.fit_counters.chunks] == \
-        [w for w, *_ in jm._chunk_trace]
+    assert tm.fit_counters.outer_widths == [w for w, *_ in jm._chunk_trace]
     assert tm.fix_params == jm.fix_params
     for f in ('sigma_eps', 'tau_beta', 'pi', 'lambda_min'):
         np.testing.assert_allclose(getattr(tm._hyper, f),
@@ -107,21 +106,55 @@ def assert_grids_match(jm, tm, pip=True):
                                        rtol=0)
 
 
-def assert_fit_counters(tm, widths=None):
-    """The port's ``fit_counters`` of a fit with no restart: the chunk
-    widths (the JAX package's where given), every running lane counted once
-    an iteration (its nit) and padding never, each chunk's width swept every
-    iteration, a compaction for each chunk narrower than the grid, and one
-    host read an iteration and one for the first chunk's objective."""
+def assert_fit_counters(tm, widths=None, sub_chunks=False):
+    """The port's ``fit_counters`` of a fit with no restart: the widths
+    the chunk rule chose (the JAX package's chunk trace where given), each
+    loop call's width (``assert_loop_call_widths``), every running lane
+    counted once an iteration (its nit) and padding never, each call's
+    width swept every iteration, a compaction for each call narrower than
+    the grid, and one host read an iteration and one for the first call's
+    objective."""
     fc = tm.fit_counters
     if widths is not None:
-        assert [c.width for c in fc.chunks] == list(widths)
+        assert fc.outer_widths == list(widths)
+    assert_loop_call_widths(tm, sub_chunks)
     assert fc.live_lane_sweeps == sum(r.nit for r in tm.optim_results) == \
         sum(c.live_lane_iterations for c in fc.chunks)
     assert fc.lane_sweeps == sum(c.width * c.iterations for c in fc.chunks)
     assert fc.compactions == sum(c.width < tm.n_models for c in fc.chunks)
     assert fc.host_reads == sum(c.iterations for c in fc.chunks) + 1
     assert fc.lane_sweeps >= fc.live_lane_sweeps
+
+
+def assert_call_widths(calls, outer, nit, grid_axis=1):
+    """The loop calls ([width, iterations, chunk index]) of a default
+    grid fit: each call's width is the lanes running at its start (a lane
+    runs after iteration t while its nit exceeds t), never under two in a
+    chunk of two or more, rounded up to a multiple of the mesh's grid
+    axis, and at most its chunk's width."""
+    nit = np.array(nit)
+    t0 = 0
+    for width, iters, k in calls:
+        want = max(int((nit > t0).sum()), min(2, outer[k]))
+        want = min(len(nit), -(-want // grid_axis) * grid_axis)
+        assert width == want <= outer[k], (calls, outer, t0)
+        t0 += iters
+    assert t0 == nit.max()
+
+
+def assert_loop_call_widths(tm, sub_chunks):
+    """Each chunk's loop calls, in order and back to back: one call at the
+    chunk's width, or with ``sub_chunks`` calls at their running lanes'
+    width (``assert_call_widths``)."""
+    fc = tm.fit_counters
+    assert [c.outer for c in fc.chunks] == sorted(c.outer for c in fc.chunks)
+    assert {c.outer for c in fc.chunks} == set(range(len(fc.outer_widths)))
+    if sub_chunks:
+        assert_call_widths([[c.width, c.iterations, c.outer]
+                            for c in fc.chunks], fc.outer_widths,
+                           [r.nit for r in tm.optim_results])
+    else:
+        assert [c.width for c in fc.chunks] == fc.outer_widths
 
 
 def assert_grid_end_points_match(jm, tm, nit_window=3):
@@ -187,7 +220,8 @@ def test_grid_fit_matches_jax(datasets, chunk_iters, ladder_trace,
                           f_abs_tol=3e-3)
         assert_clear_of_thresholds(ladder_trace)
         assert_grids_match(jm, tm)
-        assert_fit_counters(tm, [w for w, *_ in jm._chunk_trace])
+        assert_fit_counters(tm, [w for w, *_ in jm._chunk_trace],
+                            sub_chunks=True)
     else:
         jm, tm = fit_both(*datasets, GRID_12, max_iter=200,
                           chunk_iters=chunk_iters)
@@ -239,6 +273,100 @@ def test_compacted_grid_matches_jax():
         np.testing.assert_allclose(getattr(tm._hyper, f),
                                    np.asarray(getattr(jm._hyper, f)),
                                    rtol=1e-5, err_msg=f)
+
+
+def high_ld_dataset(seed, n, h2, prop, rho):
+    """A problem of the port alone whose lanes stop far apart: strong LD
+    (AR(1) ``rho``) in blocks of at most B = 128 variants, so no coupling
+    tile (the plain coupling pass's products round by the lane count under
+    8 lanes on the CPU; the card's kernel does not)."""
+    from viprs_tpu_torch.data.simulate import simulate_sumstats_blocks as sim
+    s = sim(n=n, block_sizes=(120, 100, 90, 128, 60, 110, 128, 80), h2=h2,
+            prop_causal=prop, rho=rho, seed=seed)
+    return SummaryStatsDataset.from_dense_blocks(
+        s['ld_blocks'], s['std_beta'], s['n_per_snp'], block_size=128,
+        device='cpu')
+
+
+SUB_PROBLEMS = [
+    # a restart after 4 iterations, chunks at 16 then 4
+    dict(seed=1, n=800, h2=0.6, prop=0.2, rho=0.95),
+    # chunks at 16, 4 and 1 (the S = 1 rule)
+    dict(seed=3, n=5000, h2=0.5, prop=0.1, rho=0.97)]
+
+
+@pytest.mark.parametrize('problem, callback', [
+    (SUB_PROBLEMS[0], False), (SUB_PROBLEMS[1], False),
+    (SUB_PROBLEMS[0], True), (SUB_PROBLEMS[1], True)])
+def test_sub_chunks_match_one_chunk(problem, callback):
+    """A default fit at S = 16, whose chunks (of 50 iterations, or of 25
+    with a progress callback) run as loop calls of ``SUB_CHUNK``
+    iterations at the width of their running lanes, against the same fit
+    in one loop call at full width (``chunk_iters=max_iter``): per-lane
+    state, nit, status, ELBO history, hyperparameters and sigma_g bit for
+    bit; lanes stop from iteration ~30 to 200. The callback sees every
+    chunk's end, after the state is back in lane order."""
+    ds = high_ld_dataset(**problem)
+    kw = dict(max_iter=200, min_iter=1, f_abs_tol=1e-9, x_abs_tol=1e-9)
+    seen = []
+
+    def record(model, it, statuses):
+        seen.append((it, model._state.eta.clone(), statuses))
+
+    fits = []
+    for chunk_iters in (None, kw['max_iter']):
+        np.random.seed(9)
+        g = VIPRSGrid(ds, HyperparameterGrid(n_snps=ds.m, pi_steps=16),
+                      'cpu')
+        cb = record if callback and chunk_iters is None else None
+        fits.append(g.fit(chunk_iters=chunk_iters, progress_callback=cb,
+                          **kw))
+    sub, one = fits
+    fc = sub.fit_counters
+    if callback:
+        # a call each chunk of 25 (restarts aside), as 10, 10 and 5
+        assert len(seen) == len(fc.outer_widths)
+        ends = np.cumsum([c.iterations for c in fc.chunks])
+        outer = np.array([c.outer for c in fc.chunks])
+        assert [it for it, *_ in seen] == \
+            [int(ends[outer == k][-1]) for k in range(len(seen))]
+        assert all(c.iterations <= 10 for c in fc.chunks)
+        full = [[c.iterations for c in fc.chunks if c.outer == k]
+                for k in range(len(seen))]
+        assert [10, 10, 5] in full
+        # each callback saw the state in lane order: a lane stopped for
+        # good by then has its final row
+        final = sub._last_result
+        mixed = 0
+        for it, eta, statuses in seen:
+            done = (statuses == final.status) & (final.nit <= it)
+            assert torch.equal(eta[done], sub._state.eta[done]), it
+            mixed += int(done.any() and not done.all())
+        assert mixed >= 2
+        assert torch.equal(seen[-1][1], sub._state.eta)
+    else:
+        assert not seen
+    assert len(fc.chunks) > 10 and fc.compactions > 5
+    assert len(fc.outer_widths) >= 3 and min(fc.outer_widths) < 16
+    assert len({c.width for c in fc.chunks}) >= 5
+    assert np.ptp(sub._last_result.nit) > 100
+    assert_loop_call_widths(sub, sub_chunks=True)
+    assert one.fit_counters.outer_widths == [16] * len(
+        one.fit_counters.chunks)
+    assert sub.fix_params == one.fix_params
+    for f, x, y in zip(CaviState._fields, sub._state, one._state):
+        assert torch.equal(x, y), f
+    for f, x, y in zip(Hyper._fields, sub._hyper, one._hyper):
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    np.testing.assert_array_equal(sub._sigma_g, one._sigma_g)
+    for f in ('nit', 'status', 'final_elbo', 'max_eta_diff'):
+        np.testing.assert_array_equal(getattr(sub._last_result, f),
+                                      getattr(one._last_result, f),
+                                      err_msg=f)
+    np.testing.assert_array_equal(np.stack(sub.history['ELBO']),
+                                  np.stack(one.history['ELBO']))
+    assert fc.lane_sweeps < one.fit_counters.lane_sweeps
+    assert fc.live_lane_sweeps == one.fit_counters.live_lane_sweeps
 
 
 def test_host_restart_on_negative_mse_matches_jax(ladder_trace):

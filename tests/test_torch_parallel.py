@@ -37,13 +37,14 @@ CLI_CHROMS = {20: (150, 90), 22: (200, 70, 130)}
 RANK_TIMEOUT = 240
 
 
-def _sim(seed=3, n=2000, h2=0.3, prop=0.05, sizes=SIZES, jax=False):
+def _sim(seed=3, n=2000, h2=0.3, prop=0.05, sizes=SIZES, jax=False,
+         rho=0.6):
     if jax:
         from viprs_tpu.data.simulate import simulate_sumstats_blocks
     else:
         from viprs_tpu_torch.data.simulate import simulate_sumstats_blocks
     return simulate_sumstats_blocks(n=n, block_sizes=sizes, h2=h2,
-                                    prop_causal=prop, seed=seed)
+                                    prop_causal=prop, seed=seed, rho=rho)
 
 
 def _em_problem(jax=False, seed=1):
@@ -160,7 +161,9 @@ def case_grid_bma(mesh):
     g = VIPRSGrid(ds, _grid(ds, 4, 2), 'cpu', mesh=mesh)
     g.fit(max_iter=150)
     out = dict(elbo=[float(e) for e in g.validation_result['ELBO']],
-               trace=[[c.width, c.rule] for c in g.fit_counters.chunks],
+               trace=[[c.width, c.iterations, c.outer]
+                      for c in g.fit_counters.chunks],
+               outer=g.fit_counters.outer_widths,
                nit=[int(r.nit) for r in g.optim_results],
                pv=None)
     bayesian_model_average(g)
@@ -252,6 +255,36 @@ def case_deploy(mesh):
     return out
 
 
+def case_grid_sub(mesh):
+    """A default VIPRSGrid fit at S = 16, its chunks run as loop calls at
+    the width of their running lanes, and the same fit in one loop call
+    (``chunk_iters=max_iter``), on a problem whose lanes stop far apart
+    (strong LD in blocks of at most B, so no coupling tile)."""
+    import hashlib
+    from viprs_tpu_torch.model import VIPRSGrid
+    ds = _dataset(seed=1, n=800, h2=0.6, prop=0.2, rho=0.95,
+                  sizes=(120, 100, 90, 128, 60, 110, 128, 80))
+    def digest(x):
+        return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+    out = {}
+    for name, chunk_iters in (('sub', None), ('one', 100)):
+        np.random.seed(9)
+        g = VIPRSGrid(ds, _grid(ds, 16), 'cpu', mesh=mesh)
+        g.fit(max_iter=100, min_iter=1, f_abs_tol=1e-9, x_abs_tol=1e-9,
+              chunk_iters=chunk_iters)
+        out[name] = dict(
+            chunks=[[c.width, c.iterations, c.outer]
+                    for c in g.fit_counters.chunks],
+            outer=g.fit_counters.outer_widths,
+            nit=g._last_result.nit.tolist(),
+            status=g._last_result.status.tolist(),
+            elbo=digest(np.stack(g.history['ELBO'])),
+            hyper=[digest(x) for x in g._hyper],
+            state=[digest(g._global(x).numpy()) for x in g._state])
+    return out
+
+
 def case_errors(mesh):
     """The mesh specs the models refuse, as the JAX package refuses them."""
     from viprs_tpu_torch.model import VIPRS, VIPRSMix
@@ -299,7 +332,7 @@ CASES = {'em': case_em, 'viprs': case_viprs, 'grid_bma': case_grid_bma,
          'grid_select': case_grid_select, 'pathwise': case_pathwise,
          'mix': case_mix,
          'mix_grid': case_mix_grid, 'deploy': case_deploy,
-         'errors': case_errors}
+         'grid_sub': case_grid_sub, 'errors': case_errors}
 
 
 def worker(cases, rank, world, port, out):
@@ -329,13 +362,14 @@ def worker(cases, rank, world, port, out):
 if __name__ != '__main__':
     # the ranks run this file as a script and import none of the JAX
     # package's test helpers
+    from test_torch_grid import assert_call_widths
     from test_torch_viprs import (assert_clear_of_thresholds,  # noqa: F401
                                   ladder_trace)
 
 TWO = ('em:2x1', 'viprs:auto', 'grid_bma:auto', 'mix:auto', 'mix_grid:auto',
-       'errors:auto', 'cli:2x1', 'warmup:2x1')
+       'errors:auto', 'cli:2x1', 'warmup:2x1', 'grid_sub:auto')
 FOUR = ('em:4x1', 'grid_bma:2x2', 'grid_select:2x2', 'pathwise:2x2',
-        'deploy:2x2')
+        'deploy:2x2', 'grid_sub:2x2')
 _ONE = {}
 
 
@@ -585,7 +619,9 @@ def test_grid_and_bma_match_one_process(spec, two, four):
     r = same_on_ranks(two if spec.endswith('auto') else four, spec)
     o = one('grid_bma')
     _close(r['elbo'], o['elbo'])
-    assert all(t[0] % 2 == 0 for t in r['trace']), r['trace']
+    # the grid axis: 1 on 'auto' (the blocks split), 2 on 2 x 2
+    assert_call_widths(r['trace'], r['outer'], r['nit'],
+                       1 if spec.endswith('auto') else 2)
     _close(r['bma_h2'], o['bma_h2'])
     _beta_close(r['bma_beta'], o['bma_beta'])
 
@@ -634,6 +670,28 @@ def test_deployment_shape_grid_with_compaction_and_restart(four):
     _close(r['bma_h2'], o['bma_h2'])
     _close(r['restart_elbo'], o['restart_elbo'])
     assert r['restart_nit'] == o['restart_nit']
+
+
+@pytest.mark.parametrize('spec', ['grid_sub:auto', 'grid_sub:2x2'])
+def test_sub_chunks_over_split_lanes_match_one_chunk(spec, two, four):
+    """Over the blocks of 2 ranks, and on a 2 x 2 mesh (8 lanes a rank):
+    the default fit's loop calls run at the width of their running lanes
+    rounded up to a multiple of the grid axis (1, and 2), and its lanes
+    (state, nit, status, ELBO history, hyperparameters) are bit for bit
+    those of the one-call fit."""
+    r = same_on_ranks(two if spec.endswith('auto') else four, spec)
+    g_ax = 1 if spec.endswith('auto') else 2
+    sub, one_call = r['sub'], r['one']
+    nit = np.array(sub['nit'])
+    assert np.ptp(nit) > 30 and len(sub['outer']) > 1
+    # a restart after the first iterations: a second chunk in both
+    assert [c[0] for c in one_call['chunks']] == one_call['outer'] == \
+        [16] * len(one_call['outer'])
+    assert_call_widths(sub['chunks'], sub['outer'], sub['nit'], g_ax)
+    assert min(w for w, *_ in sub['chunks']) < 16
+    assert any(w % 2 for w, *_ in sub['chunks']) == (g_ax == 1)
+    for key in ('nit', 'status', 'elbo', 'hyper', 'state'):
+        assert sub[key] == one_call[key], key
 
 
 def test_cli_mesh_matches_off(two, cli_root):

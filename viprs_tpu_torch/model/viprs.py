@@ -13,11 +13,21 @@ The fit runs in chunks of ``chunk_iters`` iterations: one chunk by default
 at S < 8 and 50 at S >= 8, chunks of 25 with a progress bar or callback and
 of 1 with tracked parameters. Between chunks the ladder's counters carry
 over, so chunking changes no number; once the live lanes have shrunk
-four-fold they are compacted to the next power-of-2 width (padded with
-frozen duplicates of a live lane) and the sweep rule is decided again for
-that width, as in the JAX package. What the chunks did (widths, sweep
-rules, iterations, live lane-iterations, compactions, host reads) is the
-public ``fit_counters`` after a fit (utils/trace.FitCounters).
+four-fold they are compacted to the next power-of-2 width and the sweep
+rule is decided again for that width, as in the JAX package. At S >= 8
+a fit without tracked parameters or an explicit ``chunk_iters`` also runs
+each chunk as loop calls of ``SUB_CHUNK`` iterations, each at the width of
+the lanes still running (at least two under the lane sweep; under a
+lane-split mesh a multiple of its grid axis), so the sweeps and
+statistics stop carrying stopped lanes; the
+chunk's sweep rule, restarts and the numpy stream stay the chunk's. A
+compacted call runs on the state's leading rows: the rows of its lanes are
+moved there in place (stopped lanes fill a width as frozen padding), and
+the state is put back in lane order at the chunk's end, so no second copy
+of the state is held. What the loop calls did (widths, sweep rules,
+iterations, live lane-iterations, compactions, host reads, the chunk each
+belongs to) is the public ``fit_counters`` after a fit
+(utils/trace.FitCounters).
 
 Randomness is the JAX package's: the initial pi draw and the restart draws
 are numpy draws from ``rng`` (default: numpy's global stream), so
@@ -48,10 +58,41 @@ LAMBDA_CHUNK = 16
 #: chunks) and with tracked parameters (history every iteration).
 PROGRESS_CHUNK = 25
 TRACKED_CHUNK = 1
+#: Iterations of a loop call inside a chunk of a default fit at S >= 8: the
+#: live lanes are compacted between calls (measured against 5 and 25 on the
+#: card: PERF.md).
+SUB_CHUNK = 10
 
 
 def _logit(p):
     return np.log(p) - np.log1p(-p)
+
+
+def _rows_to_front(state, order, lanes):
+    """Move the rows of ``state`` (a CaviState) in place so that its first
+    ``len(lanes)`` rows hold ``lanes``, in that order. ``order[r]`` is the
+    lane row r holds; a row keeps its lane unless one of ``lanes`` must go
+    there or its lane is one of them, and the rows that move are copied
+    through a buffer of their own size, one tensor at a time. Returns the
+    new order."""
+    k = len(lanes)
+    wanted = np.zeros(len(order), bool)
+    wanted[lanes] = True
+    new = order.copy()
+    new[:k] = lanes
+    # the lanes pushed out of the leading rows take the rows left behind
+    new[k + np.nonzero(wanted[order[k:]])[0]] = \
+        order[:k][~wanted[order[:k]]]
+    moved = np.nonzero(new != order)[0]
+    if len(moved):
+        row_of = np.empty_like(order)
+        row_of[order] = np.arange(len(order))
+        dev = state.eta.device
+        dst = torch.from_numpy(moved).to(dev)
+        src = torch.from_numpy(row_of[new[moved]]).to(dev)
+        for x in state:
+            x.index_copy_(0, dst, x.index_select(0, src))
+    return new
 
 
 class VIPRS(BayesPRSModel):
@@ -366,9 +407,11 @@ class VIPRS(BayesPRSModel):
             at 0.95, when the MSE goes negative (inside the loop for a
             one-chunk S = 1 fit that does not continue, between chunks
             otherwise; the same trajectory and numpy stream either way).
-        :param chunk_iters: iterations per em_fit call (default: 1 with
-            tracked parameters, 25 with a progress bar or callback, all at
-            S < 8, 50 at S >= 8, where lanes are compacted between chunks).
+        :param chunk_iters: iterations per chunk (default: 1 with tracked
+            parameters, 25 with a progress bar or callback, all at S < 8,
+            50 at S >= 8; at S >= 8 lanes are compacted between chunks and,
+            without tracked parameters, within a chunk every ``SUB_CHUNK``
+            iterations); a chunk given here runs as one em_fit call.
         :param progress_callback: called as ``callback(model, iterations
             done, per-lane statuses)`` after every chunk (of 25 unless
             tracking).
@@ -401,6 +444,7 @@ class VIPRS(BayesPRSModel):
         self._refresh_inputs()
         if not continued:
             self.initialize(theta_0, param_0, rng)
+        sub_chunks = False
         if chunk_iters is None:
             if self.tracked_params:
                 chunk_iters = TRACKED_CHUNK
@@ -408,7 +452,9 @@ class VIPRS(BayesPRSModel):
                 chunk_iters = PROGRESS_CHUNK
             else:
                 chunk_iters = 50 if S >= 8 else max_iter
+            sub_chunks = S >= 8 and not self.tracked_params
         chunk_iters = max(1, min(chunk_iters, max_iter))
+        call_iters = SUB_CHUNK if sub_chunks else chunk_iters
 
         # history slot 0 (the initial objective) is written only when the
         # history is empty: a continued fit appends to the one it has
@@ -451,9 +497,12 @@ class VIPRS(BayesPRSModel):
         S_run = S
         it_done = n_skip = 0
         fc = self.fit_counters = trace.FitCounters()
+        # row r of the state holds this rank's lane l0 + order[r]
+        order = np.arange(l1 - l0)
 
         while it_done < max_iter:
-            this_chunk = min(chunk_iters, max_iter - it_done)
+            chunk_start = it_done
+            chunk_end = it_done + min(chunk_iters, max_iter - it_done)
             n_act = int(active.sum())
             # compact the live lanes to the next power-of-2 width once they
             # shrink four-fold (never on the first chunk, which fills the
@@ -469,119 +518,134 @@ class VIPRS(BayesPRSModel):
                 S_run = bucket
             elif S >= 8 and bucket <= S_run // 4:
                 S_run = bucket
-            compact = S_run < S
-            if compact:
-                with trace.span('viprs.compact'):
-                    sel = np.nonzero(active)[0]
-                    sel_pad = np.concatenate(
-                        [sel, np.full(S_run - n_act, sel[0])]).astype(
-                            np.int64)
-                    # split lanes stay on their rank: it runs the chunk's
-                    # slots whose lane it holds (maybe none)
-                    mine = np.nonzero((sel_pad >= l0) & (sel_pad < l1))[0] \
-                        if split else None
-                    rows = sel_pad if mine is None else sel_pad[mine] - l0
-                    sel_dev = torch.from_numpy(rows).to(dev)
-                    state_in = CaviState(*(x.index_select(0, sel_dev)
-                                           for x in self._state))
-                    hyper_in = Hyper(*(np.asarray(x)[sel_pad]
-                                       for x in self._hyper))
-                    fix_in = FixMask(*(np.asarray(x)[sel_pad]
-                                       for x in self._fix_mask))
-                    counters_in = em_loop.EMCounters(*(x[sel_pad]
-                                                       for x in counters))
-                    init_elbo_in = None if init_elbo is None else \
-                        init_elbo[sel_pad]
-                    active_in = np.arange(S_run) < n_act
-                    sigma_g_in = self._sigma_g[sel_pad]
-                if sweep_impl is None:
-                    run_skip, run_hybrid = _dispatch.select_sweep_impl(S_run)
-                else:
-                    run_skip, run_hybrid = use_skip, use_hybrid
+            if S_run < S and sweep_impl is None:
+                run_skip, run_hybrid = _dispatch.select_sweep_impl(S_run)
             else:
-                state_in, hyper_in = self._state, self._hyper
-                fix_in, counters_in = self._fix_mask, counters
-                init_elbo_in, active_in = init_elbo, active
-                sigma_g_in = self._sigma_g
                 run_skip, run_hybrid = use_skip, use_hybrid
-                mine = np.arange(l0, l1) if split else None
+            fc.begin_outer(S_run)
 
-            with trace.span('viprs.chunk'):
-                res = em_loop.em_fit(
-                    ld, state_in, self._std_beta_flat, self._n_flat,
-                    hyper_in, fix_in, n_sample=float(self.n),
-                    m_total=float(self.m), init_elbo=init_elbo_in,
-                    active0=active_in, max_iter=this_chunk,
-                    min_iter=min_iter, f_abs_tol=f_abs_tol,
-                    x_abs_tol=x_abs_tol, patience=patience,
-                    use_skip=run_skip, use_hybrid=run_hybrid,
-                    hybrid_eps=hybrid_eps, i0=it_done,
-                    counters0=counters_in, sigma_g0=sigma_g_in,
-                    max_restarts=1 if ingraph_restart else 0,
-                    restart_hyper=r_hyper, restart_logit=r_logit,
-                    inner_steps=inner_steps, lanes=mine)
-            fc.add_chunk(S_run, trace.sweep_rule(run_skip, run_hybrid), res)
-            fc.compactions += int(compact)
-            n_in_chunk = res.n_iter_total
-            it_done += n_in_chunk
-            n_skip += res.n_skip
+            # the chunk's loop calls: one, or one every SUB_CHUNK iterations
+            # at the width of the lanes still running
+            while it_done < chunk_end and active.any():
+                sel = np.nonzero(active)[0]
+                n_act = len(sel)
+                width = S_run
+                if sub_chunks:
+                    width = max(n_act, min(2, S_run))
+                    if split:
+                        width = min(S, -(-width // g_ax) * g_ax)
+                compact = width < S
+                if compact:
+                    with trace.span('viprs.compact'):
+                        # the live lanes, then stopped ones as frozen padding
+                        slots = np.concatenate(
+                            [sel, np.nonzero(~active)[0][:width - n_act]])
+                        # split lanes stay on their rank: it runs the call's
+                        # slots whose lane it holds (maybe none)
+                        mine = np.nonzero((slots >= l0) & (slots < l1))[0] \
+                            if split else None
+                        rows = slots if mine is None else slots[mine] - l0
+                        order = _rows_to_front(self._state, order, rows)
+                        state_in = CaviState(*(x[:len(rows)]
+                                               for x in self._state))
+                        hyper_in = Hyper(*(np.asarray(x)[slots]
+                                           for x in self._hyper))
+                        fix_in = FixMask(*(np.asarray(x)[slots]
+                                           for x in self._fix_mask))
+                        counters_in = em_loop.EMCounters(*(x[slots]
+                                                           for x in counters))
+                        init_elbo_in = None if init_elbo is None else \
+                            init_elbo[slots]
+                        active_in = np.arange(width) < n_act
+                        sigma_g_in = self._sigma_g[slots]
+                else:
+                    state_in, hyper_in = self._state, self._hyper
+                    fix_in, counters_in = self._fix_mask, counters
+                    init_elbo_in, active_in = init_elbo, active
+                    sigma_g_in = self._sigma_g
+                    mine = np.arange(l0, l1) if split else None
 
-            if compact:
-                with trace.span('viprs.compact'):
-                    if mine is None:
-                        dst = torch.from_numpy(sel).to(dev)
-                        src = torch.arange(n_act, device=dev)
-                    else:
-                        live = mine < n_act     # not a padding duplicate
-                        dst = torch.from_numpy(
-                            sel_pad[mine[live]] - l0).to(dev)
-                        src = torch.from_numpy(np.nonzero(live)[0]).to(dev)
-                    for full, part in zip(self._state, res.state):
-                        full.index_copy_(0, dst, part.index_select(0, src))
-                    hyper = {f: np.array(x, np.float64)
-                             for f, x in zip(Hyper._fields, self._hyper)}
-                    for f, x in zip(Hyper._fields, res.hyper):
-                        hyper[f][sel] = x[:n_act]
-                    self._hyper = Hyper(**hyper)
-                    self._sigma_g = self._sigma_g.copy()
-                    self._sigma_g[sel] = res.sigma_g[:n_act]
-                    counters = em_loop.EMCounters(*(c.copy()
-                                                    for c in counters))
-                    for c, p in zip(counters, res.counters):
-                        c[sel] = p[:n_act]
-                    statuses[sel] = res.status[:n_act]
-                    nit_acc[sel] = res.nit[:n_act]
-                    med_acc[sel] = res.max_eta_diff[:n_act]
-                    fill = init_elbo if init_elbo is not None else last_elbo
-                    for row in res.elbo_hist[1:]:
-                        full_row = fill.copy()
-                        full_row[sel] = row[:n_act]
-                        hist.append(full_row)
-                    init_elbo = fill.copy()
-                    init_elbo[sel] = res.final_elbo[:n_act]
-            else:
-                counters = res.counters
-                if ingraph_restart and res.restarts_used.max() > 0:
-                    logger.info("MSE was negative; the fit restarted with "
-                                "sigma_epsilon fixed at 0.95 (reference "
-                                "behavior).")
-                    self.fix_params['sigma_epsilon'] = 0.95
-                    self._update_fix_mask()
-                    rng.set_state(rng_after)
-                self._state = res.state
-                self._hyper = res.hyper
-                self._sigma_g = res.sigma_g
-                statuses[active] = res.status[active]
-                nit_acc[active] = res.nit[active]
-                med_acc[active] = res.max_eta_diff[active]
-                rows = res.elbo_hist[1:]
-                if hist0_needed:
-                    rows = res.elbo_hist
-                    hist0_needed = False
-                hist.extend(float(r[0]) if S == 1 else r.copy()
-                            for r in rows)
-                init_elbo = res.final_elbo
-            last_elbo = init_elbo
+                with trace.span('viprs.chunk'):
+                    res = em_loop.em_fit(
+                        ld, state_in, self._std_beta_flat, self._n_flat,
+                        hyper_in, fix_in, n_sample=float(self.n),
+                        m_total=float(self.m), init_elbo=init_elbo_in,
+                        active0=active_in,
+                        max_iter=min(call_iters, chunk_end - it_done),
+                        min_iter=min_iter, f_abs_tol=f_abs_tol,
+                        x_abs_tol=x_abs_tol, patience=patience,
+                        use_skip=run_skip, use_hybrid=run_hybrid,
+                        hybrid_eps=hybrid_eps, i0=it_done,
+                        counters0=counters_in, sigma_g0=sigma_g_in,
+                        max_restarts=1 if ingraph_restart else 0,
+                        restart_hyper=r_hyper, restart_logit=r_logit,
+                        inner_steps=inner_steps, lanes=mine)
+                state_in = None
+                fc.add_chunk(width, trace.sweep_rule(run_skip, run_hybrid),
+                             res, sub=True)
+                fc.compactions += int(compact)
+                it_done += res.n_iter_total
+                n_skip += res.n_skip
+
+                if compact:
+                    with trace.span('viprs.compact'):
+                        # the live lanes' rows lead the state and the result
+                        n_own = n_act if mine is None else \
+                            int((mine < n_act).sum())
+                        for i, full in enumerate(self._state):
+                            full[:n_own].copy_(res.state[i][:n_own])
+                        hyper = {f: np.array(x, np.float64)
+                                 for f, x in zip(Hyper._fields, self._hyper)}
+                        for f, x in zip(Hyper._fields, res.hyper):
+                            hyper[f][sel] = x[:n_act]
+                        self._hyper = Hyper(**hyper)
+                        self._sigma_g = self._sigma_g.copy()
+                        self._sigma_g[sel] = res.sigma_g[:n_act]
+                        counters = em_loop.EMCounters(*(c.copy()
+                                                        for c in counters))
+                        for c, p in zip(counters, res.counters):
+                            c[sel] = p[:n_act]
+                        statuses[sel] = res.status[:n_act]
+                        nit_acc[sel] = res.nit[:n_act]
+                        med_acc[sel] = res.max_eta_diff[:n_act]
+                        fill = init_elbo if init_elbo is not None \
+                            else last_elbo
+                        for row in res.elbo_hist[1:]:
+                            full_row = fill.copy()
+                            full_row[sel] = row[:n_act]
+                            hist.append(full_row)
+                        init_elbo = fill.copy()
+                        init_elbo[sel] = res.final_elbo[:n_act]
+                else:
+                    counters = res.counters
+                    if ingraph_restart and res.restarts_used.max() > 0:
+                        logger.info("MSE was negative; the fit restarted "
+                                    "with sigma_epsilon fixed at 0.95 "
+                                    "(reference behavior).")
+                        self.fix_params['sigma_epsilon'] = 0.95
+                        self._update_fix_mask()
+                        rng.set_state(rng_after)
+                    self._state = res.state
+                    self._hyper = res.hyper
+                    self._sigma_g = res.sigma_g
+                    statuses[active] = res.status[active]
+                    nit_acc[active] = res.nit[active]
+                    med_acc[active] = res.max_eta_diff[active]
+                    rows = res.elbo_hist[1:]
+                    if hist0_needed:
+                        rows = res.elbo_hist
+                        hist0_needed = False
+                    hist.extend(float(r[0]) if S == 1 else r.copy()
+                                for r in rows)
+                    init_elbo = res.final_elbo
+                last_elbo = init_elbo
+                res = None      # else its state lives through the next call
+                # lanes with status MAX_ITER only exhausted the call's budget
+                active = statuses == opt.MAX_ITER
+
+            with trace.span('viprs.compact'):
+                order = _rows_to_front(self._state, order,
+                                       np.arange(l1 - l0))
             self._last_result = em_loop.EMResult(
                 state=None, hyper=None, sigma_g=None, status=statuses.copy(),
                 nit=nit_acc.copy(), elbo_hist=None, n_iter_total=it_done,
@@ -591,7 +655,7 @@ class VIPRS(BayesPRSModel):
             if self.tracked_params:
                 self._track_iteration(max_eta_diff=float(np.max(med_acc)))
             if pbar is not None:
-                pbar.update(n_in_chunk)
+                pbar.update(it_done - chunk_start)
                 pbar.set_postfix({'ELBO': float(np.max(init_elbo))})
             if progress_callback is not None:
                 progress_callback(self, it_done, statuses.copy())
@@ -612,8 +676,6 @@ class VIPRS(BayesPRSModel):
                     np.where(restart_mask, f, c) for f, c in zip(fresh, counters)))
                 active = restart_mask | (statuses == opt.MAX_ITER)
                 continue
-            # lanes with status MAX_ITER only exhausted this chunk's budget
-            active = statuses == opt.MAX_ITER
             if not active.any():
                 break
 

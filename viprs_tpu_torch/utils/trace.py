@@ -23,7 +23,7 @@ context: no clock read, no allocation, no ``record_function``.
 |---|---|---|
 | ``viprs.fit`` | ``fit()`` of VIPRS, VIPRSGrid, VIPRSMix, VIPRSMixGrid | one fit; assigns the fit's id |
 | ``viprs.chunk`` | model/viprs.py, model/grid.py, model/mix.py, model/mix_grid.py | one EM loop call (``em_fit``, ``mix_em_fit``, ``mix_em_fit_batch``) |
-| ``viprs.compact`` | model/viprs.py, model/mix_grid.py | the gather into a compacted lane width, and the scatter back |
+| ``viprs.compact`` | model/viprs.py, model/mix_grid.py | the gather into a compacted lane width, and the scatter back (model/viprs.py: the live lanes' rows moved to the front of the state, their results written back, and the state put back in lane order at a chunk's end) |
 | ``viprs.em.iter`` | ops/em_loop.py, ops/mix_em_loop.py | one EM iteration, with the three children below |
 | ``viprs.em.estep`` | the same | the hyperparameter upload, the block masks and the sweep launches |
 | ``viprs.em.read`` | the same | enqueueing the statistics and their one device-to-host read (on a mesh, the reduction over the ranks): the host's wait on the device |
@@ -270,6 +270,7 @@ class Chunk(NamedTuple):
     rule: str                    # 'all', 'skip' or 'hybrid' (em_loop.py)
     iterations: int
     live_lane_iterations: int    # sum over iterations of running lanes
+    outer: int = 0               # its chunk's index in ``outer_widths``
 
 
 @dataclasses.dataclass
@@ -277,20 +278,26 @@ class FitCounters:
     """What a fit's chunk driver did, kept by the driver of every fit.
 
     :ivar chunks: a ``Chunk`` per EM loop call.
+    :ivar outer_widths: the width the driver's chunk rule chose for each
+        chunk (the JAX package's chunk trace); a chunk runs as one loop
+        call, or as several (sub-chunks, model/viprs.py) at the width of
+        their running lanes.
     :ivar lane_sweeps: sum over iterations of the chunk's width.
     :ivar live_lane_sweeps: sum over iterations of the lanes still running
         (not stopped, not padding); ``lane_sweeps`` less this is the
         lane-sweeps of lanes that had stopped.
     :ivar host_reads: the loops' device-to-host reads (on a mesh, the
         halo exchange's copies are not counted).
-    :ivar compactions: chunks run at a compacted width (each a gather into
-        it and a scatter back).
+    :ivar compactions: loop calls run at a compacted width (model/viprs.py:
+        on the state's leading rows, their lanes' rows moved there;
+        model/mix_grid.py: a gather into it and a scatter back).
     :ivar skip_iterations: iterations that took the S = 1 hybrid's skip
         branch.
     :ivar active_blocks: under the skip rules, the blocks swept each
         iteration (-1 where not measured).
     """
     chunks: List[Chunk] = dataclasses.field(default_factory=list)
+    outer_widths: List[int] = dataclasses.field(default_factory=list)
     lane_sweeps: int = 0
     live_lane_sweeps: int = 0
     host_reads: int = 0
@@ -298,11 +305,20 @@ class FitCounters:
     skip_iterations: int = 0
     active_blocks: List[int] = dataclasses.field(default_factory=list)
 
-    def add_chunk(self, width, rule, res):
+    def begin_outer(self, width):
+        """Start a chunk of ``width`` lanes whose loop calls follow as
+        ``add_chunk(..., sub=True)``."""
+        self.outer_widths.append(int(width))
+
+    def add_chunk(self, width, rule, res, sub=False):
         """Count one loop call of ``width`` lanes under ``rule`` from its
-        result (an ``EMResult`` or ``MixEMResult``)."""
+        result (an ``EMResult`` or ``MixEMResult``): a chunk of its own, or
+        with ``sub`` one of the chunk ``begin_outer`` started."""
+        if not sub:
+            self.begin_outer(width)
         n, live = int(res.n_iter_total), int(res.live_lane_sweeps)
-        self.chunks.append(Chunk(int(width), rule, n, live))
+        self.chunks.append(Chunk(int(width), rule, n, live,
+                                 len(self.outer_widths) - 1))
         self.lane_sweeps += int(width) * n
         self.live_lane_sweeps += live
         self.host_reads += int(res.host_reads)
