@@ -48,7 +48,9 @@ LANE_CHUNK = 20
 
 class RefLD:
     """The panel's blocks as the configuration stores them, on ``device``
-    (int8 or float32 storage), applied in float64."""
+    (int8 or float32 storage), applied in float64. The panel hands over
+    each block in the stored type; each is made contiguous and moved, one
+    block at a time."""
 
     def __init__(self, panel, quantize, device):
         self.quantize = bool(quantize)
@@ -56,14 +58,14 @@ class RefLD:
         self.starts = [int(s) for s in panel.starts]
         self.sizes = [int(m) for m in panel.sizes]
         self.m = panel.m
+        stored = np.int8 if self.quantize else np.float32
         self.blocks = []
         for blk in panel.flat_blocks():
-            R = torch.from_numpy(blk).to(self.device)
-            if self.quantize:
-                self.blocks.append(torch.clamp(torch.round(R * 127.0), -127,
-                                               127).to(torch.int8))
-            else:
-                self.blocks.append(R.to(torch.float32))
+            if blk.dtype != stored:
+                raise ValueError(f"a {blk.dtype} block where the "
+                                 f"configuration stores {np.dtype(stored)}")
+            self.blocks.append(torch.from_numpy(
+                np.ascontiguousarray(blk)).to(self.device))
 
     def dense(self, i):
         b = self.blocks[i].to(F64)

@@ -7,11 +7,11 @@ The cell (``BENCHMARK.json``'s ``workloads``) names a configuration (an LD
 panel and how it is stored, ``configs/<name>.json``) and a traffic mix (the
 entry, its grid and the traits, ``traffic/<name>.json``). The run:
 
-1. set-up: makes the panel on the host (``panel.py``), packs and uploads it
-   through ``SummaryStatsDataset.from_dense_blocks``, draws the pool of
-   traits, and warms up with one fit capped at a few iterations at the
-   cell's own lane width (the first run in a checkout also builds the CUDA
-   kernels);
+1. set-up (``set_up``, then the warm-up): makes the panel on the host
+   (``panel.py``), draws the pool of traits, packs and uploads the panel
+   through ``SummaryStatsDataset.from_dense_blocks``, builds the CUDA
+   kernels (the first run in a checkout only), and warms up with one fit
+   capped at a few iterations at the cell's own lane width;
 2. the window: one user's batch of traits, closed loop: each fit takes the
    next pair of the pool (a trait and the seed of numpy's theta_0 draws,
    the same pool for every run seed where the traffic fixes its seed), in
@@ -49,8 +49,11 @@ import math  # noqa: E402
 import os  # noqa: E402
 import re  # noqa: E402
 import sys  # noqa: E402
+from typing import NamedTuple  # noqa: E402
 
 import numpy as np  # noqa: E402
+
+from .panel import draw_trait, make_panel  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -173,7 +176,6 @@ def _pool(panel, traffic, seed):
     """The pool of fits, the traits with the theta_0 seed of each, drawn from
     the traffic's pool seed (the same work for every run seed), and the
     order the window takes them in, drawn from the run's seed."""
-    from .panel import draw_trait
     t = traffic['trait']
     pool = traffic['pool']
     r_pool = np.random.default_rng(int(pool['seed']))
@@ -198,12 +200,60 @@ def _no_span(name):
     return contextlib.nullcontext()
 
 
+class SetUp(NamedTuple):
+    """What a cell's set-up made before its warm-up."""
+    panel: object
+    traits: list           # the pool: (std_beta, n_per_snp) each
+    thetas: list           # numpy's theta_0 seed of each
+    order: np.ndarray      # the order the window takes the pool in
+    ds0: object            # the packed LD on the device, the first trait
+    steps: dict            # seconds of each step
+
+
+def set_up(cfg, traffic, seed, device):
+    """The set-up of a run before its warm-up: the CUDA context, the panel
+    (``panel.make_panel``), the pool of traits, the panel packed and
+    uploaded through ``SummaryStatsDataset.from_dense_blocks`` and the
+    kernels built for it; each step's seconds in ``steps`` (``pack`` is
+    ``pack_s``, ``build`` the kernel build)."""
+    import torch
+    from .entries import sync as _sync
+    from viprs_tpu_torch.data.dataset import SummaryStatsDataset
+    steps = {}
+    if device.type == 'cuda':
+        t0 = time.perf_counter()
+        torch.zeros(1, device=device)
+        steps['cuda'] = time.perf_counter() - t0
+        log(f"set-up: CUDA context {steps['cuda']:.2f} s")
+    t0 = time.perf_counter()
+    panel = make_panel(cfg)
+    steps['panel'] = time.perf_counter() - t0
+    log(f"set-up: panel {steps['panel']:.2f} s ({panel.m} "
+        f"variants, {len(panel.sizes)} blocks)")
+    t0 = time.perf_counter()
+    traits, thetas, order = _pool(panel, traffic, seed)
+    steps['traits'] = time.perf_counter() - t0
+    log(f"set-up: {len(traits)} traits {steps['traits']:.2f} s")
+    t0 = time.perf_counter()
+    ds0 = SummaryStatsDataset.from_dense_blocks(
+        panel.blocks, *traits[0], block_size=int(cfg['block_size']),
+        quantize=bool(cfg['quantize']), device=device)
+    _sync(device)
+    steps['pack'] = time.perf_counter() - t0
+    log(f"set-up: pack and upload {steps['pack']:.2f} s")
+    from viprs_tpu_torch.ops.cavi_cuda import build_for
+    t0 = time.perf_counter()
+    build_for(ds0.ld)
+    steps['build'] = time.perf_counter() - t0
+    log(f"set-up: kernel build {steps['build']:.2f} s")
+    return SetUp(panel, traits, thetas, order, ds0, steps)
+
+
 def run_cell(bench, workload, seed, seconds, trace, device='cuda',
              t_start=T_START):
     """Run the cell once. Returns (result dict, check lines)."""
     import torch
     from .entries import sync as _sync
-    from .panel import make_panel
     from . import reference
 
     device = torch.device(device)
@@ -212,32 +262,9 @@ def run_cell(bench, workload, seed, seconds, trace, device='cuda',
     _, cfg = bench.config(cell['config'])
     traffic = bench.traffic(cell['traffic'])
     limits = bench.checks(workload)
-    from viprs_tpu_torch.data.dataset import SummaryStatsDataset
-    if device.type == 'cuda':
-        t0 = time.perf_counter()
-        torch.zeros(1, device=device)
-        log(f"set-up: CUDA context {time.perf_counter() - t0:.2f} s")
-
-    # ---------------------------------------------------------- set-up
-    t0 = time.perf_counter()
-    panel = make_panel(cfg)
-    log(f"set-up: panel {time.perf_counter() - t0:.2f} s ({panel.m} "
-        f"variants, {len(panel.sizes)} blocks)")
-    t0 = time.perf_counter()
-    traits, thetas, order = _pool(panel, traffic, seed)
-    log(f"set-up: {len(traits)} traits {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    ds0 = SummaryStatsDataset.from_dense_blocks(
-        panel.blocks, *traits[0], block_size=int(cfg['block_size']),
-        quantize=bool(cfg['quantize']), device=device)
-    _sync(device)
-    pack_s = time.perf_counter() - t0
-    log(f"set-up: pack and upload {pack_s:.2f} s")
-    from viprs_tpu_torch.ops.cavi_cuda import build_for
-    t0 = time.perf_counter()
-    build_for(ds0.ld)
-    build_s = time.perf_counter() - t0
-    log(f"set-up: kernel build {build_s:.2f} s")
+    panel, traits, thetas, order, ds0, steps = set_up(cfg, traffic, seed,
+                                                      device)
+    pack_s, build_s = steps['pack'], steps['build']
     entry = bench.entry(traffic['entry'])(traffic, panel.m, device)
     np.random.seed(thetas[order[-1]])
     t0 = time.perf_counter()

@@ -118,3 +118,42 @@ def test_each_metric_file_declares_what_benchmark_json_says():
             assert mod.KIND == key, m['name']
             if key == 'per_layer':
                 assert (mod.LAYER, mod.MOVES) == (m['layer'], m['moves'])
+
+
+@pytest.mark.parametrize('config', ['tiny8', 'tiny32'])
+def test_the_setup_probe_sums_the_whole_panel(tiny_bench, config):
+    from portbench.setup import probe
+    out = probe(tiny_bench, config, 1, 'cpu')
+    assert out['fits'] and out['sums_equal'] and out['traits'] == 1
+    plan = out['reckoned']
+    assert (plan['nb'], plan['n_off'], plan['ld_tile_bytes']) == (
+        out['nb'], out['n_off'], out['ld_tile_bytes'])
+    assert plan['ref_ld_bytes'] == out['ref_ld_device_bytes']
+    assert out['m'] > 0 and out['ref_ld_device_bytes'] > 0
+    assert out['nb'] > 0 and out['n_off'] > 0
+    assert out['ld_tile_bytes'] == (out['nb'] + out['n_off']) * 256 ** 2 \
+        * (1 if config == 'tiny8' else 4)
+    assert out['ld_device_bytes'] > out['ld_tile_bytes']
+    assert out['host_peak_rss_bytes'] > 0
+    assert {'reckon', 'panel', 'traits', 'pack', 'build', 'ref_ld'} <= \
+        set(out['steps_s'])
+
+
+def test_the_setup_probe_stops_where_the_panel_does_not_fit(tiny_bench,
+                                                            monkeypatch):
+    from portbench import setup
+    need = setup.probe(tiny_bench, 'tiny8', 1, 'cpu')['reckoned'][
+        'host_need_bytes']
+    monkeypatch.setattr(setup, 'host_bytes', lambda: need)
+    out = setup.probe(tiny_bench, 'tiny8', 1, 'cpu')
+    assert not out['fits'] and out['short_of'] == ['host']
+    assert 'pack' not in out['steps_s'] and 'traits' not in out
+
+    def refuse(*a, **k):
+        raise AssertionError('packed a panel that does not fit')
+    monkeypatch.setattr(setup, 'host_bytes', lambda: 1 << 30)
+    monkeypatch.setattr('portbench.run.set_up', refuse)
+    plan = setup.probe(tiny_bench, 'eur18m_int8', 1, 'cpu')
+    assert not plan['fits'] and plan['m'] == 17_999_523
+    assert plan['reckoned']['nb'] == 18_431
+    assert plan['reckoned']['n_off'] == 120_361

@@ -17,8 +17,9 @@ TRAITS = [0, 1, 2]
 def test_reference_ld_is_the_packed_ld():
     from viprs_tpu_torch.ops.block_ld import blockld_to_dense, \
         pack_dense_blocks
-    p = make_panel({'m_target': 6000, 'n_gwas': 350000, 'panel_seed': 0})
     for quantize in (True, False):
+        p = make_panel({'m_target': 6000, 'n_gwas': 350000,
+                        'panel_seed': 0, 'quantize': quantize})
         packed, layout = pack_dense_blocks(p.blocks, block_size=256,
                                            quantize=quantize)
         dense = blockld_to_dense(packed.to('cpu'))

@@ -24,6 +24,8 @@ import os
 
 import numpy as np
 
+from .panel import stored_column
+
 NZ = 32          # side of a flagged block
 TILE = 128       # coordinates updated jointly
 INNER_STEPS = 8  # tile-local passes per tile
@@ -32,17 +34,9 @@ SLAB = 128
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def stored_first_column(rho, m, quantize):
-    """The stored values of an AR(1) block's first column."""
-    col = rho ** np.arange(m)
-    if quantize:
-        return np.clip(np.rint(col * 127.0), -127, 127)
-    return col.astype(np.float32)
-
-
 def band(rho, m, quantize):
     """The largest |i - j| at which the stored block is nonzero."""
-    nz = np.nonzero(stored_first_column(rho, m, quantize))[0]
+    nz = np.nonzero(stored_column(rho, m, quantize))[0]
     return int(nz[-1]) if len(nz) else -1
 
 
@@ -74,13 +68,12 @@ class Counts:
         m32 = B // NZ
         self.elem = 1 if quantize else 4
         from .layout import plan_layout
-        sizes = {c: [b.shape[0] for b in panel.blocks[c]]
-                 for c in sorted(panel.blocks)}
+        sizes = panel.sizes_by_chrom()
         self.nb, placements, _ = plan_layout(sizes, B)
         order = {}
         k = 0
-        for c in sorted(panel.blocks):
-            for bi in range(len(panel.blocks[c])):
+        for c, chrom_sizes in sizes.items():
+            for bi in range(len(chrom_sizes)):
                 order[(c, bi)] = k
                 k += 1
         diag = np.zeros((self.nb, m32, m32), bool)
